@@ -1,0 +1,232 @@
+"""Causal HiFT vocoder: NSF harmonic source plus iSTFT synthesis
+(fangyan_tts_tpu/models/hift.py, `CausalHiFT` with the sinegen2_causal
+source), offline (finalize) inference.
+
+Tensors are channels-last (B, L, C). Every convolution casts its weights to
+the activation's dtype, as the JAX modules do, and mixed-dtype adds promote
+the same way: the float32 source STFT lifts the upsampling path to float32
+from the first stage on. The f0 predictor runs in float32.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..config import HiFTConfig
+from ..ops.convs import (
+    causal_conv1d_left,
+    causal_conv1d_right,
+    conv1d,
+    downsample_linear,
+    upsample_nearest,
+)
+from ..ops.stft import hann_window, istft, stft
+from .dit import ConvParams
+from .qwen2 import flax_dense
+
+
+@functools.lru_cache(maxsize=1)
+def nsf_buffers(harmonics_plus_one: int = 9, max_samples: int = 300 * 24000):
+    """Fixed NSF noise: (rand_ini (1, H), uniform_noise (1, max_samples, H)),
+    uniform [0, 1) float32 from numpy PCG64(0) in the JAX package's fill
+    order (its third buffer, drawn last, is not used here). Built once on
+    the host (about 259 MB at the defaults); callers upload only the slice
+    they use."""
+    rng = np.random.default_rng(0)
+    rand_ini = rng.random((1, harmonics_plus_one), dtype=np.float32)
+    rand_ini[:, 0] = 0.0
+    uniform_noise = rng.random((1, max_samples, harmonics_plus_one), dtype=np.float32)
+    return rand_ini, uniform_noise
+
+
+def snake(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """x + sin^2(a x) / (a + 1e-9), alpha per channel."""
+    a = alpha[None, None, :]
+    s = torch.sin(x * a)
+    return x + s * s / (a + 1e-9)
+
+
+class CausalConv(ConvParams):
+    """CausalConv1d: side 'left' pads the past, 'right' the lookahead."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, dilation: int = 1, side: str = "left"):
+        super().__init__(in_ch, out_ch, kernel)
+        self.dilation, self.side = dilation, side
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k, b = self.weight.to(x.dtype), self.bias.to(x.dtype)
+        if self.side == "left":
+            return causal_conv1d_left(x, k, b, dilation=self.dilation)
+        return causal_conv1d_right(x, k, b, dilation=self.dilation)
+
+
+class CausalConvDown(ConvParams):
+    """Stride-s convolution with stride-1 zeros padded on the left."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int):
+        super().__init__(in_ch, out_ch, kernel)
+        self.stride = stride
+
+    def forward(self, x):
+        return conv1d(x, self.weight.to(x.dtype), self.bias.to(x.dtype), stride=self.stride,
+                      padding=(self.stride - 1, 0))
+
+
+class CausalConvUp(ConvParams):
+    """Nearest upsampling by the stride, then a left-padded convolution."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int):
+        super().__init__(in_ch, out_ch, kernel)
+        self.stride = stride
+
+    def forward(self, x):
+        x = upsample_nearest(x, self.stride)
+        return conv1d(x, self.weight.to(x.dtype), self.bias.to(x.dtype), padding=(self.weight.shape[-1] - 1, 0))
+
+
+class ResBlock(nn.Module):
+    """Snake residual block with left-padded causal convolutions."""
+
+    def __init__(self, channels: int, kernel: int, dilations: tuple[int, ...]):
+        super().__init__()
+        self.n = len(dilations)
+        for i, d in enumerate(dilations):
+            setattr(self, f"alpha1_{i}", nn.Parameter(torch.ones(channels)))
+            setattr(self, f"alpha2_{i}", nn.Parameter(torch.ones(channels)))
+            setattr(self, f"convs1_{i}", CausalConv(channels, channels, kernel, dilation=d))
+            setattr(self, f"convs2_{i}", CausalConv(channels, channels, kernel, dilation=1))
+
+    def forward(self, x):
+        for i in range(self.n):
+            xt = snake(x, getattr(self, f"alpha1_{i}").to(x.dtype))
+            xt = getattr(self, f"convs1_{i}")(xt)
+            xt = snake(xt, getattr(self, f"alpha2_{i}").to(x.dtype))
+            xt = getattr(self, f"convs2_{i}")(xt)
+            x = xt + x
+        return x
+
+
+class CausalF0Predictor(nn.Module):
+    """Right-causal k=4 conv, then four left-causal k=3 convs, ELU after
+    each, a linear head and abs. Returns (B, L)."""
+
+    def __init__(self, in_channels: int = 80, cond_channels: int = 512):
+        super().__init__()
+        self.conv0 = CausalConv(in_channels, cond_channels, 4, side="right")
+        for i in range(1, 5):
+            setattr(self, f"conv{i}", CausalConv(cond_channels, cond_channels, 3, side="left"))
+        self.classifier = nn.Linear(cond_channels, 1)
+
+    def forward(self, x):
+        h = F.elu(self.conv0(x))
+        for i in range(1, 5):
+            h = F.elu(getattr(self, f"conv{i}")(h))
+        return torch.abs(flax_dense(h, self.classifier, h.dtype)[..., 0])
+
+
+class SourceModule(nn.Module):
+    """NSF source (SineGen2, causal): per-frame phase increments, cumulative
+    phase at frame rate, nearest upsampling to the sample rate, the fixed
+    uniform noise, and a linear merge of the harmonics."""
+
+    def __init__(self, cfg: HiFTConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.l_linear = nn.Linear(cfg.nb_harmonics + 1, 1)
+
+    def rad_frames(self, f0_frame: torch.Tensor) -> torch.Tensor:
+        """(B, L) f0 -> (B, L, H) phase increments in cycles per sample."""
+        c = self.cfg
+        hplus = c.nb_harmonics + 1
+        harmonic_mult = torch.arange(1, hplus + 1, dtype=torch.float32, device=f0_frame.device)
+        rad = torch.remainder(f0_frame[..., None] * harmonic_mult / c.sampling_rate, 1.0)
+        rad_up = upsample_nearest(rad, c.total_upsample).clone()
+        rand_ini = nsf_buffers(hplus)[0]
+        rad_up[:, 0, :] += torch.from_numpy(rand_ini[0]).to(rad_up.device)
+        return downsample_linear(rad_up, c.total_upsample)
+
+    def forward(self, f0_frame: torch.Tensor) -> torch.Tensor:
+        """f0_frame (B, L) -> source (B, L*upsample, 1)."""
+        c = self.cfg
+        hplus = c.nb_harmonics + 1
+        up = c.total_upsample
+        n_samp = f0_frame.shape[1] * up
+        _, uniform_noise = nsf_buffers(hplus)
+
+        f0_up = upsample_nearest(f0_frame[..., None], up)
+        phase = torch.cumsum(self.rad_frames(f0_frame), dim=1) * (2.0 * np.pi)
+        sines = torch.sin(upsample_nearest(phase * up, up))
+        uv = (f0_up > c.nsf_voiced_threshold).to(sines.dtype)
+        noise_amp = uv * c.nsf_sigma + (1.0 - uv) * c.nsf_alpha / 3.0
+        noise = noise_amp * torch.from_numpy(uniform_noise[:, :n_samp]).to(sines.device, sines.dtype)
+        sine_waves = sines * c.nsf_alpha * uv + noise
+        return torch.tanh(flax_dense(sine_waves, self.l_linear, sines.dtype))
+
+
+class CausalHiFT(nn.Module):
+    def __init__(self, cfg: HiFTConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.f0_predictor = CausalF0Predictor(cfg.in_channels, cfg.f0_cond_channels)
+        self.m_source = SourceModule(cfg)
+        self.conv_pre = CausalConv(cfg.in_channels, cfg.base_channels, cfg.conv_pre_look_right + 1, side="right")
+        down_rates = [1] + list(cfg.upsample_rates[::-1][:-1])
+        down_cum = list(np.cumprod(down_rates))[::-1]
+        nfft2 = cfg.istft_n_fft + 2
+        self.n_res = len(cfg.resblock_kernel_sizes)
+        for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
+            ch_in = cfg.base_channels // (2**i)
+            ch_out = cfg.base_channels // (2 ** (i + 1))
+            setattr(self, f"ups_{i}", CausalConvUp(ch_in, ch_out, k, u))
+            du = int(down_cum[i])
+            if du == 1:
+                setattr(self, f"source_downs_{i}", CausalConv(nfft2, ch_out, 1, side="left"))
+            else:
+                setattr(self, f"source_downs_{i}", CausalConvDown(nfft2, ch_out, du * 2, du))
+            setattr(self, f"source_resblocks_{i}", ResBlock(
+                ch_out, cfg.source_resblock_kernel_sizes[i], cfg.source_resblock_dilation_sizes[i]))
+            for j, (rk, rd) in enumerate(zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes)):
+                setattr(self, f"resblocks_{i}_{j}", ResBlock(ch_out, rk, rd))
+        self.conv_post = CausalConv(cfg.base_channels // (2 ** len(cfg.upsample_rates)), nfft2, 7, side="left")
+
+    def decode(self, mel: torch.Tensor, source: torch.Tensor) -> torch.Tensor:
+        """mel (B, L, 80); source (B, L*480, 1) -> audio (B, L*480)."""
+        c = self.cfg
+        win = torch.from_numpy(hann_window(c.istft_n_fft)).to(mel.device)
+        s_real, s_imag = stft(source[..., 0], c.istft_n_fft, c.istft_hop_len, win, center=True)
+        s_stft = torch.cat([s_real, s_imag], dim=1).transpose(1, 2)  # (B, F, n_fft + 2)
+
+        x = self.conv_pre(mel)
+        for i in range(len(c.upsample_rates)):
+            x = F.leaky_relu(x, negative_slope=c.lrelu_slope)
+            x = getattr(self, f"ups_{i}")(x)
+            if i == len(c.upsample_rates) - 1:
+                x = torch.cat([x[:, 1:2], x], dim=1)  # ReflectionPad1d((1, 0))
+            si = getattr(self, f"source_resblocks_{i}")(getattr(self, f"source_downs_{i}")(s_stft))
+            x = x + si
+            xs = None
+            for j in range(self.n_res):
+                r = getattr(self, f"resblocks_{i}_{j}")(x)
+                xs = r if xs is None else xs + r
+            x = xs / self.n_res
+
+        x = self.conv_post(F.leaky_relu(x, negative_slope=0.01))
+        nbins = c.istft_n_fft // 2 + 1
+        magnitude = torch.clamp(torch.exp(x[..., :nbins].transpose(1, 2)), max=1e2)
+        phase = torch.sin(x[..., nbins:]).transpose(1, 2)
+        audio = istft(magnitude * torch.cos(phase), magnitude * torch.sin(phase), c.istft_n_fft, c.istft_hop_len, win)
+        return torch.clamp(audio, -c.audio_limit, c.audio_limit)
+
+    def forward(self, mel: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Offline inference: mel (B, L, 80) -> (audio (B, L*480), source).
+        The f0 predictor runs on a float32 copy of the mel; the source is
+        cast back to the mel's dtype."""
+        f0 = self.f0_predictor(mel.float())
+        s = self.m_source(f0).to(mel.dtype)
+        return self.decode(mel, s), s
+

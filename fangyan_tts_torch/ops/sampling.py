@@ -1,0 +1,62 @@
+"""Repetition-aware (RAS) nucleus sampling (fangyan_tts_tpu/ops/sampling.py).
+
+Batched over rows and drawn from an explicit `torch.Generator`. As in the
+JAX module, stop ids are excluded by masking their probability to zero and
+renormalising (one draw, no resample loop), top-k is taken before the
+nucleus cut, and both the nucleus draw and the full-distribution fallback
+are drawn every step so that no step depends on a device-to-host read.
+Categorical draws use the Gumbel-max form: argmax(logits + Gumbel noise).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _categorical(logits: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
+    """One draw per row from softmax(logits) (rows on the last axis)."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device, dtype=torch.float32)
+    gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)).clamp_min(1e-20))
+    return torch.argmax(logits.float() + gumbel, dim=-1)
+
+
+def nucleus_pick(
+    probs: torch.Tensor,
+    generator: torch.Generator | None,
+    top_p: float = 0.8,
+    top_k: int = 25,
+) -> torch.Tensor:
+    """probs (B, V) -> (B,) ids drawn from the top-p ∧ top-k nucleus."""
+    vals, idx = torch.topk(probs, min(top_k, probs.shape[-1]), dim=-1)
+    # keep element i while the cumulative prob of the elements before it < top_p
+    cum_excl = torch.cumsum(vals, dim=-1) - vals
+    masked = torch.where(cum_excl < top_p, vals, torch.zeros_like(vals))
+    choice = _categorical(torch.log(masked.clamp_min(1e-30)), generator)
+    return torch.gather(idx, -1, choice[:, None])[:, 0]
+
+
+def ras_sample(
+    logp: torch.Tensor,
+    recent_tokens: torch.Tensor,
+    recent_valid: torch.Tensor,
+    allowed_mask: torch.Tensor,
+    generator: torch.Generator | None,
+    top_p: float = 0.8,
+    top_k: int = 25,
+    win_size: int = 10,
+    tau_r: float = 0.1,
+) -> torch.Tensor:
+    """One RAS step for every row.
+
+    logp: (B, V) log-probabilities; recent_tokens / recent_valid: (B, win)
+    window of the last emitted ids; allowed_mask: (B, V) bool, False ids get
+    probability zero. Returns (B,) int32 ids.
+    """
+    probs = torch.softmax(logp, dim=-1)
+    probs = torch.where(allowed_mask, probs, torch.zeros_like(probs))
+    probs = probs / probs.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+
+    cand = nucleus_pick(probs, generator, top_p=top_p, top_k=top_k)
+    rep_num = ((recent_tokens == cand[:, None]) & recent_valid).sum(dim=-1)
+    fallback = _categorical(torch.log(probs.clamp_min(1e-30)), generator)
+    return torch.where(rep_num >= win_size * tau_r, fallback, cand).to(torch.int32)

@@ -1,0 +1,146 @@
+"""The whole offline slice, `CosyVoice3TTS.tts(stream=False)`, on both sides
+with the same weights (models/from_jax.py) and a greedy sampling config,
+float32: equal speech tokens and a wav within 1e-3. Plus the port's guards:
+it imports no JAX, its entry points refuse to fall back to the CPU, its
+models refuse the JAX package's quantisation and decode-path options, its
+kernel wrappers count no launch for CPU tensors, and from_jax rejects a
+parameter tree that does not fit."""
+
+import subprocess
+import sys
+from dataclasses import replace
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fangyan_tts_torch.infer.tts import CosyVoice3TTS as TorchTTS
+from fangyan_tts_torch.models.from_jax import flow_from_jax, hift_from_jax, llm_from_jax
+from fangyan_tts_torch.ops import decode_attention as tda
+from fangyan_tts_torch.ops import flash_attention as tfa
+from fangyan_tts_tpu.infer.tts import CosyVoice3TTS as JaxTTS
+from fangyan_tts_tpu.models.flow import CausalMaskedDiffWithDiT
+from fangyan_tts_tpu.models.hift import CausalHiFT
+from fangyan_tts_tpu.models.llm import CosyVoice3LM
+from torch_port_util import both, np_params, to_jax
+
+import jax
+
+JC, TC = both()
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _params():
+    t = jnp.zeros((1, 8), jnp.int32)
+    llm = np_params(CosyVoice3LM(JC.llm), 0, t, t, jnp.asarray([8]), t, gain=0.5)
+    flow = np_params(CausalMaskedDiffWithDiT(JC.flow), 1, t, jnp.asarray([8]), jnp.zeros((1, 16, 80)),
+                     jnp.asarray([16]), jnp.zeros((1, 192)), jax.random.PRNGKey(0))
+    hift = np_params(CausalHiFT(JC.hift), 2, jnp.zeros((1, 16, 80)), gain=0.5)
+    hift["f0_predictor"]["classifier"]["bias"] = np.asarray([150.0], np.float32)  # voiced frames
+    return llm, flow, hift
+
+
+@pytest.fixture(scope="module")
+def pair():
+    llm, flow, hift = _params()
+    jtts = JaxTTS(JC, to_jax(llm), to_jax(flow), to_jax(hift), dtype=jnp.float32)
+    ttts = TorchTTS(TC, llm_from_jax(llm, TC.llm), flow_from_jax(flow, TC.flow), hift_from_jax(hift, TC.hift),
+                    dtype=torch.float32, device="cpu")
+    return jtts, ttts
+
+
+def _request():
+    rng = np.random.default_rng(11)
+    return dict(
+        text=rng.integers(0, 300, 6).astype(np.int32),
+        prompt_text=rng.integers(0, 300, 3).astype(np.int32),
+        llm_prompt_speech_token=rng.integers(0, 50, 5).astype(np.int32),
+        flow_prompt_speech_token=rng.integers(0, 50, 5).astype(np.int32),
+        prompt_speech_feat=(rng.standard_normal((10, 80)) * 0.5).astype(np.float32),
+        flow_embedding=rng.standard_normal(192).astype(np.float32),
+        min_token_text_ratio=2, max_token_text_ratio=4,
+    )
+
+
+def test_tokens_equal(pair):
+    jtts, ttts = pair
+    r = _request()
+    args = (r["text"], r["prompt_text"], r["llm_prompt_speech_token"], 2, 4)
+    want, got = jtts.generate_tokens(*args), ttts.generate_tokens(*args)
+    assert len(want) >= 12
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("speed", [1.0, 1.1])
+def test_tts_wav(pair, speed):
+    jtts, ttts = pair
+    want = next(jtts.tts(**_request(), speed=speed))["tts_speech"]
+    got = next(ttts.tts(**_request(), speed=speed))["tts_speech"]
+    assert got.dtype == np.float32 and got.shape == want.shape and len(want) % 480 == 0
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
+    assert np.abs(want).max() > 1e-2
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import fangyan_tts_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'fangyan_tts_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'fangyan_tts_tpu')]\n"
+        "assert not bad, bad\n"
+        "print(len([m for m in sys.modules if m.startswith('fangyan_tts_torch')]))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15
+
+
+def test_entry_points_refuse_cpu_fallback(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchTTS.random_init(TC)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchTTS.random_init(TC, device="cuda")
+    with pytest.raises(NotImplementedError):
+        next(TorchTTS.random_init(TC, dtype=torch.float32, device="cpu").tts(stream=True))
+
+
+@pytest.mark.parametrize("sub, field, value", [
+    ("qwen", "quant_int8", True), ("qwen", "quant_int4_mlp", True), ("qwen", "fused_decode_attention", False),
+    ("qwen", "use_pallas_decode_attention", True), ("qwen", "remat", "full"), ("dit", "quant_int8", True),
+])
+def test_unported_options_raise(sub, field, value):
+    """A JAX-package-only option set away from its default is refused, not
+    ignored."""
+    if sub == "qwen":
+        cfg = replace(TC, llm=replace(TC.llm, qwen=replace(TC.llm.qwen, **{field: value})))
+    else:
+        cfg = replace(TC, flow=replace(TC.flow, dit=replace(TC.flow.dit, **{field: value})))
+    with pytest.raises(NotImplementedError, match=field):
+        TorchTTS.random_init(cfg, dtype=torch.float32, device="cpu")
+
+
+def test_wrappers_count_no_cpu_launches():
+    tda.launches, tfa.launches = 0, 0
+    x = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16)
+    tfa.chunk_flash_attention(x, x, x, torch.tensor([5], dtype=torch.int32), 4)
+    ck = torch.zeros((2, 1, 16, 2, 64), dtype=torch.bfloat16)
+    q, kv = torch.zeros((1, 14, 64), dtype=torch.bfloat16), torch.zeros((1, 2, 64), dtype=torch.bfloat16)
+    tda.decode_attention(q, kv, kv, ck, ck.clone(), torch.tensor([3], dtype=torch.int32), torch.zeros((1, 16)), 1)
+    assert tda.launches == 0 and tfa.launches == 0
+
+
+def test_from_jax_rejects_mismatched_trees():
+    llm, _, hift = _params()
+    extra = dict(llm, stray={"kernel": np.zeros((2, 2), np.float32)})
+    with pytest.raises(ValueError, match="unused"):
+        llm_from_jax(extra, TC.llm)
+    missing = {k: v for k, v in hift.items() if k != "conv_post"}
+    with pytest.raises(ValueError, match="missing"):
+        hift_from_jax(missing, TC.hift)
+    wrong = dict(hift, conv_pre={"kernel": np.zeros((4, 80, 64), np.float32), "bias": hift["conv_pre"]["bias"]})
+    with pytest.raises(ValueError, match="shape"):
+        hift_from_jax(wrong, TC.hift)

@@ -1,0 +1,67 @@
+"""Shared pieces of the tests that hold fangyan_tts_torch against the JAX
+package: tiny configurations built on both sides from the same numbers,
+and numpy-initialised JAX parameter trees (weights scaled by 1/sqrt(fan_in),
+so activations stay of order one and every path is exercised)."""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+import torch
+
+import fangyan_tts_torch.config as tcfg
+import fangyan_tts_tpu.config as jcfg
+
+# The suite runs in several worker processes at once; torch's default of one
+# CPU thread per core in each of them starves the other workers' tests, some
+# of which depend on timing.
+torch.set_num_threads(1)
+
+QWEN = dict(hidden_size=64, intermediate_size=128, num_hidden_layers=2, num_attention_heads=4,
+            num_key_value_heads=2, head_dim=16, vocab_size=300)
+LLM = dict(llm_input_size=64, llm_output_size=64, speech_token_size=50, extra_tokens=8)
+GREEDY = dict(top_k=1, tau_r=1.1)  # neither side draws: the nucleus is the argmax, RAS never falls back
+DIT = dict(dim=64, depth=2, heads=4, dim_head=16, ff_mult=2, static_chunk_size=10)
+FLOW = dict(input_size=80, vocab_size=50, n_timesteps=4, pre_lookahead_channels=64)
+HIFT = dict(base_channels=64, f0_cond_channels=32)
+
+
+def configs(mod, greedy: bool = True):
+    """The tiny CosyVoiceConfig of `mod` (either package's config module)."""
+    llm = mod.LLMConfig(**LLM, **(GREEDY if greedy else {}), qwen=mod.QwenConfig(**QWEN))
+    flow = mod.FlowConfig(**FLOW, dit=mod.DiTConfig(**DIT))
+    return mod.CosyVoiceConfig(llm=llm, flow=flow, hift=mod.HiFTConfig(**HIFT))
+
+
+def both(greedy: bool = True):
+    return configs(jcfg, greedy), configs(tcfg, greedy)
+
+
+def np_params(model, seed: int, *init_args, gain: float = 1.0, **init_kwargs) -> dict:
+    """Parameters for a flax module from numpy: N(0, gain^2/fan_in) kernels,
+    N(0, 1/dim) embeddings, 1 + N(0, 0.01) norm weights and snake alphas,
+    N(0, 0.01) biases. Stacked ('layers'/'blocks') leaves count fan-in
+    without the layer axis."""
+    shapes = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), *init_args, **init_kwargs))["params"]
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        names = [str(getattr(k, "key", k)) for k in path]
+        shape = leaf.shape
+        core = shape[1:] if any(n in ("layers", "blocks") for n in names) else shape
+        name = names[-1]
+        if len(core) >= 2:
+            fan_in = shape[-1] if name == "embedding" else int(np.prod(core[:-1]))
+            return (gain * rng.standard_normal(shape) / np.sqrt(fan_in)).astype(np.float32)
+        if name == "weight" or "alpha" in name:
+            return (1.0 + 0.1 * rng.standard_normal(shape)).astype(np.float32)
+        return (0.1 * rng.standard_normal(shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def to_jax(tree):
+    return jax.tree.map(jnp.asarray, tree)
+

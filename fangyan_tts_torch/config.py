@@ -2,11 +2,11 @@
 
 The port's own copy of fangyan_tts_tpu/config.py: the same dataclasses,
 fields and defaults, so one configuration describes a model on both sides.
-Fields that only the JAX package reads (quantisation modes, decode-path
-switches, remat) are kept so configurations stay interchangeable; the
-port's models raise NotImplementedError when one of them is set away from
-its default (`reject_unported`), so such a setting never runs as bf16
-without a word.
+Fields that only the JAX package reads (the Qwen decode-path switches and
+remat) are kept so configurations stay interchangeable; the port's Qwen2
+model raises NotImplementedError when one of them is set away from its
+default (`reject_unported`), so such a setting is never ignored without a
+word.
 """
 
 from __future__ import annotations
@@ -36,10 +36,13 @@ class QwenConfig:
     vocab_size: int = 151936
     max_position_embeddings: int = 32768
     tie_word_embeddings: bool = True
-    # Read by the JAX package only (quantised and decode-path variants,
-    # training remat); kept so configurations round-trip.
+    # Weight-only int8 for every block dense kernel (ops/quant.py); with it,
+    # quant_int4_mlp stores the MLP kernels as nibble-packed int4 instead
+    # (int4 without int8 is ignored, as in the JAX package).
     quant_int8: bool = False
     quant_int4_mlp: bool = False
+    # Read by the JAX package only (decode-path variants, training remat);
+    # kept so configurations round-trip.
     fused_decode_attention: bool = True
     use_pallas_decode_attention: bool = False
     remat: str = ""
@@ -109,7 +112,7 @@ class DiTConfig:
     freq_embed_dim: int = 256
     conv_pos_kernel: int = 31
     conv_pos_groups: int = 16
-    quant_int8: bool = False  # JAX package only
+    quant_int8: bool = False  # weight-only int8 block dense kernels (ops/quant.py)
 
 
 @dataclass(frozen=True)
@@ -237,17 +240,13 @@ def cosyvoice2_config() -> CosyVoiceConfig:
     )
 
 
-_UNPORTED = {
-    QwenConfig: ("quant_int8", "quant_int4_mlp", "fused_decode_attention", "use_pallas_decode_attention", "remat"),
-    DiTConfig: ("quant_int8",),
-}
+_UNPORTED = ("fused_decode_attention", "use_pallas_decode_attention", "remat")
 
 
-def reject_unported(cfg: QwenConfig | DiTConfig) -> None:
+def reject_unported(cfg: QwenConfig) -> None:
     """Raise NotImplementedError if `cfg` sets a JAX-package-only field away
     from its default."""
-    names = _UNPORTED[type(cfg)]
-    bad = [n for n in names if getattr(cfg, n) != getattr(type(cfg), n)]
+    bad = [n for n in _UNPORTED if getattr(cfg, n) != getattr(QwenConfig, n)]
     if bad:
         raise NotImplementedError(f"fangyan_tts_torch: {type(cfg).__name__} fields {bad} are not ported")
 

@@ -1,5 +1,7 @@
 """CosyVoice3 offline synthesis: LLM -> flow -> vocoder
-(fangyan_tts_tpu/infer/tts.py, `CosyVoice3TTS` with `tts(stream=False)`).
+(fangyan_tts_tpu/infer/tts.py, `CosyVoice3TTS` with `tts(stream=False)`,
+`batch_synthesize` / `vocode_batch`, and the weight-only quantized modes
+`quantize_llm` / `quantize_flow`).
 
 The same stage chain and buckets as the JAX package: the prompt plan is
 left-padded to a multiple of 64, the decode bucket is a multiple of 64 and
@@ -12,6 +14,7 @@ stays float32 throughout.
 
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Any, Generator
 
 import numpy as np
@@ -24,6 +27,7 @@ from ..models.flow import CausalMaskedDiffWithDiT, cfm_solve, fixed_cfm_noise
 from ..models.hift import CausalHiFT
 from ..models.llm import CosyVoice3LM, generate_speech_tokens
 from ..ops.device import exact_fp32, resolve_device
+from ..ops.quant import quantize_dit_state, quantize_qwen_state
 
 # FSQ silent and breath tokens
 SILENT_TOKENS = (1, 2, 28, 29, 55, 248, 494, 2241, 2242, 2322, 2323)
@@ -35,11 +39,13 @@ def _round_up(n: int, m: int) -> int:
 
 
 def _cast_state(sd: dict, dtype: torch.dtype, keep_f32: tuple[str, ...] = ()) -> dict:
-    """Cast tensors of 2 or more dimensions to `dtype`, except under the
-    given key prefixes (kept float32)."""
+    """Cast floating tensors of 2 or more dimensions to `dtype`, except under
+    the given key prefixes (kept float32). Quantized (int8) kernels stay."""
     out = {}
     for k, v in sd.items():
-        if k.startswith(keep_f32):
+        if not v.is_floating_point():
+            out[k] = v
+        elif k.startswith(keep_f32):
             out[k] = v.float()
         elif v.dim() >= 2:
             out[k] = v.to(dtype)
@@ -118,6 +124,30 @@ class CosyVoice3TTS:
         hift = _random_state(lambda: CausalHiFT(cfg.hift), dtype, gen, dev, keep_f32=("f0_predictor.",))
         return cls(cfg, llm, flow, hift, dtype=dtype, device=dev)
 
+    # ---- weight-only quantization --------------------------------------------
+
+    def quantize_llm(self, int4_mlp: bool = False) -> None:
+        """Switch the LLM to weight-only int8 (the MLP kernels to nibble-packed
+        int4 with `int4_mlp`), quantized from the weights as the model holds
+        them. Returns at once when the LLM is already int8, so int4_mlp=True
+        after a plain quantize_llm() changes nothing (as in the JAX package)."""
+        if self.cfg.llm.qwen.quant_int8:
+            return
+        sd = quantize_qwen_state(self.llm.state_dict(), int4_mlp=int4_mlp)
+        qwen = replace(self.cfg.llm.qwen, quant_int8=True, quant_int4_mlp=int4_mlp)
+        self.cfg = replace(self.cfg, llm=replace(self.cfg.llm, qwen=qwen))
+        self.llm = _load(lambda: CosyVoice3LM(self.cfg.llm, dtype=self.dtype), sd, self.device)
+
+    def quantize_flow(self) -> None:
+        """Switch the DiT estimator's block kernels to weight-only int8,
+        quantized from the flow weights as the model holds them (already in
+        the model dtype). Returns at once when the DiT is already int8."""
+        if self.cfg.flow.dit.quant_int8:
+            return
+        sd = quantize_dit_state(self.flow.state_dict())
+        self.cfg = replace(self.cfg, flow=replace(self.cfg.flow, dit=replace(self.cfg.flow.dit, quant_int8=True)))
+        self.flow = _load(lambda: CausalMaskedDiffWithDiT(self.cfg.flow), sd, self.device)
+
     # ---- stage 1: AR token generation ---------------------------------------
 
     @torch.inference_mode()
@@ -194,6 +224,101 @@ class CosyVoice3TTS:
         audio = self.hift(mel[None])[0][0, : true_len * self.cfg.hift.total_upsample]
         return audio.float().cpu().numpy()
 
+    # ---- batched offline synthesis ------------------------------------------
+
+    @torch.inference_mode()
+    def batch_synthesize(
+        self,
+        texts: list[np.ndarray],
+        flow_embedding: np.ndarray,  # (192,) or (B, 192)
+        prompt_text: np.ndarray = np.zeros(0, np.int32),
+        llm_prompt_speech_token: np.ndarray = np.zeros(0, np.int32),
+        flow_prompt_speech_token: np.ndarray = np.zeros(0, np.int32),
+        prompt_speech_feat: np.ndarray = np.zeros((0, 80), np.float32),
+        min_token_text_ratio: float = 2.0,
+        max_token_text_ratio: float = 20.0,
+    ) -> list[np.ndarray]:
+        """B utterances through the three stages as one batch (the
+        dataset-generation path), sharing one voice prompt. Returns B wavs,
+        each cut to its own tokens. Buckets as the JAX package's: the prompt
+        plans left-padded to a multiple of 32, the decode bucket a multiple of
+        64 and the cache a multiple of 64; flow tokens padded to a multiple of
+        64; the vocoder takes the whole padded mel."""
+        fp = np.asarray(flow_prompt_speech_token, np.int32)
+        pf = np.asarray(prompt_speech_feat, np.float32)
+        all_tokens, counts = self._batch_tokens(texts, prompt_text, llm_prompt_speech_token,
+                                                min_token_text_ratio, max_token_text_ratio)
+        mel, token_len = self._batch_token2mel(all_tokens, counts, fp, pf, flow_embedding)
+        audio = self.vocode_batch(mel)  # the device mel chains in; one audio fetch
+        ratio = self.cfg.token_mel_ratio
+        hop = self.cfg.hift.total_upsample
+        # the output mel's prompt region is len(fp) * ratio frames, and the
+        # conditioning layout needs prompt_feat to be exactly that long
+        assert pf.shape[0] == len(fp) * ratio, (
+            f"prompt_speech_feat has {pf.shape[0]} frames; expected "
+            f"{len(fp) * ratio} (= {len(fp)} prompt tokens x ratio {ratio})"
+        )
+        start = len(fp) * ratio * hop
+        return [audio[i, start : start + (token_len[i] - len(fp)) * ratio * hop] for i in range(len(texts))]
+
+    @torch.inference_mode()
+    def _batch_tokens(self, texts, prompt_text, llm_prompt_speech_token, min_token_text_ratio,
+                      max_token_text_ratio) -> tuple[np.ndarray, np.ndarray]:
+        """Stage 1 of batch_synthesize: (B, max_new) tokens and (B,) counts."""
+        plans, tp, max_new, cache_len = batch_buckets(self.cfg.llm, texts, prompt_text, llm_prompt_speech_token,
+                                                      max_token_text_ratio)
+        batch = pad_plans_left(plans, length=tp)
+        min_lens = np.asarray([int(len(t) * min_token_text_ratio) for t in texts], np.int32)
+        max_lens = np.asarray([int(len(t) * max_token_text_ratio) for t in texts], np.int32)
+        dev = self.device
+        res = generate_speech_tokens(
+            self.llm,
+            torch.from_numpy(batch["src"]).to(dev), torch.from_numpy(batch["ids"]).to(dev),
+            torch.from_numpy(batch["lengths"]).to(dev), torch.from_numpy(min_lens), torch.from_numpy(max_lens),
+            self.generator, max_new_tokens=max_new, cache_len=cache_len,
+        )
+        return res.tokens.cpu().numpy(), res.num_tokens.cpu().numpy()
+
+    @torch.inference_mode()
+    def _batch_token2mel(self, all_tokens: np.ndarray, counts: np.ndarray, fp: np.ndarray, pf: np.ndarray,
+                         flow_embedding: np.ndarray) -> tuple[torch.Tensor, np.ndarray]:
+        """Stage 2 of batch_synthesize: each row's tokens (silent runs
+        suppressed) after the flow prompt tokens, padded to a common bucket,
+        through one batched flow solve. Returns the device mel (B, L, 80)
+        and the rows' token lengths, prompt included."""
+        b = len(counts)
+        lt_max = _round_up(int(counts.max()) + len(fp), 64)
+        token = np.zeros((b, lt_max), np.int32)
+        token_len = np.zeros((b,), np.int32)
+        for i in range(b):
+            row = np.concatenate([fp, suppress_silent_runs(all_tokens[i, : counts[i]])])
+            token[i, : len(row)] = row
+            token_len[i] = len(row)
+        emb = np.asarray(flow_embedding, np.float32)
+        if emb.ndim == 1:
+            emb = np.broadcast_to(emb, (b, 192))
+        pf_b = np.broadcast_to(pf[None], (b, *pf.shape)) if pf.ndim == 2 else pf
+
+        dev, dt = self.device, self.dtype
+        mu, spks, conds, mel_len = self.flow.prepare_inference(
+            torch.from_numpy(token).to(dev), torch.from_numpy(token_len).to(dev),
+            torch.tensor(pf_b, device=dev).to(dt),
+            torch.full((b,), pf.shape[0], dtype=torch.int32, device=dev),
+            torch.tensor(emb, device=dev).to(dt),
+        )
+        l_mel = mu.shape[1]
+        if self._cfm_noise is None:
+            self._cfm_noise = torch.from_numpy(fixed_cfm_noise()).to(dev, dt)
+        z = self._cfm_noise[:, :l_mel, :].expand(b, l_mel, self.cfg.flow.output_size).to(mu.dtype)
+        return cfm_solve(self.cfg.flow, self.flow.estimator, z, mu, spks, conds, mel_len), token_len
+
+    @torch.inference_mode()
+    def vocode_batch(self, mel) -> np.ndarray:
+        """Causal vocoding of a (B, L, 80) mel as it is (no padding): (B,
+        L * 480) float32."""
+        mel = torch.as_tensor(mel, device=self.device).to(self.dtype)
+        return self.hift(mel)[0].float().cpu().numpy()
+
     # ---- public generator API -----------------------------------------------
 
     def tts(
@@ -225,6 +350,17 @@ class CosyVoice3TTS:
         if speed != 1.0:
             mel = _interp_mel(mel, int(mel.shape[0] / speed))
         yield {"tts_speech": self.vocode(mel)}
+
+
+def batch_buckets(c, texts, prompt_text, llm_prompt_speech_token, max_token_text_ratio) -> tuple[list, int, int, int]:
+    """batch_synthesize's LLM buckets for an LLMConfig `c`: (the prompt
+    plans, their left-padded length tp, a multiple of 32; max_new, a
+    multiple of 64 and at least 64; the cache length, a multiple of 64)."""
+    plans = [build_prompt_plan(c, np.concatenate([prompt_text, t]).astype(np.int32).tolist(),
+                               np.asarray(llm_prompt_speech_token, np.int32).tolist()) for t in texts]
+    tp = _round_up(max(len(p.ids) for p in plans), 32)
+    max_new = max(_round_up(max(int(len(t) * max_token_text_ratio) for t in texts), 64), 64)
+    return plans, tp, max_new, _round_up(tp + max_new, 64)
 
 
 def suppress_silent_runs(tokens: np.ndarray) -> np.ndarray:

@@ -3,7 +3,8 @@
 Tensors are channels-last (B, L, C) as in the JAX module. Block parameters
 follow the JAX tree with the layer axis unstacked: `blocks.{i}.attn.to_qkv`
 (fused q/k/v), `.attn.to_out`, `.attn_norm_linear` (AdaLN-Zero), `.ff_0`,
-`.ff_2`. Attention goes through ops/flash_attention.chunk_flash_attention
+`.ff_2`; under `quant_int8` these five are int8 QLinear (models/qwen2.py).
+Attention goes through ops/flash_attention.chunk_flash_attention
 with the CFG-doubled `mel_len` and the chunk size, not a bias.
 
 Kept on purpose from the reference: the rotary embedding is applied to the
@@ -20,10 +21,16 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..config import DiTConfig, reject_unported
+from ..config import DiTConfig
 from ..ops.convs import conv1d
 from ..ops.flash_attention import chunk_flash_attention
-from .qwen2 import flax_dense, qdense
+from .qwen2 import QLinear, dense, flax_dense, qdense
+
+
+def _block_dense(cfg: DiTConfig, d_in: int, d_out: int) -> nn.Module:
+    """A block's dense layer with bias: nn.Linear, or int8 QLinear under
+    `quant_int8` (the JAX package's _block_dense)."""
+    return dense(d_in, d_out, True, 8 if cfg.quant_int8 else 0)
 
 
 class ConvParams(nn.Module):
@@ -107,8 +114,8 @@ class DiTAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         inner = cfg.heads * cfg.dim_head
-        self.to_qkv = nn.Linear(cfg.dim, 3 * inner)
-        self.to_out = nn.Linear(inner, cfg.dim)
+        self.to_qkv = _block_dense(cfg, cfg.dim, 3 * inner)
+        self.to_out = _block_dense(cfg, inner, cfg.dim)
 
     def forward(self, x, mel_len, chunk: int, cos, sin):
         c = self.cfg
@@ -127,10 +134,10 @@ class DiTAttention(nn.Module):
 class DiTBlock(nn.Module):
     def __init__(self, cfg: DiTConfig):
         super().__init__()
-        self.attn_norm_linear = nn.Linear(cfg.dim, 6 * cfg.dim)
+        self.attn_norm_linear = _block_dense(cfg, cfg.dim, 6 * cfg.dim)
         self.attn = DiTAttention(cfg)
-        self.ff_0 = nn.Linear(cfg.dim, cfg.dim * cfg.ff_mult)
-        self.ff_2 = nn.Linear(cfg.dim * cfg.ff_mult, cfg.dim)
+        self.ff_0 = _block_dense(cfg, cfg.dim, cfg.dim * cfg.ff_mult)
+        self.ff_2 = _block_dense(cfg, cfg.dim * cfg.ff_mult, cfg.dim)
 
     def forward(self, x, mod, mel_len, chunk: int, cos, sin):
         """mod: this block's AdaLN-Zero modulation (B, 6*dim), from
@@ -151,7 +158,13 @@ def precompute_mods(dit: "DiT", t_all: torch.Tensor, dtype: torch.dtype) -> torc
     weights at every Euler step."""
     T, B = t_all.shape
     s = F.silu(dit.time_embed(t_all.reshape(-1).to(dtype))).reshape(T, B, dit.cfg.dim)
-    return torch.stack([qdense(s, blk.attn_norm_linear) for blk in dit.blocks], dim=1)
+
+    def mod(lin: nn.Module) -> torch.Tensor:
+        if isinstance(lin, QLinear):  # int8 (JAX dit.py:350-356): product and scale both in dtype
+            return torch.matmul(s, lin.kernel_q.to(dtype)) * lin.scale.to(dtype) + lin.bias.to(dtype)
+        return qdense(s, lin)
+
+    return torch.stack([mod(blk.attn_norm_linear) for blk in dit.blocks], dim=1)
 
 
 class DiT(nn.Module):
@@ -159,7 +172,6 @@ class DiT(nn.Module):
 
     def __init__(self, cfg: DiTConfig):
         super().__init__()
-        reject_unported(cfg)
         self.cfg = cfg
         self.time_embed = TimestepEmbedding(cfg.dim, cfg.freq_embed_dim)
         self.input_proj = nn.Linear(cfg.mel_dim * 2 + cfg.mu_dim + cfg.spk_dim, cfg.dim)

@@ -11,11 +11,18 @@ them) and return the port's state_dict:
   `conv_transpose1d` kernel (K, Cout, Cin) (ops/convs.py of the JAX package)
   becomes torch's (Cin, Cout, K): both are the axis reversal;
 - `embedding` becomes an Embedding's `weight`; `<name>_kernel` /
-  `<name>_bias` leaves become `<name>.weight` / `<name>.bias`.
+  `<name>_bias` leaves become `<name>.weight` / `<name>.bias`;
+- the weight-only quantized leaves of ops/quant.py (`kernel_q` (in, out)
+  int8, `kernel_q4` (in//2, out) int8, `scale`) keep their names and JAX
+  layout: models built with `quant_int8` (`quant_int4_mlp`) hold them in
+  QLinear (models/qwen2.py).
 
 The result is checked against the port module's own keys and shapes: a
 JAX leaf with no home, or a port parameter left without a value, raises.
 Values keep their dtype; models are loaded with `load_state_dict(strict=True)`.
+Quantized JAX trees (`quantize_qwen_params`, `quantize_dit_params`) go with
+the quantized configuration's model: `llm_from_jax(qparams, cfg)` with
+`cfg.qwen.quant_int8` set.
 """
 
 from __future__ import annotations

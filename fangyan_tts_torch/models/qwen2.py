@@ -3,7 +3,9 @@
 Parameters follow the JAX tree with the layer axis unstacked:
 `layers.{i}.self_attn.qkv_proj` (fused q/k/v with bias), `.o_proj`,
 `.mlp.gate_up_proj` (fused gate/up), `.mlp.down_proj`, the two RMSNorms,
-and the final `norm`. Linear weights are torch's (out, in).
+and the final `norm`. Linear weights are torch's (out, in); under
+`quant_int8` (and `quant_int4_mlp`) the dense layers are QLinear, in the
+JAX package's quantized names and (in, out) layout.
 
 The stacked KV cache is a dict {'k', 'v': (L, B, S, KV, hd), 'index': (B,)
 int32 next write slot}. A prompt prefill (T > 1) writes slots
@@ -24,11 +26,49 @@ import torch.nn.functional as F
 
 from ..config import QwenConfig, reject_unported
 from ..ops.decode_attention import decode_attention
+from ..ops.int4_matmul import int4_matmul
+from ..ops.quant import int8_dot
 
 
-def qdense(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
-    """The JAX QDense: x @ W in x's dtype, then the bias in the result's."""
-    y = F.linear(x, lin.weight.to(x.dtype))
+class QLinear(nn.Module):
+    """The JAX QDense's quantized parameters in its own names and (in, out)
+    layout: `kernel_q` (in, out) int8 (bits=8) or `kernel_q4` (in//2, out)
+    int8 nibble pairs (bits=4), `scale` (out,) float32 per output channel,
+    and an optional `bias`. Made by ops/quant.quantize_*_state."""
+
+    def __init__(self, d_in: int, d_out: int, bias: bool, bits: int):
+        super().__init__()
+        self.bits = bits
+        if bits == 4:
+            self.register_buffer("kernel_q4", torch.zeros((d_in // 2, d_out), dtype=torch.int8))
+        else:
+            self.register_buffer("kernel_q", torch.zeros((d_in, d_out), dtype=torch.int8))
+        self.register_buffer("scale", torch.ones(d_out))
+        self.register_buffer("bias", torch.zeros(d_out) if bias else None)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        # load_state_dict checks shapes only: refuse float weights here, which
+        # would otherwise run through int8_dot / int4_matmul as if quantized
+        for name, dtype in (("kernel_q4" if self.bits == 4 else "kernel_q", torch.int8), ("scale", torch.float32)):
+            t = state_dict.get(prefix + name)
+            if t is not None and t.dtype != dtype:
+                raise ValueError(f"QLinear {prefix}{name} must be {dtype} (from ops/quant.quantize_*_state), "
+                                 f"got {t.dtype}")
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+
+def dense(d_in: int, d_out: int, bias: bool, bits: int = 0) -> nn.Module:
+    """A QDense's parameters: nn.Linear (bits 0) or QLinear (int8 / int4)."""
+    return QLinear(d_in, d_out, bias, bits) if bits else nn.Linear(d_in, d_out, bias=bias)
+
+
+def qdense(x: torch.Tensor, lin: nn.Module) -> torch.Tensor:
+    """The JAX QDense: x @ W in x's dtype (int8: ops/quant.int8_dot; int4:
+    the ops/int4_matmul kernel), then the bias in the result's."""
+    if isinstance(lin, QLinear):
+        y = int4_matmul(x, lin.kernel_q4, lin.scale) if lin.bits == 4 else int8_dot(x, lin.kernel_q, lin.scale)
+    else:
+        y = F.linear(x, lin.weight.to(x.dtype))
     if lin.bias is not None:
         y = y + lin.bias.to(y.dtype)
     return y
@@ -82,8 +122,9 @@ class Qwen2Attention(nn.Module):
         self.cfg = cfg
         hd = cfg.head_dim
         self.nq, self.nkv = cfg.num_attention_heads * hd, cfg.num_key_value_heads * hd
-        self.qkv_proj = nn.Linear(cfg.hidden_size, self.nq + 2 * self.nkv, bias=True)
-        self.o_proj = nn.Linear(self.nq, cfg.hidden_size, bias=False)
+        bits = 8 if cfg.quant_int8 else 0
+        self.qkv_proj = dense(cfg.hidden_size, self.nq + 2 * self.nkv, True, bits)
+        self.o_proj = dense(self.nq, cfg.hidden_size, False, bits)
 
     def forward(self, x, cos, sin, attn_bias, layer: int, cache: dict):
         c = self.cfg
@@ -123,8 +164,9 @@ class Qwen2Attention(nn.Module):
 class Qwen2MLP(nn.Module):
     def __init__(self, cfg: QwenConfig):
         super().__init__()
-        self.gate_up_proj = nn.Linear(cfg.hidden_size, 2 * cfg.intermediate_size, bias=False)
-        self.down_proj = nn.Linear(cfg.intermediate_size, cfg.hidden_size, bias=False)
+        bits = (4 if cfg.quant_int4_mlp else 8) if cfg.quant_int8 else 0
+        self.gate_up_proj = dense(cfg.hidden_size, 2 * cfg.intermediate_size, False, bits)
+        self.down_proj = dense(cfg.intermediate_size, cfg.hidden_size, False, bits)
 
     def forward(self, x):
         gate, up = qdense(x, self.gate_up_proj).chunk(2, dim=-1)

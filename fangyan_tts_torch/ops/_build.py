@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
-SOURCES = ("decode_attention", "flash_attention")
+SOURCES = ("decode_attention", "flash_attention", "int4_matmul")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -35,6 +35,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "decode_attention": ("fangyan_decode_attention", [_P] * 9 + [ctypes.c_longlong] + [_I] * 6 + [_P]),
     "flash_attention": ("fangyan_chunk_flash_attention", [_P] * 5 + [_I] * 5 + [_P]),
+    "int4_matmul": ("fangyan_int4_matmul", [_P] * 5 + [_I] * 6 + [_P]),
 }
 
 

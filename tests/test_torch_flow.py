@@ -1,7 +1,11 @@
 """fangyan_tts_torch.models.{dit,flow} against the JAX package with the same
 weights (models/from_jax.flow_from_jax), float32: the fixed CFM noise is
 equal; the DiT velocity and the offline mel from the same tokens, prompt
-mel and x-vector agree within 1e-3."""
+mel and x-vector agree within 1e-3, also with the DiT's block kernels in
+weight-only int8 (JAX trees quantized by quantize_dit_params on one side,
+the port's state by quantize_dit_state on the other)."""
+
+from dataclasses import replace
 
 import jax
 import jax.numpy as jnp
@@ -12,21 +16,27 @@ import torch
 from fangyan_tts_torch.models import flow as tflow
 from fangyan_tts_torch.models.dit import precompute_mods
 from fangyan_tts_torch.models.from_jax import flow_from_jax
+from fangyan_tts_torch.ops.quant import quantize_dit_state
 from fangyan_tts_tpu.models import flow as jflow
 from fangyan_tts_tpu.models.dit import DiT
 from fangyan_tts_tpu.ops.masks import chunk_attn_mask
+from fangyan_tts_tpu.ops.quant import quantize_dit_params
 from torch_port_util import both, np_params, to_jax
 
 JC, TC = both()
 
 
-def _flow(seed=0):
+def _flow(seed=0, int8=False):
     jm = jflow.CausalMaskedDiffWithDiT(JC.flow)
     t = jnp.zeros((1, 8), jnp.int32)
     p = np_params(jm, seed, t, jnp.asarray([8]), jnp.zeros((1, 16, 80)), jnp.asarray([16]),
                   jnp.zeros((1, 192)), jax.random.PRNGKey(0))
-    tm = tflow.CausalMaskedDiffWithDiT(TC.flow)
-    tm.load_state_dict(flow_from_jax(p, TC.flow), strict=True)
+    sd = flow_from_jax(p, TC.flow)
+    if int8:
+        p, sd = quantize_dit_params(p), quantize_dit_state(sd)
+        jm = jflow.CausalMaskedDiffWithDiT(replace(JC.flow, dit=replace(JC.flow.dit, quant_int8=True)))
+    tm = tflow.CausalMaskedDiffWithDiT(replace(TC.flow, dit=replace(TC.flow.dit, quant_int8=int8)))
+    tm.load_state_dict(sd, strict=True)
     return jm, to_jax(p), tm.eval()
 
 
@@ -59,7 +69,16 @@ def test_dit_velocity(chunk):
 
 @pytest.mark.parametrize("n_prompt", [0, 6])
 def test_offline_mel(n_prompt):
-    jm, jp, tm = _flow(0)
+    _check_offline_mel(n_prompt, int8=False)
+
+
+@pytest.mark.parametrize("n_prompt", [0, 6])
+def test_offline_mel_int8(n_prompt):
+    _check_offline_mel(n_prompt, int8=True)
+
+
+def _check_offline_mel(n_prompt: int, int8: bool):
+    jm, jp, tm = _flow(0, int8)
     rng = np.random.default_rng(n_prompt)
     n_tok = 20 + n_prompt
     token = np.zeros((1, 32), np.int32)

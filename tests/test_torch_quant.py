@@ -1,0 +1,136 @@
+"""fangyan_tts_torch.ops.{quant,int4_matmul} against the JAX package:
+quantization gives bit-equal ints and scales on float32 and bf16 weights,
+2-D and stacked; the port's int8_dot and int4_matmul_plain agree with the
+JAX int8_dot / int4_dot (float32 atol 1e-5, bf16 atol 2e-2 on outputs of
+order one) and with the Pallas int4_matmul run in interpret mode (float32,
+atol 1e-5: the CPU runs that kernel in float32 only); the port's state
+walkers equal from_jax of the JAX tree walkers bit for bit."""
+
+from dataclasses import replace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fangyan_tts_torch.models.from_jax import flow_from_jax, llm_from_jax
+from fangyan_tts_torch.ops import int4_matmul as ti4
+from fangyan_tts_torch.ops import quant as tq
+from fangyan_tts_tpu.models.flow import CausalMaskedDiffWithDiT
+from fangyan_tts_tpu.models.llm import CosyVoice3LM
+from fangyan_tts_tpu.ops import quant as jq
+from fangyan_tts_tpu.ops.int4_matmul import int4_matmul as pallas_int4_matmul
+from torch_port_util import both, np_params
+
+JC, TC = both()
+
+
+def _weights(shape, dtype: str, seed: int = 0):
+    """The same weights on both sides: a JAX array and a torch tensor."""
+    w = jnp.asarray(np.random.default_rng(seed).standard_normal(shape).astype(np.float32) * 0.05).astype(dtype)
+    return w, torch.from_numpy(np.array(w.astype(jnp.float32))).to(getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("shape", [(64, 96), (3, 128, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fn", ["quantize_int8", "quantize_int4_packed"])
+def test_quantize_bit_equal(fn, dtype, shape):
+    jw, tw = _weights(shape, dtype)
+    jqv, js = getattr(jq, fn)(jw)
+    tqv, ts = getattr(tq, fn)(tw)
+    assert tqv.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(tqv.numpy(), np.asarray(jqv))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+@pytest.mark.parametrize("dtype, atol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("fn", ["int8", "int4"])
+def test_dot_matches_jax(fn, dtype, atol):
+    rng = np.random.default_rng(1)
+    w = rng.standard_normal((128, 256)).astype(np.float32) / np.sqrt(128)
+    x = rng.standard_normal((2, 5, 128)).astype(np.float32)
+    jx = jnp.asarray(x).astype(dtype)
+    tx = torch.from_numpy(np.array(jx.astype(jnp.float32))).to(getattr(torch, dtype))
+    if fn == "int8":
+        q, s = jq.quantize_int8(jnp.asarray(w))
+        want, got = jq.int8_dot(jx, q, s), tq.int8_dot(tx, torch.from_numpy(np.array(q)), torch.from_numpy(np.array(s)))
+    else:
+        q, s = jq.quantize_int4_packed(jnp.asarray(w))
+        want = jq.int4_dot(jx, q, s)
+        got = ti4.int4_matmul_plain(tx, torch.from_numpy(np.array(q)), torch.from_numpy(np.array(s)))
+    assert got.dtype == tx.dtype and got.shape == (2, 5, 256)
+    want = np.asarray(want.astype(jnp.float32))
+    assert np.abs(want).mean() > 0.3  # outputs of order one
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("n", [128, 256])
+@pytest.mark.parametrize("m", [1, 5, 33])
+def test_int4_plain_matches_pallas_interpret(m, n):
+    rng = np.random.default_rng(m * n)
+    q, s = jq.quantize_int4_packed(jnp.asarray(rng.standard_normal((64, n)).astype(np.float32) / 8))
+    x = rng.standard_normal((m, 64)).astype(np.float32)
+    want = np.asarray(pallas_int4_matmul(jnp.asarray(x), q, s, interpret=True))
+    got = ti4.int4_matmul(torch.from_numpy(x), torch.from_numpy(np.array(q)), torch.from_numpy(np.array(s)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+
+
+def _assert_state_equal(got: dict, want: dict):
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("int4_mlp", [False, True])
+def test_quantize_qwen_state_equals_jax(int4_mlp):
+    t = jnp.zeros((1, 8), jnp.int32)
+    p = np_params(CosyVoice3LM(JC.llm), 0, t, t, jnp.asarray([8]), t)
+    qcfg = replace(TC.llm, qwen=replace(TC.llm.qwen, quant_int8=True, quant_int4_mlp=int4_mlp))
+    want = llm_from_jax(jq.quantize_qwen_params(p, int4_mlp=int4_mlp), qcfg)
+    got = tq.quantize_qwen_state(llm_from_jax(p, TC.llm), int4_mlp=int4_mlp)
+    _assert_state_equal(got, want)
+    assert ("llm.layers.0.mlp.down_proj.kernel_q4" in got) == int4_mlp
+    assert got["llm.layers.1.self_attn.qkv_proj.kernel_q"].shape == (64, 128)  # JAX (in, out) layout
+
+
+@pytest.mark.parametrize("which", ["llm int8", "llm int8 + int4 mlp", "dit int8"])
+def test_quantized_config_refuses_float_weights(which):
+    """random_init makes float weights; a quantized config's QLinear must
+    refuse them instead of running them through int8_dot / int4_matmul."""
+    from fangyan_tts_torch.infer.tts import CosyVoice3TTS
+
+    if which == "dit int8":
+        cfg = replace(TC, flow=replace(TC.flow, dit=replace(TC.flow.dit, quant_int8=True)))
+    else:
+        qwen = replace(TC.llm.qwen, quant_int8=True, quant_int4_mlp=which.endswith("mlp"))
+        cfg = replace(TC, llm=replace(TC.llm, qwen=qwen))
+    with pytest.raises(ValueError, match="must be torch.int8"):
+        CosyVoice3TTS.random_init(cfg, dtype=torch.float32, device="cpu")
+
+
+@pytest.mark.parametrize("m, k, n", [(1, 896, 9728), (16, 896, 9728), (2048, 896, 9728),
+                                     (1, 4864, 896), (16, 4864, 896), (2048, 4864, 896), (5, 64, 128)])
+def test_int4_plan_covers_k(m, k, n):
+    """The wrapper's launch plan meets the kernel's own argument checks: K
+    splits of `per` steps cover every step once, and every tile of rows."""
+    steps = k // ti4.BLOCK_K
+    for sms in (8, 132):
+        bm, splits, per = ti4.plan(m, k, n, sms)
+        assert bm in (16, 64) and splits >= 1 and per >= 1
+        assert (splits - 1) * per < steps <= splits * per
+        if (n // ti4.BLOCK_N) * -(-m // bm) >= sms:
+            assert splits == 1  # enough output tiles: no second pass
+
+
+def test_quantize_dit_state_equals_jax():
+    t = jnp.zeros((1, 8), jnp.int32)
+    p = np_params(CausalMaskedDiffWithDiT(JC.flow), 1, t, jnp.asarray([8]), jnp.zeros((1, 16, 80)),
+                  jnp.asarray([16]), jnp.zeros((1, 192)), jax.random.PRNGKey(0))
+    fcfg = replace(TC.flow, dit=replace(TC.flow.dit, quant_int8=True))
+    want = flow_from_jax(jq.quantize_dit_params(p), fcfg)
+    got = tq.quantize_dit_state(flow_from_jax(p, TC.flow))
+    _assert_state_equal(got, want)
+    assert got["estimator.blocks.0.ff_2.kernel_q"].dtype == torch.int8
+    assert got["estimator.input_proj.weight"].dtype == torch.float32  # glue layers stay float

@@ -1,10 +1,12 @@
-"""The whole offline slice, `CosyVoice3TTS.tts(stream=False)`, on both sides
-with the same weights (models/from_jax.py) and a greedy sampling config,
-float32: equal speech tokens and a wav within 1e-3. Plus the port's guards:
-it imports no JAX, its entry points refuse to fall back to the CPU, its
-models refuse the JAX package's quantisation and decode-path options, its
-kernel wrappers count no launch for CPU tensors, and from_jax rejects a
-parameter tree that does not fit."""
+"""The whole offline slice, `CosyVoice3TTS.tts(stream=False)`, and the
+batched `batch_synthesize`, unquantized and in the weight-only int8 +
+int4-MLP LLM / int8 flow mode, on both sides with the same weights
+(models/from_jax.py) and a greedy sampling config, float32: equal speech
+tokens and each wav within 1e-3. Plus the port's guards: it imports no JAX,
+its entry points refuse to fall back to the CPU, its models refuse the JAX
+package's decode-path options, quantize_llm keeps the JAX package's
+idempotence, its kernel wrappers count no launch for CPU tensors, and
+from_jax rejects a parameter tree that does not fit."""
 
 import subprocess
 import sys
@@ -20,6 +22,7 @@ from fangyan_tts_torch.infer.tts import CosyVoice3TTS as TorchTTS
 from fangyan_tts_torch.models.from_jax import flow_from_jax, hift_from_jax, llm_from_jax
 from fangyan_tts_torch.ops import decode_attention as tda
 from fangyan_tts_torch.ops import flash_attention as tfa
+from fangyan_tts_torch.ops import int4_matmul as ti4
 from fangyan_tts_tpu.infer.tts import CosyVoice3TTS as JaxTTS
 from fangyan_tts_tpu.models.flow import CausalMaskedDiffWithDiT
 from fangyan_tts_tpu.models.hift import CausalHiFT
@@ -42,13 +45,17 @@ def _params():
     return llm, flow, hift
 
 
-@pytest.fixture(scope="module")
-def pair():
+def _pair():
     llm, flow, hift = _params()
     jtts = JaxTTS(JC, to_jax(llm), to_jax(flow), to_jax(hift), dtype=jnp.float32)
     ttts = TorchTTS(TC, llm_from_jax(llm, TC.llm), flow_from_jax(flow, TC.flow), hift_from_jax(hift, TC.hift),
                     dtype=torch.float32, device="cpu")
     return jtts, ttts
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return _pair()
 
 
 def _request():
@@ -83,6 +90,56 @@ def test_tts_wav(pair, speed):
     assert np.abs(want).max() > 1e-2
 
 
+def _batch_request():
+    rng = np.random.default_rng(4)
+    return dict(
+        texts=[rng.integers(0, 300, n).astype(np.int32) for n in (4, 7, 5)],
+        prompt_text=rng.integers(0, 300, 3).astype(np.int32),
+        llm_prompt_speech_token=rng.integers(0, 50, 5).astype(np.int32),
+        flow_prompt_speech_token=rng.integers(0, 50, 5).astype(np.int32),
+        prompt_speech_feat=(rng.standard_normal((10, 80)) * 0.5).astype(np.float32),
+        flow_embedding=rng.standard_normal(192).astype(np.float32),
+        min_token_text_ratio=2, max_token_text_ratio=4,
+    )
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_batch_synthesize(quantized):
+    """Three ragged texts sharing one voice prompt; quantized: the LLM in
+    int8 with an int4 MLP and the DiT in int8, on both sides."""
+    jtts, ttts = _pair()
+    if quantized:
+        for tts in (jtts, ttts):
+            tts.quantize_llm(int4_mlp=True)
+            tts.quantize_flow()
+        assert ttts.llm.llm.layers[0].mlp.gate_up_proj.bits == 4
+        assert ttts.flow.estimator.blocks[0].ff_0.kernel_q.dtype == torch.int8
+    want = jtts.batch_synthesize(**_batch_request())
+    got = ttts.batch_synthesize(**_batch_request())
+    assert len(got) == len(want) == 3
+    n_tokens = [len(w) // (2 * 480) for w in want]
+    assert len(set(n_tokens)) > 1 and min(n_tokens) >= 8  # ragged rows, each past its min length
+    for g, w in zip(got, want):
+        assert g.dtype == np.float32 and g.shape == w.shape and len(w) % 960 == 0  # equal token counts
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-3)
+        assert np.abs(w).max() > 1e-2
+
+
+def test_quantize_llm_is_idempotent_as_in_jax():
+    """quantize_llm(int4_mlp=True) after quantize_llm() changes nothing, on
+    both sides: the int4 configuration needs a fresh instance."""
+    jtts, ttts = _pair()
+    for tts in (jtts, ttts):
+        tts.quantize_llm()
+        tts.quantize_llm(int4_mlp=True)
+        assert tts.cfg.llm.qwen.quant_int8 and not tts.cfg.llm.qwen.quant_int4_mlp
+        tts.quantize_flow()
+        tts.quantize_flow()
+        assert tts.cfg.flow.dit.quant_int8
+    assert ttts.llm.llm.layers[0].mlp.down_proj.bits == 8
+    assert ttts.flow.estimator.blocks[0].attn.to_qkv.kernel_q.dtype == torch.int8
+
+
 def test_port_imports_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -109,28 +166,25 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
 
 
 @pytest.mark.parametrize("sub, field, value", [
-    ("qwen", "quant_int8", True), ("qwen", "quant_int4_mlp", True), ("qwen", "fused_decode_attention", False),
-    ("qwen", "use_pallas_decode_attention", True), ("qwen", "remat", "full"), ("dit", "quant_int8", True),
+    ("qwen", "fused_decode_attention", False), ("qwen", "use_pallas_decode_attention", True), ("qwen", "remat", "full"),
 ])
 def test_unported_options_raise(sub, field, value):
     """A JAX-package-only option set away from its default is refused, not
     ignored."""
-    if sub == "qwen":
-        cfg = replace(TC, llm=replace(TC.llm, qwen=replace(TC.llm.qwen, **{field: value})))
-    else:
-        cfg = replace(TC, flow=replace(TC.flow, dit=replace(TC.flow.dit, **{field: value})))
+    cfg = replace(TC, llm=replace(TC.llm, qwen=replace(TC.llm.qwen, **{field: value})))
     with pytest.raises(NotImplementedError, match=field):
         TorchTTS.random_init(cfg, dtype=torch.float32, device="cpu")
 
 
 def test_wrappers_count_no_cpu_launches():
-    tda.launches, tfa.launches = 0, 0
+    tda.launches, tfa.launches, ti4.launches = 0, 0, 0
     x = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16)
     tfa.chunk_flash_attention(x, x, x, torch.tensor([5], dtype=torch.int32), 4)
     ck = torch.zeros((2, 1, 16, 2, 64), dtype=torch.bfloat16)
     q, kv = torch.zeros((1, 14, 64), dtype=torch.bfloat16), torch.zeros((1, 2, 64), dtype=torch.bfloat16)
     tda.decode_attention(q, kv, kv, ck, ck.clone(), torch.tensor([3], dtype=torch.int32), torch.zeros((1, 16)), 1)
-    assert tda.launches == 0 and tfa.launches == 0
+    ti4.int4_matmul(torch.zeros((3, 64), dtype=torch.bfloat16), torch.zeros((32, 128), dtype=torch.int8), torch.ones(128))
+    assert tda.launches == 0 and tfa.launches == 0 and ti4.launches == 0
 
 
 def test_from_jax_rejects_mismatched_trees():

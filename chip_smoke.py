@@ -275,16 +275,29 @@ def check_flash(results: dict, batches: list[dict]) -> None:
     shapes = [(320, (320, 250)), (448, (448, 301)), (1344, (1300, 1300))]
     for l in sorted({sh["l_mel"] for sh in batches}):
         shapes.append((l, tuple(int(v) for v in rag.integers(l * 5 // 8, l + 1, 16)) * 2))
-    for l, mel in shapes:
+    # the DiT's own layout too: q and k (B, L, H*D) projections and v a slice of the (B, L, 3*H*D) qkv
+    # buffer, each viewed as (B, H, L, D) without a copy (models/dit.py); L = 1344 and the larger batch
+    strided = {1344, max(sh["l_mel"] for sh in batches)}
+    for (l, mel), layout in [(sh, "contiguous") for sh in shapes] + [(sh, "strided") for sh in shapes
+                                                                     if sh[0] in strided]:
         b, h, d = len(mel), 16, 64
         _checked(results, "chunk_flash_attention", (b, l))
-        rnd = lambda scale: (torch.randn((b, h, l, d), generator=gen, device=dev) * scale).to(torch.bfloat16)
-        q, k, v = rnd(QK_SCALE), rnd(1.0), rnd(1.0)
+        rnd = lambda shape, scale: (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+        if layout == "contiguous":
+            q, k, v = rnd((b, h, l, d), QK_SCALE), rnd((b, h, l, d), 1.0), rnd((b, h, l, d), 1.0)
+        else:
+            heads = lambda t: t.reshape(b, l, h, d).transpose(1, 2)
+            qkv = rnd((b, l, 3 * h * d), 1.0)
+            q, k = heads(rnd((b, l, h * d), QK_SCALE)), heads(rnd((b, l, h * d), 1.0))
+            v = heads(qkv[..., 2 * h * d:])
         mel_len = torch.tensor(mel, dtype=torch.int32, device=dev)
         for chunk in (0, 50):
             out_k = fa.chunk_flash_attention(q, k, v, mel_len, chunk)
             out_p = fa.chunk_flash_attention_plain(q, k, v, mel_len, chunk)
             out_f = fa.chunk_flash_attention_plain(q.float(), k.float(), v.float(), mel_len, chunk)
+            same = True
+            if layout == "strided":  # the layout must not change a bit of the result
+                same = torch.equal(out_k, fa.chunk_flash_attention(*(t.contiguous() for t in (q, k, v)), mel_len, chunk))
             torch.cuda.synchronize()
             valid = lambda t: torch.cat([t[bi, :, :mel[bi]].float().flatten() for bi in range(b)])  # rows < mel_len
             vk, vp, vf = valid(out_k), valid(out_p), valid(out_f)
@@ -292,10 +305,11 @@ def check_flash(results: dict, batches: list[dict]) -> None:
             msg = held("chunk_flash_attention", err, (vp - vf).abs().max().item(), FLASH_ATOL, vf.abs().mean().item())
             finite = bool(torch.isfinite(out_k.float()).all())
             errs.append(err)
-            log(f"chunk_flash_attention ({b},{h},{l},{d}) chunk={chunk} mel_len={mel[:4]}: {msg} "
-                f"all rows finite={finite}")
-            if not finite:
-                raise AssertionError("chunk_flash_attention kernel gave a row that is not finite")
+            log(f"chunk_flash_attention ({b},{h},{l},{d}) {layout} chunk={chunk} mel_len={mel[:4]}: {msg} "
+                f"all rows finite={finite}" + (f" equal to the contiguous call={same}" if layout == "strided" else ""))
+            if not (finite and same):
+                raise AssertionError("chunk_flash_attention kernel gave a row that is not finite, or a strided "
+                                     "call that differs from the contiguous one")
             run_k = lambda: fa.chunk_flash_attention(q, k, v, mel_len, chunk)
             ms_k, ms_e = time_ms(run_k), eager_ms(run_k)
             ms_p = time_ms(lambda: fa.chunk_flash_attention_plain(q, k, v, mel_len, chunk))
@@ -306,9 +320,9 @@ def check_flash(results: dict, batches: list[dict]) -> None:
             nbytes = 2 * b * h * l * d * 2 + sum(min(m, l) for m in mel) * h * d * 2 * 2 + b * 4
             bms, by = bound(nbytes, 4 * d * pairs)
             results.setdefault("flash_timing", []).append(
-                dict(b=b, l=l, chunk=chunk, ms=ms_k, eager_ms=ms_e, plain_ms=ms_p, library_ms=ms_l, bound_ms=bms, bound_by=by,
-                     dense_bound_ms=4 * b * h * l * l * d / BF16_FLOP_PER_S * 1e3))
-            log(f"chunk_flash_attention B={b} L={l} chunk={chunk}: kernel {ms_k * 1e3:.2f} us (eager call "
+                dict(b=b, l=l, chunk=chunk, layout=layout, ms=ms_k, eager_ms=ms_e, plain_ms=ms_p, library_ms=ms_l,
+                     bound_ms=bms, bound_by=by, dense_bound_ms=4 * b * h * l * l * d / BF16_FLOP_PER_S * 1e3))
+            log(f"chunk_flash_attention B={b} L={l} {layout} chunk={chunk}: kernel {ms_k * 1e3:.2f} us (eager call "
                 f"{ms_e * 1e3:.1f} us), plain {ms_p * 1e3:.1f} us, "
                 f"sdpa {ms_l * 1e3:.1f} us, bound {bms * 1e3:.2f} us ({by})")
     results["flash_err"] = max(errs)
@@ -316,7 +330,12 @@ def check_flash(results: dict, batches: list[dict]) -> None:
 
 def check_int4(results: dict, batch_b: dict) -> None:
     """int4_matmul at the LLM's MLP shapes: M = 1 and 512, and the two that
-    request (b) runs, its decode (M = B = 16) and its prefill (M = B x tp).
+    request (b) runs, its decode (M = B = 16) and its prefill (M = B x tp);
+    and one M on each side of the launch plan's route boundary (16 | 17,
+    between the 16-token decode blocks and the 128-token blocks) and
+    M = 100, which is no multiple of a tile. The block's channels (64, 128 or
+    256) and the cluster split follow from M and N; gate_up_proj and
+    down_proj at these M take each of them.
     The weights are N(0, 1/K) quantized by the port, x is N(0, 1), so
     outputs are of order one. Times cycle over 24 weight copies (the 24
     layers), so the packed weight is read from device memory and not from
@@ -336,7 +355,8 @@ def check_int4(results: dict, batch_b: dict) -> None:
         w, s = copies[0]
         # the library call's weight: dequantized, scale folded in, torch's (N, K)
         lib_w = [(unpack_int4(wc).float() * sc).t().contiguous().to(torch.bfloat16) for wc, sc in copies]
-        for m in sorted({1, 512, batch_b["b"], batch_b["prefill_m"]}):
+        edges = {i4.DECODE_TILE_M, i4.DECODE_TILE_M + 1, 100}
+        for m in sorted({1, 512, batch_b["b"], batch_b["prefill_m"]} | edges):
             _checked(results, "int4_matmul", (m, k, n))
             x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
             out_k = i4.int4_matmul(x, w, s).float()
@@ -347,8 +367,9 @@ def check_int4(results: dict, batch_b: dict) -> None:
             msg = held("int4_matmul", err, (out_p - out_f).abs().max().item(), INT4_ATOL, out_f.abs().mean().item())
             finite = bool(torch.isfinite(out_k).all())
             errs.append(err)
-            bm, splits, per = i4.plan(m, k, n, torch.cuda.get_device_properties(0).multi_processor_count)
-            log(f"int4_matmul {name} M={m} K={k} N={n} (tile rows {bm}, K splits {splits}): {msg} finite={finite}")
+            tile_m, tile_n, cs, per = i4.plan(m, k, n, torch.cuda.get_device_properties(0).multi_processor_count)
+            log(f"int4_matmul {name} M={m} K={k} N={n} (block {tile_m} tokens x {tile_n} channels, cluster {cs} x "
+                f"{per} K steps): {msg} finite={finite}")
             if not finite:
                 raise AssertionError("int4_matmul kernel gave a value that is not finite")
             run_k = cycling(lambda i: i4.int4_matmul(x, *copies[i]), len(copies))
@@ -358,8 +379,8 @@ def check_int4(results: dict, batch_b: dict) -> None:
             nbytes = m * k * 2 + k * n // 2 + n * 4 + m * n * 2
             bms, by = bound(nbytes, 2 * m * k * n)
             results.setdefault("int4_timing", []).append(
-                dict(proj=name, m=m, k=k, n=n, splits=splits, ms=ms_k, eager_ms=ms_e, plain_ms=ms_p, library_ms=ms_l,
-                     bound_ms=bms, bound_by=by))
+                dict(proj=name, m=m, k=k, n=n, tile_m=tile_m, tile_n=tile_n, cluster=cs, ms=ms_k, eager_ms=ms_e,
+                     plain_ms=ms_p, library_ms=ms_l, bound_ms=bms, bound_by=by))
             log(f"int4_matmul {name} M={m}: kernel {ms_k * 1e3:.2f} us (eager call {ms_e * 1e3:.1f} us), "
                 f"plain {ms_p * 1e3:.1f} us, F.linear on the dequantized weight {ms_l * 1e3:.2f} us, "
                 f"bound {bms * 1e3:.3f} us ({by})")
@@ -731,7 +752,7 @@ def main() -> int:
         log(f"kernel build: {time.perf_counter() - t:.2f} s for {', '.join(_build.SOURCES)}")
         for name, text in _build.build_logs.items():
             for line in text.splitlines():
-                if "registers" in line or "spill" in line or "error" in line.lower():
+                if any(w in line.lower() for w in ("registers", "spill", "error", "warning")):
                     log(f"  nvcc {name}: {line.strip()}")
     if 3 in phases:
         batches = [batch_shapes(r) for r in batch_requests_spec()]
@@ -755,7 +776,8 @@ def main() -> int:
         # the zero-shot request's shapes: its 600-token decode holds most of the
         # main path's decode launches, and its flow the longest attention
         dt = next(r for r in results["decode_timing"] if r["s"] == 768)
-        ft = next(r for r in results["flash_timing"] if r["l"] == 1344 and r["chunk"] == 0)
+        ft = next(r for r in results["flash_timing"]
+                  if r["l"] == 1344 and r["chunk"] == 0 and r["layout"] == "strided")  # the DiT's own views
         # gate_up_proj at decode M = 16: every decode step of request (b) makes
         # one such launch a layer (and one of down_proj), the prefill only two
         it = next(r for r in results["int4_timing"] if r["proj"] == "gate_up_proj" and r["m"] == 16)

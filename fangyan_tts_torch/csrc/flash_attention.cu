@@ -10,32 +10,61 @@
 // Bound on the H100: 4*B*H*L^2*64 FLOPs (fewer where the masks cut pairs)
 // against 4*B*H*L*64*2 bytes, so L/2 FLOPs a byte against the card's ridge
 // of about 295: bytes for L below about 590 (a 6 s request has L = 320),
-// operations above it. Design: FlashAttention-2's structure on the tensor
-// cores through mma.sync m16n8k16 (bf16 in, float32 accumulate):
-// one block of 4 warps per (b*h, 64-query tile), each warp owning 16 query
-// rows; K and V tiles of 64 keys go through shared memory (V stored
-// transposed so the P.V operand loads are 32-bit); the running max, sum and
-// the output accumulator stay in float32 registers, and P goes from the
-// score accumulators to the P.V operand without leaving registers. Key tiles
-// that lie wholly past mel_len[b], or wholly after the last query's chunk,
-// are skipped. A row with no valid key comes out as zeros (finite). wgmma
-// and TMA are the next steps.
+// operations above it. Design, FlashAttention-3's shape at head dim 64:
+//   - a work item is (b*h, 128 query rows): two consumer warpgroups of 64
+//     rows and a producer warpgroup that gives its registers to them
+//     (setmaxnreg). Q comes once by TMA; K and V tiles of 128 keys come by
+//     TMA into a three-stage ring guarded by mbarriers, so the next tiles are
+//     in flight while the tensor cores work on this one;
+//   - the grid is persistent, one block an SM walking over the items in a
+//     snake order that balances the chunk mask's uneven items, with two Q
+//     buffers (the next item's loads overlap this item's last products) and
+//     two O buffers (no one waits for an output store until its buffer comes
+//     round again);
+//   - S = Q.K^T on wgmma m64n128k16 with both operands in shared memory
+//     (128-byte swizzle); P stays in registers (the score accumulators are
+//     the A-operand layout) for P.V on wgmma m64n64k16, which reads V from
+//     shared memory as an MN-major operand: no thread transposes V;
+//   - each row's key limit lim(i) = min(mel_len[b], chunk > 0 ?
+//     (i / chunk + 1) * chunk : L) is worked out once. A key tile below every
+//     row's limit takes no mask, a tile that straddles a limit one compare
+//     per score, a tile past every row's limit is not loaded;
+//   - the softmax runs in base 2 with log2(e)/8 folded into one FMA a score;
+//     the running max, sum and output stay in float32 registers;
+//   - q, k and v are TMA tensor maps over strided (B, H, L, 64) views (the
+//     DiT's qkv projection is read in place), and the output is written by a
+//     TMA store into (B, L, H, 64) memory, which the caller views as
+//     (B, H, L, 64). A row with no valid key comes out as zeros.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kD = 64;      // head dim
-constexpr int kBq = 64;     // query rows per block
-constexpr int kBk = 64;     // keys per tile
-constexpr int kPad = 72;    // shared row stride (bf16): conflict-free fragment loads
-constexpr int kThreads = 128;
-constexpr float kNeg = -1e30f;
+using namespace hopper;
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+constexpr int kD = 64;                       // head dim: one 128-byte swizzle row
+constexpr int kBm = 64;                      // query rows per consumer warpgroup
+constexpr int kBq = 2 * kBm;                 // query rows per block
+constexpr int kBn = 128;                     // keys per tile
+constexpr int kStages = 3;
+constexpr int kThreads = 3 * 128;            // two consumer warpgroups, one producer warpgroup
+constexpr int kQBytes = kBm * kD * 2;        // one warpgroup's Q (or O) tile
+constexpr int kKvBytes = kBn * kD * 2;       // one K or V tile
+constexpr int kOOff = 2 * 2 * kQBytes;       // two Q buffers of a block's 128 rows, then two O buffers
+constexpr int kKOff = kOOff + 2 * 2 * kQBytes;
+constexpr int kVOff = kKOff + kStages * kKvBytes;
+constexpr int kBarOff = kVOff + kStages * kKvBytes;
+constexpr int kSmem = kBarOff + (4 + 2 * kStages) * 8 + 1024;  // tiles, barriers, alignment slack
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -43,177 +72,298 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// keys j < key_limit(i) are valid for query row i (0 <= i < L)
+__device__ __forceinline__ int key_limit(int i, int len, int chunk, int L) {
+  return min(len, chunk > 0 ? (i / chunk + 1) * chunk : L);
 }
 
-__global__ void __launch_bounds__(kThreads) chunk_flash_attention_kernel(
-    const __nv_bfloat16* __restrict__ q,   // (B*H, L, D)
-    const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v,
-    const int32_t* __restrict__ mel_len,   // (B,)
-    __nv_bfloat16* __restrict__ out,       // (B*H, L, D)
-    int H, int L, int chunk, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 qs[kBq][kPad];
-  __shared__ __align__(16) __nv_bfloat16 ks[kBk][kPad];
-  __shared__ __align__(16) __nv_bfloat16 vt[kD][kPad];  // V transposed: [dim][key]
+// A persistent grid of G blocks over the B*H*ceil(L/128) (bh, 128-row query
+// tile) items, bh-major so that the blocks of a round share K and V in L2.
+// In round n block j takes item n*G + j, or n*G + G-1-j when n is odd: the
+// query tiles of a head differ in work under the chunk mask, and the snake
+// order pairs a block's heavy items with light ones. Q is double-buffered,
+// so the producer loads the next item's Q and first K/V tiles while the
+// consumers finish this one; the K/V ring runs on across items. The output
+// goes out through two O buffers by TMA stores that nobody waits for until
+// the buffer comes round again.
+__global__ void __launch_bounds__(kThreads, 1) chunk_flash_attention_kernel(
+    const __grid_constant__ CUtensorMap tm_q,  // (D, L, H, B) boxes of (64, kBm)
+    const __grid_constant__ CUtensorMap tm_k,  // boxes of (64, kBn)
+    const __grid_constant__ CUtensorMap tm_v,
+    const __grid_constant__ CUtensorMap tm_o,  // (B, L, H, D) memory, boxes of (64, kBm)
+    const int32_t* __restrict__ mel_len, int H, int L, int chunk, float scale_log2, int items) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + kBarOff);  // [2]: Q buffer loaded
+  uint64_t* q_empty = q_full + 2;                                    // [2]: its products done, free again
+  uint64_t* full = q_empty + 2;
+  uint64_t* empty = full + kStages;
 
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int q0 = blockIdx.x * kBq;
-  const size_t base = (size_t)bh * L * kD;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;   // fragment row group
-  const int tg = lane & 3;   // thread in group
+  const int nq = (L + kBq - 1) / kBq;
+  const int wg = threadIdx.x / 128;
+  // item -> (b, h, first query row, key tiles its last row needs: the limits grow with the row)
+  auto item = [&](int it, int& b, int& h, int& q0, int& len, int& ntiles) {
+    const int bh = it / nq;
+    b = bh / H;
+    h = bh % H;
+    q0 = it % nq * kBq;
+    len = max(0, min(mel_len[b], L));
+    ntiles = (key_limit(min(q0 + kBq, L) - 1, len, chunk, L) + kBn - 1) / kBn;
+  };
 
-  for (int i = tid; i < kBq * kD / 8; i += kThreads) {
-    const int r = i / (kD / 8), c = (i % (kD / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < L) val = *reinterpret_cast<const uint4*>(q + base + (size_t)(q0 + r) * kD + c);
-    *reinterpret_cast<uint4*>(&qs[r][c]) = val;
-  }
+  auto round_item = [&](int n) {  // this block's item of round n
+    return n * (int)gridDim.x + ((n & 1) ? (int)gridDim.x - 1 - (int)blockIdx.x : (int)blockIdx.x);
+  };
 
-  int len = mel_len[b];
-  len = len < 0 ? 0 : (len > L ? L : len);
-  int kend = len;
-  if (chunk > 0) {
-    const int qlast = min(q0 + kBq, L) - 1;
-    kend = min(kend, (qlast / chunk + 1) * chunk);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&q_full[i], 1);
+      mbar_init(&q_empty[i], 2);  // one arrival a consumer warpgroup
+    }
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // every consumer warp releases the stage
+    }
+    fence_barrier_init();
   }
   __syncthreads();
 
-  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
-  uint32_t qa[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    qa[kk][0] = ld32(&qs[r0][kk * 16 + tg * 2]);
-    qa[kk][1] = ld32(&qs[r0 + 8][kk * 16 + tg * 2]);
-    qa[kk][2] = ld32(&qs[r0][kk * 16 + 8 + tg * 2]);
-    qa[kk][3] = ld32(&qs[r0 + 8][kk * 16 + 8 + tg * 2]);
-  }
-  const int qrow[2] = {q0 + r0, q0 + r0 + 8};
-  const int qchunk[2] = {chunk > 0 ? qrow[0] / chunk : 0, chunk > 0 ? qrow[1] / chunk : 0};
-
-  float o[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m[2] = {kNeg, kNeg};
-  float l[2] = {0.f, 0.f};
-
-  for (int k0 = 0; k0 < kend; k0 += kBk) {
-    __syncthreads();  // the previous tile's ks / vt reads are done
-    for (int i = tid; i < kBk * kD / 8; i += kThreads) {
-      const int r = i / (kD / 8), c = (i % (kD / 8)) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + r < L) {
-        kv = *reinterpret_cast<const uint4*>(k + base + (size_t)(k0 + r) * kD + c);
-        vv = *reinterpret_cast<const uint4*>(v + base + (size_t)(k0 + r) * kD + c);
-      }
-      *reinterpret_cast<uint4*>(&ks[r][c]) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) vt[c + e][r] = ve[e];
-    }
-    __syncthreads();
-
-    // S = Q K^T for 16 rows x 64 keys (8 blocks of 8 keys)
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        mma_bf16(s[j], qa[kk], ld32(&ks[j * 8 + g][kk * 16 + tg * 2]),
-                 ld32(&ks[j * 8 + g][kk * 16 + 8 + tg * 2]));
-    }
-
-    // mask, scale, running max
-    float mx[2] = {kNeg, kNeg};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ri = e >> 1;
-        const int key = k0 + j * 8 + tg * 2 + (e & 1);
-        const bool ok = key < len && (chunk <= 0 || key / chunk <= qchunk[ri]);
-        s[j][e] = ok ? s[j][e] * scale : kNeg;
-        mx[ri] = fmaxf(mx[ri], s[j][e]);
+  if (wg == 2) {
+    // ---- producer warpgroup: 40 + 2 x 232 registers a thread is the
+    // 3 x 168 that __launch_bounds__ gives the block
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 2 * 128) {
+      prefetch_map(&tm_q);
+      prefetch_map(&tm_k);
+      prefetch_map(&tm_v);
+      prefetch_map(&tm_o);
+      int gt = 0;  // key tiles loaded so far, over all items
+      for (int n = 0, it = blockIdx.x; it < items; it = round_item(++n)) {
+        int b, h, q0, len, ntiles;
+        item(it, b, h, q0, len, ntiles);
+        const int qb = n & 1;
+        if (n >= 2) mbar_wait(&q_empty[qb], ((n >> 1) - 1) & 1);
+        mbar_arrive_expect_tx(&q_full[qb], 2 * kQBytes);
+        tma_load_4d(smem + qb * 2 * kQBytes, &tm_q, &q_full[qb], 0, q0, h, b);
+        tma_load_4d(smem + qb * 2 * kQBytes + kQBytes, &tm_q, &q_full[qb], 0, q0 + kBm, h, b);
+        for (int t = 0; t < ntiles; ++t, ++gt) {
+          const int s = gt % kStages;
+          if (gt >= kStages) mbar_wait(&empty[s], (gt / kStages - 1) & 1);
+          mbar_arrive_expect_tx(&full[s], 2 * kKvBytes);
+          tma_load_4d(smem + kKOff + s * kKvBytes, &tm_k, &full[s], 0, t * kBn, h, b);
+          tma_load_4d(smem + kVOff + s * kKvBytes, &tm_v, &full[s], 0, t * kBn, h, b);
+        }
       }
     }
-    float corr[2], rs[2] = {0.f, 0.f};
+  } else {
+    // ---- consumer warpgroup wg: query rows q0 + 64 wg .. + 63 of each item
+    setmaxnreg_inc<232>();
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32, g = lane / 4, tg = lane % 4;
+    int gt = 0;
+    for (int n = 0, it = blockIdx.x; it < items; it = round_item(++n)) {
+      int b, h, q0, len, ntiles;
+      item(it, b, h, q0, len, ntiles);
+      const int qb = n & 1;
+      const int r0 = q0 + wg * kBm;
+      const int row = r0 + 16 * warp + g;  // this thread's rows: row and row + 8
+      const int lim0 = key_limit(min(row, L - 1), len, chunk, L);
+      const int lim1 = key_limit(min(row + 8, L - 1), len, chunk, L);
+      const int wg_lo = key_limit(min(r0, L - 1), len, chunk, L);
+      const int wg_tiles = (key_limit(min(r0 + kBm, L) - 1, len, chunk, L) + kBn - 1) / kBn;
+      uint8_t* qs = smem + qb * 2 * kQBytes + wg * kQBytes;
+      const uint32_t q_addr = smem_u32(qs);
+
+      float o[32];
 #pragma unroll
-    for (int ri = 0; ri < 2; ++ri) {
-      mx[ri] = fmaxf(mx[ri], __shfl_xor_sync(0xffffffffu, mx[ri], 1));
-      mx[ri] = fmaxf(mx[ri], __shfl_xor_sync(0xffffffffu, mx[ri], 2));
-      const float m_new = fmaxf(m[ri], mx[ri]);
-      corr[ri] = expf(m[ri] - m_new);
-      m[ri] = m_new;
-    }
+      for (int i = 0; i < 32; ++i) o[i] = 0.f;
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+      // Per key tile: S = Q.K^T on wgmma, the softmax in registers, then
+      // O += P.V on wgmma; the other warpgroup's products fill the tensor
+      // cores meanwhile, and the producer keeps the next tiles in flight.
+      const int gt0 = gt;
+      gt += ntiles;
+      auto stage = [&](int t) { return (gt0 + t) % kStages; };
+      auto wait_tile = [&](int t) { mbar_wait(&full[stage(t)], ((gt0 + t) / kStages) & 1); };
+      auto release = [&](int t) {
+        if (lane == 0) mbar_arrive(&empty[stage(t)]);
+      };
+      float sc[64];
+      auto qk = [&](int t) {  // start S = Q.K(t)^T
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+        for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+        const uint32_t k_addr = smem_u32(smem + kKOff + stage(t) * kKvBytes);
+        wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ri = e >> 1;
-        const float p = s[j][e] <= kNeg ? 0.f : expf(s[j][e] - m[ri]);
-        s[j][e] = p;
-        rs[ri] += p;
+        for (int kk = 0; kk < kD / 16; ++kk)
+          wgmma_ss_n128(sc, desc_sw128(q_addr + kk * 32, 16, 1024), desc_sw128(k_addr + kk * 32, 16, 1024));
+        wgmma_commit();
+      };
+      auto pv = [&](int t, uint32_t(&pa)[kBn / 16][4]) {  // start O += P.V(t)
+        // the score accumulators of key groups 2kk, 2kk+1 are the A operand of
+        // the 16-key step kk; V rows kk*16 .. start 2048 bytes apart
+        const uint32_t v_addr = smem_u32(smem + kVOff + stage(t) * kKvBytes);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBn / 16; ++kk)
+          wgmma_rs_n64<1>(o, pa[kk], desc_sw128(v_addr + kk * 16 * 128, 1024, 1024));
+        wgmma_commit();
+      };
+      auto fence_s = [&] {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) fence_operand(sc[i]);
+      };
+      auto fence_pv = [&](uint32_t(&pa)[kBn / 16][4]) {
+#pragma unroll
+        for (int kk = 0; kk < kBn / 16; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) fence_operand(pa[kk][r]);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) fence_operand(o[i]);
+      };
+      // mask, online softmax and P of the landed S(t); returns the factor O must take
+      auto softmax = [&](int t, uint32_t(&pa)[kBn / 16][4], float (&corr)[2]) {
+        // sc[4j + e]: row (e < 2 ? row : row + 8), key t * kBn + 8j + 2tg + e % 2
+        const int k0 = t * kBn;
+        if (k0 + kBn > wg_lo) {  // some row's limit falls inside this tile
+#pragma unroll
+          for (int j = 0; j < kBn / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (k0 + 8 * j + 2 * tg + (e & 1) >= (e < 2 ? lim0 : lim1)) sc[4 * j + e] = -INFINITY;
+        }
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int j = 0; j < kBn / 8; ++j) {
+          mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j], sc[4 * j + 1]));
+          mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+        }
+        float base[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          const float m_new = fmaxf(m[r], mx[r]);
+          base[r] = m_new == -INFINITY ? 0.f : m_new * scale_log2;  // a row with no valid key yet stays at 0
+          corr[r] = ex2(m[r] * scale_log2 - base[r]);
+          m[r] = m_new;
+        }
+#pragma unroll
+        for (int j = 0; j < kBn / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = ex2(fmaf(sc[4 * j + e], scale_log2, -base[e >> 1]));
+            sc[4 * j + e] = p;
+            rs[e >> 1] += p;
+          }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+          rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+          l[r] = l[r] * corr[r] + rs[r];
+        }
+#pragma unroll
+        for (int kk = 0; kk < kBn / 16; ++kk) {
+          pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+          pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+          pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+          pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+        }
+      };
+      uint32_t pa[kBn / 16][4];
+      mbar_wait(&q_full[qb], (n >> 1) & 1);
+      for (int t = 0; t < wg_tiles; ++t) {
+        wait_tile(t);
+        qk(t);
+        wgmma_wait<0>();
+        fence_s();
+        float corr[2];
+        softmax(t, pa, corr);
+#pragma unroll
+        for (int j = 0; j < kD / 8; ++j) {
+          o[4 * j] *= corr[0];
+          o[4 * j + 1] *= corr[0];
+          o[4 * j + 2] *= corr[1];
+          o[4 * j + 3] *= corr[1];
+        }
+        pv(t, pa);
+        wgmma_wait<0>();
+        fence_pv(pa);
+        release(t);
+      }
+      for (int t = wg_tiles; t < ntiles; ++t) {  // tiles past this warpgroup's rows' limits
+        wait_tile(t);
+        release(t);
+      }
+
+      // O / l in bf16 into this warpgroup's O buffer (the Q tile's swizzle),
+      // then one TMA store; rows past L are not written. The buffer's last
+      // store (two items ago) must have read it first.
+      uint8_t* os = smem + kOOff + qb * 2 * kQBytes + wg * kQBytes;
+      if (threadIdx.x % 128 == 0) tma_store_wait_read<1>();
+      named_barrier(1 + wg, 128);  // this warpgroup is done with Q and may write O
+      if (threadIdx.x % 128 == 0) mbar_arrive(&q_empty[qb]);
+      const float inv[2] = {l[0] > 0.f ? 1.f / l[0] : 0.f, l[1] > 0.f ? 1.f / l[1] : 0.f};
+#pragma unroll
+      for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int rr = 16 * warp + g + 8 * r;  // rr % 8 == g
+          *reinterpret_cast<uint32_t*>(os + rr * 128 + ((j ^ g) << 4) + 4 * tg) =
+              pack_bf16(o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
+        }
+      fence_proxy_async();
+      named_barrier(1 + wg, 128);
+      if (threadIdx.x % 128 == 0) {
+        tma_store_4d(&tm_o, os, 0, r0, h, b);
+        tma_store_commit();
       }
     }
-#pragma unroll
-    for (int ri = 0; ri < 2; ++ri) {
-      rs[ri] += __shfl_xor_sync(0xffffffffu, rs[ri], 1);
-      rs[ri] += __shfl_xor_sync(0xffffffffu, rs[ri], 2);
-      l[ri] = l[ri] * corr[ri] + rs[ri];
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      o[j][0] *= corr[0];
-      o[j][1] *= corr[0];
-      o[j][2] *= corr[1];
-      o[j][3] *= corr[1];
-    }
-
-    // O += P V: the score accumulators of key blocks 2kk, 2kk+1 are the
-    // A operand of the 16-key step kk
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        mma_bf16(o[j], pa, ld32(&vt[j * 8 + g][kk * 16 + tg * 2]), ld32(&vt[j * 8 + g][kk * 16 + 8 + tg * 2]));
-    }
+    if (threadIdx.x % 128 == 0) tma_store_wait_read<0>();  // before the block's shared memory goes
   }
+}
 
-#pragma unroll
-  for (int ri = 0; ri < 2; ++ri) {
-    if (qrow[ri] >= L) continue;
-    const float inv = l[ri] > 0.f ? 1.f / l[ri] : 0.f;
-    __nv_bfloat16* orow = out + base + (size_t)qrow[ri] * kD;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const __nv_bfloat162 val = __floats2bfloat162_rn(o[j][2 * ri] * inv, o[j][2 * ri + 1] * inv);
-      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + tg * 2) = val;
-    }
-  }
+// (B, H, L, 64) view with element strides sb, sh, sl (last dim contiguous)
+bool view_map(CUtensorMap* map, const void* base, int B, int H, int L, long long sb, long long sh, long long sl,
+              int rows) {
+  const uint64_t dims[4] = {(uint64_t)kD, (uint64_t)L, (uint64_t)H, (uint64_t)B};
+  const uint64_t strides[3] = {(uint64_t)sl * 2, (uint64_t)sh * 2, (uint64_t)sb * 2};
+  const uint32_t box[4] = {(uint32_t)kD, (uint32_t)rows, 1, 1};
+  return hopper_host::make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box);
 }
 
 }  // namespace
 
-extern "C" int fangyan_chunk_flash_attention(
-    const void* q, const void* k, const void* v, const void* mel_len, void* out,
-    int B, int H, int L, int D, int chunk, void* stream) {
-  if (D != kD || B < 1 || H < 1 || L < 1 || (long long)B * H > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((L + kBq - 1) / kBq, B * H);
-  chunk_flash_attention_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (const int32_t*)mel_len, (__nv_bfloat16*)out, H, L, chunk, 0.125f);
+// q, k, v: (B, H, L, 64) bf16 views, element strides (s*b, s*h, s*l), each a
+// multiple of 8; out: (B, L, H, 64) bf16, contiguous.
+extern "C" int fangyan_chunk_flash_attention(const void* q, const void* k, const void* v, const void* mel_len,
+                                             void* out, int B, int H, int L, int D, int chunk, long long qsb,
+                                             long long qsh, long long qsl, long long ksb, long long ksh,
+                                             long long ksl, long long vsb, long long vsh, long long vsl,
+                                             void* stream) {
+  const long long strides[9] = {qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl};
+  if (D != kD || B < 1 || H < 1 || L < 1 || chunk < 0) return (int)cudaErrorInvalidValue;
+  for (long long s : strides)
+    if (s < 0 || s % 8) return (int)cudaErrorInvalidValue;
+  CUtensorMap tm_q, tm_k, tm_v, tm_o;
+  if (!view_map(&tm_q, q, B, H, L, qsb, qsh, qsl, kBm) || !view_map(&tm_k, k, B, H, L, ksb, ksh, ksl, kBn) ||
+      !view_map(&tm_v, v, B, H, L, vsb, vsh, vsl, kBn) ||
+      !view_map(&tm_o, out, B, H, L, (long long)L * H * kD, kD, (long long)H * kD, kBm))
+    return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(chunk_flash_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const long long items = (long long)B * H * ((L + kBq - 1) / kBq);
+  if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const int grid = (int)(items < sms ? items : sms);  // one block an SM
+  chunk_flash_attention_kernel<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(
+      tm_q, tm_k, tm_v, tm_o, (const int32_t*)mel_len, H, L, chunk, 0.125f * 1.4426950408889634f, (int)items);
   return (int)cudaGetLastError();
 }

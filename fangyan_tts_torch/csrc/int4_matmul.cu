@@ -8,223 +8,412 @@
 //
 // Bound on the H100: at decode (M = 1-16) bytes, since the packed weight
 // (K*N/2 bytes) is read once and used by only M rows; at prefill (M in the
-// hundreds) operations, 2*M*K*N. Design:
-//   - a block owns 128 output columns and 16 (M <= 16) or 64 rows; its four
-//     warps own 32 columns each. K goes in steps of 64 through a ring of
-//     shared-memory stages filled by cp.async (16 bytes a thread, coalesced
-//     along N for w and along K for x), so the next steps' bytes are in
-//     flight while the tensor cores work on this one;
-//   - the product runs on mma.sync m16n8k16 (bf16 in, float32 accumulate).
-//     A thread's B fragment holds, for one column, the two consecutive K
-//     values 2i and 2i+1: exactly the two nibbles of packed byte i. So each
-//     fragment register is one byte read from shared memory and sign-extended
-//     into two bf16 (values in [-7, 7] are exact): the weight is dequantized
-//     in registers and never written out, and no even/odd split of x is
-//     needed (the Pallas kernel's split was a TPU relayout workaround);
-//   - the packed rows sit 144 bytes apart in shared memory, so the 8 bytes a
-//     warp reads from each of 4 rows fall in distinct banks;
-//   - where the output tiles number fewer than the SMs (down_proj: 896
-//     columns, 7 tiles), the caller splits K over blocks (grid z). Each split
-//     writes float32 partials, and a second pass sums them in split order,
-//     scales and casts: the result is the same from run to run (no atomics).
-// wgmma, TMA and a persistent schedule are the next steps.
+// hundreds) operations, 2*M*K*N. Design (Hopper, sm_90a):
+//   - operands swapped: the kernel computes out^T = W^T . x^T on wgmma, so
+//     the dequantized weight is the A operand, which wgmma takes from
+//     registers, and x is the B operand, read by wgmma from shared memory
+//     in its own (M, K) row-major layout (K-major). The token count is
+//     wgmma's N dimension (16 or 128 tokens a block), so decode wastes no
+//     64-row tile;
+//   - a block owns 64 output channels at decode (one consumer warpgroup and
+//     a producer warp, two blocks an SM), else 128, or 256 at 128 tokens
+//     where those blocks fill the card (each x row then serves more
+//     channels); with two consumer warpgroups each owns half of them, one or
+//     two m64 tiles, over all the block's tokens, so no weight is
+//     dequantized twice. A thread's accumulator rows are 2 or 4 adjacent
+//     channels: one 16- or 32-bit shared load gives all their packed bytes
+//     for a K pair, and one A-operand register is exactly one packed byte
+//     (two consecutive K of one channel). The scale multiplies accumulator
+//     rows;
+//   - dequantization with bit operations, three a register: a byte permute
+//     puts the byte's two nibbles at bits 0 and 16, one lop3 flips their
+//     sign bits (n + 8) and sets the exponent of 128 (the bf16 pair 128 + u,
+//     exact), and one bf16x2 FMA subtracts 136: exact for [-8, 7], no
+//     int-to-float conversion;
+//   - a ring of shared-memory stages filled by TMA (x with the 128-byte
+//     swizzle that wgmma reads, the packed weight likewise) and guarded by
+//     mbarriers; one producer thread starts the loads (a producer
+//     warpgroup hands its registers to the consumers with setmaxnreg), and
+//     the consumers keep two steps' products in flight and dequantize step
+//     t+1 while wgmma runs step t. A decode step carries 256 K, so that a
+//     block's few steps have many bytes in flight at once;
+//   - one launch at every M. Without a split the grid is persistent (as
+//     many blocks as the SMs hold, walking over the output tiles, each
+//     block's ring running on from tile to tile). Where the output tiles
+//     alone do not fill the card (at decode down_proj has 14 column tiles of
+//     64), K is split over the blocks of a thread-block cluster of up to 8;
+//     each block pushes its float32 partial, a slice to each block, into
+//     their shared memory (distributed shared memory), and after one cluster
+//     barrier each block sums its slice in rank order (no atomics, no
+//     device-memory workspace, the same result from run to run).
+//   - the packed weight (K/2, N) has only 64-128 contiguous bytes per block
+//     and packed row, so each decode block requests many small TMA rows; at
+//     decode the kernel takes about 5x its DRAM bound (see PERF.md).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kBn = 128;            // output columns per block
-constexpr int kBk = 64;             // K rows per pipeline step
-constexpr int kPk = kBk / 2;        // packed rows per step
-constexpr int kWStride = kBn + 16;  // bytes per packed shared row
-constexpr int kXStride = kBk + 8;   // bf16 per activation shared row (144 bytes)
-constexpr int kThreads = 128;
+using namespace hopper;
+namespace cg = cooperative_groups;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+constexpr int kBk = 64;                   // K of one box: one 128-byte swizzle row of x
+constexpr int kMaxCluster = 8;
+
+// BN tokens x NC CH channels a block; each of its NC consumer warpgroups
+// owns CH channels (CH / 64 m64 tiles) over all BN tokens. Two consumer
+// warpgroups come with a producer warpgroup that gives them its registers,
+// one (at decode, two blocks an SM) with a producer warp.
+template <int BN, int CH, int NC>
+struct Tile {
+  static constexpr int kN = NC * CH;                             // output channels of a block
+  static constexpr int kT = CH / 64;                             // m64 tiles of a warpgroup
+  static constexpr int kThreads = NC * 128 + (NC == 2 ? 128 : 32);
+  static constexpr int kMinBlocks = NC == 2 ? 1 : 2;             // blocks an SM holds
+  // output channels (bytes a row) of one weight box: 128 with the 128-byte
+  // swizzle, or 64 unswizzled
+  static constexpr int kBoxN = NC == 2 ? 128 : 64;
+  // K of a pipeline step, in boxes of 64: a decode step carries more K, so
+  // that each of the block's few steps has more loads and products in flight
+  static constexpr int kSub = BN == 16 ? 4 : 1;
+  static constexpr int kKK = 4 * kSub;                           // wgmma K steps (16) a pipeline step
+  static constexpr int kWBox = kSub * kBk / 2 * kBoxN;           // one weight box: 32 kSub rows of kBoxN bytes
+  static constexpr int kWBytes = kN / kBoxN * kWBox;
+  static constexpr int kXBytes = BN * kBk * 2;                   // one x box: BN rows of 64 K
+  static constexpr int kStage = kWBytes + kSub * kXBytes;        // a multiple of 1024
+  static constexpr int kStages = BN == 16 ? 4 : CH == 64 ? 6 : 8;
+  static constexpr int kGroups = BN * kN / 4;                    // float4 groups of a block's output tile
+  // the cluster partials a block receives: cs slots of ceil(kGroups / cs) groups (no split at CH = 128)
+  static constexpr int kRecvBytes = CH == 64 ? (kGroups + kMaxCluster) * 16 : 0;
+  static constexpr int kRingBytes = kStages * kStage;
+  static constexpr int kSmem = kRingBytes + kRecvBytes + 2 * kStages * 8 + 1024;  // + barriers, alignment
+};
+
+// byte (row r, column c) of a weight box: rows of 128 bytes with the 128-byte swizzle, or of 64 plain
+template <int ROW>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  if constexpr (ROW == 64) return static_cast<uint32_t>(r * 64 + c);
+  return static_cast<uint32_t>(r * 128 + ((((c >> 4) ^ r) & 7) << 4) + (c & 15));
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+// packed byte j of v -> bf16 pair (low nibble, the smaller K, in the low
+// half); y = v >> 4. Exact for nibbles in [-8, 7].
+template <int J>
+__device__ __forceinline__ uint32_t dequant(uint32_t v, uint32_t y) {
+  uint32_t t, r;
+  // bits 0-3: the low nibble (byte j of v); bits 16-19: the high nibble (byte j of y)
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(t) : "r"(v), "r"(y), "n"(((4 + J) << 8) | J));
+  // b ? a ^ c : c with b = 0x000F000F, c = 0x43084308: inside the mask the nibble with its
+  // sign bit flipped (u = n + 8), outside it 0x4300 (the bf16 128)
+  asm("lop3.b32 %0, %1, %2, %3, 0x6A;\n" : "=r"(t) : "r"(t), "r"(0x000F000Fu), "r"(0x43084308u));
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(t), "r"(0x3F803F80u), "r"(0xC308C308u));  // - 136
+  return r;
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// one packed byte -> bf16 pair (low nibble in the low half: the smaller K)
-__device__ __forceinline__ uint32_t dequant2(int8_t byte) {
-  const int v = byte;
-  const int lo = static_cast<int>(static_cast<uint32_t>(v) << 28) >> 28;
-  const int hi = v >> 4;
-  __nv_bfloat162 r = __floats2bfloat162_rn(static_cast<float>(lo), static_cast<float>(hi));
-  return *reinterpret_cast<uint32_t*>(&r);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// grid (N / kBn, ceil(M / BM), splits); block z sums K steps
-// [z * per, min((z + 1) * per, K / kBk)). With one split it writes
-// bf16(sum * scale) to out, else the float32 sums to part[z] (M, N).
-template <int BM>
-__global__ void __launch_bounds__(kThreads) int4_matmul_kernel(
-    const __nv_bfloat16* __restrict__ x,  // (M, K)
-    const int8_t* __restrict__ w,         // (K/2, N)
-    const float* __restrict__ scale,      // (N,)
-    __nv_bfloat16* __restrict__ out,      // (M, N)
-    float* __restrict__ part,             // (splits, M, N) or null
-    int M, int K, int N, int per) {
-  constexpr int kMt = BM / 16;            // 16-row fragments per warp
-  constexpr int kStages = BM == 16 ? 4 : 3;
-  __shared__ __align__(16) __nv_bfloat16 xs[kStages][BM][kXStride];
-  __shared__ __align__(16) int8_t wsm[kStages][kPk][kWStride];
-
-  const int n0 = blockIdx.x * kBn;
-  const int m0 = blockIdx.y * BM;
-  const int step0 = blockIdx.z * per;
-  const int nsteps = min(per, K / kBk - step0);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // fragment row / column group
-  const int tg = lane & 3;  // thread in group
-
-  auto load = [&](int step, int stage) {
-    const int k0 = (step0 + step) * kBk;
-    // packed w: kPk rows x 128 bytes, 8 chunks of 16 bytes a row
-    for (int i = tid; i < kPk * (kBn / 16); i += kThreads) {
-      const int r = i / (kBn / 16), c = (i % (kBn / 16)) * 16;
-      cp_async16(&wsm[stage][r][c], w + (size_t)(k0 / 2 + r) * N + n0 + c, true);
-    }
-    // x: BM rows x 64 bf16, 8 chunks a row; rows past M read as zeros
-    for (int i = tid; i < BM * (kBk / 8); i += kThreads) {
-      const int r = i / (kBk / 8), c = (i % (kBk / 8)) * 8;
-      const bool ok = m0 + r < M;
-      cp_async16(&xs[stage][r][c], x + (ok ? (size_t)(m0 + r) * K + k0 + c : 0), ok);
-    }
-  };
-
-  float acc[kMt][4][4];
+// The A operand of one pipeline step: a[kk][t] for K step kk (16 K) and m64
+// tile t. wt is the thread's weight box and c its first channel (byte) in
+// it: accumulator row 16 * warp + g + 8h of tile t is channel c + 2t + h, so
+// one 16-bit (T = 1) or 32-bit (T = 2) shared load gives all the thread's
+// channels for one packed row.
+template <int KK, int T, int ROW>
+__device__ __forceinline__ void load_a(uint32_t (&a)[KK][T][4], const uint8_t* wt, int c, int tg) {
 #pragma unroll
-  for (int mt = 0; mt < kMt; ++mt)
+  for (int kk = 0; kk < KK; ++kk) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nsteps) load(s, s);
-    cp_async_commit();
-  }
-
-  for (int t = 0; t < nsteps; ++t) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // step t has landed for every thread; step t-1's stage is free
-    if (t + kStages - 1 < nsteps) load(t + kStages - 1, (t + kStages - 1) % kStages);
-    cp_async_commit();
-
-    const int st = t % kStages;
-#pragma unroll
-    for (int kk = 0; kk < kBk / 16; ++kk) {
-      uint32_t a[kMt][4];
-#pragma unroll
-      for (int mt = 0; mt < kMt; ++mt) {
-        const int r = mt * 16 + g;
-        a[mt][0] = ld32(&xs[st][r][kk * 16 + tg * 2]);
-        a[mt][1] = ld32(&xs[st][r + 8][kk * 16 + tg * 2]);
-        a[mt][2] = ld32(&xs[st][r][kk * 16 + 8 + tg * 2]);
-        a[mt][3] = ld32(&xs[st][r + 8][kk * 16 + 8 + tg * 2]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = warp * 32 + j * 8 + g;
-        const uint32_t b0 = dequant2(wsm[st][kk * 8 + tg][col]);      // K = kk*16 + 2tg, +1
-        const uint32_t b1 = dequant2(wsm[st][kk * 8 + 4 + tg][col]);  // K = kk*16 + 8 + 2tg, +1
-#pragma unroll
-        for (int mt = 0; mt < kMt; ++mt) mma_bf16(acc[mt][j], a[mt], b0, b1);
+    for (int i = 0; i < 2; ++i) {  // packed rows of K 16kk + 2tg (+1), and 8 further
+      const uint8_t* p = wt + swz<ROW>(kk * 8 + 4 * i + tg, c);
+      const uint32_t v = T == 1 ? *reinterpret_cast<const uint16_t*>(p) : *reinterpret_cast<const uint32_t*>(p);
+      const uint32_t y = v >> 4;
+      a[kk][0][2 * i] = dequant<0>(v, y);
+      a[kk][0][2 * i + 1] = dequant<1>(v, y);
+      if constexpr (T == 2) {
+        a[kk][1][2 * i] = dequant<2>(v, y);
+        a[kk][1][2 * i + 1] = dequant<3>(v, y);
       }
     }
   }
-  cp_async_wait<0>();
+}
 
+// x boxes of BN rows x 64 K, one after the other from xs
+template <int BN, int KK, int T>
+__device__ __forceinline__ void mma_step(float (&acc)[T][BN / 2], const uint32_t (&a)[KK][T][4], uint32_t xs) {
 #pragma unroll
-  for (int mt = 0; mt < kMt; ++mt) {
+  for (int kk = 0; kk < KK; ++kk) {
+    const uint64_t desc = desc_sw128(xs + kk / 4 * (BN * kBk * 2) + kk % 4 * 32, 16, 1024);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + warp * 32 + j * 8 + tg * 2;
+    for (int t = 0; t < T; ++t) {
+      if constexpr (BN == 16) wgmma_rs_n16<0>(acc[t], a[kk][t], desc);
+      else wgmma_rs_n128<0>(acc[t], a[kk][t], desc);
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Without a split (cs = 1) the grid is persistent: block j works on output
+// tiles j, j + gridDim.x, ... of the tiles_n x token-tile grid (channel tile
+// fastest, so the blocks of a round share x in L2), and the ring runs on
+// across tiles, so the next tile's loads overlap this tile's last products
+// and its stores. With a split the grid is (tiles_n, token tiles * cs) in
+// clusters of (1, cs, 1): block y works on token tile y / cs and sums K
+// steps [r * per, min((r + 1) * per, steps)) with r = y % cs, its rank in
+// the cluster.
+template <int BN, int CH, int NC>
+__global__ void __launch_bounds__(Tile<BN, CH, NC>::kThreads, Tile<BN, CH, NC>::kMinBlocks) int4_matmul_kernel(
+    const __grid_constant__ CUtensorMap tm_x,  // x (M, K) bf16, box (64, BN)
+    const __grid_constant__ CUtensorMap tm_w,  // w (K/2, N) bytes, box (kBoxN, 32 kSub)
+    const float* __restrict__ scale, __nv_bfloat16* __restrict__ out, int M, int N, int steps, int per, int cs,
+    int tiles) {
+  using T = Tile<BN, CH, NC>;
+  constexpr int kStages = T::kStages, kKK = T::kKK, kT = T::kT, kBoxN = T::kBoxN;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float4* recv = reinterpret_cast<float4*>(smem + T::kRingBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::kRingBytes + T::kRecvBytes);
+  uint64_t* empty = full + kStages;
+  auto w_tile = [&](int s) { return smem + s * T::kStage; };
+  auto x_tile = [&](int s) { return smem + s * T::kStage + T::kWBytes; };
+
+  const int wg = threadIdx.x / 128;
+  const int tiles_n = N / T::kN;
+  const int rank = blockIdx.y % cs;
+  const int step0 = rank * per;
+  const int nsteps = max(0, min(per, steps - step0));
+  const int slot = (T::kGroups + cs - 1) / cs;  // groups each block of the cluster finishes
+  // this block's output tiles: first, first + stride, ... < tiles
+  const int first = cs == 1 ? (int)blockIdx.x : (int)blockIdx.x + (int)blockIdx.y / cs * tiles_n;
+  const int stride = cs == 1 ? (int)gridDim.x : tiles;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NC * 4);  // every consumer warp releases the stage
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == NC) {
+    // ---- producer: one thread keeps the ring full. A producer warpgroup
+    // hands its registers to the consumers: 40 + 2 x 232 a thread is the
+    // 3 x 168 that __launch_bounds__ gives the block.
+    if constexpr (NC == 2) setmaxnreg_dec<40>();
+    if (threadIdx.x == NC * 128) {
+      prefetch_map(&tm_x);
+      prefetch_map(&tm_w);
+      int gs = 0;  // steps loaded so far, over all tiles
+      for (int tile = first; tile < tiles; tile += stride) {
+        const int n0 = tile % tiles_n * T::kN, m0 = tile / tiles_n * BN;
+        for (int t = 0; t < nsteps; ++t, ++gs) {
+          const int s = gs % kStages;
+          if (gs >= kStages) mbar_wait(&empty[s], (gs / kStages - 1) & 1);
+          mbar_arrive_expect_tx(&full[s], T::kStage);
+          const int k0 = (step0 + t) * T::kSub * kBk;  // K past the end reads as zeros
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + mt * 16 + g + h * 8;
-        if (row >= M) continue;
-        const float v0 = acc[mt][j][2 * h], v1 = acc[mt][j][2 * h + 1];
-        if (part == nullptr) {
-          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * N + col) =
-              __floats2bfloat162_rn(v0 * scale[col], v1 * scale[col + 1]);
-        } else {
-          *reinterpret_cast<float2*>(part + ((size_t)blockIdx.z * M + row) * N + col) = make_float2(v0, v1);
+          for (int b = 0; b < T::kN / kBoxN; ++b)
+            tma_load_2d(w_tile(s) + b * T::kWBox, &tm_w, &full[s], n0 + b * kBoxN, k0 / 2);
+#pragma unroll
+          for (int b = 0; b < T::kSub; ++b) tma_load_2d(x_tile(s) + b * T::kXBytes, &tm_x, &full[s], k0 + b * kBk, m0);
+        }
+      }
+    }
+    if (cs > 1) cg::this_cluster().sync();  // the partials have arrived
+  } else {
+    // ---- consumer warpgroup wg: channels CH wg .. CH wg + CH - 1 x BN tokens
+    if constexpr (NC == 2) setmaxnreg_inc<232>();
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32, g = lane / 4, tg = lane % 4;
+    const int cb = kT * 2 * (8 * warp + g);                       // first channel in the weight box
+    const int box_off = CH == 64 ? 64 * wg : 0;                   // this warpgroup's channels in the box
+    const int box = CH == 64 ? 0 : wg;                            // ... and its box
+    const int c = CH * wg + cb;                                   // first channel in the block
+    // Two products in flight: step t's wgmma is started before step t-1's is
+    // waited for. The A registers alternate between two fixed buffers, and a
+    // buffer is rewritten only after the wait that covers the wgmma reading it.
+    float acc[kT][BN / 2];
+    uint32_t a0[kKK][kT][4], a1[kKK][kT][4];
+    int g0 = 0;  // steps consumed before this tile, over all tiles
+    auto stage = [&](int t) { return (g0 + t) % kStages; };
+    auto wait_step = [&](int t) { mbar_wait(&full[stage(t)], ((g0 + t) / kStages) & 1); };
+    auto release = [&](int t) {
+      if (lane == 0) mbar_arrive(&empty[stage(t)]);
+    };
+    auto fence_a = [&](uint32_t(&a)[kKK][kT][4]) {
+#pragma unroll
+      for (int kk = 0; kk < kKK; ++kk)
+#pragma unroll
+        for (int t = 0; t < kT; ++t)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) fence_operand(a[kk][t][r]);
+    };
+    auto step = [&](int t, uint32_t(&use)[kKK][kT][4], uint32_t(&other)[kKK][kT][4]) {
+      wgmma_fence();
+      mma_step<BN, kKK, kT>(acc, use, smem_u32(x_tile(stage(t))));
+      wgmma_commit();
+      if (t > 0) {
+        wgmma_wait<1>();  // step t-1 is done: release its stage and registers
+        fence_a(other);
+        release(t - 1);
+      }
+      if (t + 1 < nsteps) {  // dequantize the next step while the tensor cores run this one
+        wait_step(t + 1);
+        load_a<kKK, kT, kBoxN>(other, w_tile(stage(t + 1)) + box * T::kWBox, box_off + cb, tg);
+      }
+    };
+
+    for (int tile = first; tile < tiles; tile += stride, g0 += nsteps) {
+      const int n0 = tile % tiles_n * T::kN, m0 = tile / tiles_n * BN;
+#pragma unroll
+      for (int t = 0; t < kT; ++t)
+#pragma unroll
+        for (int j = 0; j < BN / 2; ++j) acc[t][j] = 0.f;
+      if (nsteps > 0) {
+        wait_step(0);
+        load_a<kKK, kT, kBoxN>(a0, w_tile(stage(0)) + box * T::kWBox, box_off + cb, tg);
+      }
+      for (int t = 0; t < nsteps; t += 2) {
+        step(t, a0, a1);
+        if (t + 1 < nsteps) step(t + 1, a1, a0);
+      }
+      wgmma_wait<0>();
+      fence_a(a0);
+      fence_a(a1);
+#pragma unroll
+      for (int t = 0; t < kT; ++t)
+#pragma unroll
+        for (int j = 0; j < BN / 2; ++j) fence_operand(acc[t][j]);
+      if (nsteps > 0) release(nsteps - 1);
+
+      // acc[t][4j + 2h + e]: channel c + 2t + h, token m0 + 8j + 2tg + e
+      if (cs == 1) {
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int m = m0 + 8 * j + 2 * tg + e;
+            if (m >= M) continue;
+            __nv_bfloat16* o = out + (size_t)m * N + n0 + c;
+            if constexpr (kT == 1) {
+              const float2 sc = *reinterpret_cast<const float2*>(scale + n0 + c);
+              *reinterpret_cast<uint32_t*>(o) = pack_bf16(acc[0][4 * j + e] * sc.x, acc[0][4 * j + 2 + e] * sc.y);
+            } else {
+              const float4 sc = *reinterpret_cast<const float4*>(scale + n0 + c);
+              uint2 v;
+              v.x = pack_bf16(acc[0][4 * j + e] * sc.x, acc[0][4 * j + 2 + e] * sc.y);
+              v.y = pack_bf16(acc[1][4 * j + e] * sc.z, acc[1][4 * j + 2 + e] * sc.w);
+              *reinterpret_cast<uint2*>(o) = v;
+            }
+          }
+      } else if constexpr (kT == 1) {
+        // Push each float32 partial to the block that finishes it: group i
+        // (token i / 32, channels 4 (i % 32) ..) belongs to block i % cs and
+        // lands in its slot `rank`; one cluster barrier, then each block sums
+        // its groups over the slots in rank order.
+        cg::cluster_group cluster = cg::this_cluster();
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = (8 * j + 2 * tg + e) * (T::kN / 4) + c / 4;
+            float4* dst = cluster.map_shared_rank(recv, i % cs) + rank * slot + i / cs;
+            reinterpret_cast<float2*>(dst)[(c / 2) & 1] = make_float2(acc[0][4 * j + e], acc[0][4 * j + 2 + e]);
+          }
+        cluster.sync();
+        for (int li = threadIdx.x; li < slot; li += NC * 128) {
+          const int i = li * cs + rank;
+          const int m = m0 + i / (T::kN / 4), cc = (i % (T::kN / 4)) * 4;
+          if (i >= T::kGroups || m >= M) continue;
+          float4 sum = recv[li];
+          for (int q = 1; q < cs; ++q) {
+            const float4 p = recv[q * slot + li];
+            sum.x += p.x;
+            sum.y += p.y;
+            sum.z += p.z;
+            sum.w += p.w;
+          }
+          const float4 sc = *reinterpret_cast<const float4*>(scale + n0 + cc);
+          uint2 v;
+          v.x = pack_bf16(sum.x * sc.x, sum.y * sc.y);
+          v.y = pack_bf16(sum.z * sc.z, sum.w * sc.w);
+          *reinterpret_cast<uint2*>(out + (size_t)m * N + n0 + cc) = v;
         }
       }
     }
   }
 }
 
-// out = bf16(sum over z in order of part[z] * scale), two columns a thread
-__global__ void int4_matmul_reduce_kernel(const float* __restrict__ part, const float* __restrict__ scale,
-                                          __nv_bfloat16* __restrict__ out, int M, int N, int splits) {
-  const size_t pairs = (size_t)M * N / 2;
-  const size_t mn = (size_t)M * N;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < pairs; i += (size_t)gridDim.x * blockDim.x) {
-    const size_t e = 2 * i;
-    const int col = (int)(e % N);
-    float s0 = 0.f, s1 = 0.f;
-    for (int z = 0; z < splits; ++z) {
-      const float2 p = *reinterpret_cast<const float2*>(part + z * mn + e);
-      s0 += p.x;
-      s1 += p.y;
-    }
-    *reinterpret_cast<__nv_bfloat162*>(out + e) = __floats2bfloat162_rn(s0 * scale[col], s1 * scale[col + 1]);
+template <int BN, int CH, int NC>
+cudaError_t launch(const CUtensorMap& tm_x, const CUtensorMap& tm_w, const float* scale, __nv_bfloat16* out, int M,
+                   int N, int steps, int per, int cs, cudaStream_t stream) {
+  using T = Tile<BN, CH, NC>;
+  auto* kernel = int4_matmul_kernel<BN, CH, NC>;
+  static const cudaError_t attr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (attr != cudaSuccess) return attr;
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
   }
+  const int tiles = N / T::kN * ((M + BN - 1) / BN);
+  cudaLaunchConfig_t cfg = {};
+  // persistent without a split (as many blocks as the SMs hold), else a block per tile and split
+  const int resident = sms * T::kMinBlocks;
+  cfg.gridDim = cs == 1 ? dim3(tiles < resident ? tiles : resident) : dim3(N / T::kN, (M + BN - 1) / BN * cs);
+  cfg.blockDim = dim3(T::kThreads);
+  cfg.dynamicSmemBytes = T::kSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute la[1];
+  la[0].id = cudaLaunchAttributeClusterDimension;
+  la[0].val.clusterDim.x = 1;
+  la[0].val.clusterDim.y = cs;
+  la[0].val.clusterDim.z = 1;
+  cfg.attrs = la;
+  cfg.numAttrs = cs > 1 ? 1 : 0;  // without a split, no cluster
+  return cudaLaunchKernelEx(&cfg, kernel, tm_x, tm_w, scale, out, M, N, steps, per, cs, tiles);
 }
 
 }  // namespace
 
-extern "C" int fangyan_int4_matmul(const void* x, const void* w, const void* scale, void* out, void* ws,
-                                   int M, int K, int N, int bm, int splits, int per, void* stream) {
-  const int steps = K / kBk;
-  if (M < 1 || K < kBk || K % kBk || N < kBn || N % kBn || (bm != 16 && bm != 64) || splits < 1 || per < 1 ||
-      (long long)(splits - 1) * per >= steps || (long long)splits * per < steps || (M + bm - 1) / bm > 65535 ||
-      splits > 65535 || (splits > 1 && ws == nullptr))
+// tile_m x tile_n: tokens x output channels a block covers, 16 x 64 (decode,
+// two blocks an SM), 128 x 128 or 128 x 256 (the last without a split). K
+// goes in steps of 256 or 64 (a step past K reads zeros) and is split over
+// clusters of cs blocks (1-8), `per` steps each.
+extern "C" int fangyan_int4_matmul(const void* x, const void* w, const void* scale, void* out, int M, int K, int N,
+                                   int tile_m, int tile_n, int cs, int per, void* stream) {
+  const bool shape_ok = (tile_m == 16 && tile_n == 64) || (tile_m == 128 && tile_n == 128) ||
+                        (tile_m == 128 && tile_n == 256 && cs == 1);
+  const int step_k = tile_m == 16 ? 4 * kBk : kBk;
+  const int steps = (K + step_k - 1) / step_k;
+  if (!shape_ok || M < 1 || K < kBk || K % kBk || N < tile_n || N % tile_n || cs < 1 || cs > kMaxCluster ||
+      per < 1 || (long long)(cs - 1) * per >= steps || (long long)cs * per < steps ||
+      (long long)(M + tile_m - 1) / tile_m * (N / tile_n) > 0x7fffffff || N / tile_n > 0x7fffffff ||
+      (long long)(M + tile_m - 1) / tile_m * cs > 65535)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid(N / kBn, (M + bm - 1) / bm, splits);
-  float* part = splits > 1 ? (float*)ws : nullptr;
-  if (bm == 16)
-    int4_matmul_kernel<16><<<grid, kThreads, 0, s>>>((const __nv_bfloat16*)x, (const int8_t*)w,
-                                                     (const float*)scale, (__nv_bfloat16*)out, part, M, K, N, per);
-  else
-    int4_matmul_kernel<64><<<grid, kThreads, 0, s>>>((const __nv_bfloat16*)x, (const int8_t*)w,
-                                                     (const float*)scale, (__nv_bfloat16*)out, part, M, K, N, per);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
-  // a grid-stride loop: at most 8 blocks an SM
-  const long long pairs = (long long)M * N / 2;
-  const int blocks = (int)(pairs / 256 + 1 < sms * 8LL ? pairs / 256 + 1 : sms * 8LL);
-  int4_matmul_reduce_kernel<<<blocks, 256, 0, s>>>(part, (const float*)scale, (__nv_bfloat16*)out, M, N, splits);
-  return (int)cudaGetLastError();
+  const int box_n = tile_n == 64 ? 64 : 128;  // weight box rows: 64 bytes plain, or 128 swizzled
+  CUtensorMap tm_x, tm_w;
+  const uint64_t xd[2] = {(uint64_t)K, (uint64_t)M}, xs[1] = {(uint64_t)K * 2};
+  const uint32_t xb[2] = {(uint32_t)kBk, (uint32_t)tile_m};
+  const uint64_t wd[2] = {(uint64_t)N, (uint64_t)K / 2}, ws[1] = {(uint64_t)N};
+  const uint32_t wb[2] = {(uint32_t)box_n, (uint32_t)step_k / 2};
+  if (!hopper_host::make_map(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, xd, xs, xb) ||
+      !hopper_host::make_map(&tm_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, w, wd, ws, wb,
+                             box_n == 64 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const float* sc = (const float*)scale;
+  __nv_bfloat16* o = (__nv_bfloat16*)out;
+  cudaError_t err;
+  if (tile_m == 16) err = launch<16, 64, 1>(tm_x, tm_w, sc, o, M, N, steps, per, cs, s);
+  else if (tile_n == 128) err = launch<128, 64, 2>(tm_x, tm_w, sc, o, M, N, steps, per, cs, s);
+  else err = launch<128, 128, 2>(tm_x, tm_w, sc, o, M, N, steps, per, cs, s);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }

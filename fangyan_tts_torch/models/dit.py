@@ -124,9 +124,10 @@ class DiTAttention(nn.Module):
         q = _apply_rotary_pre_split(q, cos, sin)
         k = _apply_rotary_pre_split(k, cos, sin)
 
-        def heads(t):  # (B, L, inner) -> (B, H, L, D)
-            return t.reshape(b, l, c.heads, c.dim_head).transpose(1, 2).contiguous()
+        def heads(t):  # (B, L, inner) -> (B, H, L, D) view, no copy (v stays inside the qkv buffer)
+            return t.reshape(b, l, c.heads, c.dim_head).transpose(1, 2)
 
+        # on the card the output is a (B, H, L, D) view of (B, L, H, D) memory: the reshape is free
         out = chunk_flash_attention(heads(q), heads(k), heads(v), mel_len, chunk)
         return qdense(out.transpose(1, 2).reshape(b, l, c.heads * c.dim_head), self.to_out)
 

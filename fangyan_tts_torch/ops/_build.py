@@ -2,10 +2,10 @@
 
 Each `csrc/<name>.cu` has a plain C interface. It is compiled at first use
 by `nvcc` for sm_90a into its own shared library under `build/kernels/`
-(beside the package, listed in .gitignore), named by a hash of the source
-and the flags, and loaded with ctypes. Only the sources in the checkout are
-used. `build_all` starts one nvcc per source at once. Nothing here runs
-when a module is imported.
+(beside the package, listed in .gitignore), named by a hash of the source,
+every shared header `csrc/*.cuh` and the flags, and loaded with ctypes.
+Only the sources in the checkout are used. `build_all` starts one nvcc per
+source at once. Nothing here runs when a module is imported.
 """
 
 from __future__ import annotations
@@ -34,8 +34,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "decode_attention": ("fangyan_decode_attention", [_P] * 9 + [ctypes.c_longlong] + [_I] * 6 + [_P]),
-    "flash_attention": ("fangyan_chunk_flash_attention", [_P] * 5 + [_I] * 5 + [_P]),
-    "int4_matmul": ("fangyan_int4_matmul", [_P] * 5 + [_I] * 6 + [_P]),
+    "flash_attention": ("fangyan_chunk_flash_attention", [_P] * 5 + [_I] * 5 + [ctypes.c_longlong] * 9 + [_P]),
+    "int4_matmul": ("fangyan_int4_matmul", [_P] * 4 + [_I] * 7 + [_P]),
 }
 
 
@@ -47,9 +47,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{h}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # a header edit must not load a stale library
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:

@@ -4,10 +4,13 @@ Kernel: csrc/flash_attention.cu, which replaces the Pallas kernel
 fangyan_tts_tpu/ops/flash_attention.py `chunk_flash_attention`
 (body `_kernel`, pallas_call at :102). On the H100 it is bound by bytes
 for L below about 590 (L/2 FLOPs a byte against a ridge of about 295) and
-by operations above; it runs FlashAttention-2's loop on the tensor
-cores (mma.sync, bf16 in, float32 running max / sum / accumulator), builds
-the masks from `mel_len` and `chunk` in the kernel, and skips key tiles
-that are wholly masked. See the source for the design.
+by operations above; it runs FlashAttention-3's shape at head dim 64
+(TMA into an mbarrier ring, both products on wgmma, float32 running max /
+sum / accumulator), builds the masks from `mel_len` and `chunk` in the
+kernel, and skips key tiles that are wholly masked. It reads q, k and v
+through strided (B, H, L, D) views, so the DiT hands it its projections
+without copies, and writes its output in (B, L, H, D) memory, returned as
+a (B, H, L, D) view. See the source for the design.
 
 `chunk_flash_attention` launches the kernel for CUDA tensors and runs
 `chunk_flash_attention_plain` for CPU tensors; there is no fallback from
@@ -44,36 +47,41 @@ def _check(q, k, v, mel_len, chunk):
     for name, t in (("q", q), ("k", k), ("v", v), ("mel_len", mel_len)):
         if t.device != dev:
             raise ValueError(f"chunk_flash_attention: {name} is on {t.device}, q on {dev}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"chunk_flash_attention: {name} must be contiguous and 16-byte aligned")
+        if t.data_ptr() % 16:
+            raise ValueError(f"chunk_flash_attention: {name} must be 16-byte aligned")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16:
             raise ValueError(f"chunk_flash_attention: {name} must be bfloat16, got {t.dtype}")
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape or q.shape[-1] != 64:
         raise ValueError(f"chunk_flash_attention: q, k, v must be equal (B, H, L, 64), got {tuple(q.shape)}")
-    if mel_len.dtype != torch.int32 or mel_len.shape != (q.shape[0],):
-        raise ValueError("chunk_flash_attention: mel_len must be int32 (B,)")
-    if chunk < 0 or q.shape[0] * q.shape[1] > 65535:
-        raise ValueError("chunk_flash_attention: chunk must be >= 0 and B*H <= 65535")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1 or any(st < 0 or st % 8 for st in t.stride()[:3]):
+            raise ValueError(f"chunk_flash_attention: {name} needs a contiguous last dim and strides that are "
+                             f"multiples of 8 elements, got {t.stride()}")
+    if mel_len.dtype != torch.int32 or mel_len.shape != (q.shape[0],) or not mel_len.is_contiguous():
+        raise ValueError("chunk_flash_attention: mel_len must be contiguous int32 (B,)")
+    if chunk < 0:
+        raise ValueError("chunk_flash_attention: chunk must be >= 0")
 
 
 def chunk_flash_attention(q, k, v, mel_len, chunk: int = 0) -> torch.Tensor:
     """softmax(q k^T / sqrt(D) + mask) v on (B, H, L, D), where key j is
     valid iff j < mel_len[b] and, with chunk > 0, j // chunk <= i // chunk.
-    CPU tensors take the plain version; CUDA tensors launch
-    csrc/flash_attention.cu or raise."""
+    q, k and v may be strided views. CPU tensors take the plain version;
+    CUDA tensors launch csrc/flash_attention.cu or raise, and get back a
+    (B, H, L, D) view of (B, L, H, D) memory."""
     if q.device.type == "cpu":
         return chunk_flash_attention_plain(q, k, v, mel_len, chunk)
     if q.device.type != "cuda":
         raise ValueError(f"chunk_flash_attention: unsupported device {q.device}")
     _check(q, k, v, mel_len, chunk)
     b, h, l, d = q.shape
-    out = torch.empty_like(q)
+    out = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
     fn = _build.load("flash_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mel_len.data_ptr(), out.data_ptr(),
-              b, h, l, d, int(chunk), stream)
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mel_len.data_ptr(), out.data_ptr(), b, h, l, d, int(chunk),
+              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], stream)
     _build.check("flash_attention", code)
     global launches
     launches += 1
-    return out
+    return out.transpose(1, 2)

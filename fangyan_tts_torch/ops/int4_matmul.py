@@ -8,15 +8,14 @@ float32 scale applied to the float32 sum before the cast to bf16.
 
 On the H100 it is bound by bytes at decode (M = 1-16: the packed weight,
 4.4 MB for gate_up_proj, is read once and reused only M times) and by
-operations at prefill (M in the hundreds). The design streams the packed
-bytes through shared memory in a cp.async ring and dequantizes them in
-registers straight into mma.sync m16n8k16 operands: one packed byte holds
-the two consecutive K values a thread's B fragment needs, so the Pallas
-kernel's even/odd activation split (a TPU relayout workaround) is not
-needed. Where the output tiles alone cannot fill the card (down_proj has
-7 tiles of 128 columns), K is split over blocks and a second pass sums the
-float32 partials in a fixed order (no atomics: the result does not change
-from run to run). See the source for the design.
+operations at prefill (M in the hundreds). The kernel computes the product
+transposed on wgmma, with the weight dequantized by bit operations into the
+A operand in registers and x read by wgmma from shared memory; TMA fills a
+ring of stages behind mbarriers. One launch at every M (`plan`): a block
+covers 16 or 128 tokens and 64, 128 or 256 output channels, and where the
+output tiles do not fill the card K is split over the blocks of a
+thread-block cluster, which sum their partials through distributed shared
+memory in rank order. See the source for the design.
 
 `int4_matmul` launches the kernel for CUDA tensors and runs
 `int4_matmul_plain` (ops/quant.int4_dot) for CPU tensors; there is no
@@ -31,8 +30,12 @@ from . import _build
 from .quant import int4_dot
 
 launches = 0  # kernel launches since the last reset (CPU calls do not count)
-BLOCK_N = 128  # output columns per block (kBn in the source)
-BLOCK_K = 64  # input rows per pipeline step (kBk in the source)
+BLOCK_N = 128  # N must be a multiple of this: the output channels of a prefill block
+BLOCK_K = 64  # K must be a multiple of this (kBk in the source)
+DECODE_TILE_M = 16  # tokens per block up to this M (decode)
+PREFILL_TILE_M = 128  # tokens per block above it
+STEP_K = {DECODE_TILE_M: 256, PREFILL_TILE_M: 64}  # K per pipeline step, by tokens a block covers
+MAX_CLUSTER = 8  # the largest portable thread-block cluster
 
 
 def int4_matmul_plain(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -41,19 +44,29 @@ def int4_matmul_plain(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tens
     return int4_dot(x, w_packed, scale)
 
 
-def plan(m: int, k: int, n: int, sms: int) -> tuple[int, int, int]:
-    """(rows per block, K splits, pipeline steps per split) for an (m, k, n)
-    product on a card of `sms` streaming multiprocessors: 16-row tiles up to
-    m = 16, else 64; K is split only while the output tiles number fewer
-    than the SMs, up to two blocks an SM and at least two steps a split."""
-    bm = 16 if m <= 16 else 64
-    tiles = (n // BLOCK_N) * -(-m // bm)
-    steps = k // BLOCK_K
-    splits = 1
-    if tiles < sms:
-        splits = max(1, min(-(-2 * sms // tiles), steps // 2))
-    per = -(-steps // splits)
-    return bm, -(-steps // per), per
+def plan(m: int, k: int, n: int, sms: int) -> tuple[int, int, int, int]:
+    """(tokens a block covers, its output channels, cluster size, K steps a
+    cluster block sums) for an (m, k, n) product on a card of `sms`
+    streaming multiprocessors, in one launch. Up to m = DECODE_TILE_M a
+    block covers those tokens and 64 channels (two blocks an SM); above, 128
+    tokens and 128 channels, or 256 where those blocks alone fill the card
+    (each x row then serves twice the channels). Where the output tiles
+    leave blocks idle, K is split over a cluster of up to MAX_CLUSTER
+    blocks, as many as keep every block resident at once. K goes in steps
+    of STEP_K[tokens]."""
+    tile_m = DECODE_TILE_M if m <= DECODE_TILE_M else PREFILL_TILE_M
+    steps = -(-k // STEP_K[tile_m])
+    token_tiles = -(-m // tile_m)
+    wide = 2 * BLOCK_N
+    if tile_m == DECODE_TILE_M:
+        tile_n, resident = BLOCK_N // 2, 2 * sms
+    elif n % wide == 0 and n // wide * token_tiles >= sms:
+        tile_n, resident = wide, sms
+    else:
+        tile_n, resident = BLOCK_N, sms
+    cs = max(1, min(MAX_CLUSTER, steps, resident // (n // tile_n * token_tiles)))
+    per = -(-steps // cs)
+    return tile_m, tile_n, -(-steps // per), per
 
 
 def _check(x, w_packed, scale):
@@ -88,14 +101,12 @@ def int4_matmul(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor) ->
     _check(x, w_packed, scale)
     k, n = x.shape[-1], w_packed.shape[1]
     m = x.numel() // k
-    bm, splits, per = plan(m, k, n, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    tile_m, tile_n, cs, per = plan(m, k, n, torch.cuda.get_device_properties(x.device).multi_processor_count)
     out = torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
-    # float32 partial sums of the K splits, (splits, M, N); none without a split
-    ws = torch.empty((splits * m * n) if splits > 1 else 0, dtype=torch.float32, device=x.device)
     fn = _build.load("int4_matmul")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = fn(x.data_ptr(), w_packed.data_ptr(), scale.data_ptr(), out.data_ptr(), ws.data_ptr(),
-              m, k, n, bm, splits, per, stream)
+    code = fn(x.data_ptr(), w_packed.data_ptr(), scale.data_ptr(), out.data_ptr(), m, k, n, tile_m, tile_n, cs, per,
+              stream)
     _build.check("int4_matmul", code)
     global launches
     launches += 1

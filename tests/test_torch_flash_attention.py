@@ -41,6 +41,25 @@ def test_plain_matches_pallas_and_dense(chunk, l, mel):
     assert np.isfinite(got).all()
 
 
+@pytest.mark.parametrize("chunk,l,mel", [(0, 48, (48, 30)), (10, 64, (64, 37)), (10, 40, (23, 40))])
+def test_strided_views_equal_contiguous(chunk, l, mel):
+    """The DiT hands the kernel (B, H, L, D) views of its (B, L, H*D)
+    projections and of the (B, L, 3*H*D) qkv buffer, without copies: the
+    function on those views equals the same call on contiguous copies."""
+    rng = np.random.default_rng(chunk + l + 1)
+    b, h, d = 2, 3, 64
+    q_bl, k_bl = (torch.from_numpy(rng.standard_normal((b, l, h * d)).astype(np.float32)) for _ in range(2))
+    qkv = torch.from_numpy(rng.standard_normal((b, l, 3 * h * d)).astype(np.float32))
+    heads = lambda t: t.reshape(b, l, h, d).transpose(1, 2)  # noqa: E731
+    q, k, v = heads(q_bl), heads(k_bl), heads(qkv[..., 2 * h * d:])
+    assert not (q.is_contiguous() or v.is_contiguous()) and v.stride()[2] == 3 * h * d
+    mel_len = torch.tensor(mel, dtype=torch.int32)
+    got = tfa.chunk_flash_attention(q, k, v, mel_len, chunk)
+    want = tfa.chunk_flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), mel_len, chunk)
+    assert got.shape == (b, h, l, d)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
 def test_cpu_calls_do_not_count_as_launches():
     x = torch.zeros((1, 1, 8, 64))
     before = tfa.launches

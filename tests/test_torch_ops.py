@@ -156,3 +156,22 @@ def test_config_and_lm_plan_copies():
     pb = tplan.pad_plans_left([tplan.build_prompt_plan(tc, [1, 2, 3], [9, 9])], 16)
     for k in pa:
         np.testing.assert_array_equal(pa[k], pb[k])
+
+
+def test_build_target_hashes_headers(tmp_path, monkeypatch):
+    """A built library is named by its source, every csrc/*.cuh header and
+    the flags: editing the shared header or the flags must name a new
+    library, so no stale build is loaded."""
+    from fangyan_tts_torch.ops import _build
+
+    for f in list(_build.CSRC.glob("*.cu")) + list(_build.CSRC.glob("*.cuh")):
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = {n: _build._target(n) for n in _build.SOURCES}
+    assert before == {n: _build._target(n) for n in _build.SOURCES}  # a pure function of the files
+    header = tmp_path / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    edited = {n: _build._target(n) for n in _build.SOURCES}
+    assert all(edited[n] != before[n] for n in _build.SOURCES)
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
+    assert all(_build._target(n) != edited[n] for n in _build.SOURCES)

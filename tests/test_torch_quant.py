@@ -113,15 +113,38 @@ def test_quantized_config_refuses_float_weights(which):
 @pytest.mark.parametrize("m, k, n", [(1, 896, 9728), (16, 896, 9728), (2048, 896, 9728),
                                      (1, 4864, 896), (16, 4864, 896), (2048, 4864, 896), (5, 64, 128)])
 def test_int4_plan_covers_k(m, k, n):
-    """The wrapper's launch plan meets the kernel's own argument checks: K
-    splits of `per` steps cover every step once, and every tile of rows."""
-    steps = k // ti4.BLOCK_K
+    """The wrapper's launch plan meets the kernel's own argument checks, in
+    one launch: a block covers all of its tokens' tile, and a cluster of at
+    most MAX_CLUSTER blocks splits K in ranges of `per` steps that cover
+    every step exactly once; K is split only where the output tiles leave
+    SMs idle."""
     for sms in (8, 132):
-        bm, splits, per = ti4.plan(m, k, n, sms)
-        assert bm in (16, 64) and splits >= 1 and per >= 1
-        assert (splits - 1) * per < steps <= splits * per
-        if (n // ti4.BLOCK_N) * -(-m // bm) >= sms:
-            assert splits == 1  # enough output tiles: no second pass
+        tile_m, tile_n, cs, per = ti4.plan(m, k, n, sms)
+        steps = -(-k // ti4.STEP_K[tile_m])
+        assert n % tile_n == 0
+        # the kernel's own block shapes
+        assert (tile_m, tile_n) in ((16, 64), (128, 128)) or (tile_m, tile_n, cs) == (128, 256, 1)
+        assert 1 <= cs <= ti4.MAX_CLUSTER and per >= 1
+        ranges = [range(r * per, min((r + 1) * per, steps)) for r in range(cs)]
+        assert all(len(r) > 0 for r in ranges)  # no block of the cluster idles
+        assert [s for r in ranges for s in r] == list(range(steps))
+        if (n // tile_n) * -(-m // tile_m) >= sms:
+            assert cs == 1  # enough output tiles: no split
+
+
+@pytest.mark.parametrize("m, tile_m", [(1, 16), (16, 16), (17, 128), (64, 128), (65, 128), (100, 128), (512, 128),
+                                       (2048, 128)])
+def test_int4_plan_routes(m, tile_m):
+    """Tile boundaries: 16-token blocks of 64 channels up to M = 16, then
+    128-token blocks (256 channels where they fill the card); at decode
+    down_proj's 14 column tiles split K over seven or eight blocks a
+    cluster, while gate_up_proj's 152 fill the card alone."""
+    for k, n in ((896, 9728), (4864, 896)):
+        got, tile_n, cs, per = ti4.plan(m, k, n, 132)
+        assert got == tile_m
+        assert tile_n == (64 if m <= 16 else 256 if n == 9728 and m >= 512 else 128)
+        if m <= 16:
+            assert (cs == 1) if n == 9728 else (cs >= 7)
 
 
 def test_quantize_dit_state_equals_jax():

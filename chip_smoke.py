@@ -10,10 +10,13 @@ Phases:
      all at once) and print the build time and ptxas report
   3. each kernel against its plain PyTorch version on the card, at the
      main paths' shapes (the single requests', and the batches of 16 as
-     worked out from their own buckets), with the tolerances below; kernel,
-     plain and library times (timed only: scaled_dot_product_attention for
-     the attention kernels, F.linear on the dequantized weight for
-     int4_matmul)
+     worked out from their own buckets), with the tolerances below, and
+     decode attention also with a row that has no open slot, write slots on
+     a block boundary of its launch plan, one long cache (S = 4096) and
+     strided q / k_new / v_new views (bit-equal to the contiguous call);
+     kernel, plain and library times (timed only:
+     scaled_dot_product_attention for the attention kernels, F.linear on the
+     dequantized weight for int4_matmul)
   4. a small model on the card against the same weights on the CPU
      (plain versions), bf16 and then int8 LLM + int4 MLP + int8 DiT; then
      at full CosyVoice3-0.5B width with random weights: three requests
@@ -62,6 +65,7 @@ MAX_LIMIT_SHARE = 0.15  # each limit must stay under this share of the mean |out
 SMALL_REL_TOL = 5e-2  # small model, bf16 on the card vs bf16 plain on the CPU
 
 CARDS_USED = 1  # every phase runs on card 0
+PORT_KERNELS = ("decode_attention", "flash_attention", "int4_matmul")  # kernel names the profile reports
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOP_PER_S = 989e12
 
@@ -201,10 +205,14 @@ def check_decode(results: dict, batches: list[dict]) -> None:
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
-    # S = 256: the 150-token requests' cache; S = 768: the zero-shot request's (three tiles of slots);
-    # B = 16: the batched requests' caches, left-padded rows whose first valid slot differs
+    # S = 256: the 150-token requests' cache (B = 4: a write past the end, clamped, and a row with no
+    # open slot, start 256); S = 768: the zero-shot request's; B = 16: the batched requests' caches,
+    # left-padded rows whose first valid slot differs; B = 2: write slots on each side of the first
+    # block boundary of the launch plan; S = 4096: one long cache (a block of 512 slots)
     starts16 = [int(v) for v in np.random.default_rng(5).integers(0, 40, 16)]
-    shapes = [(1, 256, [100], [0]), (4, 256, [0, 100, 255, 300], [0] * 4), (1, 768, [700], [0])]
+    edge = da.plan(2, 256, kv)[1]
+    shapes = [(1, 256, [100], [0]), (4, 256, [0, 100, 255, 300], [0, 0, 0, 256]), (1, 768, [700], [0]),
+              (2, 256, [edge - 1, edge], [0, 0]), (1, 4096, [4000], [0])]
     for s in sorted({sh["cache_len"] for sh in batches}):
         shapes.append((16, s, [s - 56] * 16, starts16))
     for b, s, idx_list, starts in shapes:
@@ -218,6 +226,22 @@ def check_decode(results: dict, batches: list[dict]) -> None:
         slot = torch.arange(s, device=dev)[None, :]
         first = torch.tensor(starts, device=dev)[:, None]
         bias = torch.where((slot >= first) & (slot < valid[:, None]), 0.0, -1e10).float().contiguous()
+        # the caller's layout too: q, k_new and v_new as views of one fused qkv row per batch row
+        # (models/qwen2.py), which must give the contiguous call's output and writes bit for bit
+        qkv = torch.cat([q.reshape(b, -1), kn.reshape(b, -1), vn.reshape(b, -1)], dim=1)
+        views = (qkv[:, : qh * hd].view(b, qh, hd), qkv[:, qh * hd: (qh + kv) * hd].view(b, kv, hd),
+                 qkv[:, (qh + kv) * hd:].view(b, kv, hd))
+        ck4, cv4 = ck.clone(), cv.clone()
+        out_v = da.decode_attention(*views, ck4, cv4, idx, bias, 0)
+        ck5, cv5 = ck.clone(), cv.clone()
+        out_c = da.decode_attention(q, kn, vn, ck5, cv5, idx, bias, 0)
+        torch.cuda.synchronize()
+        same = torch.equal(out_v, out_c) and torch.equal(ck4, ck5) and torch.equal(cv4, cv5)
+        log(f"decode_attention B={b} S={s} plan {da.plan(b, s, kv)} (blocks a cluster, slots a block): strided "
+            f"q/k_new/v_new views (batch stride {qkv.stride(0)}) equal to the contiguous call={same}")
+        if not same:
+            raise AssertionError("decode_attention kernel on strided views differs from the contiguous call")
+        del ck4, cv4, ck5, cv5
         for layer in (0, nl - 1):
             ck1, cv1, ck2, cv2, ck3, cv3 = ck.clone(), cv.clone(), ck.clone(), cv.clone(), ck.clone(), cv.clone()
             out_k = da.decode_attention(q, kn, vn, ck1, cv1, idx, bias, layer).float()
@@ -664,10 +688,11 @@ def batched_requests(results: dict, card: str) -> dict:
 
 def _profile(stages: dict, card: str, label: str) -> dict:
     """Each stage under torch.profiler: wall time, device kernel time (sum
-    of CUDA events), idle share, kernel count and the largest kernels. The
-    profiler's own host cost is in the wall time. Only device activity is
-    recorded: reading back the host events of a 150-step decode took over a
-    minute per stage."""
+    of CUDA events), idle share, kernel count, the largest kernels, and the
+    port's own kernels (their time, launches and time a launch in place,
+    whether or not they are among the largest). The profiler's own host cost
+    is in the wall time. Only device activity is recorded: reading back the
+    host events of a 150-step decode took over a minute per stage."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -681,19 +706,25 @@ def _profile(stages: dict, card: str, label: str) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
         by_name: dict = {}
+        calls: dict = {}
         n = 0
         for e in prof.events():
             if e.device_type == cuda:
                 n += 1
                 by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+                calls[e.name] = calls.get(e.name, 0) + 1
         busy = sum(by_name.values()) / 1e6
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        ours = {k: (v, calls[k]) for k, v in by_name.items() if any(p in k for p in PORT_KERNELS)}
         out[name] = dict(wall_s=wall, device_s=busy, idle_share=1 - busy / wall, device_ops=n,
-                         top=[[k[:60], v / 1e3] for k, v in top])
+                         top=[[k[:60], v / 1e3] for k, v in top],
+                         port_kernels=[[k[:60], v / 1e3, c] for k, (v, c) in sorted(ours.items())])
         log(f"profile {label} {name}: wall {wall:.3f} s, device busy {busy:.4f} s, idle share "
             f"{1 - busy / wall:.3f}, {n} device ops [{card}]")
         for k, v in top:
             log(f"    {v / 1e3:9.3f} ms  {k[:90]}")
+        for k, (v, c) in sorted(ours.items()):
+            log(f"    port kernel {k[:60]}: {v / 1e3:.3f} ms over {c} launches, {v / c:.2f} us a launch in place")
     return out
 
 

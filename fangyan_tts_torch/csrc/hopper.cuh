@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
-// TMA loads and stores (cp.async.bulk.tensor), the wgmma shared-memory
-// descriptor and instructions with their fence / commit / wait, setmaxnreg,
-// and the host-side tensor-map encoder.
+// TMA loads and stores (cp.async.bulk.tensor), the thread-block cluster
+// barrier and distributed shared-memory stores (st.async), the wgmma
+// shared-memory descriptor and instructions with their fence / commit / wait,
+// setmaxnreg, and the host-side tensor-map encoder.
 //
 // Conventions:
 //   - every shared-memory tile that TMA writes or wgmma reads is laid out
@@ -78,6 +79,14 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::
+          "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
                                             int c2, int c3) {
   asm volatile(
@@ -106,6 +115,39 @@ __device__ __forceinline__ void tma_store_wait_read() {
 
 // order this thread's generic-proxy shared-memory writes before later async-proxy reads (TMA store, wgmma)
 __device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// ---------------------------------------------------------------- clusters
+
+// Split cluster barrier: every thread of the cluster arrives once a phase; wait
+// returns when all of the cluster's non-exited threads have arrived. After
+// fence_barrier_init, arrive_relaxed + wait tells a thread that every block
+// has started and initialised its mbarriers.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory"); }
+
+// the shared::cluster address of `p` (in this block's shared memory) in the block of rank `rank`
+__device__ __forceinline__ uint32_t cluster_map(const void* p, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(smem_u32(p)), "r"(rank));
+  return out;
+}
+
+// Stores into another block's shared memory (`addr` from cluster_map) that
+// complete `bytes` on that block's mbarrier `bar` (also from cluster_map):
+// the receiver waits on its own barrier, the sender needs no barrier.
+__device__ __forceinline__ void st_async(uint32_t addr, float v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];\n" ::"r"(addr), "f"(v),
+               "r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void st_async(uint32_t addr, float4 v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(
+                   addr),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+               : "memory");
+}
 
 // ---------------------------------------------------------------- warp specialisation
 

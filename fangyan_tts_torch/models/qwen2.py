@@ -137,10 +137,10 @@ class Qwen2Attention(nn.Module):
         v = v.reshape(b, t, kvh, hd)
 
         if t == 1:
+            # v[:, 0] stays a view of the qkv buffer (a batch stride): the kernel reads it as it is
             ck = cache["k"]
             out = decode_attention(
-                q[:, 0].to(ck.dtype).contiguous(), k[:, 0].to(ck.dtype).contiguous(),
-                v[:, 0].to(ck.dtype).contiguous(), ck, cache["v"], cache["index"],
+                q[:, 0].to(ck.dtype), k[:, 0].to(ck.dtype), v[:, 0].to(ck.dtype), ck, cache["v"], cache["index"],
                 attn_bias[:, 0, :].float().contiguous(), layer,
             )
             return qdense(out.to(x.dtype).reshape(b, 1, self.nq), self.o_proj)

@@ -33,7 +33,7 @@ build_logs: dict[str, str] = {}  # nvcc's output (ptxas register / spill report)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "decode_attention": ("fangyan_decode_attention", [_P] * 9 + [ctypes.c_longlong] + [_I] * 6 + [_P]),
+    "decode_attention": ("fangyan_decode_attention", [_P] * 8 + [ctypes.c_longlong] * 3 + [_I] * 9 + [_P]),
     "flash_attention": ("fangyan_chunk_flash_attention", [_P] * 5 + [_I] * 5 + [ctypes.c_longlong] * 9 + [_P]),
     "int4_matmul": ("fangyan_int4_matmul", [_P] * 4 + [_I] * 7 + [_P]),
 }

@@ -83,6 +83,88 @@ def test_gqa_group_isolation():
     assert not np.array_equal(o1[:, gpk:], o2[:, gpk:])
 
 
+def _hold_against_jax(q, kn, vn, ck, cv, idx, bias, layer):
+    """The port against carry_decode_attention and the Pallas kernel in
+    interpret mode: output atol 2e-2, caches bit-equal. Returns the port's
+    output."""
+    out, ck_t, cv_t = _run_port(q, kn, vn, ck, cv, idx, bias, layer)
+    o1, ck1, cv1 = carry_decode_attention(q, kn, vn, ck, cv, jnp.asarray(idx), jnp.asarray(bias), layer)
+    o2, ck2, cv2 = fused_decode_attention(q, kn, vn, ck, cv, jnp.asarray(idx), jnp.asarray(bias),
+                                          jnp.asarray(layer), interpret=True)
+    for o in (o1, o2):
+        np.testing.assert_allclose(out, np.asarray(o, np.float32), rtol=0, atol=2e-2)
+    for c_t, c1, c2 in ((ck_t, ck1, ck2), (cv_t, cv1, cv2)):
+        np.testing.assert_array_equal(c_t, np.asarray(c1, np.float32))
+        np.testing.assert_array_equal(c_t, np.asarray(c2, np.float32))
+    return out
+
+
+def test_left_padded_rows():
+    """Batched decode: each row's bias is open on [start_b, idx_b], the first
+    open slot differing from row to row (left padding)."""
+    b = 4
+    q, kn, vn, ck, cv = _inputs(5, b)
+    idx = np.asarray([20, 40, 63, S + 3], np.int32)
+    start = np.asarray([0, 17, 30, 5], np.int32)
+    slot = np.arange(S)[None, :]
+    bias = np.where((slot >= start[:, None]) & (slot <= np.minimum(idx, S - 1)[:, None]), 0.0,
+                    -1e10).astype(np.float32)
+    _hold_against_jax(q, kn, vn, ck, cv, idx, bias, 1)
+
+
+def test_all_masked_row_beside_a_normal_row():
+    """A row with no open slot gives the plain version's answer, the mean of
+    V over all S slots, and does not disturb the row beside it."""
+    b = 2
+    q, kn, vn, ck, cv = _inputs(6, b)
+    idx = np.asarray([9, 33], np.int32)
+    bias = np.full((b, S), -1e10, np.float32)
+    bias[0, : idx[0] + 1] = 0.0
+    layer = 2
+    out = _hold_against_jax(q, kn, vn, ck, cv, idx, bias, layer)
+    _, _, cv_t = _run_port(q, kn, vn, ck, cv, idx, bias, layer)
+    v_mean = cv_t[layer, 1].mean(axis=0)  # (KV, hd), after the row write
+    np.testing.assert_allclose(out[1].reshape(KV, QH // KV, HD), np.broadcast_to(v_mean[:, None], (KV, QH // KV, HD)),
+                               rtol=0, atol=2e-2)
+
+
+def test_strided_views_equal_contiguous_call():
+    """q, k_new and v_new as views of one fused qkv buffer (a batch stride,
+    as models/qwen2.py hands them over) give the contiguous call's output
+    and cache writes bit for bit."""
+    b = 3
+    rng = np.random.default_rng(7)
+    qkv = torch.from_numpy(rng.standard_normal((b, (QH + 2 * KV) * HD + 64)).astype(np.float32)).to(torch.bfloat16)
+    q = qkv[:, : QH * HD].reshape(b, QH, HD)
+    kn = qkv[:, QH * HD: (QH + KV) * HD].reshape(b, KV, HD)
+    vn = qkv[:, (QH + KV) * HD: (QH + 2 * KV) * HD].reshape(b, KV, HD)
+    assert not any(t.is_contiguous() for t in (q, kn, vn))
+    cache = torch.from_numpy(rng.standard_normal((2, L, b, S, KV, HD)).astype(np.float32)).to(torch.bfloat16)
+    idx = torch.tensor([3, 40, S + 1], dtype=torch.int32)
+    bias = torch.where(torch.arange(S)[None, :] <= torch.clamp(idx, max=S - 1)[:, None], 0.0, -1e10).float()
+    ck1, cv1, ck2, cv2 = cache[0].clone(), cache[1].clone(), cache[0].clone(), cache[1].clone()
+    out1 = tda.decode_attention(q, kn, vn, ck1, cv1, idx, bias, 1)
+    out2 = tda.decode_attention(q.contiguous(), kn.contiguous(), vn.contiguous(), ck2, cv2, idx, bias, 1)
+    assert torch.equal(out1, out2)
+    assert torch.equal(ck1, ck2) and torch.equal(cv1, cv2)
+
+
+@pytest.mark.parametrize("s", [64, 128, 256, 320, 768, 4096, 100, 8200])
+@pytest.mark.parametrize("b", [1, 16, 64])
+def test_plan_covers_every_slot_once(b, s):
+    """The kernel's launch plan: at most MAX_CLUSTER blocks a cluster, runs
+    of a multiple of GROUP slots that cover [0, S) once each, and a block's
+    shared memory within the card's budget for any group size."""
+    n, per = tda.plan(b, s, KV)
+    assert 1 <= n <= tda.MAX_CLUSTER
+    assert per % tda.GROUP == 0 and per >= tda.GROUP
+    runs = [range(r * per, min((r + 1) * per, s)) for r in range(n)]
+    assert all(len(run) > 0 for run in runs)
+    assert sorted(i for run in runs for i in run) == list(range(s))
+    for g in range(1, 9):
+        assert tda.smem_bytes(n, per, g) <= tda.SMEM_LIMIT
+
+
 def test_cpu_calls_do_not_count_as_launches():
     q, kn, vn, ck, cv = _inputs(4, 1)
     before = tda.launches

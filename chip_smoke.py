@@ -24,11 +24,20 @@ Phases:
      through batch_synthesize, (a) in the int8 LLM mode and (b) in the
      int8 + int4 MLP + int8 DiT mode; the kernel launch counts are set to
      0 before each run and read after it, and each run fails if it
-     launched a kernel at a shape that phase 3 did not check
+     launched a kernel at a shape that phase 3 did not check; then the
+     public API: a full-width model directory written by the port
+     (config.json, the msgpack checkpoints with bf16 leaves, CAM++ and S3),
+     a 5 s prompt wav at 24 kHz, AutoModel(dir) and one
+     inference_zero_shot through the byte tokenizer and text_normalize,
+     with its launches counted as above
   5. each stage under torch.profiler, for the 150-token request and the
      batched requests: device busy time, idle share, device operations,
      largest kernels
-  6. one JSON line of per-kernel results
+  7. the prompt frontend at full size, random weights (no kernel of its
+     own): CAM++ and S3 at the 5 s and the 30 s bucket in float32 on the
+     card against the same weights on the CPU, then in bf16 (what the
+     frontend serves) against float32, and the frontend's times
+  6. one JSON line of per-kernel results (printed after phase 7)
 The last line is {"ok": true, "device": {...}} and the exit code is 0 only
 when every phase passed. Without a CUDA card it exits non-zero before
 printing any result.
@@ -63,6 +72,17 @@ MAX_LIMIT_SHARE = 0.15  # each limit must stay under this share of the mean |out
 # (the precision the JAX package's path runs at), whose scores and
 # probabilities are rounded to bf16.
 SMALL_REL_TOL = 5e-2  # small model, bf16 on the card vs bf16 plain on the CPU
+# Phase 7, CAM++ and S3 float32 on the card vs the CPU: the x-vector within
+# CAM++'s own limits (tests/test_campplus_parity.py), the S3 code lengths
+# equal and at least this share of the valid frames' codes equal.
+XVEC_ATOL, XVEC_RTOL = 2e-4, 2e-3
+S3_CODES_EQUAL = 0.995
+
+# The API request (phase 4): a zh sentence and prompt text through the byte
+# tokenizer (3 ids a character), and a 5 s prompt wav at 24 kHz.
+API_TEXT = "你好，今天天气不错。"
+API_PROMPT_TEXT = "希望你以后能够做得比我还好呦。"
+API_PROMPT_SECONDS = 5
 
 CARDS_USED = 1  # every phase runs on card 0
 PORT_KERNELS = ("decode_attention", "flash_attention", "int4_matmul")  # kernel names the profile reports
@@ -188,6 +208,42 @@ def batch_shapes(req: dict) -> dict:
                 l_mel=-(-longest // 64) * 64 * cfg.token_mel_ratio)
 
 
+def api_request_spec() -> dict:
+    """The API request's lengths and kernel shapes, fixed before any model
+    runs by the byte tokenizer, text_normalize and the 5 s prompt bucket:
+    the text and prompt-text ids, the prompt tokens (S3's 25 Hz codes of the
+    16 kHz prompt, cut to half the 24 kHz mel frames), the decode cache
+    length (CosyVoice3TTS.generate_tokens's buckets), and every flow length
+    the decode can give: the tokens it keeps run from 0 (silent runs are
+    dropped) to max_len, padded with the prompt tokens to a multiple of 32,
+    times 2 mel frames a token."""
+    import warnings
+
+    from fangyan_tts_torch.config import CosyVoiceConfig
+    from fangyan_tts_torch.data.lm_plan import build_prompt_plan
+    from fangyan_tts_torch.infer.frontend import Frontend
+    from fangyan_tts_torch.tokenizer import get_qwen_tokenizer
+
+    cfg = CosyVoiceConfig()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        fe = Frontend(get_qwen_tokenizer(None, True, "cosyvoice3"), cfg, device="cpu")
+    segs = fe.text_normalize(API_TEXT)
+    assert len(segs) == 1, segs
+    text = fe.extract_text_token(segs[0])
+    prompt_text = fe.extract_text_token(fe.text_normalize(API_PROMPT_TEXT, split=False))
+    mel_frames_16k = API_PROMPT_SECONDS * 16000 // 160
+    n_prompt = min(API_PROMPT_SECONDS * cfg.sample_rate // cfg.mel.hop_size // 2, ((mel_frames_16k + 1) // 2 + 1) // 2)
+    plan = build_prompt_plan(cfg.llm, np.concatenate([prompt_text, text]).tolist(), [0] * n_prompt)
+    up = lambda n, m: -(-n // m) * m
+    tp = up(len(plan.ids), 64)
+    max_len = int(len(text) * 20.0)
+    cache_len = up(tp + max(up(max(max_len, 1), 64), 64), 128)
+    flash_l = sorted({up(n_prompt + n, 32) * cfg.token_mel_ratio for n in range(max_len + 1)})
+    return dict(text_ids=len(text), prompt_text_ids=len(prompt_text), prompt_tokens=n_prompt, plan_len=len(plan.ids),
+                tp=tp, max_len=max_len, cache_len=cache_len, flash_l=flash_l)
+
+
 def _checked(results: dict, kernel: str, key: tuple) -> None:
     results.setdefault("checked", {}).setdefault(kernel, set()).add(key)
 
@@ -195,7 +251,7 @@ def _checked(results: dict, kernel: str, key: tuple) -> None:
 # ---------------------------------------------------------------- phase 3
 
 
-def check_decode(results: dict, batches: list[dict]) -> None:
+def check_decode(results: dict, batches: list[dict], api: dict) -> None:
     import torch
     import torch.nn.functional as F
 
@@ -215,6 +271,9 @@ def check_decode(results: dict, batches: list[dict]) -> None:
               (2, 256, [edge - 1, edge], [0, 0]), (1, 4096, [4000], [0])]
     for s in sorted({sh["cache_len"] for sh in batches}):
         shapes.append((16, s, [s - 56] * 16, starts16))
+    if api["cache_len"] not in {sh[1] for sh in shapes if sh[0] == 1}:  # the API request's cache
+        s = api["cache_len"]
+        shapes.append((1, s, [api["tp"] + api["max_len"] - 1], [api["tp"] - api["plan_len"]]))
     for b, s, idx_list, starts in shapes:
         _checked(results, "decode_attention", (b, s))
         rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -283,7 +342,7 @@ def check_decode(results: dict, batches: list[dict]) -> None:
     results["decode_err"] = max(r["err"] for r in rows)
 
 
-def check_flash(results: dict, batches: list[dict]) -> None:
+def check_flash(results: dict, batches: list[dict], api: dict) -> None:
     import torch
     import torch.nn.functional as F
 
@@ -302,12 +361,16 @@ def check_flash(results: dict, batches: list[dict]) -> None:
     # the DiT's own layout too: q and k (B, L, H*D) projections and v a slice of the (B, L, 3*H*D) qkv
     # buffer, each viewed as (B, H, L, D) without a copy (models/dit.py); L = 1344 and the larger batch
     strided = {1344, max(sh["l_mel"] for sh in batches)}
-    for (l, mel), layout in [(sh, "contiguous") for sh in shapes] + [(sh, "strided") for sh in shapes
-                                                                     if sh[0] in strided]:
+    runs = [(sh, "contiguous") for sh in shapes] + [(sh, "strided") for sh in shapes if sh[0] in strided]
+    # the API request's CFG pair at every length its decode can give, checked and not timed (the
+    # longest is its run to max_len, as the zero-shot request's)
+    known = {l for l, mel in shapes if len(mel) == 2}
+    runs += [((l, (l - 6, l - 6)), "untimed") for l in api["flash_l"] if l not in known]
+    for (l, mel), layout in runs:
         b, h, d = len(mel), 16, 64
         _checked(results, "chunk_flash_attention", (b, l))
         rnd = lambda shape, scale: (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
-        if layout == "contiguous":
+        if layout in ("contiguous", "untimed"):
             q, k, v = rnd((b, h, l, d), QK_SCALE), rnd((b, h, l, d), 1.0), rnd((b, h, l, d), 1.0)
         else:
             heads = lambda t: t.reshape(b, l, h, d).transpose(1, 2)
@@ -334,6 +397,8 @@ def check_flash(results: dict, batches: list[dict]) -> None:
             if not (finite and same):
                 raise AssertionError("chunk_flash_attention kernel gave a row that is not finite, or a strided "
                                      "call that differs from the contiguous one")
+            if layout == "untimed":
+                continue
             run_k = lambda: fa.chunk_flash_attention(q, k, v, mel_len, chunk)
             ms_k, ms_e = time_ms(run_k), eager_ms(run_k)
             ms_p = time_ms(lambda: fa.chunk_flash_attention_plain(q, k, v, mel_len, chunk))
@@ -614,6 +679,237 @@ def full_path(results: dict, card: str):
     return tts, fixed
 
 
+def prompt_audio(seconds: float, sr: int, seed: int) -> np.ndarray:
+    """Speech-like float32 audio: a voiced harmonic series on a gliding f0
+    (100-200 Hz), a syllable-rate envelope with pauses, and a little noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    f0 = 150.0 + 40.0 * np.sin(2 * np.pi * 0.7 * t) + 15.0 * np.sin(2 * np.pi * 2.3 * t + 1.0)
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    voiced = sum(np.sin(h * phase + h) / h for h in range(1, 13))
+    env = np.sin(2 * np.pi * 3.1 * t) ** 2 * (np.sin(2 * np.pi * 0.23 * t) > -0.6)
+    x = env * voiced + 0.05 * rng.standard_normal(t.size)
+    return (0.8 * x / np.abs(x).max()).astype(np.float32)
+
+
+def frontend_states(seed: int = 7) -> tuple[dict, dict]:
+    """Full-size CAM++ and S3 tokenizer state_dicts, float32, made on the
+    card from `seed`. Weights N(0, gain^2 / fan_in): gain sqrt(2) for CAM++'s
+    ReLU layers, so activations stay of order one through its 52 dense
+    layers; BatchNorm running var U(0.5, 1.5), mean and bias N(0, 0.01),
+    scale 1 + N(0, 0.01). S3: gain 1, 4 on conv1 (the whisper mel varies
+    little), LayerNorm scale 1 + N(0, 0.01), biases 0, so that its codes vary
+    from frame to frame."""
+    import torch
+
+    from fangyan_tts_torch.models.campplus import CAMPPlus
+    from fangyan_tts_torch.models.s3tokenizer import S3TokenizerV3
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def make(ctor, gain: float, gains: dict, bias_std: float) -> dict:
+        with torch.device("meta"):
+            skel = ctor()
+        out = {}
+        for k, v in skel.state_dict().items():
+            leaf = k.rsplit(".", 1)[-1]
+            normal = lambda std: torch.randn(v.shape, generator=gen, device="cuda") * std
+            if v.dim() >= 2:
+                g = next((gv for pre, gv in gains.items() if k.startswith(pre)), gain)
+                out[k] = normal(g / math.sqrt(math.prod(v.shape[1:])))
+            elif leaf == "var":
+                out[k] = torch.rand(v.shape, generator=gen, device="cuda") + 0.5
+            elif leaf == "scale":
+                out[k] = 1.0 + normal(0.1)
+            else:  # BatchNorm mean, biases
+                out[k] = normal(bias_std)
+        return out
+
+    return make(CAMPPlus, math.sqrt(2.0), {}, 0.1), make(S3TokenizerV3, 1.0, {"conv1.": 4.0}, 0.0)
+
+
+def api_request(results: dict, card: str, tts, states: tuple[dict, dict], api: dict) -> None:
+    """The public API on the card: the full-width model of `tts` written to a
+    model directory as the JAX package lays one out (config.json, llm / flow /
+    hift msgpack with bf16 leaves through from_jax.to_jax_tree and the
+    port's save_params, campplus.msgpack and s3tokenizer.msgpack from
+    `states`), a 5 s prompt wav at 24 kHz, AutoModel(dir) and one
+    inference_zero_shot of a zh sentence through the byte tokenizer and
+    text_normalize. Launches counted as in full_path."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from fangyan_tts_torch.api import AutoModel
+    from fangyan_tts_torch.config import config_to_json
+    from fangyan_tts_torch.data.audio import write_wav
+    from fangyan_tts_torch.models.campplus import CAMPPlus
+    from fangyan_tts_torch.models.from_jax import to_jax_tree
+    from fangyan_tts_torch.models.s3tokenizer import S3TokenizerV3
+    from fangyan_tts_torch.ops import decode_attention as da
+    from fangyan_tts_torch.ops import flash_attention as fa
+    from fangyan_tts_torch.train.checkpoint import save_params
+
+    cfg = tts.cfg
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build, prefix="api_model_") as tmp:
+        d = Path(tmp)
+        t0 = time.perf_counter()
+        (d / "config.json").write_text(config_to_json(cfg))
+        for name, m in (("llm", tts.llm), ("flow", tts.flow), ("hift", tts.hift)):
+            save_params(d / f"{name}.msgpack", to_jax_tree(m.state_dict(), m))
+        bf16 = lambda sd: {k: v.to(torch.bfloat16) if v.dim() >= 2 else v for k, v in sd.items()}
+        with torch.device("meta"):
+            skels = CAMPPlus(), S3TokenizerV3()
+        for name, sd, skel in zip(("campplus", "s3tokenizer"), states, skels):
+            save_params(d / f"{name}.msgpack", to_jax_tree(bf16(sd), skel))
+        write_wav(d / "prompt.wav", prompt_audio(API_PROMPT_SECONDS, 24000, seed=5), 24000)
+        mb = sum(f.stat().st_size for f in d.iterdir()) / 2**20
+        log(f"API model directory written: {', '.join(sorted(f.name for f in d.iterdir()))} ({mb:.0f} MiB) in "
+            f"{time.perf_counter() - t0:.2f} s")
+
+        t0 = time.perf_counter()
+        model = AutoModel(str(d))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        stage: dict = {}
+        steps = counted_steps(model.model)
+        mel_frames, prompts = [], []
+        prompt_inputs = model.frontend.frontend_zero_shot
+        model.model.generate_tokens = clocked(stage, "llm", model.model.generate_tokens)
+        model.model.token2mel = clocked(stage, "flow", model.model.token2mel)
+        model.model.vocode = clocked(stage, "vocoder", model.model.vocode,
+                                     lambda a, k, out: mel_frames.append(a[0].shape[0]))
+        model.frontend.frontend_zero_shot = clocked(stage, "frontend", model.frontend.frontend_zero_shot,
+                                                    lambda a, k, out: prompts.append(out))
+        da.launches = fa.launches = 0
+        with kernel_shapes(results, "API request"):
+            t = time.perf_counter()
+            outs = list(model.inference_zero_shot(API_TEXT, API_PROMPT_TEXT, str(d / "prompt.wav")))
+            wall = time.perf_counter() - t
+        # the request paid the frontend's first-use costs; the same prompt again, warm
+        warm_ms = eager_ms(lambda: prompt_inputs(API_TEXT, API_PROMPT_TEXT, str(d / "prompt.wav")), iters=3)
+    n_dec, n_flash = da.launches, fa.launches
+    _count(results, {"decode_attention": n_dec, "chunk_flash_attention": n_flash})
+    wav = outs[0]["tts_speech"]
+    mi = prompts[0]
+    lengths = tuple(len(mi[k]) for k in ("text", "prompt_text", "llm_prompt_speech_token", "prompt_speech_feat"))
+    want_lengths = (api["text_ids"], api["prompt_text_ids"], api["prompt_tokens"], 2 * api["prompt_tokens"])
+    audio_s = len(wav) / cfg.sample_rate
+    ok = (len(outs) == 1 and np.isfinite(wav).all() and np.abs(wav).max() <= 0.99 and len(wav) == mel_frames[0] * 480
+          and steps[0] > 0 and n_dec == cfg.llm.qwen.num_hidden_layers * steps[0]
+          and n_flash == cfg.flow.dit.depth * cfg.flow.n_timesteps and lengths == want_lengths
+          and np.isfinite(mi["llm_embedding"]).all() and mi["llm_embedding"].shape == (192,))
+    log(f"API request: AutoModel load {load_s:.2f} s; inference_zero_shot: text/prompt-text ids, prompt tokens, "
+        f"prompt mel frames {lengths} (derived {want_lengths}); frontend {stage['frontend']:.3f} s (first call; "
+        f"{warm_ms:.1f} ms warm), "
+        f"{steps[0]} decode steps in {stage['llm']:.3f} s ({stage['llm'] / steps[0] * 1e3:.2f} ms/step), flow "
+        f"{stage['flow']:.3f} s, vocoder {stage['vocoder']:.3f} s, {mel_frames[0]} mel frames, {audio_s:.2f} s "
+        f"audio, wall {wall:.3f} s, RTF {wall / audio_s:.4f}; launches decode {n_dec} flash {n_flash} [{card}] "
+        f"{'OK' if ok else 'FAIL'}")
+    results["api_request"] = dict(load_s=load_s, frontend_s=stage["frontend"], frontend_warm_ms=warm_ms,
+                                  llm_s=stage["llm"],
+                                  flow_s=stage["flow"], vocoder_s=stage["vocoder"], steps=steps[0],
+                                  mel_frames=mel_frames[0], audio_s=audio_s, wall_s=wall, rtf=wall / audio_s,
+                                  decode_launches=n_dec, flash_launches=n_flash)
+    if not ok:
+        raise AssertionError("the API request failed its checks")
+    del model
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- phase 7
+
+
+def frontend_phase(results: dict, card: str, states: tuple[dict, dict]) -> None:
+    """CAM++ and S3 at full size on the 5 s and the 30 s prompt bucket:
+    float32 on the card against float32 on the CPU (the same weights and
+    audio, the features made on each device), then the bf16 frontend that
+    the API serves against float32 on the card, and its times."""
+    import warnings
+
+    import torch
+
+    from fangyan_tts_torch.config import CosyVoiceConfig
+    from fangyan_tts_torch.data.audio import resample_poly
+    from fangyan_tts_torch.infer.frontend import Frontend, _pad_bucket, make_campplus_fn, make_s3_fn
+    from fangyan_tts_torch.infer.tts import _load
+    from fangyan_tts_torch.models.campplus import CAMPPlus
+    from fangyan_tts_torch.models.from_jax import to_jax_tree
+    from fangyan_tts_torch.models.s3tokenizer import S3TokenizerV3
+    from fangyan_tts_torch.ops.mel import kaldi_fbank, whisper_logmel
+    from fangyan_tts_torch.tokenizer import get_qwen_tokenizer
+
+    camp_sd, s3_sd = states
+    models = {dev: (_load(CAMPPlus, camp_sd, torch.device(dev)), _load(S3TokenizerV3, s3_sd, torch.device(dev)))
+              for dev in ("cuda", "cpu")}
+    with torch.device("meta"):
+        skels = CAMPPlus(), S3TokenizerV3()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        tok = get_qwen_tokenizer(None, True, "cosyvoice3")
+    fe = Frontend(tok, CosyVoiceConfig(), make_campplus_fn(to_jax_tree(camp_sd, skels[0])),
+                  make_s3_fn(to_jax_tree(s3_sd, skels[1])))  # bf16 on the card, as the API builds them
+    audio = prompt_audio(30.0, 16000, seed=3)
+    rows = []
+    for label, seconds in (("5 s", 4.3), ("30 s", 30.0)):
+        wav = audio[: int(seconds * 16000)]
+        padded, n = _pad_bucket(wav, 16000)
+        out = {}
+        for dev, (cm, sm) in models.items():
+            with torch.inference_mode():
+                y = torch.from_numpy(padded)[None].to(dev)
+                fb = kaldi_fbank(y)
+                frames = max((n - 400) // 160 + 1, 1)
+                mask = (torch.arange(fb.shape[1], device=dev) < frames)[None, :, None].float()
+                feat = (fb - (fb * mask).sum(dim=1, keepdim=True) / frames) * mask
+                xvec = cm(feat)[0]
+                x, code_len = sm.encode(whisper_logmel(y), torch.tensor([n // 160], device=dev))
+                codes, bounded = sm.fsq(x)
+            out[dev] = (xvec.cpu().numpy(), codes[0].cpu().numpy(), int(code_len[0]), bounded[0].float().cpu().numpy())
+        (xg, cg, lg, bg), (xc, cc, lc, bc) = out["cuda"], out["cpu"]
+        xerr = float(np.abs(xg - xc).max())
+        xvec_ok = bool(np.allclose(xg, xc, atol=XVEC_ATOL, rtol=XVEC_RTOL))
+        valid = min(lg, lc)
+        same = float((cg[:valid] == cc[:valid]).mean())
+        n_diff = int((cg[:valid] != cc[:valid]).sum())
+        gap = float(np.abs(bg[:valid] - bc[:valid]).max())
+        # bf16, as served, against float32 on the card
+        x16 = fe.extract_spk_embedding(wav)
+        c16 = fe.extract_speech_token(wav)
+        cos = float(np.dot(x16, xg) / (np.linalg.norm(x16) * np.linalg.norm(xg)))
+        same16 = float((c16[:lg] == cg[: len(c16)]).mean()) if len(c16) == lg else float("nan")
+        wav24 = resample_poly(wav, 16000, 24000)
+        times = dict(fbank_campplus_ms=eager_ms(lambda: fe.extract_spk_embedding(wav), iters=5),
+                     whisper_s3_ms=eager_ms(lambda: fe.extract_speech_token(wav), iters=5),
+                     matcha_mel_ms=eager_ms(lambda: fe.extract_speech_feat(wav24), iters=5),
+                     prompt_features_ms=eager_ms(lambda: fe._prompt_features(wav), iters=5))
+        ok = xvec_ok and lg == lc and same >= S3_CODES_EQUAL and len(c16) == lg and np.isfinite(x16).all()
+        row = dict(bucket=label, seconds=seconds, xvec_max_abs_err=xerr, xvec_ok=xvec_ok, code_len=(lg, lc),
+                   codes_equal=same, codes_differ=n_diff, fsq_gap=gap, unique_codes=int(len(np.unique(cg[:lg]))),
+                   bf16_codes_equal=same16, bf16_xvec_cos=cos, **times)
+        rows.append(row)
+        log(f"frontend {label} prompt ({seconds} s in the {len(padded) // 16000} s bucket): CAM++ card vs CPU float32 "
+            f"max|diff| {xerr:.3e} (atol {XVEC_ATOL}, rtol {XVEC_RTOL}) {'OK' if xvec_ok else 'FAIL'}, x-vector "
+            f"mean|.| {np.abs(xc).mean():.3f}; S3 code lengths {lg} / {lc}, codes equal on {same:.4f} of the valid "
+            f"frames ({n_diff} differ, limit {S3_CODES_EQUAL}; {row['unique_codes']} distinct codes), largest gap "
+            f"in the pre-round FSQ value {gap:.3e}; bf16 vs float32: codes equal {same16:.4f}, x-vector cosine "
+            f"{cos:.6f} {'OK' if ok else 'FAIL'}")
+        log(f"frontend {label} times (bf16, wall, mean of 5 after 5 warm-up calls): fbank + CAM++ "
+            f"{times['fbank_campplus_ms']:.2f} ms, "
+            f"whisper mel + S3 {times['whisper_s3_ms']:.2f} ms, matcha mel (24 kHz) {times['matcha_mel_ms']:.2f} ms, "
+            f"_prompt_features {times['prompt_features_ms']:.2f} ms [{card}]")
+        if not ok:
+            raise AssertionError(f"the frontend at the {label} prompt failed its checks")
+        row["profile"] = _profile({"fbank + CAM++": lambda: fe.extract_spk_embedding(wav),
+                                   "whisper mel + S3": lambda: fe.extract_speech_token(wav),
+                                   "matcha mel": lambda: fe.extract_speech_feat(wav24),
+                                   "_prompt_features": lambda: fe._prompt_features(wav)}, card, f"frontend {label}")
+    results["frontend"] = rows
+
+
 def batched_requests(results: dict, card: str) -> dict:
     """The dataset-generation path: 16 utterances a request through
     CosyVoice3TTS.batch_synthesize at full width, random bf16 weights.
@@ -759,7 +1055,7 @@ def profile_batch(tts, req: dict, card: str, label: str, llm_only: bool = False)
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6", help="comma-separated phases to run (see above)")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7", help="comma-separated phases to run (see above)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -785,15 +1081,18 @@ def main() -> int:
             for line in text.splitlines():
                 if any(w in line.lower() for w in ("registers", "spill", "error", "warning")):
                     log(f"  nvcc {name}: {line.strip()}")
+    api = api_request_spec()
+    states = frontend_states() if phases & {4, 7} else None
     if 3 in phases:
         batches = [batch_shapes(r) for r in batch_requests_spec()]
-        log(f"batched requests' shapes (a), (b): {batches}")
-        check_decode(results, batches)
-        check_flash(results, batches)
+        log(f"batched requests' shapes (a), (b): {batches}; the API request's: {api}")
+        check_decode(results, batches, api)
+        check_flash(results, batches, api)
         check_int4(results, batches[1])
     if 4 in phases:
         small_reference_check()
         tts, req = full_path(results, card)
+        api_request(results, card, tts, states, api)
         batched = batched_requests(results, card)
         if 5 in phases:
             profile_stages(tts, req, results, card)
@@ -803,6 +1102,8 @@ def main() -> int:
                 "a_bf16": profile_batch(batched["a_bf16"][0], req_a, card, "(a) in bf16", llm_only=True),
                 "b_int4": profile_batch(tts_b, req_b, card, "(b) int8 LLM + int4 MLP, int8 DiT"),
             }
+    if 7 in phases:
+        frontend_phase(results, card, states)
     if 6 in phases and 3 in phases and 4 in phases:
         # the zero-shot request's shapes: its 600-token decode holds most of the
         # main path's decode launches, and its flow the longest attention
@@ -830,7 +1131,8 @@ def main() -> int:
                  library_ms=it["library_ms"]),
         ]
         log("detail: " + json.dumps({k: results[k] for k in ("decode_timing", "flash_timing", "int4_timing", "requests",
-                                                             "batch_requests", "profile", "profile_batch")
+                                                             "api_request", "batch_requests", "profile",
+                                                             "profile_batch", "frontend")
                                      if k in results}))
         log(json.dumps({"kernels": kernels}), stamp=False)
     log(card, stamp=False)

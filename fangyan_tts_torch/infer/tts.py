@@ -336,9 +336,12 @@ class CosyVoice3TTS:
         **kwargs: Any,
     ) -> Generator[dict, None, None]:
         """Offline synthesis: yields one {"tts_speech": float32 wav}. Only
-        stream=False is in the port so far."""
+        stream=False with a whole text is in the port so far: streaming and a
+        text generator (the JAX package's bistream path) raise."""
         if stream:
             raise NotImplementedError("fangyan_tts_torch: streaming synthesis is not ported yet")
+        if hasattr(text, "__next__"):
+            raise NotImplementedError("fangyan_tts_torch: a text generator (bistream synthesis) is not ported yet")
         if source_speech_token.shape[0] == 0:
             ratios = {k: kwargs[k] for k in ("min_token_text_ratio", "max_token_text_ratio") if k in kwargs}
             tokens = self.generate_tokens(text, prompt_text, llm_prompt_speech_token, **ratios)

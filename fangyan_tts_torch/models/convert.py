@@ -1,0 +1,404 @@
+"""Torch state_dicts of the reference checkpoints -> the JAX package's
+parameter trees (the port's copy of the pure-numpy converters of
+fangyan_tts_tpu/models/convert.py that the v3 API and the frontend need).
+
+- `llm_params_from_reference`, `flow_params_from_reference` (with
+  `dit_estimator_params`) and `hift_params_from_reference` map llm.pt,
+  flow.pt and hift.pt; `fuse_qwen_split_params` upgrades a tree saved with
+  split q/k/v and gate/up kernels; `filter_training_meta` drops the
+  epoch/step scalars of a training checkpoint;
+- `campplus_params_from_torch` and `s3_params_from_torch` map the CAM++ and
+  S3 tokenizer state dicts.
+
+The trees are nested dicts of numpy arrays, in the JAX package's layout;
+models/from_jax.py carries them into the port's modules. The v1/v2 and ONNX
+converters are not copied yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+
+
+def _stack_trees(trees: list) -> Any:
+    """Per-layer trees of one structure -> one tree with a leading layer axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees, axis=0)
+
+
+def _t(x) -> np.ndarray:
+    """torch tensor / array -> float32 numpy (transposed handled by caller)."""
+    if hasattr(x, "detach"):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def qwen2_params_from_hf(state_dict: Mapping[str, Any], num_layers: int, prefix: str = "model.") -> dict:
+    """HF Qwen2ForCausalLM state_dict -> Qwen2Model params dict.
+
+    `prefix` is the key prefix up to the decoder stack ('model.' for a bare
+    Qwen2ForCausalLM; 'llm.model.model.' inside a CosyVoice3 llm.pt).
+    Linear weights are transposed (torch stores (out, in); flax Dense kernels
+    are (in, out)).
+    """
+    layers: list[dict] = []
+    for i in range(num_layers):
+        lp = f"{prefix}layers.{i}."
+        layer = {
+            "input_layernorm": {"weight": _t(state_dict[lp + "input_layernorm.weight"])},
+            "post_attention_layernorm": {"weight": _t(state_dict[lp + "post_attention_layernorm.weight"])},
+            "self_attn": {},
+            "mlp": {},
+        }
+        # q/k/v and gate/up are stored FUSED (single matmul per group at
+        # decode — see qwen2.Qwen2Attention); concat the HF split weights
+        qkv_w = np.concatenate(
+            [_t(state_dict[lp + f"self_attn.{n}.weight"]).T for n in ("q_proj", "k_proj", "v_proj")],
+            axis=1,
+        )
+        layer["self_attn"]["qkv_proj"] = {"kernel": qkv_w}
+        if lp + "self_attn.q_proj.bias" in state_dict:
+            layer["self_attn"]["qkv_proj"]["bias"] = np.concatenate(
+                [_t(state_dict[lp + f"self_attn.{n}.bias"]) for n in ("q_proj", "k_proj", "v_proj")]
+            )
+        layer["self_attn"]["o_proj"] = {"kernel": _t(state_dict[lp + "self_attn.o_proj.weight"]).T}
+        layer["mlp"]["gate_up_proj"] = {
+            "kernel": np.concatenate(
+                [_t(state_dict[lp + f"mlp.{n}.weight"]).T for n in ("gate_proj", "up_proj")], axis=1
+            )
+        }
+        layer["mlp"]["down_proj"] = {"kernel": _t(state_dict[lp + "mlp.down_proj.weight"]).T}
+        layers.append(layer)
+    # stack per-layer trees along a leading layer axis (Qwen2Model nn.scan layout)
+    stacked = _stack_trees(layers)
+    return {"layers": stacked, "norm": {"weight": _t(state_dict[prefix + "norm.weight"])}}
+
+
+def fuse_qwen_split_params(tree: Any) -> Any:
+    """Upgrade a params pytree saved with split q/k/v (and gate/up) Dense
+    layouts to the fused qkv_proj / gate_up_proj layout. No-op on already
+    fused trees; works on stacked (L, in, out) scan layouts too."""
+
+    def cat(parts, axis=-1):
+        if hasattr(parts[0], "detach"):  # torch leaves (a bfloat16 checkpoint, train/checkpoint.py)
+            import torch
+
+            return torch.cat(list(parts), dim=axis)
+        return np.concatenate([np.asarray(p) for p in parts], axis=axis)
+
+    def walk(t: Any) -> Any:
+        if not isinstance(t, dict):
+            return t
+        t = {k: walk(v) for k, v in t.items()}
+        if {"q_proj", "k_proj", "v_proj"} <= set(t):
+            fused = {"kernel": cat([t[n]["kernel"] for n in ("q_proj", "k_proj", "v_proj")])}
+            if "bias" in t["q_proj"]:
+                fused["bias"] = cat([t[n]["bias"] for n in ("q_proj", "k_proj", "v_proj")])
+            t = {k: v for k, v in t.items() if k not in ("q_proj", "k_proj", "v_proj")}
+            t["qkv_proj"] = fused
+        if {"gate_proj", "up_proj"} <= set(t):
+            t["gate_up_proj"] = {"kernel": cat([t["gate_proj"]["kernel"], t["up_proj"]["kernel"]])}
+            t = {k: v for k, v in t.items() if k not in ("gate_proj", "up_proj")}
+        return t
+
+    return walk(tree)
+
+
+def _fold_weight_norm(sd: Mapping[str, Any], base: str) -> np.ndarray:
+    """Fold torch weight_norm into a plain weight. Handles both the modern
+    parametrizations layout (original0=g, original1=v) and legacy
+    weight_g/weight_v; falls back to a plain `.weight`."""
+    for g_key, v_key in (
+        (base + ".parametrizations.weight.original0", base + ".parametrizations.weight.original1"),
+        (base + ".weight_g", base + ".weight_v"),
+    ):
+        if g_key in sd:
+            g = _t(sd[g_key]).astype(np.float64)
+            v = _t(sd[v_key]).astype(np.float64)
+            axes = tuple(range(1, v.ndim))
+            norm = np.sqrt(np.sum(v * v, axis=axes, keepdims=True))
+            return (g * v / np.maximum(norm, 1e-12)).astype(np.float32)
+    return _t(sd[base + ".weight"])
+
+
+def _conv_w(sd, base) -> np.ndarray:
+    """torch Conv1d weight (out, in/groups, k) -> flax (k, in/groups, out)."""
+    return _fold_weight_norm(sd, base).transpose(2, 1, 0)
+
+
+def _lin(sd, base) -> dict:
+    out = {"kernel": _fold_weight_norm(sd, base).T}
+    if base + ".bias" in sd:
+        out["bias"] = _t(sd[base + ".bias"])
+    return out
+
+
+def _conv(sd, base) -> dict:
+    out = {"kernel": _conv_w(sd, base)}
+    if base + ".bias" in sd:
+        out["bias"] = _t(sd[base + ".bias"])
+    return out
+
+
+def llm_params_from_reference(sd: Mapping[str, Any], num_layers: int = 24) -> dict:
+    """CosyVoice llm.pt -> CosyVoice3LM params.
+
+    Reference layout (llm.py:628-668): llm.model.* is the HF Qwen2ForCausalLM
+    (Qwen2Encoder wrapper, llm.py:230-233); speech_embedding and llm_decoder
+    sit beside it. epoch/step metadata keys are ignored
+    (compare_inference.py:36-44 does the same filtering)."""
+    p = {
+        "embed_tokens": {"embedding": _t(sd["llm.model.model.embed_tokens.weight"])},
+        "speech_embedding": {"embedding": _t(sd["speech_embedding.weight"])},
+        "llm_decoder": {"kernel": _t(sd["llm_decoder.weight"]).T},
+        "llm": qwen2_params_from_hf(sd, num_layers, prefix="llm.model.model."),
+    }
+    return p
+
+
+def flow_params_from_reference(sd: Mapping[str, Any], depth: int = 22) -> dict:
+    """CosyVoice flow.pt -> CausalMaskedDiffWithDiT params.
+
+    Mapping notes (torch module paths from flow.py:278-310, DiT/dit.py:104-143,
+    DiT/modules.py):
+    - AdaLN chunk orders match (shift/scale/gate msa, shift/scale/gate mlp;
+      final layer: scale then shift) — verified against modules.py:241,262.
+    - the rotary quirk needs no weights (models/dit.py reproduces it in code).
+    """
+    p: dict = {
+        "input_embedding": {"embedding": _t(sd["input_embedding.weight"])},
+        "spk_embed_affine_layer": _lin(sd, "spk_embed_affine_layer"),
+        "pre_lookahead_layer": {
+            "conv1_kernel": _conv_w(sd, "pre_lookahead_layer.conv1"),
+            "conv1_bias": _t(sd["pre_lookahead_layer.conv1.bias"]),
+            "conv2_kernel": _conv_w(sd, "pre_lookahead_layer.conv2"),
+            "conv2_bias": _t(sd["pre_lookahead_layer.conv2.bias"]),
+        },
+        "estimator": dit_estimator_params(sd, "decoder.estimator.", depth),
+    }
+    return p
+
+
+def dit_estimator_params(sd: Mapping[str, Any], prefix: str, depth: int) -> dict:
+    """Reference DiT (flow/DiT/dit.py:104-176) -> models/dit.py DiT params.
+    `prefix` is '' for a raw DiT state dict, 'decoder.estimator.' inside
+    flow.pt."""
+    est = prefix
+    p: dict = {
+        "time_embed": {
+            "mlp_0": _lin(sd, est + "time_embed.time_mlp.0"),
+            "mlp_2": _lin(sd, est + "time_embed.time_mlp.2"),
+        },
+        "input_proj": _lin(sd, est + "input_embed.proj"),
+        "conv_pos_embed": {
+            "conv1_kernel": _conv_w(sd, est + "input_embed.conv_pos_embed.conv1.0"),
+            "conv1_bias": _t(sd[est + "input_embed.conv_pos_embed.conv1.0.bias"]),
+            "conv2_kernel": _conv_w(sd, est + "input_embed.conv_pos_embed.conv2.0"),
+            "conv2_bias": _t(sd[est + "input_embed.conv_pos_embed.conv2.0.bias"]),
+        },
+        "norm_out_linear": _lin(sd, est + "norm_out.linear"),
+        "proj_out": _lin(sd, est + "proj_out"),
+    }
+    blocks = []
+    for i in range(depth):
+        b = f"{est}transformer_blocks.{i}."
+        blocks.append(
+            {
+                "attn_norm_linear": _lin(sd, b + "attn_norm.linear"),
+                "attn": {
+                    # fused qkv kernel (models/dit.py DiTAttention): the
+                    # reference's separate to_q/to_k/to_v concatenate on the
+                    # output axis
+                    "to_qkv": {
+                        "kernel": np.concatenate(
+                            [_lin(sd, b + f"attn.to_{n}")["kernel"] for n in "qkv"], axis=1
+                        ),
+                        "bias": np.concatenate(
+                            [_lin(sd, b + f"attn.to_{n}")["bias"] for n in "qkv"]
+                        ),
+                    },
+                    "to_out": _lin(sd, b + "attn.to_out.0"),
+                },
+                "ff_0": _lin(sd, b + "ff.ff.0.0"),
+                "ff_2": _lin(sd, b + "ff.ff.2"),
+            }
+        )
+    p["blocks"] = _stack_trees(blocks)
+    return p
+
+
+def hift_params_from_reference(
+    sd: Mapping[str, Any],
+    upsample_rates: tuple = (8, 5, 3),
+    num_resblock_kernels: int = 3,
+    resblock_dilations: int = 3,
+) -> dict:
+    """CosyVoice hift.pt -> CausalHiFT params (generator.py:572-726 layout,
+    weight_norm folded)."""
+    p: dict = {
+        "conv_pre": _conv(sd, "conv_pre"),
+        "conv_post": _conv(sd, "conv_post"),
+        "m_source": {"l_linear": _lin(sd, "m_source.l_linear")},
+        "f0_predictor": {"classifier": _lin(sd, "f0_predictor.classifier")},
+    }
+    for i in range(5):
+        p["f0_predictor"][f"conv{i}"] = _conv(sd, f"f0_predictor.condnet.{2 * i}")
+    for i in range(len(upsample_rates)):
+        p[f"ups_{i}"] = _conv(sd, f"ups.{i}")
+        p[f"source_downs_{i}"] = _conv(sd, f"source_downs.{i}")
+        p[f"source_resblocks_{i}"] = _resblock(sd, f"source_resblocks.{i}", resblock_dilations)
+        for j in range(num_resblock_kernels):
+            p[f"resblocks_{i}_{j}"] = _resblock(sd, f"resblocks.{i * num_resblock_kernels + j}", resblock_dilations)
+    return p
+
+
+def _resblock(sd, base, n_dil: int) -> dict:
+    out: dict = {}
+    for j in range(n_dil):
+        out[f"convs1_{j}"] = _conv(sd, f"{base}.convs1.{j}")
+        out[f"convs2_{j}"] = _conv(sd, f"{base}.convs2.{j}")
+        out[f"alpha1_{j}"] = _t(sd[f"{base}.activations1.{j}.alpha"])
+        out[f"alpha2_{j}"] = _t(sd[f"{base}.activations2.{j}.alpha"])
+    return out
+
+
+def filter_training_meta(sd: Mapping[str, Any]) -> dict:
+    """Drop epoch/step scalars from a reference training checkpoint
+    (compare_inference.py:36-40)."""
+    return {k: v for k, v in sd.items() if k not in ("epoch", "step")}
+
+
+# ------------------------------------------------------------- CAM++ frontend
+
+
+def _bn(sd, base, affine: bool = True) -> dict:
+    out = {"mean": _t(sd[base + ".running_mean"]), "var": _t(sd[base + ".running_var"])}
+    if affine:
+        out["scale"] = _t(sd[base + ".weight"])
+        out["bias"] = _t(sd[base + ".bias"])
+    return out
+
+
+def _conv2d(sd, base) -> dict:
+    # torch Conv2d (O, I, H, W) -> flax (H, W, I, O)
+    out = {"kernel": _fold_weight_norm(sd, base).transpose(2, 3, 1, 0)}
+    if base + ".bias" in sd:
+        out["bias"] = _t(sd[base + ".bias"])
+    return out
+
+
+def _lin_from_conv1x1(sd, base) -> dict:
+    # torch Conv1d k=1 (O, I, 1) -> flax Dense (I, O)
+    out = {"kernel": _t(sd[base + ".weight"])[:, :, 0].T}
+    if base + ".bias" in sd:
+        out["bias"] = _t(sd[base + ".bias"])
+    return out
+
+
+def campplus_params_from_torch(sd: Mapping[str, Any], block_layers=(12, 24, 16)) -> dict:
+    """3D-Speaker CAMPPlus state dict (the campplus.onnx export source,
+    frontend.py:45) -> models/campplus.py CAMPPlus params.
+
+    Torch module names: head.{conv1,bn1,layer1.*,layer2.*,conv2,bn2},
+    xvector.{tdnn,blockN.tdnndM.*,transitN,out_nonlinear,stats,dense}."""
+    head: dict = {
+        "conv1": _conv2d(sd, "head.conv1"),
+        "bn1": _bn(sd, "head.bn1"),
+        "conv2": _conv2d(sd, "head.conv2"),
+        "bn2": _bn(sd, "head.bn2"),
+    }
+    for li in (1, 2):
+        for bi in (0, 1):
+            base = f"head.layer{li}.{bi}"
+            blk = {
+                "conv1": _conv2d(sd, base + ".conv1"),
+                "bn1": _bn(sd, base + ".bn1"),
+                "conv2": _conv2d(sd, base + ".conv2"),
+                "bn2": _bn(sd, base + ".bn2"),
+            }
+            if base + ".shortcut.0.weight" in sd:
+                blk["shortcut_conv"] = _conv2d(sd, base + ".shortcut.0")
+                blk["shortcut_bn"] = _bn(sd, base + ".shortcut.1")
+            head[f"layer{li}_{bi}"] = blk
+
+    p: dict = {
+        "head": head,
+        "tdnn": {
+            "kernel": _conv_w(sd, "xvector.tdnn.linear"),
+            "bn": _bn(sd, "xvector.tdnn.nonlinear.batchnorm"),
+        },
+    }
+    for b, nl in enumerate(block_layers):
+        blk = {}
+        for i in range(nl):
+            base = f"xvector.block{b + 1}.tdnnd{i + 1}"
+            blk[f"layer_{i}"] = {
+                "bn1": _bn(sd, base + ".nonlinear1.batchnorm"),
+                "linear1": _lin_from_conv1x1(sd, base + ".linear1"),
+                "bn2": _bn(sd, base + ".nonlinear2.batchnorm"),
+                "cam_layer": {
+                    "linear_local_kernel": _conv_w(sd, base + ".cam_layer.linear_local"),
+                    "linear1": _lin_from_conv1x1(sd, base + ".cam_layer.linear1"),
+                    "linear2": _lin_from_conv1x1(sd, base + ".cam_layer.linear2"),
+                },
+            }
+        p[f"block_{b}"] = blk
+        p[f"transit_{b}"] = {
+            "bn": _bn(sd, f"xvector.transit{b + 1}.nonlinear.batchnorm"),
+            "linear": _lin_from_conv1x1(sd, f"xvector.transit{b + 1}.linear"),
+        }
+    p["out_bn"] = _bn(sd, "xvector.out_nonlinear.batchnorm")
+    p["embedding"] = _lin_from_conv1x1(sd, "xvector.dense.linear")
+    p["emb_bn"] = _bn(sd, "xvector.dense.nonlinear.batchnorm", affine=False)
+    return p
+
+
+# ------------------------------------------------------- S3 tokenizer frontend
+
+
+def s3_params_from_torch(sd: Mapping[str, Any]) -> tuple[dict, dict]:
+    """S3Tokenizer v2/v3 state dict (the speech_tokenizer ONNX export source,
+    frontend.py:46-48) -> (models/s3tokenizer.py params, derived hyperparams).
+
+    Hyperparameters (dim/heads inferable/layers/fsmn kernel) are DERIVED from
+    the weights rather than trusted: layer count from block indices, dim and
+    n_mels from conv1, fsmn kernel width from the depthwise conv."""
+    layers = 0
+    while f"encoder.blocks.{layers}.attn.query.weight" in sd:
+        layers += 1
+    if layers == 0:
+        raise ValueError("no encoder.blocks.* in state dict — not an S3 tokenizer export?")
+    w1 = _t(sd["encoder.conv1.weight"])  # (D, n_mels, 3)
+    dim, n_mels = int(w1.shape[0]), int(w1.shape[1])
+    fsmn_k = int(_t(sd["encoder.blocks.0.attn.fsmn_block.weight"]).shape[2])
+
+    pd_base = (
+        "quantizer._codebook.project_down"
+        if "quantizer._codebook.project_down.weight" in sd
+        else "quantizer.project_down"
+    )
+    p: dict = {
+        "conv1_kernel": _conv_w(sd, "encoder.conv1"),
+        "conv1_bias": _t(sd["encoder.conv1.bias"]),
+        "conv2_kernel": _conv_w(sd, "encoder.conv2"),
+        "conv2_bias": _t(sd["encoder.conv2.bias"]),
+        "fsq": {"project_down": _lin(sd, pd_base)},
+    }
+    for i in range(layers):
+        base = f"encoder.blocks.{i}"
+        p[f"blocks_{i}"] = {
+            "attn_ln": {"scale": _t(sd[f"{base}.attn_ln.weight"]), "bias": _t(sd[f"{base}.attn_ln.bias"])},
+            "q": _lin(sd, f"{base}.attn.query"),
+            "k": _lin(sd, f"{base}.attn.key"),
+            "v": _lin(sd, f"{base}.attn.value"),
+            "out": _lin(sd, f"{base}.attn.out"),
+            "fsmn_kernel": _conv_w(sd, f"{base}.attn.fsmn_block"),
+            "mlp_ln": {"scale": _t(sd[f"{base}.mlp_ln.weight"]), "bias": _t(sd[f"{base}.mlp_ln.bias"])},
+            "mlp_0": _lin(sd, f"{base}.mlp.0"),
+            "mlp_2": _lin(sd, f"{base}.mlp.2"),
+        }
+    hyper = {"dim": dim, "n_mels": n_mels, "layers": layers, "fsmn_kernel": fsmn_k}
+    return p, hyper

@@ -1,15 +1,17 @@
 """Carry the JAX package's parameters into the port's modules.
 
-`llm_from_jax`, `flow_from_jax` and `hift_from_jax` take a param tree of
-the JAX package (nested dicts of numpy arrays, as `jax.device_get` returns
-them) and return the port's state_dict:
+`llm_from_jax`, `flow_from_jax`, `hift_from_jax`, `campplus_from_jax` and
+`s3_from_jax` take a param tree of the JAX package (nested dicts of numpy
+arrays, as `jax.device_get` returns them, or of torch tensors where
+train/checkpoint.py reads bfloat16) and return the port's state_dict:
 
 - the leading layer axis of `layers` / `blocks` (nn.scan) is unstacked
   into `layers.{i}` / `blocks.{i}`;
 - a Dense kernel (in, out) becomes a Linear weight (out, in);
 - a Conv kernel (K, Cin/g, Cout) becomes (Cout, Cin/g, K), and a
   `conv_transpose1d` kernel (K, Cout, Cin) (ops/convs.py of the JAX package)
-  becomes torch's (Cin, Cout, K): both are the axis reversal;
+  becomes torch's (Cin, Cout, K): both are the axis reversal; a 2-D
+  `nn.Conv` kernel (kh, kw, Cin, Cout) becomes (Cout, Cin, kh, kw);
 - `embedding` becomes an Embedding's `weight`; `<name>_kernel` /
   `<name>_bias` leaves become `<name>.weight` / `<name>.bias`;
 - the weight-only quantized leaves of ops/quant.py (`kernel_q` (in, out)
@@ -23,6 +25,13 @@ Values keep their dtype; models are loaded with `load_state_dict(strict=True)`.
 Quantized JAX trees (`quantize_qwen_params`, `quantize_dit_params`) go with
 the quantized configuration's model: `llm_from_jax(qparams, cfg)` with
 `cfg.qwen.quant_int8` set.
+
+`to_jax_tree(state_dict, module)` is the inverse: the port's state_dict
+back to the JAX package's nested tree (layers re-stacked, transposes
+undone), so that the port writes model directories the JAX package reads
+(train/checkpoint.save_params). A module whose type is exactly ConvParams,
+or a bare nn.Module holding a weight, stands for the JAX module's
+`<name>_kernel` / `<name>_bias` leaves.
 """
 
 from __future__ import annotations
@@ -34,14 +43,19 @@ import torch
 import torch.nn as nn
 
 from ..config import FlowConfig, HiFTConfig, LLMConfig
+from .campplus import CAMPPlus
+from .dit import ConvParams
 from .flow import CausalMaskedDiffWithDiT
 from .hift import CausalHiFT
 from .llm import CosyVoice3LM
+from .s3tokenizer import S3TokenizerV3
 
 _STACKED = ("layers", "blocks")
 
 
-def _to_torch(arr: np.ndarray) -> torch.Tensor:
+def _to_torch(arr: np.ndarray | torch.Tensor) -> torch.Tensor:
+    if isinstance(arr, torch.Tensor):
+        return arr.contiguous()
     arr = np.ascontiguousarray(arr)
     if arr.dtype.name == "bfloat16":  # numpy has no bf16; go through float32 (exact)
         return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
@@ -53,7 +67,18 @@ def _flatten(tree: Mapping[str, Any], prefix: tuple[str, ...] = ()):
         if isinstance(v, Mapping):
             yield from _flatten(v, prefix + (str(k),))
         else:
-            yield prefix + (str(k),), np.asarray(v)
+            yield prefix + (str(k),), v if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def _permute(arr, axes: tuple[int, ...]):
+    return arr.permute(*axes) if isinstance(arr, torch.Tensor) else arr.transpose(axes)
+
+
+# kernel axes, JAX -> torch: Dense (in, out) -> Linear (out, in); conv
+# (K, Cin/g, Cout) / transposed conv (K, Cout, Cin) -> axis reversal; 2-D conv
+# (kh, kw, Cin, Cout) -> (Cout, Cin, kh, kw)
+_TO_TORCH = {1: (0,), 2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
+_TO_JAX = {1: (0,), 2: (1, 0), 3: (2, 1, 0), 4: (2, 3, 1, 0)}
 
 
 def _leaf(path: tuple[str, ...], arr: np.ndarray) -> tuple[str, np.ndarray]:
@@ -68,11 +93,7 @@ def _leaf(path: tuple[str, ...], arr: np.ndarray) -> tuple[str, np.ndarray]:
         return ".".join(mods + ["weight"]), arr
     else:
         return ".".join(mods + [leaf]), arr
-    if arr.ndim == 2:  # Dense (in, out) -> Linear (out, in)
-        arr = arr.T
-    elif arr.ndim == 3:  # (K, Cin/g, Cout) / (K, Cout, Cin) -> axis reversal
-        arr = arr.transpose(2, 1, 0)
-    return ".".join(mods), arr
+    return ".".join(mods), _permute(arr, _TO_TORCH[arr.ndim])
 
 
 def convert(params: Mapping[str, Any], module: nn.Module) -> dict[str, torch.Tensor]:
@@ -115,3 +136,58 @@ def flow_from_jax(params: Mapping[str, Any], cfg: FlowConfig) -> dict[str, torch
 
 def hift_from_jax(params: Mapping[str, Any], cfg: HiFTConfig) -> dict[str, torch.Tensor]:
     return convert(params, _skeleton(lambda: CausalHiFT(cfg)))
+
+
+def campplus_from_jax(params: Mapping[str, Any], **kwargs) -> dict[str, torch.Tensor]:
+    """CAM++ tree -> state_dict; kwargs are CAMPPlus's (full size by default)."""
+    return convert(params, _skeleton(lambda: CAMPPlus(**kwargs)))
+
+
+def s3_from_jax(params: Mapping[str, Any], **kwargs) -> dict[str, torch.Tensor]:
+    """S3 tokenizer tree -> state_dict; kwargs are S3TokenizerV3's."""
+    return convert(params, _skeleton(lambda: S3TokenizerV3(**kwargs)))
+
+
+def _jax_leaf(t: torch.Tensor) -> np.ndarray | torch.Tensor:
+    """numpy where numpy has the dtype; a bfloat16 tensor stays a tensor."""
+    t = t.detach().cpu().contiguous()
+    return t if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def to_jax_tree(state_dict: Mapping[str, torch.Tensor], module: nn.Module) -> dict:
+    """The port's state_dict of `module` -> the JAX package's nested tree."""
+    owners = dict(module.named_modules())
+    flat: dict[tuple[str, ...], torch.Tensor] = {}
+    for key, t in state_dict.items():
+        mod_path, _, leaf = key.rpartition(".")
+        owner = owners[mod_path]
+        parts = mod_path.split(".") if mod_path else []
+        if isinstance(owner, nn.Embedding):
+            path = parts + ["embedding"]
+        elif type(owner) in (ConvParams, nn.Module) and leaf in ("weight", "bias"):
+            path = parts[:-1] + [f"{parts[-1]}_{'kernel' if leaf == 'weight' else 'bias'}"]
+            if leaf == "weight":
+                t = t.permute(*_TO_JAX[t.dim()])
+        elif leaf == "weight" and t.dim() >= 2:
+            path = parts + ["kernel"]
+            t = t.permute(*_TO_JAX[t.dim()])
+        else:
+            path = parts + [leaf]
+        flat[tuple(path)] = t
+    stacks: dict[tuple[str, ...], dict[int, torch.Tensor]] = {}
+    tree: dict = {}
+    for path, t in flat.items():
+        s = next((i for i, p in enumerate(path) if p in _STACKED), None)
+        if s is None:
+            _put(tree, path, _jax_leaf(t))
+        else:
+            stacks.setdefault(path[: s + 1] + path[s + 2 :], {})[int(path[s + 1])] = t
+    for path, by_layer in stacks.items():
+        _put(tree, path, _jax_leaf(torch.stack([by_layer[i] for i in range(len(by_layer))])))
+    return tree
+
+
+def _put(tree: dict, path: tuple[str, ...], value) -> None:
+    for p in path[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[path[-1]] = value

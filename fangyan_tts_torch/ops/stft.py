@@ -106,3 +106,15 @@ def hann_window(win_length: int) -> np.ndarray:
     """Periodic Hann (== torch.hann_window(N)), float32 numpy."""
     n = np.arange(win_length)
     return (0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_length)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def povey_window(win_length: int) -> np.ndarray:
+    """Kaldi's povey window, hann(periodic over N-1) ** 0.85, float32 numpy."""
+    n = np.arange(win_length)
+    hann = 0.5 - 0.5 * np.cos(2.0 * np.pi * n / (win_length - 1))
+    return (hann**0.85).astype(np.float32)
+
+
+def magnitude(real: torch.Tensor, imag: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:
+    return torch.sqrt(real * real + imag * imag + eps)

@@ -155,7 +155,40 @@ def test_port_imports_no_jax():
     assert int(out.stdout.strip()) >= 15
 
 
-def test_entry_points_refuse_cpu_fallback(monkeypatch):
+def test_port_imports_without_optional_packages():
+    """The port imports, and serves the byte tokenizer, with jax, flax,
+    regex, msgpack, transformers and tiktoken unimportable (a CUDA host needs
+    none of them); a tokenizer directory then raises, as in the JAX
+    package."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'flax', 'regex', 'msgpack', 'transformers', 'tiktoken', 'fangyan_tts_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import importlib, pkgutil, warnings\n"
+        "import fangyan_tts_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'fangyan_tts_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from fangyan_tts_torch.infer.textnorm import is_only_punctuation, text_normalize\n"
+        "from fangyan_tts_torch.tokenizer import get_qwen_tokenizer\n"
+        "warnings.simplefilter('ignore')\n"
+        "tok = get_qwen_tokenizer(None)\n"
+        "assert tok.encode('<|endofprompt|>a') == [259, 97]\n"
+        "assert is_only_punctuation('。！')\n"
+        "assert text_normalize('3.5%', list, split=False) == 'three point five percent'\n"
+        "try:\n"
+        "    get_qwen_tokenizer('some_tokenizer_dir')\n"
+        "except ImportError:\n"
+        "    print('tokenizer dir raises')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "tokenizer dir raises"
+
+
+def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
+    from fangyan_tts_torch import api
+    from fangyan_tts_torch.infer import frontend
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         TorchTTS.random_init(TC)
@@ -163,6 +196,28 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
         TorchTTS.random_init(TC, device="cuda")
     with pytest.raises(NotImplementedError):
         next(TorchTTS.random_init(TC, dtype=torch.float32, device="cpu").tts(stream=True))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        frontend.Frontend(None, TC)
+    for make in (frontend.make_campplus_fn, frontend.make_s3_fn):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make({})
+    for entry in (api.CosyVoice3, api.AutoModel):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry(str(tmp_path))  # before any checkpoint is looked for
+    # bf16 only on the card: fp16=False (float32) on CUDA is refused, not run
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="bfloat16"):
+        TorchTTS(TC, {}, {}, {}, dtype=torch.float32, device="cuda")
+
+
+def test_generator_text_raises(pair):
+    """A text generator (the JAX package's bistream path) is not ported: tts
+    raises NotImplementedError at once instead of failing inside the plan."""
+    _, ttts = pair
+    r = _request()
+    r["text"] = (np.asarray(t, np.int32) for t in ([5, 6], [7]))
+    with pytest.raises(NotImplementedError, match="generator"):
+        next(ttts.tts(**r))
 
 
 @pytest.mark.parametrize("sub, field, value", [

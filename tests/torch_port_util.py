@@ -65,3 +65,49 @@ def np_params(model, seed: int, *init_args, gain: float = 1.0, **init_kwargs) ->
 def to_jax(tree):
     return jax.tree.map(jnp.asarray, tree)
 
+
+
+def campplus_oracle(tiny: dict, seed: int):
+    """A tests/oracles CAM++ in eval mode with N(0, 0.04) weights and
+    non-trivial BatchNorm statistics (as tests/test_campplus_parity.py
+    makes it)."""
+    from oracles.campplus_torch import CAMPPlus
+
+    gen = torch.Generator().manual_seed(seed)
+    m = CAMPPlus(**tiny).eval()
+    with torch.no_grad():
+        for p in m.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.2)
+        for mod in m.modules():
+            if isinstance(mod, (torch.nn.BatchNorm1d, torch.nn.BatchNorm2d)):
+                mod.running_mean.copy_(torch.randn(mod.running_mean.shape, generator=gen) * 0.1)
+                mod.running_var.copy_(torch.rand(mod.running_var.shape, generator=gen) * 0.5 + 0.75)
+                if mod.affine:
+                    mod.weight.data.copy_(torch.randn(mod.weight.shape, generator=gen) * 0.2 + 1.0)
+                    mod.bias.data.copy_(torch.randn(mod.bias.shape, generator=gen) * 0.1)
+    return m
+
+
+def s3_oracle(tiny: dict, seed: int):
+    """A tests/oracles S3 tokenizer in eval mode with N(0, 0.04) weights."""
+    from oracles.s3tokenizer_torch import S3TokenizerV2
+
+    gen = torch.Generator().manual_seed(seed)
+    m = S3TokenizerV2(**tiny).eval()
+    with torch.no_grad():
+        for p in m.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.2)
+    return m
+
+
+def campplus_kwargs(tiny: dict) -> tuple[dict, dict]:
+    """(the JAX CAMPPlus's kwargs, the port's) for an oracle configuration."""
+    j = dict(embedding_size=tiny["embedding_size"], init_channels=tiny["init_channels"], growth=tiny["growth_rate"],
+             bn_size=tiny["bn_size"], block_layers=tiny["block_layers"])
+    return j, dict(j, feat_dim=tiny["feat_dim"])
+
+
+def s3_kwargs(tiny: dict) -> dict:
+    """The kwargs of either package's S3TokenizerV3 for an oracle configuration."""
+    return dict(dim=tiny["n_state"], heads=tiny["n_head"], layers=tiny["n_layer"], n_mels=tiny["n_mels"],
+                fsmn_kernel=tiny["kernel_size"])

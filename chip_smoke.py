@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py                    # every phase; needs one CUDA card
     python3 chip_smoke.py --phases 1,2,3     # build and check the kernels only
+    python3 chip_smoke.py --phases 1,2,3,8   # the streaming slice alone
 
 Phases:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -10,10 +11,13 @@ Phases:
      all at once) and print the build time and ptxas report
   3. each kernel against its plain PyTorch version on the card, at the
      main paths' shapes (the single requests', and the batches of 16 as
-     worked out from their own buckets), with the tolerances below, and
+     worked out from their own buckets, and the streaming requests' decode
+     caches and window lengths, from infer/tts.stream_buckets and the
+     flow window), with the tolerances below, and
      decode attention also with a row that has no open slot, write slots on
      a block boundary of its launch plan, one long cache (S = 4096) and
      strided q / k_new / v_new views (bit-equal to the contiguous call);
+     flash attention also at window lengths that are no multiple of 64;
      kernel, plain and library times (timed only:
      scaled_dot_product_attention for the attention kernels, F.linear on the
      dequantized weight for int4_matmul)
@@ -37,7 +41,22 @@ Phases:
      own): CAM++ and S3 at the 5 s and the 30 s bucket in float32 on the
      card against the same weights on the CPU, then in bf16 (what the
      frontend serves) against float32, and the frontend's times
-  6. one JSON line of per-kernel results (printed after phase 7)
+  8. streaming, CosyVoice3TTS.tts(stream=True) at full width with random
+     weights: warmup_streaming timed; S1 first chunk (bench.py's
+     bench_first_chunk), S2 solo stream (bench_solo_streaming: 320 tokens,
+     window hops), S3 a zero-shot stream (60 prompt tokens, 400 tokens), S4
+     AutoModel(dir).inference_zero_shot(stream=True) on phase 4's model
+     directory, S5 a bistream text generator (stopped after 100 tokens); S1
+     and S3 again with the speculative first hop and the token prefetch
+     thread off, held to the runs with both on; first-chunk ms, RTF and the
+     per-hop budget (stream_stats); launches counted per run and every
+     shape held to phase 3's checks as in phase 4; one young KV hop and one
+     window hop of S2 under torch.profiler; and a small model's vc stream
+     across the window boundary on the card against the CPU
+  6. one JSON line of per-kernel results (printed after phases 7 and 8)
+Phase 8 runs after phase 4's requests and before the profiler passes of
+phases 5 and 7; a probe of the host's cost of one eager launch is logged at
+the start, around phase 8 and at the end.
 The last line is {"ok": true, "device": {...}} and the exit code is 0 only
 when every phase passed. Without a CUDA card it exits non-zero before
 printing any result.
@@ -83,6 +102,18 @@ S3_CODES_EQUAL = 0.995
 API_TEXT = "你好，今天天气不错。"
 API_PROMPT_TEXT = "希望你以后能够做得比我还好呦。"
 API_PROMPT_SECONDS = 5
+# Streaming (phase 8): the TTS objects' window (CosyVoice3TTS.stream_window_tokens)
+# and the bistream cache (infer/bistream.inference_bistream's cache_len)
+STREAM_WINDOW = 300
+BISTREAM_CACHE = 2048
+# Random weights never sample a stop id, so S5 would run to the bistream cap
+# of 1,500 tokens. Its eos is forced once it has 5 speech tokens a text token
+# (bench.py's batched ratio): 100 for its 20 text tokens, 60 of them in the
+# text phase (a forced fill every 15) and 40 after the text ends.
+S5_TOKENS = 100
+# S1 and S3 with speculation and prefetch off against both on, from one
+# generator seed: the same chunk lengths, the samples within this
+SPEC_ATOL = 1e-5
 
 CARDS_USED = 1  # every phase runs on card 0
 PORT_KERNELS = ("decode_attention", "flash_attention", "int4_matmul")  # kernel names the profile reports
@@ -146,6 +177,19 @@ def eager_ms(fn, iters: int = 50) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t) * 1e3 / iters
+
+
+def launch_probe(results: dict, label: str) -> float:
+    """The host's cost of one eager launch now: the wall µs a call of 2,000
+    one-element adds (the device takes about 2 µs each). Logged at points
+    of the run, to show what the launch-bound paths pay there."""
+    import torch
+
+    x = torch.zeros(1, device="cuda")
+    us = eager_ms(lambda: x.add_(1.0), iters=2000) * 1e3
+    results.setdefault("launch_probe_us", {})[label] = us
+    log(f"host launch probe ({label}): {us:.2f} us an eager launch")
+    return us
 
 
 def cycling(fn, n: int):
@@ -244,6 +288,56 @@ def api_request_spec() -> dict:
                 tp=tp, max_len=max_len, cache_len=cache_len, flash_l=flash_l)
 
 
+def stream_requests_spec() -> tuple[dict, list]:
+    """The streaming requests' tts arguments (S1-S3, random bf16 weights take
+    them) and S5's text chunks. S1 and S2 are bench.py's
+    bench_first_chunk and bench_solo_streaming: 10 and 16 text tokens, min =
+    max ratio 20 (200 and 320 tokens), no prompt. S3 is a zero-shot stream:
+    10 prompt-text tokens, 60 prompt speech tokens (prompt_pad 15), a
+    120-frame prompt mel, an x-vector, and 20 text tokens forced to 400
+    tokens."""
+    rng = np.random.default_rng(8)
+    xvec = rng.standard_normal(192).astype(np.float32)
+    ratio = dict(min_token_text_ratio=20.0, max_token_text_ratio=20.0)
+    prompt = rng.integers(0, 6561, 60).astype(np.int32)
+    reqs = {
+        "S1": dict(text=rng.integers(0, 50000, 10).astype(np.int32), flow_embedding=xvec, **ratio),
+        "S2": dict(text=rng.integers(0, 50000, 16).astype(np.int32), flow_embedding=xvec, **ratio),
+        "S3": dict(text=rng.integers(0, 50000, 20).astype(np.int32), prompt_text=rng.integers(0, 50000, 10).astype(np.int32),
+                   llm_prompt_speech_token=prompt, flow_prompt_speech_token=prompt,
+                   prompt_speech_feat=(rng.standard_normal((120, 80)) * 0.5).astype(np.float32), flow_embedding=xvec,
+                   **ratio),
+    }
+    return reqs, [rng.integers(0, 50000, 5).astype(np.int32) for _ in range(4)]
+
+
+def stream_shapes(api: dict) -> dict:
+    """The kernel shapes of the streaming requests: the decode caches of
+    S1-S3 and of the API stream (infer/tts.stream_buckets, the function
+    _stream_tokens uses), with the last slot each can write and its first
+    valid slot, and the bistream cache; the flash window lengths (P + W) * 2
+    for the prompt lengths the streams take (none, S3's 60, the API's),
+    each the CFG pair with every frame valid."""
+    from fangyan_tts_torch.config import CosyVoiceConfig
+    from fangyan_tts_torch.infer.tts import stream_buckets
+
+    cfg = CosyVoiceConfig()
+    decode = []
+    reqs, _ = stream_requests_spec()
+    zeros = np.zeros(0, np.int32)
+    for name, r in reqs.items():
+        plan, tp, cache_len, _, max_len = stream_buckets(cfg.llm, r["text"], r.get("prompt_text", zeros),
+                                                         r.get("llm_prompt_speech_token", zeros), 20.0, 20.0)
+        decode.append((name, cache_len, tp + max_len + 31, tp - len(plan.ids)))  # a chunk runs on past max_len
+    plan, tp, cache_len, _, max_len = stream_buckets(
+        cfg.llm, np.zeros(api["text_ids"], np.int32), np.zeros(api["prompt_text_ids"], np.int32),
+        np.zeros(api["prompt_tokens"], np.int32), 2.0, 20.0)
+    decode.append(("S4 API", cache_len, tp + max_len + 31, tp - len(plan.ids)))
+    decode.append(("S5 bistream", BISTREAM_CACHE, BISTREAM_CACHE - 1, 0))
+    prompts = sorted({0, len(reqs["S3"]["flow_prompt_speech_token"]), api["prompt_tokens"]})
+    return dict(decode=decode, flash_l=[(p + STREAM_WINDOW) * cfg.token_mel_ratio for p in prompts])
+
+
 def _checked(results: dict, kernel: str, key: tuple) -> None:
     results.setdefault("checked", {}).setdefault(kernel, set()).add(key)
 
@@ -251,7 +345,7 @@ def _checked(results: dict, kernel: str, key: tuple) -> None:
 # ---------------------------------------------------------------- phase 3
 
 
-def check_decode(results: dict, batches: list[dict], api: dict) -> None:
+def check_decode(results: dict, batches: list[dict], api: dict, stream: dict) -> None:
     import torch
     import torch.nn.functional as F
 
@@ -274,6 +368,9 @@ def check_decode(results: dict, batches: list[dict], api: dict) -> None:
     if api["cache_len"] not in {sh[1] for sh in shapes if sh[0] == 1}:  # the API request's cache
         s = api["cache_len"]
         shapes.append((1, s, [api["tp"] + api["max_len"] - 1], [api["tp"] - api["plan_len"]]))
+    for _, s, idx, start in stream["decode"]:  # the streams' caches (one row each), not checked above
+        if s not in {sh[1] for sh in shapes if sh[0] == 1}:
+            shapes.append((1, s, [idx], [start]))
     for b, s, idx_list, starts in shapes:
         _checked(results, "decode_attention", (b, s))
         rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -342,7 +439,7 @@ def check_decode(results: dict, batches: list[dict], api: dict) -> None:
     results["decode_err"] = max(r["err"] for r in rows)
 
 
-def check_flash(results: dict, batches: list[dict], api: dict) -> None:
+def check_flash(results: dict, batches: list[dict], api: dict, stream: dict) -> None:
     import torch
     import torch.nn.functional as F
 
@@ -358,9 +455,12 @@ def check_flash(results: dict, batches: list[dict], api: dict) -> None:
     shapes = [(320, (320, 250)), (448, (448, 301)), (1344, (1300, 1300))]
     for l in sorted({sh["l_mel"] for sh in batches}):
         shapes.append((l, tuple(int(v) for v in rag.integers(l * 5 // 8, l + 1, 16)) * 2))
+    # the streaming windows: the CFG pair, every frame valid, L = (P + W) * 2 (no multiple of 64)
+    shapes += [(l, (l, l)) for l in stream["flash_l"]]
     # the DiT's own layout too: q and k (B, L, H*D) projections and v a slice of the (B, L, 3*H*D) qkv
-    # buffer, each viewed as (B, H, L, D) without a copy (models/dit.py); L = 1344 and the larger batch
-    strided = {1344, max(sh["l_mel"] for sh in batches)}
+    # buffer, each viewed as (B, H, L, D) without a copy (models/dit.py); L = 1344, the larger batch and
+    # the streaming windows
+    strided = {1344, max(sh["l_mel"] for sh in batches), *stream["flash_l"]}
     runs = [(sh, "contiguous") for sh in shapes] + [(sh, "strided") for sh in shapes if sh[0] in strided]
     # the API request's CFG pair at every length its decode can give, checked and not timed (the
     # longest is its run to max_len, as the zero-shot request's)
@@ -728,36 +828,31 @@ def frontend_states(seed: int = 7) -> tuple[dict, dict]:
     return make(CAMPPlus, math.sqrt(2.0), {}, 0.1), make(S3TokenizerV3, 1.0, {"conv1.": 4.0}, 0.0)
 
 
-def api_request(results: dict, card: str, tts, states: tuple[dict, dict], api: dict) -> None:
-    """The public API on the card: the full-width model of `tts` written to a
-    model directory as the JAX package lays one out (config.json, llm / flow /
-    hift msgpack with bf16 leaves through from_jax.to_jax_tree and the
-    port's save_params, campplus.msgpack and s3tokenizer.msgpack from
-    `states`), a 5 s prompt wav at 24 kHz, AutoModel(dir) and one
-    inference_zero_shot of a zh sentence through the byte tokenizer and
-    text_normalize. Launches counted as in full_path."""
+@contextlib.contextmanager
+def api_model_dir(tts, states: tuple[dict, dict]):
+    """The full-width model of `tts` written to a model directory as the JAX
+    package lays one out (config.json, llm / flow / hift msgpack with bf16
+    leaves through from_jax.to_jax_tree and the port's save_params,
+    campplus.msgpack and s3tokenizer.msgpack from `states`) with a 5 s
+    prompt wav at 24 kHz, under build/ (ignored by git); removed after."""
     import tempfile
     from pathlib import Path
 
     import torch
 
-    from fangyan_tts_torch.api import AutoModel
     from fangyan_tts_torch.config import config_to_json
     from fangyan_tts_torch.data.audio import write_wav
     from fangyan_tts_torch.models.campplus import CAMPPlus
     from fangyan_tts_torch.models.from_jax import to_jax_tree
     from fangyan_tts_torch.models.s3tokenizer import S3TokenizerV3
-    from fangyan_tts_torch.ops import decode_attention as da
-    from fangyan_tts_torch.ops import flash_attention as fa
     from fangyan_tts_torch.train.checkpoint import save_params
 
-    cfg = tts.cfg
     build = Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build, prefix="api_model_") as tmp:
         d = Path(tmp)
         t0 = time.perf_counter()
-        (d / "config.json").write_text(config_to_json(cfg))
+        (d / "config.json").write_text(config_to_json(tts.cfg))
         for name, m in (("llm", tts.llm), ("flow", tts.flow), ("hift", tts.hift)):
             save_params(d / f"{name}.msgpack", to_jax_tree(m.state_dict(), m))
         bf16 = lambda sd: {k: v.to(torch.bfloat16) if v.dim() >= 2 else v for k, v in sd.items()}
@@ -769,28 +864,42 @@ def api_request(results: dict, card: str, tts, states: tuple[dict, dict], api: d
         mb = sum(f.stat().st_size for f in d.iterdir()) / 2**20
         log(f"API model directory written: {', '.join(sorted(f.name for f in d.iterdir()))} ({mb:.0f} MiB) in "
             f"{time.perf_counter() - t0:.2f} s")
+        yield d
 
-        t0 = time.perf_counter()
-        model = AutoModel(str(d))
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
-        stage: dict = {}
-        steps = counted_steps(model.model)
-        mel_frames, prompts = [], []
-        prompt_inputs = model.frontend.frontend_zero_shot
-        model.model.generate_tokens = clocked(stage, "llm", model.model.generate_tokens)
-        model.model.token2mel = clocked(stage, "flow", model.model.token2mel)
-        model.model.vocode = clocked(stage, "vocoder", model.model.vocode,
-                                     lambda a, k, out: mel_frames.append(a[0].shape[0]))
-        model.frontend.frontend_zero_shot = clocked(stage, "frontend", model.frontend.frontend_zero_shot,
-                                                    lambda a, k, out: prompts.append(out))
-        da.launches = fa.launches = 0
-        with kernel_shapes(results, "API request"):
-            t = time.perf_counter()
-            outs = list(model.inference_zero_shot(API_TEXT, API_PROMPT_TEXT, str(d / "prompt.wav")))
-            wall = time.perf_counter() - t
-        # the request paid the frontend's first-use costs; the same prompt again, warm
-        warm_ms = eager_ms(lambda: prompt_inputs(API_TEXT, API_PROMPT_TEXT, str(d / "prompt.wav")), iters=3)
+
+def api_request(results: dict, card: str, d, api: dict) -> None:
+    """The public API on the card: AutoModel(d) on the model directory of
+    api_model_dir and one inference_zero_shot of a zh sentence through the
+    byte tokenizer and text_normalize. Launches counted as in full_path."""
+    import torch
+
+    from fangyan_tts_torch.api import AutoModel
+    from fangyan_tts_torch.config import CosyVoiceConfig
+    from fangyan_tts_torch.ops import decode_attention as da
+    from fangyan_tts_torch.ops import flash_attention as fa
+
+    cfg = CosyVoiceConfig()
+    t0 = time.perf_counter()
+    model = AutoModel(str(d))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    stage: dict = {}
+    steps = counted_steps(model.model)
+    mel_frames, prompts = [], []
+    prompt_inputs = model.frontend.frontend_zero_shot
+    model.model.generate_tokens = clocked(stage, "llm", model.model.generate_tokens)
+    model.model.token2mel = clocked(stage, "flow", model.model.token2mel)
+    model.model.vocode = clocked(stage, "vocoder", model.model.vocode,
+                                 lambda a, k, out: mel_frames.append(a[0].shape[0]))
+    model.frontend.frontend_zero_shot = clocked(stage, "frontend", model.frontend.frontend_zero_shot,
+                                                lambda a, k, out: prompts.append(out))
+    da.launches = fa.launches = 0
+    with kernel_shapes(results, "API request"):
+        t = time.perf_counter()
+        outs = list(model.inference_zero_shot(API_TEXT, API_PROMPT_TEXT, str(d / "prompt.wav")))
+        wall = time.perf_counter() - t
+    # the request paid the frontend's first-use costs; the same prompt again, warm
+    warm_ms = eager_ms(lambda: prompt_inputs(API_TEXT, API_PROMPT_TEXT, str(d / "prompt.wav")), iters=3)
     n_dec, n_flash = da.launches, fa.launches
     _count(results, {"decode_attention": n_dec, "chunk_flash_attention": n_flash})
     wav = outs[0]["tts_speech"]
@@ -1053,9 +1162,261 @@ def profile_batch(tts, req: dict, card: str, label: str, llm_only: bool = False)
     return _profile(stages, card, label)
 
 
+# ---------------------------------------------------------------- phase 8
+
+
+def stream_plan(n_tokens: int, n_prompt: int, cfg) -> tuple[int, int]:
+    """(hops, flow window calls) of a stream of n_tokens target tokens after
+    a prompt of n_prompt tokens, as infer/stream.Token2WavSession runs it:
+    a hop when hop (+ prompt_pad on the first) + lookahead tokens are in,
+    on the window past stream_window_tokens, and a finalize that runs on
+    the window when any frame is left and the stream reached the window."""
+    hop, la = cfg.chunk_size, cfg.flow.pre_lookahead_len
+    pad = -n_prompt % hop
+    hops = offset = windows = 0
+    while n_tokens - offset >= (hop + pad if offset == 0 else hop) + la:
+        offset += hop + pad if offset == 0 else hop
+        hops += 1
+        windows += hop * hops + pad >= STREAM_WINDOW
+    if n_tokens * cfg.token_mel_ratio > hops * hop * cfg.token_mel_ratio and n_tokens >= STREAM_WINDOW:
+        windows += 1
+    return hops, windows
+
+
+def stream_run(tts, run, keep: bool = False) -> dict:
+    """One stream: `run()` returns the chunk generator. Wall time, time to
+    the first chunk, chunks, samples, and the stream_stats budget; with
+    `keep`, the chunks themselves under "wav"."""
+    tts.stream_stats = {}
+    t0 = time.perf_counter()
+    first = None
+    chunks, n, ok, kept = 0, 0, True, []
+    for out in run():
+        if first is None:
+            first = time.perf_counter() - t0
+        wav = out["tts_speech"]
+        ok &= bool(np.isfinite(wav).all()) and (len(wav) == 0 or float(np.abs(wav).max()) <= 0.99)
+        chunks += 1
+        n += len(wav)
+        if keep:
+            kept.append(wav)
+    wall = time.perf_counter() - t0
+    stats, tts.stream_stats = tts.stream_stats, None
+    budget = {k: (float(np.mean(v)), float(np.max(v))) for k, v in stats.items() if v}
+    r = dict(wall_s=wall, first_ms=first * 1e3, chunks=chunks, samples=n, audio_s=n / 24000, rtf=wall / (n / 24000),
+             finite=ok, budget=budget, pushes=len(stats.get("t2w_dispatch_ms", [])))
+    return dict(r, wav=kept) if keep else r
+
+
+def _budget(b: dict) -> str:
+    return ", ".join(f"{k[:-3]} {m:.2f} / {x:.2f}" for k, (m, x) in sorted(b.items())) + " ms (mean / max)"
+
+
+def streaming_phase(results: dict, card: str, tts, api_model, prompt_wav: str, api: dict) -> None:
+    """Phase 8 on the full-width bf16 model `tts` and the API model: the
+    streaming requests S1-S5, each run's launches counted and its kernel
+    shapes held to phase 3's checks."""
+    import torch
+
+    from fangyan_tts_torch.infer import bistream
+    from fangyan_tts_torch.infer.stream import Token2WavSession
+    from fangyan_tts_torch.ops import decode_attention as da
+    from fangyan_tts_torch.ops import flash_attention as fa
+
+    cfg = tts.cfg
+    nl, per_window = cfg.llm.qwen.num_hidden_layers, cfg.flow.dit.depth * cfg.flow.n_timesteps
+    reqs, text_chunks = stream_requests_spec()
+    steps = counted_steps(tts)
+    api_steps = counted_steps(api_model.model)
+    one_token = [0]
+    inner_append = bistream.bistream_append
+    eos = cfg.llm.eos
+
+    def append(model, cache, seq_pos, src, ids, cache_len):
+        one_token[0] += ids.shape[1] == 1  # a one-token segment is a decode step
+        cache, logits, seq_pos = inner_append(model, cache, seq_pos, src, ids, cache_len)
+        if one_token[0] >= S5_TOKENS + 2:  # S5's stop, once [sos], its tokens and the task id went in
+            logits = logits.clone()
+            logits[:, eos] = logits.max() + 1e4
+        return cache, logits, seq_pos
+
+    bistream.bistream_append = append
+    out = results.setdefault("streaming", {})
+    spec = {"speculate_first": 0, "commit_first": 0}  # the first hop dispatched on the device tokens / held
+    session_methods = {name: getattr(Token2WavSession, name) for name in spec}
+
+    def spec_counted(name: str):
+        def inner(self, *a, **k):
+            spec[name] += 1
+            return session_methods[name](self, *a, **k)
+        return inner
+
+    for name in spec:
+        setattr(Token2WavSession, name, spec_counted(name))
+
+    def counted(label: str, model, run, n_prompt: int, decode_calls, keep: bool = False):
+        steps[0] = api_steps[0] = one_token[0] = 0
+        da.launches = fa.launches = 0
+        spec.update(speculate_first=0, commit_first=0)
+        with kernel_shapes(results, label):
+            r = stream_run(model, run, keep)
+        counts = {"decode_attention": da.launches, "chunk_flash_attention": fa.launches}
+        _count(results, counts)
+        n_tok, rem = divmod(r["samples"], cfg.token_mel_ratio * 480)
+        hops, windows = stream_plan(n_tok, n_prompt, cfg)
+        want = {"decode_attention": nl * decode_calls(), "chunk_flash_attention": per_window * windows}
+        r.update(tokens=n_tok, launches=counts, hops=hops, window_calls=windows, decode_calls=decode_calls(),
+                 spec=dict(spec))
+        ok = r["finite"] and rem == 0 and counts == want and r["chunks"] == hops + 1 and decode_calls() > 0
+        if not ok:
+            raise AssertionError(f"{label}: {r} (derived launches {want}, hops {hops})")
+        return r
+
+    t0 = time.perf_counter()
+    da.launches = fa.launches = 0
+    with kernel_shapes(results, "warmup_streaming"):
+        tts.warmup_streaming()
+    torch.cuda.synchronize()
+    warm = dict(s=time.perf_counter() - t0, flash=fa.launches)
+    _count(results, {"chunk_flash_attention": fa.launches})
+    log(f"warmup_streaming(): {warm['s']:.3f} s ({STREAM_WINDOW + 3 * cfg.chunk_size} silent tokens, vc route; "
+        f"flash launches {warm['flash']}) [{card}]")
+    out["warmup_s"] = warm["s"]
+
+    run = lambda req: (lambda: tts.tts(stream=True, **req))
+    # S1: bench.py's first chunk: two warm-ups, then three timed streams
+    firsts = [counted(f"S1 first chunk, run {i + 1}", tts, run(reqs["S1"]), 0, lambda: steps[0]) for i in range(5)]
+    ms = [r["first_ms"] for r in firsts[2:]]
+    out["S1"] = dict(first_ms_min=min(ms), first_ms_median=float(np.median(ms)), first_ms=ms,
+                     warmup_first_ms=[r["first_ms"] for r in firsts[:2]], tokens=firsts[-1]["tokens"],
+                     rtf=[r["rtf"] for r in firsts[2:]])
+    log(f"S1 first chunk (10 text tokens, {firsts[-1]['tokens']} tokens, no prompt): min {min(ms):.1f} ms, median "
+        f"{np.median(ms):.1f} ms of {', '.join(f'{m:.1f}' for m in ms)} (warm-ups "
+        f"{', '.join(f'{r['first_ms']:.1f}' for r in firsts[:2])}); RTF {firsts[-1]['rtf']:.4f} [{card}]")
+
+    # S2 and S3: best of three after a warm-up
+    for name, n_prompt in (("S2", 0), ("S3", 60)):
+        runs = [counted(f"{name} run {i + 1}", tts, run(reqs[name]), n_prompt, lambda: steps[0]) for i in range(4)]
+        best = min(runs[1:], key=lambda r: r["wall_s"])
+        out[name] = dict(best, runs_wall_s=[r["wall_s"] for r in runs], runs_first_ms=[r["first_ms"] for r in runs])
+        log(f"{name} stream ({best['tokens']} tokens, prompt {n_prompt}): wall {best['wall_s']:.3f} s for "
+            f"{best['audio_s']:.2f} s audio, RTF {best['rtf']:.4f} (best of {', '.join(f'{r['wall_s']:.3f}' for r in runs[1:])} s; "
+            f"warm-up {runs[0]['wall_s']:.3f} s), first chunk {best['first_ms']:.1f} ms, {best['decode_calls']} "
+            f"decode steps, {best['pushes']} token chunks pushed, {best['hops']} hops and a finalize "
+            f"({best['window_calls']} flow calls on the window), {best['chunks']} audio chunks; budget "
+            f"{_budget(best['budget'])}; launches {best['launches']} [{card}]")
+
+    # S4: the public API, streamed; the sampled decode decides the length
+    api_runs = [counted(f"S4 API stream, run {i + 1}", api_model.model,
+                        lambda: api_model.inference_zero_shot(API_TEXT, API_PROMPT_TEXT, prompt_wav, stream=True),
+                        api["prompt_tokens"], lambda: api_steps[0]) for i in range(2)]
+    r = api_runs[-1]
+    out["S4"] = dict(r, first_run_wall_s=api_runs[0]["wall_s"], first_run_first_ms=api_runs[0]["first_ms"])
+    log(f"S4 API stream: {r['tokens']} tokens, {r['chunks']} chunks, first chunk {r['first_ms']:.1f} ms, wall "
+        f"{r['wall_s']:.3f} s, RTF {r['rtf']:.4f} (run 1: first chunk {api_runs[0]['first_ms']:.1f} ms, RTF "
+        f"{api_runs[0]['rtf']:.4f}); budget {_budget(r['budget'])}; launches {r['launches']} [{card}]")
+
+    # S5: a text generator of 4 chunks of 5 tokens, stopped at S5_TOKENS
+    r = counted("S5 bistream", tts, lambda: tts.tts(text=iter(text_chunks), flow_embedding=reqs["S1"]["flow_embedding"],
+                                                     stream=True), 0, lambda: one_token[0])
+    out["S5"] = r
+    log(f"S5 bistream (4 text chunks of 5 tokens, eos forced after {S5_TOKENS} tokens): {r['tokens']} tokens, "
+        f"{r['chunks']} chunks, first chunk {r['first_ms']:.1f} ms, wall {r['wall_s']:.3f} s, RTF {r['rtf']:.4f}; "
+        f"launches {r['launches']} [{card}]")
+    bistream.bistream_append = inner_append
+    if not 60 < r["tokens"] <= S5_TOKENS:  # past the text phase's 60, and stopped
+        raise AssertionError(f"S5 gave {r['tokens']} tokens; its stop is forced after {S5_TOKENS}")
+
+    # S1 (its first hop speculated) and S3 (prompt_pad 15: not speculated) with
+    # speculation and the prefetch thread off, then on, from one generator seed
+    for name, n_prompt in (("S1", 0), ("S3", 60)):
+        runs = {}
+        for off in (True, False):
+            tts.stream_no_speculation = tts.stream_no_prefetch = off
+            tts.generator.manual_seed(1)
+            runs[off] = counted(f"{name}, speculation and prefetch {'off' if off else 'on'}", tts, run(reqs[name]),
+                                n_prompt, lambda: steps[0], keep=True)
+        tts.stream_no_speculation = tts.stream_no_prefetch = False
+        got, want = runs[False]["wav"], runs[True]["wav"]
+        lens_ok = [len(c) for c in got] == [len(c) for c in want]
+        err = float(np.abs(np.concatenate(got) - np.concatenate(want)).max()) if lens_ok else float("inf")
+        speculated = runs[False]["spec"]["speculate_first"] == (name == "S1")
+        ok = lens_ok and err <= SPEC_ATOL and speculated and runs[True]["spec"]["speculate_first"] == 0
+        out.setdefault("spec_check", {})[name] = dict(lens_equal=lens_ok, max_abs_err=err, bit_equal=err == 0.0,
+                                                      spec_on=runs[False]["spec"], chunks=runs[False]["chunks"])
+        log(f"{name} speculation and prefetch on vs off: {runs[False]['chunks']} chunks, lengths equal={lens_ok}, max "
+            f"|diff| {err:.3e} (limit {SPEC_ATOL}), first hop {runs[False]['spec']} with both on "
+            f"{'OK' if ok else 'FAIL'} [{card}]")
+        if not ok:
+            raise AssertionError(f"{name}: the stream with speculation and prefetch on disagrees with both off")
+    for name, method in session_methods.items():
+        setattr(Token2WavSession, name, method)
+    launch_probe(results, "phase 8, before its profiled hops")
+    out["hop_profile"] = profile_hops(tts, reqs["S2"]["flow_embedding"], card)
+    launch_probe(results, "phase 8, after its profiled hops")
+
+
+def profile_hops(tts, xvec: np.ndarray, card: str) -> dict:
+    """One young KV hop (hop 2) and one window hop (hop 12, the first past the
+    window) of an S2-shaped stream (no prompt), flow and vocoder, each under
+    torch.profiler. The token values are random: a hop's work does not
+    depend on them."""
+    from fangyan_tts_torch.infer.stream import Token2WavSession
+
+    tokens = np.random.default_rng(9).integers(0, 6561, 320).astype(np.int32)
+    sess = Token2WavSession(tts, np.zeros(0, np.int32), np.zeros((0, 80), np.float32), xvec)
+    sess.push_dev(tokens[:28])[0].numpy()
+    young = _profile({"young KV hop (hop 2)": lambda: sess.push_dev(tokens[28:53])[0].numpy()}, card, "S2")
+    kv_cap = sess.fs._kv_cap
+    for a in sess.push_dev(tokens[53:278]):
+        a.numpy()
+    window = _profile({"window hop (hop 12)": lambda: sess.push_dev(tokens[278:303])[0].numpy()}, card, "S2")
+    log(f"profiled hops: KV cache capacity {kv_cap} slots at hop 2; the window hop's flow runs L = "
+        f"{STREAM_WINDOW * tts.cfg.token_mel_ratio} frames [{card}]")
+    return {**young, **window}
+
+
+def small_stream_check() -> None:
+    """A small bf16 model's vc stream (no sampling) across the window boundary
+    (window 50 tokens, a 7-token prompt, prompt_pad 18): on the card against
+    the same weights on the CPU. Its window runs the flash kernel at L = 114."""
+    import torch
+
+    from fangyan_tts_torch.config import CosyVoiceConfig, DiTConfig, FlowConfig, HiFTConfig, LLMConfig, QwenConfig
+    from fangyan_tts_torch.infer.tts import CosyVoice3TTS
+
+    qwen = QwenConfig(hidden_size=128, intermediate_size=256, num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, head_dim=64, vocab_size=300)
+    llm = LLMConfig(llm_input_size=128, llm_output_size=128, speech_token_size=50, extra_tokens=8, qwen=qwen)
+    dit = DiTConfig(dim=128, depth=2, heads=2, dim_head=64, static_chunk_size=50)
+    cfg = CosyVoiceConfig(llm=llm, flow=FlowConfig(vocab_size=50, dit=dit, n_timesteps=4, pre_lookahead_channels=64),
+                          hift=HiFTConfig(base_channels=64, f0_cond_channels=32))
+    ref = CosyVoice3TTS.random_init(cfg, dtype=torch.bfloat16, device="cpu", seed=4)
+    sd = lambda m: {k: v.clone() for k, v in m.state_dict().items()}
+    gpu = CosyVoice3TTS(cfg, sd(ref.llm), sd(ref.flow), sd(ref.hift), dtype=torch.bfloat16, device="cuda")
+    rng = np.random.default_rng(1)
+    req = dict(source_speech_token=rng.integers(0, 50, 130).astype(np.int32),
+               flow_prompt_speech_token=rng.integers(0, 50, 7).astype(np.int32),
+               prompt_speech_feat=(rng.standard_normal((14, 80)) * 0.5).astype(np.float32),
+               flow_embedding=rng.standard_normal(192).astype(np.float32))
+    outs = []
+    for t in (gpu, ref):
+        t.stream_window_tokens = 50
+        outs.append([c["tts_speech"] for c in t.tts(stream=True, **req)])
+    got, want = outs
+    lens_ok = [len(c) for c in got] == [len(c) for c in want]
+    g, w = np.concatenate(got), np.concatenate(want)
+    rel = float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-12)) if lens_ok else float("inf")
+    ok = lens_ok and rel <= SMALL_REL_TOL and np.isfinite(g).all() and len(got) >= 4
+    log(f"small model stream card vs CPU (vc route, window 50 tokens, prompt_pad 18): {len(got)} chunks, lengths "
+        f"equal={lens_ok}, wav rel {rel:.3e} (limit {SMALL_REL_TOL}) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the streaming path on the card disagrees with its CPU path on a small model")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7", help="comma-separated phases to run (see above)")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8", help="comma-separated phases to run (see above)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -1081,20 +1442,47 @@ def main() -> int:
             for line in text.splitlines():
                 if any(w in line.lower() for w in ("registers", "spill", "error", "warning")):
                     log(f"  nvcc {name}: {line.strip()}")
+    launch_probe(results, "start")
     api = api_request_spec()
-    states = frontend_states() if phases & {4, 7} else None
+    stream = stream_shapes(api)
+    states = frontend_states() if phases & {4, 7, 8} else None
     if 3 in phases:
         batches = [batch_shapes(r) for r in batch_requests_spec()]
-        log(f"batched requests' shapes (a), (b): {batches}; the API request's: {api}")
-        check_decode(results, batches, api)
-        check_flash(results, batches, api)
+        log(f"batched requests' shapes (a), (b): {batches}; the API request's: {api}; the streams': {stream}")
+        check_decode(results, batches, api, stream)
+        check_flash(results, batches, api, stream)
         check_int4(results, batches[1])
-    if 4 in phases:
-        small_reference_check()
-        tts, req = full_path(results, card)
-        api_request(results, card, tts, states, api)
-        batched = batched_requests(results, card)
-        if 5 in phases:
+    with contextlib.ExitStack() as stack:
+        if 4 in phases:
+            small_reference_check()
+            tts, req = full_path(results, card)
+        elif 8 in phases:
+            from fangyan_tts_torch.config import CosyVoiceConfig
+            from fangyan_tts_torch.infer.tts import CosyVoice3TTS
+
+            tts = CosyVoice3TTS.random_init(CosyVoiceConfig(), dtype=torch.bfloat16)
+        model_dir = stack.enter_context(api_model_dir(tts, states)) if phases & {4, 8} else None
+        if 4 in phases:
+            api_request(results, card, model_dir, api)
+            batched = batched_requests(results, card)
+        if 8 in phases:
+            # before the profiler passes of phases 5 and 7: the probes around phase 8's own
+            # profiled hops show what a profiler session leaves behind in the host's launch cost
+            from fangyan_tts_torch.api import AutoModel
+            from fangyan_tts_torch.config import CosyVoiceConfig
+            from fangyan_tts_torch.infer.tts import CosyVoice3TTS
+
+            small_stream_check()
+            t = time.perf_counter()
+            stream_tts = CosyVoice3TTS.random_init(CosyVoiceConfig(), dtype=torch.bfloat16)  # fresh: no clocks
+            api_model = AutoModel(str(model_dir))
+            torch.cuda.synchronize()
+            log(f"phase 8 models: random_init and AutoModel load in {time.perf_counter() - t:.2f} s")
+            launch_probe(results, "before phase 8")
+            streaming_phase(results, card, stream_tts, api_model, str(model_dir / "prompt.wav"), api)
+            del stream_tts, api_model
+            torch.cuda.empty_cache()
+        if 4 in phases and 5 in phases:
             profile_stages(tts, req, results, card)
             (tts_a, req_a), (tts_b, req_b) = batched["a"], batched["b"]
             results["profile_batch"] = {
@@ -1102,8 +1490,8 @@ def main() -> int:
                 "a_bf16": profile_batch(batched["a_bf16"][0], req_a, card, "(a) in bf16", llm_only=True),
                 "b_int4": profile_batch(tts_b, req_b, card, "(b) int8 LLM + int4 MLP, int8 DiT"),
             }
-    if 7 in phases:
-        frontend_phase(results, card, states)
+        if 7 in phases:
+            frontend_phase(results, card, states)
     if 6 in phases and 3 in phases and 4 in phases:
         # the zero-shot request's shapes: its 600-token decode holds most of the
         # main path's decode launches, and its flow the longest attention
@@ -1132,9 +1520,11 @@ def main() -> int:
         ]
         log("detail: " + json.dumps({k: results[k] for k in ("decode_timing", "flash_timing", "int4_timing", "requests",
                                                              "api_request", "batch_requests", "profile",
-                                                             "profile_batch", "frontend")
+                                                             "profile_batch", "frontend", "streaming",
+                                                             "launch_probe_us")
                                      if k in results}))
         log(json.dumps({"kernels": kernels}), stamp=False)
+    launch_probe(results, "end")
     log(card, stamp=False)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": CARDS_USED}}), flush=True)

@@ -1,7 +1,8 @@
-"""CosyVoice3 offline synthesis: LLM -> flow -> vocoder
-(fangyan_tts_tpu/infer/tts.py, `CosyVoice3TTS` with `tts(stream=False)`,
-`batch_synthesize` / `vocode_batch`, and the weight-only quantized modes
-`quantize_llm` / `quantize_flow`).
+"""CosyVoice3 synthesis: LLM -> flow -> vocoder
+(fangyan_tts_tpu/infer/tts.py, `CosyVoice3TTS` with `tts(stream=False)`
+and the solo streaming `tts(stream=True)`, a text generator (bistream) in
+either, `batch_synthesize` / `vocode_batch`, and the weight-only quantized
+modes `quantize_llm` / `quantize_flow`).
 
 The same stage chain and buckets as the JAX package: the prompt plan is
 left-padded to a multiple of 64, the decode bucket is a multiple of 64 and
@@ -10,10 +11,21 @@ the cache a multiple of 128; flow tokens are padded to a multiple of 32
 Parameters of 2 or more dimensions of the flow and the vocoder are cast to
 the model dtype, 1-D ones stay float32, and the vocoder's f0 predictor
 stays float32 throughout.
+
+Streaming interleaves 32-step `decode_chunk` calls of the LLM with the
+constant-cost token2wav hops of infer/stream.py: 25-token hops, the first
+one absorbing the prompt's padding to a hop boundary, 3 lookahead tokens a
+hop, silent runs suppressed across chunks. A worker thread prefetches the
+next decode chunk while a hop runs (`_TokenPrefetcher`); the first hop is
+dispatched on the device tokens before their fetch and validated after it
+(`_SpecFirstChunk`); hop k's audio is fetched after hop k+1 is dispatched.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
+import time
 from dataclasses import replace
 from typing import Any, Generator
 
@@ -23,11 +35,13 @@ import torch.nn as nn
 
 from ..config import CosyVoiceConfig
 from ..data.lm_plan import build_prompt_plan, pad_plans_left
-from ..models.flow import CausalMaskedDiffWithDiT, cfm_solve, fixed_cfm_noise
+from ..models.flow import CausalMaskedDiffWithDiT, cfm_solve
 from ..models.hift import CausalHiFT
-from ..models.llm import CosyVoice3LM, generate_speech_tokens
+from ..models.llm import CosyVoice3LM, decode_chunk, decode_prefill, generate_speech_tokens
 from ..ops.device import exact_fp32, resolve_device
 from ..ops.quant import quantize_dit_state, quantize_qwen_state
+from .bistream import inference_bistream
+from .stream import Token2WavSession, cfm_noise
 
 # FSQ silent and breath tokens
 SILENT_TOKENS = (1, 2, 28, 29, 55, 248, 494, 2241, 2242, 2322, 2323)
@@ -36,6 +50,110 @@ MAX_SILENT_RUN = 5
 
 def _round_up(n: int, m: int) -> int:
     return (n + m - 1) // m * m
+
+
+class _TokenPrefetcher:
+    """One-chunk-ahead prefetch of the streaming loop's LLM tokens: a worker
+    thread pulls the token iterator, so that the next decode chunk is
+    dispatched while the current hop runs token2wav and fetches its audio.
+    Values and order are unchanged; only dispatch timing moves.
+
+    The worker holds after the first chunk until release(), so that chunk
+    2's decode does not queue ahead of the first hop's token2wav on the one
+    stream (first-chunk latency); the consumer releases it once it has the
+    first audio, or when it comes back for a second item. The worker enters
+    inference mode itself (it is thread-local); its exceptions reach the
+    consumer; close() stops it and closes the iterator on the worker's own
+    thread."""
+
+    _END = object()
+
+    def __init__(self, it, depth: int = 2):
+        self._it = it
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._release = threading.Event()
+        self._exc: BaseException | None = None
+        self._got = 0
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _put(self, x) -> bool:
+        while not self._stop.is_set():
+            try:
+                self._q.put(x, timeout=0.05)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _run(self) -> None:
+        with torch.inference_mode():
+            try:
+                for i, x in enumerate(self._it):
+                    if not self._put(x):
+                        break
+                    if i == 0:
+                        while not (self._release.wait(0.05) or self._stop.is_set()):
+                            continue
+                        if self._stop.is_set():
+                            break
+                else:
+                    self._put(self._END)
+                    return
+            except BaseException as e:  # noqa: BLE001 - relayed to the consumer
+                self._exc = e
+                self._put(self._END)
+                return
+            # stopped early: close the generator here, on its own thread
+            close = getattr(self._it, "close", None)
+            if close is not None:
+                close()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        # the consumer back for item 2+ has dispatched hop 1 (or got no audio from it)
+        if self._got >= 1:
+            self._release.set()
+        self._got += 1
+        while True:
+            try:
+                x = self._q.get(timeout=0.1)
+                break
+            except queue.Empty:
+                if self._stop.is_set():
+                    raise StopIteration from None
+        if x is self._END:
+            if self._exc is not None:
+                raise self._exc
+            raise StopIteration
+        return x
+
+    def release(self) -> None:
+        self._release.set()
+
+    def close(self) -> None:
+        self._stop.set()
+        self._release.set()
+        self._thread.join(timeout=5.0)
+        while not self._q.empty():
+            self._q.get_nowait()
+
+
+class _SpecFirstChunk:
+    """The first LLM token chunk with the speculative first hop's audio:
+    `tokens` is the chunk after silent-run suppression; `spec_audio` the
+    hop's audio if the speculation held (the raw device tokens the flow
+    took equal the suppressed stream's), else None, and the consumer resets
+    and replays the session."""
+
+    __slots__ = ("tokens", "spec_audio")
+
+    def __init__(self, tokens: np.ndarray, spec_audio):
+        self.tokens = tokens
+        self.spec_audio = spec_audio
 
 
 def _cast_state(sd: dict, dtype: torch.dtype, keep_f32: tuple[str, ...] = ()) -> dict:
@@ -106,6 +224,14 @@ class CosyVoice3TTS:
         self.hift = _load(lambda: CausalHiFT(cfg.hift), _cast_state(hift_params, dtype, ("f0_predictor.",)),
                           self.device)
         self._cfm_noise = None
+        self._nsf_noise_dev = None
+        # the streaming flow's window in target tokens: past it a hop runs on
+        # [prompt ++ the last window tokens], a constant cost (infer/stream.py)
+        self.stream_window_tokens = 300
+        self.flow_kv_stream = True  # the young hops KV-cached (False: the full-prefix solve)
+        self.stream_no_speculation = False
+        self.stream_no_prefetch = False
+        self.stream_stats: dict | None = None  # a dict here collects the per-hop budget (ms lists)
 
     @classmethod
     def random_init(
@@ -148,6 +274,20 @@ class CosyVoice3TTS:
         self.cfg = replace(self.cfg, flow=replace(self.cfg.flow, dit=replace(self.cfg.flow.dit, quant_int8=True)))
         self.flow = _load(lambda: CausalMaskedDiffWithDiT(self.cfg.flow), sd, self.device)
 
+    def warmup_streaming(self, prompt_token_len: int = 0, n_tokens: int | None = None) -> None:
+        """Run a silent stream of one prompt length on the vc route through
+        the streaming steps (the young hops, the window hops, the vocoder
+        pushes and the window finalize), so that a served voice's first
+        request pays no first-use cost."""
+        hop = self.cfg.chunk_size
+        n = n_tokens if n_tokens is not None else self.stream_window_tokens + 3 * hop
+        ptok = np.zeros(prompt_token_len, np.int32)
+        pfeat = np.zeros((prompt_token_len * self.cfg.token_mel_ratio, 80), np.float32)
+        for _ in self.tts(text=np.zeros(0, np.int32), flow_embedding=np.zeros(192, np.float32),
+                          flow_prompt_speech_token=ptok, prompt_speech_feat=pfeat,
+                          source_speech_token=np.zeros(n, np.int32), stream=True):
+            pass
+
     # ---- stage 1: AR token generation ---------------------------------------
 
     @torch.inference_mode()
@@ -189,39 +329,47 @@ class CosyVoice3TTS:
         self,
         tokens: np.ndarray,
         prompt_tokens: np.ndarray,
-        prompt_feat: np.ndarray,  # (Lp_mel, 80)
-        embedding: np.ndarray,  # (192,)
+        prompt_feat: np.ndarray,  # (Lp_mel, 80), numpy or a tensor
+        embedding: np.ndarray,  # (192,), numpy or a tensor
+        streaming: bool = False,
+        finalize: bool = True,
         device_out: bool = False,
     ) -> np.ndarray | torch.Tensor:
-        """Flow inference; returns only the non-prompt mel region (L, 80)."""
+        """Flow inference; returns only the non-prompt mel region (L, 80).
+        streaming: the chunk-causal mask. finalize=False: a streaming step,
+        the last pre_lookahead_len tokens are lookahead and the tokens are
+        not padded to a bucket (they come on the hop grid already)."""
         dev, dt = self.device, self.dtype
         full = np.concatenate([np.asarray(prompt_tokens), np.asarray(tokens)]).astype(np.int32)
         true_len = len(full)
-        full = np.pad(full, (0, _round_up(max(true_len, 1), 32) - true_len))
+        if finalize:
+            full = np.pad(full, (0, _round_up(max(true_len, 1), 32) - true_len))
         token = torch.from_numpy(full[None]).to(dev)
         token_len = torch.tensor([true_len], dtype=torch.int32, device=dev)
-        pf = torch.as_tensor(np.asarray(prompt_feat), device=dev).to(dt)[None]
+        pf = torch.as_tensor(prompt_feat, device=dev).to(dt)[None]
         pf_len = torch.tensor([pf.shape[1]], dtype=torch.int32, device=dev)
-        emb = torch.as_tensor(np.asarray(embedding), device=dev).to(dt)[None]
+        emb = torch.as_tensor(embedding, device=dev).to(dt)[None]
 
-        mu, spks, conds, mel_len = self.flow.prepare_inference(token, token_len, pf, pf_len, emb)
+        mu, spks, conds, mel_len = self.flow.prepare_inference(token, token_len, pf, pf_len, emb, finalize=finalize)
         l_mel = mu.shape[1]
-        if self._cfm_noise is None:
-            self._cfm_noise = torch.from_numpy(fixed_cfm_noise()).to(dev, dt)
-        z = self._cfm_noise[:, :l_mel, :].expand(mu.shape[0], l_mel, self.cfg.flow.output_size).to(mu.dtype)
-        mel = cfm_solve(self.cfg.flow, self.flow.estimator, z, mu, spks, conds, mel_len)
+        z = cfm_noise(self)[:, :l_mel, :].expand(mu.shape[0], l_mel, self.cfg.flow.output_size).to(mu.dtype)
+        mel = cfm_solve(self.cfg.flow, self.flow.estimator, z, mu, spks, conds, mel_len, streaming=streaming)
         n_valid = (true_len - len(prompt_tokens)) * self.cfg.token_mel_ratio
         out = mel[0, pf.shape[1] : pf.shape[1] + n_valid]
         return out if device_out else out.float().cpu().numpy()
 
     @torch.inference_mode()
-    def vocode(self, mel) -> np.ndarray:
+    def vocode(self, mel, finalize: bool = True) -> np.ndarray:
         """Causal vocoding of (L, 80) mel, zero-padded to a multiple of 64
-        frames and cut back to L * 480 samples."""
+        frames and cut back to L * 480 samples; finalize=False is a
+        streaming step on the mel as it is (its last frames lookahead)."""
         true_len = mel.shape[0]
         mel = torch.as_tensor(mel, device=self.device).to(self.dtype)
-        mel = torch.nn.functional.pad(mel, (0, 0, 0, _round_up(max(true_len, 1), 64) - true_len))
-        audio = self.hift(mel[None])[0][0, : true_len * self.cfg.hift.total_upsample]
+        if finalize:
+            mel = torch.nn.functional.pad(mel, (0, 0, 0, _round_up(max(true_len, 1), 64) - true_len))
+        audio = self.hift(mel[None], finalize=finalize)[0][0]
+        if finalize:
+            audio = audio[: true_len * self.cfg.hift.total_upsample]
         return audio.float().cpu().numpy()
 
     # ---- batched offline synthesis ------------------------------------------
@@ -307,9 +455,7 @@ class CosyVoice3TTS:
             torch.tensor(emb, device=dev).to(dt),
         )
         l_mel = mu.shape[1]
-        if self._cfm_noise is None:
-            self._cfm_noise = torch.from_numpy(fixed_cfm_noise()).to(dev, dt)
-        z = self._cfm_noise[:, :l_mel, :].expand(b, l_mel, self.cfg.flow.output_size).to(mu.dtype)
+        z = cfm_noise(self)[:, :l_mel, :].expand(b, l_mel, self.cfg.flow.output_size).to(mu.dtype)
         return cfm_solve(self.cfg.flow, self.flow.estimator, z, mu, spks, conds, mel_len), token_len
 
     @torch.inference_mode()
@@ -335,15 +481,24 @@ class CosyVoice3TTS:
         speed: float = 1.0,
         **kwargs: Any,
     ) -> Generator[dict, None, None]:
-        """Offline synthesis: yields one {"tts_speech": float32 wav}. Only
-        stream=False with a whole text is in the port so far: streaming and a
-        text generator (the JAX package's bistream path) raise."""
-        if stream:
-            raise NotImplementedError("fangyan_tts_torch: streaming synthesis is not ported yet")
-        if hasattr(text, "__next__"):
-            raise NotImplementedError("fangyan_tts_torch: a text generator (bistream synthesis) is not ported yet")
-        if source_speech_token.shape[0] == 0:
-            ratios = {k: kwargs[k] for k in ("min_token_text_ratio", "max_token_text_ratio") if k in kwargs}
+        """Yields {"tts_speech": float32 wav}: once (stream=False), or chunk by
+        chunk (stream=True). `text` may be a generator of text-token chunks
+        (bistream); source_speech_token given skips the LLM (the vc route)."""
+        ratios = {k: kwargs[k] for k in ("min_token_text_ratio", "max_token_text_ratio") if k in kwargs}
+        if not stream:
+            yield {"tts_speech": self._tts_offline(text, flow_embedding, prompt_text, llm_prompt_speech_token,
+                                                   flow_prompt_speech_token, prompt_speech_feat,
+                                                   source_speech_token, speed, ratios)}
+            return
+        yield from self._tts_stream(text, flow_embedding, prompt_text, llm_prompt_speech_token,
+                                    flow_prompt_speech_token, prompt_speech_feat, source_speech_token, ratios)
+
+    def _tts_offline(self, text, flow_embedding, prompt_text, llm_prompt_speech_token, flow_prompt_speech_token,
+                     prompt_speech_feat, source_speech_token, speed, ratios) -> np.ndarray:
+        if hasattr(text, "__next__"):  # bistream text source, offline output
+            tokens = suppress_silent_runs(np.asarray(list(inference_bistream(
+                self.llm, text, prompt_text, llm_prompt_speech_token, generator=self.generator)), np.int32))
+        elif source_speech_token.shape[0] == 0:
             tokens = self.generate_tokens(text, prompt_text, llm_prompt_speech_token, **ratios)
         else:
             tokens = np.asarray(source_speech_token, np.int32)
@@ -352,7 +507,135 @@ class CosyVoice3TTS:
                              device_out=(speed == 1.0))
         if speed != 1.0:
             mel = _interp_mel(mel, int(mel.shape[0] / speed))
-        yield {"tts_speech": self.vocode(mel)}
+        return self.vocode(mel)
+
+    def _tts_stream(self, text, flow_embedding, prompt_text, llm_prompt_speech_token, flow_prompt_speech_token,
+                    prompt_speech_feat, source_speech_token, ratios):
+        # the session comes first, so that the LLM side can speculate its first hop
+        sess = Token2WavSession(self, flow_prompt_speech_token, prompt_speech_feat, flow_embedding)
+        bistream = hasattr(text, "__next__")
+        llm = bistream or source_speech_token.shape[0] == 0
+        if bistream:
+            token_iter = self._bistream_tokens(text, prompt_text, llm_prompt_speech_token)
+        elif llm:
+            spec = None if self.stream_no_speculation else sess.speculate_first
+            token_iter = self._stream_tokens(text, prompt_text, llm_prompt_speech_token, first_hop_spec=spec,
+                                             spec_n=sess.first_hop_tokens if spec is not None else 0, **ratios)
+        else:
+            token_iter = iter([np.asarray(source_speech_token, np.int32)])
+        prefetch = None
+        if llm and not self.stream_no_prefetch:
+            token_iter = prefetch = _TokenPrefetcher(token_iter)
+
+        # One-hop audio pipeline: hop k's audio is fetched only after hop k+1
+        # is dispatched, so its copy rides under device work; the first chunk
+        # is fetched at once. stream_stats (a dict, opt-in) collects the
+        # per-hop budget: decode wait, token2wav dispatch, fetch, finalize.
+        stats = self.stream_stats
+        clock = time.perf_counter
+        note = (lambda k, t0: stats.setdefault(k, []).append((clock() - t0) * 1e3)) if stats is not None else None
+        try:
+            pending = None
+            emitted = 0
+            it = iter(token_iter)
+            while True:
+                t0 = clock()
+                try:
+                    tok_chunk = next(it)
+                except StopIteration:
+                    break
+                if note:
+                    note("decode_wait_ms", t0)
+                t0 = clock()
+                if isinstance(tok_chunk, _SpecFirstChunk):
+                    if tok_chunk.spec_audio is not None:  # the speculation held
+                        devs = [tok_chunk.spec_audio] + sess.commit_first(tok_chunk.tokens)
+                    else:  # suppression (or an early stop) changed the first window: replay
+                        sess.reset()
+                        devs = sess.push_dev(tok_chunk.tokens)
+                else:
+                    devs = sess.push_dev(tok_chunk)
+                if note:
+                    note("t2w_dispatch_ms", t0)
+                for dev in devs:
+                    t0 = clock()
+                    if emitted == 0:
+                        if prefetch is not None:
+                            prefetch.release()  # first audio in hand
+                        yield {"tts_speech": dev.numpy()}
+                    else:
+                        if pending is not None:
+                            yield {"tts_speech": pending.numpy()}
+                        pending = dev
+                    if note:
+                        note("fetch_ms", t0)
+                    emitted += 1
+            t0 = clock()
+            # the finalize is dispatched before the last pending fetch, so it runs under it
+            fin = sess.finish_dev()
+            if pending is not None:
+                yield {"tts_speech": pending.numpy()}
+            yield {"tts_speech": fin()}
+            if note:
+                note("finalize_ms", t0)
+        finally:
+            if prefetch is not None:
+                prefetch.close()
+
+    @torch.inference_mode()
+    def _bistream_tokens(self, text, prompt_text, llm_prompt_speech_token):
+        """The bistream decode in chunks of 8 tokens, silent runs suppressed
+        across chunks (as stream=False suppresses them)."""
+        buf, keep = [], silent_run_filter()
+        for tok in inference_bistream(self.llm, text, prompt_text, llm_prompt_speech_token,
+                                      generator=self.generator):
+            if not keep(tok):
+                continue
+            buf.append(tok)
+            if len(buf) >= 8:
+                yield np.asarray(buf, np.int32)
+                buf = []
+        if buf:
+            yield np.asarray(buf, np.int32)
+
+    @torch.inference_mode()
+    def _stream_tokens(self, text_tokens, prompt_text_tokens, prompt_speech_tokens, chunk_steps: int = 32,
+                       min_token_text_ratio: float = 2.0, max_token_text_ratio: float = 20.0, first_hop_spec=None,
+                       spec_n: int = 0):
+        """The incremental LLM decode: yields the newly emitted speech tokens
+        of each decode_chunk call (silent runs suppressed across chunks).
+        With `first_hop_spec` (Token2WavSession.speculate_first) and a first
+        hop that fits in one chunk, the first flow + vocoder hop is
+        dispatched on the device tokens before their fetch, and the first
+        item is a _SpecFirstChunk with the validated (or rejected) audio."""
+        plan, tp, cache_len, min_len, max_len = stream_buckets(
+            self.cfg.llm, text_tokens, prompt_text_tokens, prompt_speech_tokens, min_token_text_ratio,
+            max_token_text_ratio)
+        batch = pad_plans_left([plan], length=tp)
+        dev = self.device
+        state = decode_prefill(
+            self.llm, torch.from_numpy(batch["src"]).to(dev), torch.from_numpy(batch["ids"]).to(dev),
+            torch.from_numpy(batch["lengths"]).to(dev), torch.tensor([min_len], dtype=torch.int32),
+            torch.tensor([max_len], dtype=torch.int32), cache_len)
+        keep = silent_run_filter()
+        done = False
+        first = first_hop_spec is not None and 0 < spec_n <= chunk_steps
+        while not done and state.i < max_len:
+            state, chunk = decode_chunk(self.llm, state, chunk_steps, tp, self.generator)
+            spec_audio = first_hop_spec(chunk[0]) if first else None  # overlaps the fetch below
+            # tokens and the done flag in one device-to-host copy
+            packed = torch.cat([chunk[0], state.done.all().to(torch.int32)[None]]).cpu().numpy()
+            emitted, done = packed[:-1], bool(packed[-1])
+            emitted = emitted[emitted >= 0]
+            out = [t for t in emitted.tolist() if keep(t)]
+            if first:
+                # it holds iff suppression dropped nothing in the speculation window and
+                # the LLM emitted at least spec_n tokens
+                ok = spec_audio is not None and len(out) >= spec_n and np.array_equal(out[:spec_n], emitted[:spec_n])
+                yield _SpecFirstChunk(np.asarray(out, np.int32), spec_audio if ok else None)
+                first = False
+            elif out:
+                yield np.asarray(out, np.int32)
 
 
 def batch_buckets(c, texts, prompt_text, llm_prompt_speech_token, max_token_text_ratio) -> tuple[list, int, int, int]:
@@ -366,19 +649,38 @@ def batch_buckets(c, texts, prompt_text, llm_prompt_speech_token, max_token_text
     return plans, tp, max_new, _round_up(tp + max_new, 64)
 
 
+def stream_buckets(c, text_tokens, prompt_text_tokens, prompt_speech_tokens, min_token_text_ratio: float = 2.0,
+                   max_token_text_ratio: float = 20.0) -> tuple[Any, int, int, int, int]:
+    """The streaming decode's buckets for an LLMConfig `c`: (the prompt plan
+    of prompt_text ++ text, its left-padded length tp = a multiple of 64,
+    the cache length round_up(tp + round_up(max_len, 256), 256), min_len,
+    max_len), the lengths from the new text's."""
+    full_text = np.concatenate([prompt_text_tokens, text_tokens]).astype(np.int32)
+    plan = build_prompt_plan(c, full_text.tolist(), np.asarray(prompt_speech_tokens, np.int32).tolist())
+    tp = _round_up(len(plan.ids), 64)
+    min_len = int(len(text_tokens) * min_token_text_ratio)
+    max_len = int(len(text_tokens) * max_token_text_ratio)
+    return plan, tp, _round_up(tp + _round_up(max(max_len, 1), 256), 256), min_len, max_len
+
+
+def silent_run_filter():
+    """A token filter that drops FSQ silent tokens beyond MAX_SILENT_RUN
+    consecutive ones; the run it counts carries over from call to call (a
+    stream's chunks)."""
+    silent, run = set(SILENT_TOKENS), 0
+
+    def keep(t: int) -> bool:
+        nonlocal run
+        run = run + 1 if t in silent else 0
+        return run <= MAX_SILENT_RUN
+
+    return keep
+
+
 def suppress_silent_runs(tokens: np.ndarray) -> np.ndarray:
     """Drop FSQ silent tokens beyond 5 consecutive."""
-    out, run = [], 0
-    silent = set(SILENT_TOKENS)
-    for t in tokens.tolist():
-        if t in silent:
-            run += 1
-            if run > MAX_SILENT_RUN:
-                continue
-        else:
-            run = 0
-        out.append(t)
-    return np.asarray(out, np.int32)
+    keep = silent_run_filter()
+    return np.asarray([t for t in tokens.tolist() if keep(t)], np.int32)
 
 
 def _interp_mel(mel: np.ndarray, new_len: int) -> np.ndarray:

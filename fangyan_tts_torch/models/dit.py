@@ -7,6 +7,12 @@ follow the JAX tree with the layer axis unstacked: `blocks.{i}.attn.to_qkv`
 Attention goes through ops/flash_attention.chunk_flash_attention
 with the CFG-doubled `mel_len` and the chunk size, not a bias.
 
+`DiTChunk` is the KV-cached streaming estimator: one hop of new frames
+through the same blocks, against per-layer K/V caches that it only reads.
+Its attention is plain PyTorch (two products and one float32 softmax over
+[cache ++ new]), as the JAX package leaves it to XLA. It holds the same
+state_dict as `DiT`; `DiTChunk.of(dit)` shares a DiT's tensors.
+
 Kept on purpose from the reference: the rotary embedding is applied to the
 whole q/k projection before the head split with rot_dim = dim_head, so only
 the first `dim_head` channels (head 0) are rotated, with interleaved pairs.
@@ -83,12 +89,22 @@ class CausalConvPositionEmbedding(nn.Module):
         self.conv1 = ConvParams(dim, dim, kernel_size, groups)
         self.conv2 = ConvParams(dim, dim, kernel_size, groups)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, tails: tuple[torch.Tensor, torch.Tensor] | None = None):
+        """tails: the two convolutions' carried left context ((B, K-1, D)
+        each) of a streaming hop; with them, returns (x, new_tail1,
+        new_tail2) instead of padding zeros on the left."""
         pad = self.kernel_size - 1
-        for conv in (self.conv1, self.conv2):
-            x = conv1d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype), padding=(pad, 0), groups=self.groups)
+        new_tails = []
+        for i, conv in enumerate((self.conv1, self.conv2)):
+            w, b = conv.weight.to(x.dtype), conv.bias.to(x.dtype)
+            if tails is None:
+                x = conv1d(x, w, b, padding=(pad, 0), groups=self.groups)
+            else:
+                xin = torch.cat([tails[i].to(x.dtype), x], dim=1)
+                new_tails.append(xin[:, -pad:])
+                x = conv1d(xin, w, b, groups=self.groups)
             x = x * torch.tanh(F.softplus(x))  # mish
-        return x
+        return x if tails is None else (x, *new_tails)
 
 
 def _rotary_freqs(seq_len: int, dim_head: int, theta: float = 10000.0) -> np.ndarray:
@@ -168,6 +184,21 @@ def precompute_mods(dit: "DiT", t_all: torch.Tensor, dtype: torch.dtype) -> torc
     return torch.stack([mod(blk.attn_norm_linear) for blk in dit.blocks], dim=1)
 
 
+def _embed(dit: "DiT", x, mu, t, spks, cond):
+    """The time embedding and the input projection of a DiT call."""
+    b, l, _ = x.shape
+    t_emb = dit.time_embed(t.to(x.dtype))
+    spks_b = spks[:, None, :].expand(b, l, spks.shape[-1]).to(x.dtype)
+    return t_emb, flax_dense(torch.cat([x, cond, mu, spks_b], dim=-1), dit.input_proj, x.dtype)
+
+
+def _final(dit: "DiT", h, t_emb, dtype):
+    """AdaLayerNormZero_Final and the output projection."""
+    scale, shift = flax_dense(F.silu(t_emb), dit.norm_out_linear, dtype).chunk(2, dim=-1)
+    h = layer_norm(h) * (1 + scale)[:, None] + shift[:, None]
+    return flax_dense(h, dit.proj_out, dtype)
+
+
 class DiT(nn.Module):
     """Velocity estimator on (B, L, mel) tensors."""
 
@@ -186,18 +217,103 @@ class DiT(nn.Module):
         int32 valid frames (keys past it are masked); chunk: 0 for full
         attention, else chunk-causal; mods (depth, B, 6*dim) from
         precompute_mods."""
-        c = self.cfg
-        b, l, _ = x.shape
-        t_emb = self.time_embed(t.to(x.dtype))
-        spks_b = spks[:, None, :].expand(b, l, spks.shape[-1]).to(x.dtype)
-        h = flax_dense(torch.cat([x, cond, mu, spks_b], dim=-1), self.input_proj, x.dtype)
+        t_emb, h = _embed(self, x, mu, t, spks, cond)
         h = self.conv_pos_embed(h) + h
 
-        freqs = torch.from_numpy(_rotary_freqs(l, c.dim_head)).to(x.device)
+        freqs = torch.from_numpy(_rotary_freqs(x.shape[1], self.cfg.dim_head)).to(x.device)
         cos, sin = torch.cos(freqs).to(x.dtype), torch.sin(freqs).to(x.dtype)
         for i, blk in enumerate(self.blocks):
             h = blk(h, mods[i], mel_len, chunk, cos, sin)
+        return _final(self, h, t_emb, x.dtype)
 
-        scale, shift = flax_dense(F.silu(t_emb), self.norm_out_linear, x.dtype).chunk(2, dim=-1)
-        h = layer_norm(h) * (1 + scale)[:, None] + shift[:, None]
-        return flax_dense(h, self.proj_out, x.dtype)
+
+class DiTAttentionChunk(DiTAttention):
+    """KV-cached attention over a hop's Lq new frames: one float32 softmax
+    over [the cached slots ++ the hop's own frames], with the cache read
+    only. Returns the output and the hop's post-rotary K and V, which the
+    caller appends once a hop (models/flow.cfm_solve_chunk)."""
+
+    def forward(self, x, k_cache, v_cache, cos, sin, bias_cache, bias_new):
+        """x (B, Lq, dim); k_cache, v_cache (B, heads, C, dh), head-major;
+        cos, sin (B, Lq, rot) at absolute positions; bias_cache (B, Lq, C)
+        and bias_new (B, Lq, Lq) additive float32 (ops/masks.chunk_split_bias).
+        Returns (out, k_new, v_new), k_new and v_new (B, heads, Lq, dh)."""
+        c = self.cfg
+        b, lq, _ = x.shape
+        q, k, v = qdense(x, self.to_qkv).chunk(3, dim=-1)
+        q = _apply_rotary_pre_split(q, cos, sin)
+        k = _apply_rotary_pre_split(k, cos, sin)
+        heads = lambda t: t.reshape(b, lq, c.heads, c.dim_head).transpose(1, 2)
+        qh, kh, vh = heads(q), heads(k), heads(v)
+        scale = math.sqrt(c.dim_head)
+        sc = torch.matmul(qh, k_cache.to(x.dtype).transpose(-1, -2)) / scale
+        sn = torch.matmul(qh, kh.transpose(-1, -2)) / scale
+        cap = k_cache.shape[2]
+        scores = torch.cat([sc.float() + bias_cache[:, None], sn.float() + bias_new[:, None]], dim=-1)
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        out = torch.matmul(probs[..., :cap], v_cache.to(x.dtype)) + torch.matmul(probs[..., cap:], vh)
+        out = out.transpose(1, 2).reshape(b, lq, c.heads * c.dim_head)
+        return qdense(out, self.to_out), kh, vh
+
+
+class DiTBlockChunk(DiTBlock):
+    """DiTBlock on a hop's new frames against this layer's read-only K/V."""
+
+    def __init__(self, cfg: DiTConfig):
+        super().__init__(cfg)
+        self.attn = DiTAttentionChunk(cfg)
+
+    def forward(self, x, mod, k_cache, v_cache, cos, sin, bias_cache, bias_new):
+        shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.chunk(6, dim=-1)
+        norm = layer_norm(x) * (1 + scale_msa[:, None]) + shift_msa[:, None]
+        out, k_new, v_new = self.attn(norm, k_cache, v_cache, cos, sin, bias_cache, bias_new)
+        x = x + gate_msa[:, None] * out
+        ff_norm = layer_norm(x) * (1 + scale_mlp[:, None]) + shift_mlp[:, None]
+        h = qdense(F.gelu(qdense(ff_norm, self.ff_0), approximate="tanh"), self.ff_2)
+        return x + gate_mlp[:, None] * h, k_new, v_new
+
+
+class DiTChunk(DiT):
+    """KV-cached streaming velocity estimator: one hop of new frames through
+    the whole DiT, reading per-layer K/V caches and the causal position
+    convolutions' tails. Exact against the full chunk-masked DiT because
+    hops lie on the static chunk grid: a solved frame never attends a later
+    one, so its K/V are final when first computed."""
+
+    def __init__(self, cfg: DiTConfig):
+        super().__init__(cfg)
+        self.blocks = nn.ModuleList([DiTBlockChunk(cfg) for _ in range(cfg.depth)])
+
+    @classmethod
+    def of(cls, dit: DiT) -> "DiTChunk":
+        """A DiTChunk on `dit`'s own tensors (shared, not copied)."""
+        with torch.device("meta"):
+            out = cls(dit.cfg)
+        out.load_state_dict(dit.state_dict(), strict=True, assign=True)
+        return out.requires_grad_(False).eval()
+
+    def forward(self, x, mu, t, spks, cond, cache: dict, lens, bias_cache, bias_new, mods):
+        """x, mu, cond (B, Lq, mel) the hop's new frames; t (B,); spks (B,
+        spk_dim); cache {'k', 'v': (depth, B, heads, C, dh), 'tail1',
+        'tail2': (B, K-1, dim)}, read only; lens (B,) frames already cached
+        (the rotary offset); bias_cache (B, Lq, C), bias_new (B, Lq, Lq);
+        mods (depth, B, 6*dim). Returns (velocity, {'k', 'v': (depth, B,
+        heads, Lq, dh) new rows, 'tail1', 'tail2': the updated tails})."""
+        c = self.cfg
+        lq = x.shape[1]
+        t_emb, h = _embed(self, x, mu, t, spks, cond)
+        conv, tail1, tail2 = self.conv_pos_embed(h, tails=(cache["tail1"], cache["tail2"]))
+        h = conv + h
+
+        # rotary at absolute positions (interleaved pairs, the first dim_head channels only)
+        inv = 1.0 / (10000.0 ** (torch.arange(0, c.dim_head, 2, dtype=torch.float32, device=x.device) / c.dim_head))
+        pos = lens[:, None].float() + torch.arange(lq, dtype=torch.float32, device=x.device)[None, :]
+        f = torch.repeat_interleave(pos[:, :, None] * inv[None, None, :], 2, dim=-1)
+        cos, sin = torch.cos(f).to(x.dtype), torch.sin(f).to(x.dtype)
+        ks, vs = [], []
+        for i, blk in enumerate(self.blocks):
+            h, k_new, v_new = blk(h, mods[i], cache["k"][i], cache["v"][i], cos, sin, bias_cache, bias_new)
+            ks.append(k_new)
+            vs.append(v_new)
+        out = _final(self, h, t_emb, x.dtype)
+        return out, {"k": torch.stack(ks), "v": torch.stack(vs), "tail1": tail1, "tail2": tail2}

@@ -1,6 +1,8 @@
 """Causal HiFT vocoder: NSF harmonic source plus iSTFT synthesis
 (fangyan_tts_tpu/models/hift.py, `CausalHiFT` with the sinegen2_causal
-source), offline (finalize) inference.
+source): offline (finalize) inference, the streaming step
+(`finalize=False`, the lookahead frames as context) and the windows of
+constant-cost streaming (`stream_window`, `finalize_window`, `rad_delta`).
 
 Tensors are channels-last (B, L, C). Every convolution casts its weights to
 the activation's dtype, as the JAX modules do, and mixed-dtype adds promote
@@ -58,11 +60,16 @@ class CausalConv(ConvParams):
         super().__init__(in_ch, out_ch, kernel)
         self.dilation, self.side = dilation, side
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor | None = None) -> torch.Tensor:
+        """context: the future frames of a streaming step (side 'right')."""
         k, b = self.weight.to(x.dtype), self.bias.to(x.dtype)
         if self.side == "left":
             return causal_conv1d_left(x, k, b, dilation=self.dilation)
-        return causal_conv1d_right(x, k, b, dilation=self.dilation)
+        return causal_conv1d_right(x, k, b, dilation=self.dilation, context=context)
+
+    @staticmethod
+    def causal_padding(kernel: int, dilation: int = 1) -> int:
+        return (kernel * dilation - dilation) // 2 * 2 + (kernel + 1) % 2
 
 
 class CausalConvDown(ConvParams):
@@ -122,8 +129,9 @@ class CausalF0Predictor(nn.Module):
             setattr(self, f"conv{i}", CausalConv(cond_channels, cond_channels, 3, side="left"))
         self.classifier = nn.Linear(cond_channels, 1)
 
-    def forward(self, x):
-        h = F.elu(self.conv0(x))
+    def forward(self, x, context: torch.Tensor | None = None):
+        """x (B, L, 80) mel; context: the future mel of a streaming step."""
+        h = F.elu(self.conv0(x, context))
         for i in range(1, 5):
             h = F.elu(getattr(self, f"conv{i}")(h))
         return torch.abs(flax_dense(h, self.classifier, h.dtype)[..., 0])
@@ -132,38 +140,56 @@ class CausalF0Predictor(nn.Module):
 class SourceModule(nn.Module):
     """NSF source (SineGen2, causal): per-frame phase increments, cumulative
     phase at frame rate, nearest upsampling to the sample rate, the fixed
-    uniform noise, and a linear merge of the harmonics."""
+    uniform noise, and a linear merge of the harmonics.
+
+    Streaming: `carry` (B, H) is the cumulative phase (cycles, mod 1) over
+    every frame before the window, and the noise is taken from `noise_buf`
+    (1, N, H) at the window's absolute sample offset, so that a window
+    reproduces the whole signal's source (phase continuity and the same
+    noise draws)."""
 
     def __init__(self, cfg: HiFTConfig):
         super().__init__()
         self.cfg = cfg
         self.l_linear = nn.Linear(cfg.nb_harmonics + 1, 1)
 
-    def rad_frames(self, f0_frame: torch.Tensor) -> torch.Tensor:
-        """(B, L) f0 -> (B, L, H) phase increments in cycles per sample."""
+    def rad_frames(self, f0_frame: torch.Tensor, first: bool = True) -> torch.Tensor:
+        """(B, L) f0 -> (B, L, H) phase increments in cycles per sample.
+        Frame-local (each output frame samples only inside its own frame),
+        so over any window they equal the whole signal's frames there; the
+        random initial phase goes on the first sample only when `first`
+        (the window starts the signal)."""
         c = self.cfg
         hplus = c.nb_harmonics + 1
         harmonic_mult = torch.arange(1, hplus + 1, dtype=torch.float32, device=f0_frame.device)
         rad = torch.remainder(f0_frame[..., None] * harmonic_mult / c.sampling_rate, 1.0)
-        rad_up = upsample_nearest(rad, c.total_upsample).clone()
-        rand_ini = nsf_buffers(hplus)[0]
-        rad_up[:, 0, :] += torch.from_numpy(rand_ini[0]).to(rad_up.device)
+        rad_up = upsample_nearest(rad, c.total_upsample)
+        if first:
+            rad_up = rad_up.clone()
+            rad_up[:, 0, :] += torch.from_numpy(nsf_buffers(hplus)[0][0]).to(rad_up.device)
         return downsample_linear(rad_up, c.total_upsample)
 
-    def forward(self, f0_frame: torch.Tensor) -> torch.Tensor:
-        """f0_frame (B, L) -> source (B, L*upsample, 1)."""
+    def forward(self, f0_frame: torch.Tensor, carry: torch.Tensor | None = None, noise_offset: int | None = None,
+                noise_buf: torch.Tensor | None = None) -> torch.Tensor:
+        """f0_frame (B, L) -> source (B, L*upsample, 1). carry (B, H);
+        noise_offset (samples) and noise_buf (1, N, H) on f0's device."""
         c = self.cfg
         hplus = c.nb_harmonics + 1
         up = c.total_upsample
         n_samp = f0_frame.shape[1] * up
-        _, uniform_noise = nsf_buffers(hplus)
 
         f0_up = upsample_nearest(f0_frame[..., None], up)
-        phase = torch.cumsum(self.rad_frames(f0_frame), dim=1) * (2.0 * np.pi)
-        sines = torch.sin(upsample_nearest(phase * up, up))
+        phase = torch.cumsum(self.rad_frames(f0_frame, first=carry is None), dim=1)
+        if carry is not None:
+            phase = phase + carry[:, None, :].to(phase.dtype)
+        sines = torch.sin(upsample_nearest(phase * (2.0 * np.pi) * up, up))
         uv = (f0_up > c.nsf_voiced_threshold).to(sines.dtype)
         noise_amp = uv * c.nsf_sigma + (1.0 - uv) * c.nsf_alpha / 3.0
-        noise = noise_amp * torch.from_numpy(uniform_noise[:, :n_samp]).to(sines.device, sines.dtype)
+        if noise_offset is not None and noise_buf is not None:
+            off = int(noise_offset) % max(noise_buf.shape[1] - n_samp, 1)
+            noise = noise_amp * noise_buf[:, off : off + n_samp].to(sines.dtype)
+        else:
+            noise = noise_amp * torch.from_numpy(nsf_buffers(hplus)[1][:, :n_samp]).to(sines.device, sines.dtype)
         sine_waves = sines * c.nsf_alpha * uv + noise
         return torch.tanh(flax_dense(sine_waves, self.l_linear, sines.dtype))
 
@@ -194,14 +220,21 @@ class CausalHiFT(nn.Module):
                 setattr(self, f"resblocks_{i}_{j}", ResBlock(ch_out, rk, rd))
         self.conv_post = CausalConv(cfg.base_channels // (2 ** len(cfg.upsample_rates)), nfft2, 7, side="left")
 
-    def decode(self, mel: torch.Tensor, source: torch.Tensor) -> torch.Tensor:
-        """mel (B, L, 80); source (B, L*480, 1) -> audio (B, L*480)."""
+    def decode(self, mel: torch.Tensor, source: torch.Tensor, finalize: bool = True) -> torch.Tensor:
+        """mel (B, L, 80); source (B, L*480, 1) -> audio (B, L*480). A
+        streaming step (finalize=False) takes the conv_pre lookahead frames
+        at the end of `mel` as context and drops their audio."""
         c = self.cfg
         win = torch.from_numpy(hann_window(c.istft_n_fft)).to(mel.device)
         s_real, s_imag = stft(source[..., 0], c.istft_n_fft, c.istft_hop_len, win, center=True)
+        if finalize:
+            x = self.conv_pre(mel)
+        else:
+            trim = int(np.prod(c.upsample_rates)) * c.conv_pre_look_right
+            s_real, s_imag = s_real[:, :, :-trim], s_imag[:, :, :-trim]
+            x = self.conv_pre(mel[:, : -c.conv_pre_look_right], mel[:, -c.conv_pre_look_right :])
         s_stft = torch.cat([s_real, s_imag], dim=1).transpose(1, 2)  # (B, F, n_fft + 2)
 
-        x = self.conv_pre(mel)
         for i in range(len(c.upsample_rates)):
             x = F.leaky_relu(x, negative_slope=c.lrelu_slope)
             x = getattr(self, f"ups_{i}")(x)
@@ -220,13 +253,58 @@ class CausalHiFT(nn.Module):
         magnitude = torch.clamp(torch.exp(x[..., :nbins].transpose(1, 2)), max=1e2)
         phase = torch.sin(x[..., nbins:]).transpose(1, 2)
         audio = istft(magnitude * torch.cos(phase), magnitude * torch.sin(phase), c.istft_n_fft, c.istft_hop_len, win)
+        if not finalize:
+            audio = audio[:, : -int(np.prod(c.upsample_rates)) * c.istft_hop_len]
         return torch.clamp(audio, -c.audio_limit, c.audio_limit)
 
-    def forward(self, mel: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """Offline inference: mel (B, L, 80) -> (audio (B, L*480), source).
-        The f0 predictor runs on a float32 copy of the mel; the source is
-        cast back to the mel's dtype."""
+    def forward(self, mel: torch.Tensor, finalize: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+        """mel (B, L, 80) -> (audio (B, ~L*480), source). The f0 predictor
+        runs on a float32 copy of the mel; the source is cast back to the
+        mel's dtype. A streaming step (finalize=False) takes the last 3 mel
+        frames as the f0 predictor's lookahead and decodes the rest."""
+        mel32 = mel.float()
+        if finalize:
+            s = self.m_source(self.f0_predictor(mel32)).to(mel.dtype)
+            return self.decode(mel, s), s
+        pad = CausalConv.causal_padding(4)  # 3
+        s = self.m_source(self.f0_predictor(mel32[:, :-pad], context=mel32[:, -pad:])).to(mel.dtype)
+        return self.decode(mel[:, :-pad], s, finalize=False), s
+
+    # ---- constant-cost windowed streaming -----------------------------------
+    # Each convolution here is causal with a small receptive field, so a
+    # window ending at the stream head, with its source phase carried in and
+    # its noise taken at its absolute sample offset, gives the same samples
+    # as vocoding the whole mel (infer/stream.py VocStream).
+
+    def stream_window(self, mel: torch.Tensor, carry: torch.Tensor, noise_offset: int,
+                      noise_buf: torch.Tensor) -> torch.Tensor:
+        """Streaming step on a window mel (B, W, 80) ending at the stream
+        head: audio for its frames [0, W-8). carry (B, H): cumulative phase
+        over [0, window start); noise_offset = window start * 480."""
+        pad = CausalConv.causal_padding(4)  # 3
+        mel32 = mel.float()
+        f0 = self.f0_predictor(mel32[:, :-pad], context=mel32[:, -pad:])
+        s = self.m_source(f0, carry=carry, noise_offset=noise_offset, noise_buf=noise_buf).to(mel.dtype)
+        return self.decode(mel[:, :-pad], s, finalize=False)
+
+    def finalize_window(self, mel: torch.Tensor, n_valid: int, carry: torch.Tensor, noise_offset: int,
+                        noise_buf: torch.Tensor) -> torch.Tensor:
+        """Last window: mel (B, W, 80), zeroed past n_valid frames, with
+        finalize semantics (no lookahead). Returns audio (B, W*480); the
+        caller keeps [.., n_valid*480)."""
+        w = mel.shape[1]
+        mel = mel * (torch.arange(w, device=mel.device)[None, :, None] < n_valid).to(mel.dtype)
         f0 = self.f0_predictor(mel.float())
-        s = self.m_source(f0).to(mel.dtype)
-        return self.decode(mel, s), s
+        s = self.m_source(f0, carry=carry, noise_offset=noise_offset, noise_buf=noise_buf).to(mel.dtype)
+        return self.decode(mel, s)
+
+    def rad_delta(self, mel_ctx: torch.Tensor, n_left: int) -> torch.Tensor:
+        """The source phase advance (B, H) over the frames
+        mel_ctx[:, n_left:-3]: n_left frames of left context for the f0
+        predictor (8, its receptive field; 0 at the start of the signal) and
+        3 of right context. Advances the streaming carry."""
+        pad = CausalConv.causal_padding(4)  # 3
+        mel32 = mel_ctx.float()
+        f0 = self.f0_predictor(mel32[:, :-pad], context=mel32[:, -pad:])
+        return self.m_source.rad_frames(f0[:, n_left:], first=n_left == 0).sum(dim=1)
 

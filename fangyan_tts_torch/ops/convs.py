@@ -47,9 +47,14 @@ def causal_conv1d_left(x, kernel, bias=None, dilation: int = 1, groups: int = 1)
     return conv1d(x, kernel, bias, padding=(pad, 0), dilation=dilation, groups=groups)
 
 
-def causal_conv1d_right(x, kernel, bias=None, dilation: int = 1, groups: int = 1):
-    """Right (lookahead) causal convolution: zeros padded on the right."""
+def causal_conv1d_right(x, kernel, bias=None, dilation: int = 1, groups: int = 1, context=None):
+    """Right (lookahead) causal convolution: zeros padded on the right. With
+    `context` (B, n, C), the future frames of a streaming step, those frames
+    come before the zeros and the output covers only x's frames."""
     pad = causal_padding(kernel.shape[-1], dilation)
+    if context is not None:
+        x = torch.cat([x, context], dim=1)
+        return conv1d(x, kernel, bias, padding=(0, pad - context.shape[1]), dilation=dilation, groups=groups)
     return conv1d(x, kernel, bias, padding=(0, pad), dilation=dilation, groups=groups)
 
 

@@ -40,3 +40,39 @@ def chunk_attn_mask(lengths: torch.Tensor, max_len: int, chunk_size: int) -> tor
 def mask_to_bias(mask: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """bool mask -> additive bias: 0 where allowed, -1e10 where not."""
     return (1.0 - mask.to(dtype)) * -1.0e10
+
+
+def chunk_kv_bias(lens: torch.Tensor, q_valid: torch.Tensor, lq: int, cap: int, chunk_size: int) -> torch.Tensor:
+    """(B, lq, cap) additive float32 bias for KV-cached chunk attention:
+    the query at absolute position lens + j attends the keys [0, min(end of
+    its own chunk, lens + q_valid)), chunk_attn_mask's allowed set at the
+    stream front, restricted to the new rows. Keys are addressed by
+    absolute position (the cache grows contiguously from 0)."""
+    abs_q = lens[:, None] + torch.arange(lq, device=lens.device)[None, :]
+    front = (lens + q_valid)[:, None]
+    cap_q = torch.minimum((abs_q // chunk_size + 1) * chunk_size, front)
+    key_pos = torch.arange(cap, device=lens.device)[None, None, :]
+    return mask_to_bias(key_pos < cap_q[:, :, None])
+
+
+def chunk_split_bias(lens: torch.Tensor, q_valid: torch.Tensor, lq: int, cap: int,
+                     chunk_size: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(bias_cache (B, lq, cap), bias_new (B, lq, lq)): chunk_kv_bias's
+    allowed set split between the read-only cache and the hop's own frames.
+    Cached keys [0, lens) lie in chunks no later than any valid query's
+    (hops are chunk-aligned), so bias_cache only masks empty slots;
+    bias_new applies the chunk-causal and q_valid rule among the hop's
+    frames at absolute positions lens + i."""
+    abs_q = lens[:, None] + torch.arange(lq, device=lens.device)[None, :]
+    front = (lens + q_valid)[:, None]
+    cap_q = torch.minimum((abs_q // chunk_size + 1) * chunk_size, front)
+    key_pos = torch.arange(cap, device=lens.device)[None, None, :]
+    bias_cache = mask_to_bias(key_pos < torch.minimum(cap_q, lens[:, None])[:, :, None])
+    bias_new = mask_to_bias(abs_q[:, None, :] < cap_q[:, :, None])
+    return bias_cache, bias_new
+
+
+def causal_mask(size: int, device=None) -> torch.Tensor:
+    """(size, size) lower-triangular bool mask."""
+    pos = torch.arange(size, device=device)
+    return pos[None, :] <= pos[:, None]

@@ -8,9 +8,10 @@ directory through makers replaced for the test (the tiny float32
 configurations), as tests/test_api.py replaces the JAX package's.
 
 Held: every inference_* mode gives the same speech tokens and each wav
-within 1e-3; AutoModel's dispatch; the .pt -> msgpack conversion; and the
-NotImplementedErrors of the port (versions 1 and 2, inference_instruct,
-a text generator).
+within 1e-3, offline and streamed (the same chunks); a text generator
+(bistream) offline and streamed; AutoModel's dispatch; the .pt -> msgpack
+conversion; and the NotImplementedErrors of the port (versions 1 and 2,
+inference_instruct).
 
 Both packages decode with a bfloat16 KV cache whatever the model dtype, so
 their decode logits agree to about 2e-2 (tests/test_torch_llm.py), and a
@@ -210,18 +211,57 @@ def test_quant_int8(model_dir):
 
 
 def test_unported_modes_raise(models, model_dir):
+    """inference_instruct is v1-only in both packages. A text generator and
+    stream=True, which raised here before the streaming slice was ported,
+    now run (test_stream_modes, test_text_generator)."""
     _, tm, _ = models
     with pytest.raises(NotImplementedError, match="v1"):
         next(tm.inference_instruct("你好。", "spk_a", "开心地说"))
+    chunks = list(tm.inference_cross_lingual("你好。", str(model_dir / "prompt.wav"), stream=True))
+    assert len(chunks) >= 1 and all(c["tts_speech"].dtype == np.float32 for c in chunks)
 
+
+def _compare_stream(models, call):
+    """Streamed chunks: the same count and lengths as the JAX package's,
+    each within WAV_ATOL, and as many samples as the offline call gives."""
+    jm, tm, _ = models
+    want, got = list(call(jm, True)), list(call(tm, True))
+    assert [len(g["tts_speech"]) for g in got] == [len(w["tts_speech"]) for w in want]
+    for g, w in zip(got, want):
+        assert g["tts_speech"].dtype == np.float32
+        np.testing.assert_allclose(g["tts_speech"], w["tts_speech"], rtol=0, atol=WAV_ATOL)
+    offline = list(call(tm, False))
+    assert sum(len(g["tts_speech"]) for g in got) == sum(len(o["tts_speech"]) for o in offline)
+    assert max(np.abs(w["tts_speech"]).max() for w in want) > 1e-2
+
+
+@pytest.mark.parametrize("mode", ["zero_shot", "cross_lingual", "instruct2", "vc"])
+def test_stream_modes(models, model_dir, mode):
+    prompt = str(model_dir / "prompt.wav")
+    calls = {
+        "zero_shot": lambda m, s: m.inference_zero_shot("今天天气不错。", "提示文本。", prompt, stream=s),
+        "cross_lingual": lambda m, s: m.inference_cross_lingual("Good.", prompt, stream=s),
+        "instruct2": lambda m, s: m.inference_instruct2("Hi there.", "请用湖南话说。<|endofprompt|>", prompt, stream=s),
+        "vc": lambda m, s: m.inference_vc(prompt, prompt, stream=s),
+    }
+    _compare_stream(models, calls[mode])
+
+
+@pytest.mark.parametrize("stream", [False, True])
+def test_text_generator(models, model_dir, stream):
+    """inference_zero_shot with a generator of text pieces (bistream)."""
     def gen():
-        yield "你好，"
-        yield "世界。"
+        yield "今天"
+        yield "天气不错。"
 
-    with pytest.raises(NotImplementedError, match="generator"):
-        next(tm.inference_zero_shot(gen(), "提示文本。", str(model_dir / "prompt.wav")))
-    with pytest.raises(NotImplementedError, match="streaming"):
-        next(tm.inference_cross_lingual("你好。", str(model_dir / "prompt.wav"), stream=True))
+    jm, tm, _ = models
+    prompt = str(model_dir / "prompt.wav")
+    want = list(jm.inference_zero_shot(gen(), "提示文本。", prompt, stream=stream))
+    got = list(tm.inference_zero_shot(gen(), "提示文本。", prompt, stream=stream))
+    assert [len(g["tts_speech"]) for g in got] == [len(w["tts_speech"]) for w in want]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g["tts_speech"], w["tts_speech"], rtol=0, atol=WAV_ATOL)
+    assert sum(len(w["tts_speech"]) for w in want) >= 4 * 960
 
 
 @pytest.mark.parametrize("files, version", [

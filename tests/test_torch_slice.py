@@ -194,8 +194,10 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
         TorchTTS.random_init(TC)
     with pytest.raises(RuntimeError, match="CUDA"):
         TorchTTS.random_init(TC, device="cuda")
-    with pytest.raises(NotImplementedError):
-        next(TorchTTS.random_init(TC, dtype=torch.float32, device="cpu").tts(stream=True))
+    # asked for, the CPU runs every mode, streaming included (no CUDA tensor on that path)
+    cpu_tts = TorchTTS.random_init(TC, dtype=torch.float32, device="cpu")
+    chunks = list(cpu_tts.tts(source_speech_token=np.arange(40, dtype=np.int32) % 50, stream=True))
+    assert len(chunks) >= 2 and all(c["tts_speech"].dtype == np.float32 for c in chunks)
     with pytest.raises(RuntimeError, match="CUDA"):
         frontend.Frontend(None, TC)
     for make in (frontend.make_campplus_fn, frontend.make_s3_fn):
@@ -210,14 +212,28 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
         TorchTTS(TC, {}, {}, {}, dtype=torch.float32, device="cuda")
 
 
-def test_generator_text_raises(pair):
-    """A text generator (the JAX package's bistream path) is not ported: tts
-    raises NotImplementedError at once instead of failing inside the plan."""
-    _, ttts = pair
+def test_generator_text_raises():
+    """A text generator (the bistream route), which raised NotImplementedError
+    before the streaming slice was ported, now runs: stream=False vocodes
+    the bistream decode's tokens, silent runs suppressed
+    (tests/test_torch_stream.py holds the tokens and the wavs against the
+    JAX package, offline and streaming). LLM gain 2, whose decode stops
+    (at gain 0.5 it runs to the 1,500-token cap)."""
+    from fangyan_tts_torch.infer.bistream import inference_bistream
+    from fangyan_tts_torch.infer.tts import suppress_silent_runs
+
+    _, flow, hift = _params()
+    t = jnp.zeros((1, 8), jnp.int32)
+    llm = np_params(CosyVoice3LM(JC.llm), 0, t, t, jnp.asarray([8]), t, gain=2.0)
+    ttts = TorchTTS(TC, llm_from_jax(llm, TC.llm), flow_from_jax(flow, TC.flow), hift_from_jax(hift, TC.hift),
+                    dtype=torch.float32, device="cpu")
     r = _request()
-    r["text"] = (np.asarray(t, np.int32) for t in ([5, 6], [7]))
-    with pytest.raises(NotImplementedError, match="generator"):
-        next(ttts.tts(**r))
+    gen = lambda: (np.asarray(t, np.int32) for t in ([5, 6, 7, 8, 9], [7]))
+    wav = next(ttts.tts(**dict(r, text=gen())))["tts_speech"]
+    tokens = suppress_silent_runs(np.asarray(list(inference_bistream(
+        ttts.llm, gen(), r["prompt_text"], r["llm_prompt_speech_token"])), np.int32))
+    assert wav.dtype == np.float32 and 0 < len(tokens) < 1500 and len(wav) == len(tokens) * 2 * 480
+    assert np.isfinite(wav).all() and np.abs(wav).max() > 1e-2
 
 
 @pytest.mark.parametrize("sub, field, value", [

@@ -3,6 +3,7 @@
     python3 chip_smoke.py                    # every phase; needs one CUDA card
     python3 chip_smoke.py --phases 1,2,3     # build and check the kernels only
     python3 chip_smoke.py --phases 1,2,3,8   # the streaming slice alone
+    python3 chip_smoke.py --phases 1,2,3,9   # the serving slice alone
 
 Phases:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -13,11 +14,18 @@ Phases:
      main paths' shapes (the single requests', and the batches of 16 as
      worked out from their own buckets, and the streaming requests' decode
      caches and window lengths, from infer/tts.stream_buckets and the
-     flow window), with the tolerances below, and
+     flow window, and phase 9's continuous batches at B = 4 and 8 and every
+     flow call of its groups, from the schedulers' own formulas:
+     infer/tts.stream_buckets and infer/batch_stream.flow_shapes), with the
+     tolerances below, and
      decode attention also with a row that has no open slot, write slots on
      a block boundary of its launch plan, one long cache (S = 4096) and
-     strided q / k_new / v_new views (bit-equal to the contiguous call);
-     flash attention also at window lengths that are no multiple of 64;
+     strided q / k_new / v_new views (bit-equal to the contiguous call), and
+     at the continuous batches with a write slot and a window per row (one
+     row at slot 0, one on a block boundary, one at S - 1, a free row past
+     S), each row bit-equal to a B = 1 call on it alone;
+     flash attention also at window lengths that are no multiple of 64, and
+     at 2N rows with each row's own mel_len (the young buckets);
      kernel, plain and library times (timed only:
      scaled_dot_product_attention for the attention kernels, F.linear on the
      dequantized weight for int4_matmul)
@@ -53,10 +61,29 @@ Phases:
      shape held to phase 3's checks as in phase 4; one young KV hop and one
      window hop of S2 under torch.profiler; and a small model's vc stream
      across the window boundary on the card against the CPU
-  6. one JSON line of per-kernel results (printed after phases 7 and 8)
-Phase 8 runs after phase 4's requests and before the profiler passes of
-phases 5 and 7; a probe of the host's cost of one eager launch is logged at
-the start, around phase 8 and at the end.
+  9. serving at full width with random weights: (a) bench.py's async
+     streaming workload (each client 10 text tokens, 200 speech tokens, no
+     prompt) through an LLMScheduler and a StreamScheduler of width 4, then
+     8: a warm-up round and a measured one, aggregate RTF, each stream's
+     first chunk ms, both schedulers' batching (rows / steps), the p99 and
+     max arrival gap and the underruns (gaps over one hop of audio); (c) four
+     fixed-token sessions of 320 tokens through a width-4 StreamScheduler
+     against the same sessions streamed solo (within 5e-2 of max |solo|,
+     equal chunk lengths), and four greedy decodes through a width-4
+     LLMScheduler against their solo decodes (equal up to the first
+     near-tie, the agreeing prefixes printed); (b) the port's HTTP server in
+     this process on 127.0.0.1 with phase 4's model directory and
+     --batched_streams 4, four concurrent /inference_zero_shot clients
+     through runtime/http_client (well-formed int16 PCM each); every run's
+     decode launches 24 a scheduler step, its flash launches 220 a flow
+     call, its hops those its token counts imply, and every shape held to
+     phase 3's checks
+  6. one JSON line of per-kernel results (printed after phases 7, 8 and 9)
+Phases 8 and 9 run after phase 4's requests and before the profiler passes
+of phases 5 and 7 (phase 8 runs S1 three times and S2 and S3 twice each,
+to leave phase 9 its time); a probe of the
+host's cost of one eager launch is logged at the start, around phases 8 and
+9 and at the end.
 The last line is {"ok": true, "device": {...}} and the exit code is 0 only
 when every phase passed. Without a CUDA card it exits non-zero before
 printing any result.
@@ -114,6 +141,25 @@ S5_TOKENS = 100
 # S1 and S3 with speculation and prefetch off against both on, from one
 # generator seed: the same chunk lengths, the samples within this
 SPEC_ATOL = 1e-5
+# Serving (phase 9). (a) bench.py's bench_async_streaming: each client 10 text
+# tokens, exactly 200 speech tokens (min = max ratio 20), no prompt, its own
+# random x-vector, through an LLMScheduler and a StreamScheduler of the
+# client count's width.
+SERVE_TEXT_TOKENS, SERVE_RATIO, SERVE_WIDTHS = 10, 20.0, (4, 8)
+# (b) four concurrent HTTP /inference_zero_shot clients on phase 4's model
+# directory and prompt wav, each with its own sentence, through a server of
+# --batched_streams HTTP_WIDTH
+HTTP_TEXTS = ("你好。", "早上好。", "谢谢你。", "再见了。")
+HTTP_WIDTH = 4
+# (c) batched against solo on the card: four fixed-token sessions of
+# BATCH_TOKENS through a width-4 StreamScheduler, each held to its solo stream
+# within BATCH_REL_TOL of max |solo| (SMALL_REL_TOL's card limit); and four greedy
+# decodes of GREEDY_RATIO tokens a text token through a width-4
+# LLMScheduler, each equal to its solo decode up to the first step whose two
+# best logits lie within GREEDY_TIE (a bf16 GEMM rounds differently at M = 1
+# and at M = N)
+BATCH_TOKENS, BATCH_REL_TOL = 320, 5e-2
+GREEDY_RATIO, GREEDY_TIE = 10.0, 2e-2
 
 CARDS_USED = 1  # every phase runs on card 0
 PORT_KERNELS = ("decode_attention", "flash_attention", "int4_matmul")  # kernel names the profile reports
@@ -338,6 +384,52 @@ def stream_shapes(api: dict) -> dict:
     return dict(decode=decode, flash_l=[(p + STREAM_WINDOW) * cfg.token_mel_ratio for p in prompts])
 
 
+def serving_spec(api: dict) -> dict:
+    """The kernel shapes of phase 9, from the schedulers' own buckets: the
+    LLMScheduler's decode at its width and the bucket of
+    infer/tts.stream_buckets (its formula), with a per-row write slot and
+    window; and every flow call of the StreamScheduler's groups
+    (infer/batch_stream.flow_shapes) for (a) and (c) (no prompt) and for (b)
+    (the API prompt), as {(rows, L): kind}. The HTTP requests' text ids come
+    from the byte tokenizer and text_normalize, as the API request's do."""
+    import warnings
+
+    from fangyan_tts_torch.config import CosyVoiceConfig
+    from fangyan_tts_torch.infer.batch_stream import flow_shapes
+    from fangyan_tts_torch.infer.frontend import Frontend
+    from fangyan_tts_torch.infer.tts import stream_buckets
+    from fangyan_tts_torch.tokenizer import get_qwen_tokenizer
+
+    cfg = CosyVoiceConfig()
+    zeros = np.zeros(0, np.int32)
+    decode = set()
+    for width in SERVE_WIDTHS:
+        _, tp, s, _, _ = stream_buckets(cfg.llm, np.zeros(SERVE_TEXT_TOKENS, np.int32), zeros, zeros, SERVE_RATIO,
+                                        SERVE_RATIO)
+        decode.add((width, s, tp))
+    _, tp, s, _, _ = stream_buckets(cfg.llm, np.zeros(SERVE_TEXT_TOKENS, np.int32), zeros, zeros, GREEDY_RATIO,
+                                    GREEDY_RATIO)
+    decode.add((4, s, tp))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        fe = Frontend(get_qwen_tokenizer(None, True, "cosyvoice3"), cfg, device="cpu")
+    http_ids = []
+    for text in HTTP_TEXTS:
+        segs = fe.text_normalize(text)
+        assert len(segs) == 1, segs
+        http_ids.append(len(fe.extract_text_token(segs[0])))
+        _, tp, s, _, _ = stream_buckets(cfg.llm, np.zeros(http_ids[-1], np.int32),
+                                        np.zeros(api["prompt_text_ids"], np.int32),
+                                        np.zeros(api["prompt_tokens"], np.int32))
+        decode.add((HTTP_WIDTH, s, tp))
+    flash: dict = {}
+    for n_prompt, width in [(0, w) for w in SERVE_WIDTHS] + [(api["prompt_tokens"], HTTP_WIDTH)]:
+        for kind, shapes in flow_shapes(cfg, STREAM_WINDOW, n_prompt, width).items():
+            for sh in shapes:
+                flash.setdefault(sh, kind)
+    return dict(decode=sorted(decode), flash=flash, http_ids=http_ids)
+
+
 def _checked(results: dict, kernel: str, key: tuple) -> None:
     results.setdefault("checked", {}).setdefault(kernel, set()).add(key)
 
@@ -345,7 +437,61 @@ def _checked(results: dict, kernel: str, key: tuple) -> None:
 # ---------------------------------------------------------------- phase 3
 
 
-def check_decode(results: dict, batches: list[dict], api: dict, stream: dict) -> None:
+def serving_decode_rows(b: int, s: int, tp: int, kv: int = 2) -> tuple[list, list]:
+    """(write slots, first valid slots) of a B-row continuous batch at cache
+    S: one row at slot 0, one at the first block boundary of the launch
+    plan, one at S - 1 and a free row whose slot runs past S (clamped to
+    S - 1, every slot open), the rest at random depths past the prompt
+    bucket tp; each row's window is [first, slot + 1)."""
+    from fangyan_tts_torch.ops import decode_attention as da
+
+    rng = np.random.default_rng(b * 1000 + s)
+    edge = da.plan(b, s, kv)[1]
+    idx = [0, edge, s - 1, s + 37] + [int(v) for v in rng.integers(tp, s - 1, b - 4)]
+    starts = [0, tp // 2, 5, 0] + [int(v) for v in rng.integers(0, tp, b - 4)]
+    return idx, starts
+
+
+def check_decode_rows(results: dict, serving: dict) -> None:
+    """Decode attention at the continuous batch's shapes: each row of a B-row
+    call (its own write slot and window) bit-equal to a B = 1 call on that
+    row alone, output and cache writes (plan(1, S) = plan(B, S) here)."""
+    import torch
+
+    from fangyan_tts_torch.ops import decode_attention as da
+
+    nl, kv, hd, qh = 24, 2, 64, 14
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for b, s, tp in serving["decode"]:
+        idx_list, starts = serving_decode_rows(b, s, tp, kv)
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        q = (torch.randn((b, qh, hd), generator=gen, device="cuda") * QK_SCALE).to(torch.bfloat16)
+        kn, vn, ck, cv = rnd(b, kv, hd), rnd(b, kv, hd), rnd(nl, b, s, kv, hd), rnd(nl, b, s, kv, hd)
+        idx = torch.tensor(idx_list, dtype=torch.int32, device="cuda")
+        slot = torch.arange(s, device="cuda")[None, :]
+        first = torch.tensor(starts, device="cuda")[:, None]
+        bias = torch.where((slot >= first) & (slot <= torch.clamp(idx, max=s - 1)[:, None]), 0.0, -1e10).float()
+        same = True
+        for layer in (0, nl - 1):
+            ckb, cvb = ck.clone(), cv.clone()
+            out_b = da.decode_attention(q, kn, vn, ckb, cvb, idx, bias, layer)
+            for r in range(b):
+                ckr, cvr = ck[:, r : r + 1].clone(), cv[:, r : r + 1].clone()
+                out_r = da.decode_attention(q[r : r + 1], kn[r : r + 1], vn[r : r + 1], ckr, cvr, idx[r : r + 1],
+                                            bias[r : r + 1].contiguous(), layer)
+                same &= (torch.equal(out_b[r : r + 1], out_r) and torch.equal(ckb[:, r : r + 1], ckr)
+                         and torch.equal(cvb[:, r : r + 1], cvr))
+        torch.cuda.synchronize()
+        _checked(results, "decode_attention", (1, s))
+        log(f"decode_attention B={b} S={s} (continuous batch, plan {da.plan(b, s, kv)}; B=1 plan "
+            f"{da.plan(1, s, kv)}): slots {idx_list}, windows from {starts}: every row bit-equal to a B=1 call "
+            f"on it alone (output and cache writes, layers 0 and {nl - 1})={same}")
+        results.setdefault("decode_rows_bit_equal", {})[f"B={b} S={s} tp={tp}"] = same
+        if not same:
+            raise AssertionError(f"decode_attention B={b} S={s}: a row differs from the B=1 call on it")
+
+
+def check_decode(results: dict, batches: list[dict], api: dict, stream: dict, serving: dict) -> None:
     import torch
     import torch.nn.functional as F
 
@@ -371,6 +517,8 @@ def check_decode(results: dict, batches: list[dict], api: dict, stream: dict) ->
     for _, s, idx, start in stream["decode"]:  # the streams' caches (one row each), not checked above
         if s not in {sh[1] for sh in shapes if sh[0] == 1}:
             shapes.append((1, s, [idx], [start]))
+    for b, s, tp in serving["decode"]:  # the continuous batches: a write slot and a window per row
+        shapes.append((b, s, *serving_decode_rows(b, s, tp, kv)))
     for b, s, idx_list, starts in shapes:
         _checked(results, "decode_attention", (b, s))
         rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -439,7 +587,7 @@ def check_decode(results: dict, batches: list[dict], api: dict, stream: dict) ->
     results["decode_err"] = max(r["err"] for r in rows)
 
 
-def check_flash(results: dict, batches: list[dict], api: dict, stream: dict) -> None:
+def check_flash(results: dict, batches: list[dict], api: dict, stream: dict, serving: dict) -> None:
     import torch
     import torch.nn.functional as F
 
@@ -457,15 +605,31 @@ def check_flash(results: dict, batches: list[dict], api: dict, stream: dict) -> 
         shapes.append((l, tuple(int(v) for v in rag.integers(l * 5 // 8, l + 1, 16)) * 2))
     # the streaming windows: the CFG pair, every frame valid, L = (P + W) * 2 (no multiple of 64)
     shapes += [(l, (l, l)) for l in stream["flash_l"]]
+    # the serving groups (phase 9): window hops and the cohort finalize at 2N rows, every frame valid; the
+    # bucketed young hops at 2N rows, each row its own mel_len (a row without a hop has 2 frames), timed at
+    # the 200-token streams' largest bucket (L = 384); every other flow shape of the groups checked untimed
+    # (a young hop or finalize of one slot: its tokens padded to 32 frames the second)
+    def serving_mel(rows: int, l: int, kind: str) -> tuple:
+        if kind == "young":
+            return tuple(int(v) for v in rag.integers(2, l + 1, rows // 2)) * 2
+        return (l - 6,) * rows if kind == "slot finalize" else (l,) * rows
+
+    known = {(len(mel), l) for l, mel in shapes}
+    serving_timed = [(rows, l, kind) for (rows, l), kind in sorted(serving["flash"].items())
+                     if rows > 2 and (kind == "window" or l == 384) and (rows, l) not in known]
+    shapes += [(l, serving_mel(rows, l, kind)) for rows, l, kind in serving_timed]
     # the DiT's own layout too: q and k (B, L, H*D) projections and v a slice of the (B, L, 3*H*D) qkv
-    # buffer, each viewed as (B, H, L, D) without a copy (models/dit.py); L = 1344, the larger batch and
-    # the streaming windows
-    strided = {1344, max(sh["l_mel"] for sh in batches), *stream["flash_l"]}
+    # buffer, each viewed as (B, H, L, D) without a copy (models/dit.py); L = 1344, the larger batch, the
+    # streaming windows and the serving groups' timed shapes
+    strided = {1344, max(sh["l_mel"] for sh in batches), *stream["flash_l"], *(l for _, l, _ in serving_timed)}
     runs = [(sh, "contiguous") for sh in shapes] + [(sh, "strided") for sh in shapes if sh[0] in strided]
     # the API request's CFG pair at every length its decode can give, checked and not timed (the
     # longest is its run to max_len, as the zero-shot request's)
-    known = {l for l, mel in shapes if len(mel) == 2}
-    runs += [((l, (l - 6, l - 6)), "untimed") for l in api["flash_l"] if l not in known]
+    known = {(len(mel), l) for l, mel in shapes}
+    runs += [((l, (l - 6, l - 6)), "untimed") for l in api["flash_l"] if (2, l) not in known]
+    known |= {(2, l) for l in api["flash_l"]}
+    runs += [((l, serving_mel(rows, l, kind)), "untimed") for (rows, l), kind in sorted(serving["flash"].items())
+             if (rows, l) not in known]
     for (l, mel), layout in runs:
         b, h, d = len(mel), 16, 64
         _checked(results, "chunk_flash_attention", (b, l))
@@ -1284,19 +1448,19 @@ def streaming_phase(results: dict, card: str, tts, api_model, prompt_wav: str, a
     out["warmup_s"] = warm["s"]
 
     run = lambda req: (lambda: tts.tts(stream=True, **req))
-    # S1: bench.py's first chunk: two warm-ups, then three timed streams
-    firsts = [counted(f"S1 first chunk, run {i + 1}", tts, run(reqs["S1"]), 0, lambda: steps[0]) for i in range(5)]
-    ms = [r["first_ms"] for r in firsts[2:]]
+    # S1: bench.py's first chunk: a warm-up, then two timed streams (few, to leave phase 9 its time)
+    firsts = [counted(f"S1 first chunk, run {i + 1}", tts, run(reqs["S1"]), 0, lambda: steps[0]) for i in range(3)]
+    ms = [r["first_ms"] for r in firsts[1:]]
     out["S1"] = dict(first_ms_min=min(ms), first_ms_median=float(np.median(ms)), first_ms=ms,
-                     warmup_first_ms=[r["first_ms"] for r in firsts[:2]], tokens=firsts[-1]["tokens"],
-                     rtf=[r["rtf"] for r in firsts[2:]])
+                     warmup_first_ms=[r["first_ms"] for r in firsts[:1]], tokens=firsts[-1]["tokens"],
+                     rtf=[r["rtf"] for r in firsts[1:]])
     log(f"S1 first chunk (10 text tokens, {firsts[-1]['tokens']} tokens, no prompt): min {min(ms):.1f} ms, median "
-        f"{np.median(ms):.1f} ms of {', '.join(f'{m:.1f}' for m in ms)} (warm-ups "
-        f"{', '.join(f'{r['first_ms']:.1f}' for r in firsts[:2])}); RTF {firsts[-1]['rtf']:.4f} [{card}]")
+        f"{np.median(ms):.1f} ms of {', '.join(f'{m:.1f}' for m in ms)} (warm-up "
+        f"{', '.join(f'{r['first_ms']:.1f}' for r in firsts[:1])}); RTF {firsts[-1]['rtf']:.4f} [{card}]")
 
-    # S2 and S3: best of three after a warm-up
+    # S2 and S3: one timed run after a warm-up (one, to leave phase 9 its time)
     for name, n_prompt in (("S2", 0), ("S3", 60)):
-        runs = [counted(f"{name} run {i + 1}", tts, run(reqs[name]), n_prompt, lambda: steps[0]) for i in range(4)]
+        runs = [counted(f"{name} run {i + 1}", tts, run(reqs[name]), n_prompt, lambda: steps[0]) for i in range(2)]
         best = min(runs[1:], key=lambda r: r["wall_s"])
         out[name] = dict(best, runs_wall_s=[r["wall_s"] for r in runs], runs_first_ms=[r["first_ms"] for r in runs])
         log(f"{name} stream ({best['tokens']} tokens, prompt {n_prompt}): wall {best['wall_s']:.3f} s for "
@@ -1414,9 +1578,421 @@ def small_stream_check() -> None:
         raise AssertionError("the streaming path on the card disagrees with its CPU path on a small model")
 
 
+# ---------------------------------------------------------------- phase 9
+
+
+def _group_counts(sched) -> tuple[int, int]:
+    """(flow calls, hops) of every group of a StreamScheduler so far."""
+    groups = [g for gs in sched.groups.values() for g in gs]
+    return sum(g.flow_calls for g in groups), sum(g.hops for g in groups)
+
+
+def serving_counted(results: dict, label: str, cfg, lsched, sched, run):
+    """`run()` with the kernel launch counts set to 0 just before it and read
+    just after, its kernel shapes held to phase 3's checks. The decode
+    launches must be 24 a step of the LLMScheduler's chunks, the flash
+    launches 22 x 10 a flow call of the StreamScheduler's groups. Returns
+    (run's result, the run's counts)."""
+    from fangyan_tts_torch.ops import decode_attention as da
+    from fangyan_tts_torch.ops import flash_attention as fa
+
+    zero = {"steps": 0, "rows": 0}
+    l0 = dict(lsched.stats) if lsched is not None else zero
+    s0 = dict(sched.stats) if sched is not None else zero
+    f0, h0 = _group_counts(sched) if sched is not None else (0, 0)
+    da.launches = fa.launches = 0
+    with kernel_shapes(results, label):
+        out = run()
+    counts = {"decode_attention": da.launches, "chunk_flash_attention": fa.launches}
+    _count(results, counts)
+    llm = {k: (lsched.stats[k] if lsched is not None else 0) - l0[k] for k in zero}
+    t2w = {k: (sched.stats[k] if sched is not None else 0) - s0[k] for k in zero}
+    f1, h1 = _group_counts(sched) if sched is not None else (0, 0)
+    chunk_steps = lsched.chunk_steps if lsched is not None else 0
+    want = {"decode_attention": cfg.llm.qwen.num_hidden_layers * chunk_steps * llm["steps"],
+            "chunk_flash_attention": cfg.flow.dit.depth * cfg.flow.n_timesteps * (f1 - f0)}
+    run_counts = dict(launches=counts, llm=llm, t2w=t2w, flow_calls=f1 - f0, hops=h1 - h0)
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, derived from the steps and flow calls {want} ({run_counts})")
+    return out, run_counts
+
+
+def _gaps(arrivals: list, hop_s: float) -> dict:
+    """Arrival gaps between a stream's chunks, over every stream: p99, max and
+    underruns (gaps longer than one hop of audio), as bench.py counts them."""
+    gaps = sorted(b - a for ts in arrivals for a, b in zip(ts, ts[1:]))
+    ms = [g * 1e3 for g in gaps]
+    return dict(n=len(ms), p99_ms=ms[min(len(ms) - 1, int(0.99 * len(ms)))] if ms else 0.0,
+                max_ms=ms[-1] if ms else 0.0, underruns=sum(g > hop_s for g in gaps))
+
+
+def _threads(n: int, client, timeout: float = 600.0) -> None:
+    """Run client(i) on n threads; raise the first client's exception."""
+    import threading
+
+    errs: list = []
+
+    def guarded(i):
+        try:
+            client(i)
+        except Exception as e:  # noqa: BLE001 - raised below
+            errs.append(e)
+
+    ts = [threading.Thread(target=guarded, args=(i,)) for i in range(n)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=timeout)
+    if errs:
+        raise errs[0]
+    if any(t.is_alive() for t in ts):
+        raise AssertionError("a client thread did not finish")
+
+
+@contextlib.contextmanager
+def stage_times(lsched=None):
+    """Wall ms of each LLMScheduler chunk (lsched._run_chunk, which ends in
+    its fetch) and of each BatchedStreamGroup step and finalize, by name,
+    over the block (the stages run on the client threads, concurrently)."""
+    from fangyan_tts_torch.infer.batch_stream import BatchedStreamGroup
+
+    times: dict = {}
+
+    def timed(name, fn):
+        def inner(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                times.setdefault(name, []).append((time.perf_counter() - t) * 1e3)
+        return inner
+
+    saved = [(BatchedStreamGroup, n, getattr(BatchedStreamGroup, n)) for n in ("step", "finish", "finish_many")]
+    for cls, name, fn in saved:
+        setattr(cls, name, timed(f"t2w {name}", fn))
+    if lsched is not None:
+        lsched._run_chunk = timed("llm chunk", lsched._run_chunk)
+    try:
+        yield times
+    finally:
+        for cls, name, fn in saved:
+            setattr(cls, name, fn)
+        if lsched is not None:
+            del lsched._run_chunk
+
+
+def _stage_line(times: dict) -> str:
+    return "; ".join(f"{k} {len(v)} x {np.mean(v):.1f} / {np.max(v):.1f} ms" for k, v in sorted(times.items())) + \
+        " (count x mean / max)"
+
+
+def async_round(lsched, sched, texts: list, embs: list) -> dict:
+    """bench.py's async clients: each opens its decode in the LLMScheduler and
+    its session in the StreamScheduler, feeds each token chunk as it comes
+    and closes; every audio chunk's arrival time is kept."""
+    n = len(texts)
+    arrivals, samples, tokens, ok = [[] for _ in range(n)], [0] * n, [0] * n, [True] * n
+    t0 = time.perf_counter()
+
+    def got(i, chunk):
+        arrivals[i].append(time.perf_counter() - t0)
+        samples[i] += len(chunk)
+        ok[i] &= bool(np.isfinite(chunk).all()) and (len(chunk) == 0 or float(np.abs(chunk).max()) <= 0.99)
+
+    def client(i):
+        lh = lsched.open(texts[i], min_token_text_ratio=SERVE_RATIO, max_token_text_ratio=SERVE_RATIO)
+        h = sched.open(np.zeros(0, np.int32), np.zeros((0, 80), np.float32), embs[i])
+        for arr in lsched.stream(lh):
+            tokens[i] += len(arr)
+            for chunk in sched.feed(h, arr):
+                got(i, chunk)
+        got(i, sched.close(h))
+
+    _threads(n, client)
+    return dict(wall_s=time.perf_counter() - t0, arrivals=arrivals, samples=samples, tokens=tokens, ok=ok)
+
+
+def serving_async(results: dict, card: str, tts, c: int) -> dict:
+    """(a) c async clients through an LLMScheduler and a StreamScheduler of
+    width c: a warm-up round (the groups' first calls), then a measured one."""
+    from fangyan_tts_torch.infer.batch_stream import StreamScheduler
+    from fangyan_tts_torch.infer.llm_batch import LLMScheduler
+
+    cfg = tts.cfg
+    lsched, sched = LLMScheduler(tts, width=c), StreamScheduler(tts, width=c)
+    rng = np.random.default_rng(20 + c)
+    texts = [rng.integers(0, 50000, SERVE_TEXT_TOKENS).astype(np.int32) for _ in range(c)]
+    embs = [rng.standard_normal(192).astype(np.float32) for _ in range(c)]
+    hop_s = cfg.chunk_size / cfg.token_frame_rate
+    out = {}
+    for name in ("warm-up", "measured"):
+        with stage_times(lsched) as times:
+            r, counts = serving_counted(results, f"(a) async c={c} {name}", cfg, lsched, sched,
+                                        lambda: async_round(lsched, sched, texts, embs))
+        want_hops = sum(stream_plan(n, 0, cfg)[0] for n in r["tokens"])
+        audio_s = sum(r["samples"]) / cfg.sample_rate
+        gaps = _gaps(r["arrivals"], hop_s)
+        first_ms = [a[0] * 1e3 for a in r["arrivals"]]
+        ok = (all(r["ok"]) and counts["hops"] == want_hops and all(0 < n <= SERVE_TEXT_TOKENS * SERVE_RATIO
+                                                                   for n in r["tokens"])
+              and r["samples"] == [n * cfg.token_mel_ratio * 480 for n in r["tokens"]])
+        ratio = lambda st: st["rows"] / max(st["steps"], 1)
+        step_ms = float(np.mean(times["llm chunk"])) / lsched.chunk_steps
+        out[name] = dict(wall_s=r["wall_s"], audio_s=audio_s, rtf=r["wall_s"] / audio_s, first_ms=first_ms,
+                         tokens=r["tokens"], gaps=gaps, llm_batch=ratio(counts["llm"]), t2w_batch=ratio(counts["t2w"]),
+                         decode_step_ms=step_ms, stages={k: (float(np.mean(v)), float(np.max(v)), len(v))
+                                                         for k, v in times.items()}, **counts)
+        log(f"(a) async streaming c={c} {name}: {r['wall_s']:.3f} s wall for {audio_s:.2f} s audio, aggregate RTF "
+            f"{r['wall_s'] / audio_s:.4f}; tokens {r['tokens']}; first chunk ms "
+            f"{', '.join(f'{m:.1f}' for m in first_ms)}; batching LLM {counts['llm']['rows']}/{counts['llm']['steps']}"
+            f" = {ratio(counts['llm']):.2f}, token2wav {counts['t2w']['rows']}/{counts['t2w']['steps']} = "
+            f"{ratio(counts['t2w']):.2f}; {gaps['n']} arrival gaps, p99 {gaps['p99_ms']:.1f} ms, max "
+            f"{gaps['max_ms']:.1f} ms, underruns (> {hop_s:.1f} s) {gaps['underruns']}; {counts['flow_calls']} flow "
+            f"calls, {counts['hops']} hops (derived {want_hops}); decode {step_ms:.2f} ms a step at B={c}; "
+            f"{_stage_line(times)}; launches {counts['launches']} [{card}] {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"(a) async c={c} {name} failed its checks")
+    return out
+
+
+def serving_stream_vs_solo(results: dict, card: str, tts) -> dict:
+    """(c) four fixed-token sessions of BATCH_TOKENS through a width-4
+    StreamScheduler, fed 32 tokens at a time from four threads, against the
+    same sessions streamed solo (the full-prefix young hops the groups run):
+    chunk lengths equal (close() returns the chunks a session had not yet
+    taken with its tail, so those are summed) and the audio within
+    BATCH_REL_TOL of max |solo|."""
+    import threading
+
+    from fangyan_tts_torch.infer.batch_stream import StreamScheduler
+
+    cfg = tts.cfg
+    rng = np.random.default_rng(30)
+    sessions = [(rng.integers(0, 6561, BATCH_TOKENS).astype(np.int32), rng.standard_normal(192).astype(np.float32))
+                for _ in range(4)]
+    from fangyan_tts_torch.ops import flash_attention as fa
+
+    tts.flow_kv_stream = False
+    fa.launches = 0
+    try:
+        with kernel_shapes(results, "(c) solo streams"):
+            solo = [[c["tts_speech"] for c in tts.tts(source_speech_token=t, flow_embedding=e, stream=True)]
+                    for t, e in sessions]
+    finally:
+        tts.flow_kv_stream = True
+    # every hop of a solo stream without the KV cache is a flow call, and so is a finalize with frames left
+    hops = stream_plan(BATCH_TOKENS, 0, cfg)[0]
+    solo_calls = len(sessions) * (hops + (BATCH_TOKENS > hops * cfg.chunk_size))
+    _count(results, {"chunk_flash_attention": fa.launches})
+    if fa.launches != cfg.flow.dit.depth * cfg.flow.n_timesteps * solo_calls:
+        raise AssertionError(f"(c) solo streams: {fa.launches} flash launches for {solo_calls} flow calls")
+    sched = StreamScheduler(tts, width=4)
+    chunks, tails = [[] for _ in sessions], [None] * 4
+    barrier = threading.Barrier(4)
+
+    def client(i):
+        toks, emb = sessions[i]
+        h = sched.open(np.zeros(0, np.int32), np.zeros((0, 80), np.float32), emb)
+        barrier.wait(timeout=300)
+        for p in range(0, len(toks), 32):
+            chunks[i] += sched.feed(h, toks[p : p + 32])
+        tails[i] = sched.close(h)
+
+    _, counts = serving_counted(results, "(c) StreamScheduler against solo", cfg, None, sched, lambda: _threads(4, client))
+    rows = []
+    for i in range(4):
+        n = len(chunks[i])
+        lens_ok = ([len(c) for c in chunks[i]] == [len(c) for c in solo[i][:n]]
+                   and len(tails[i]) == sum(len(c) for c in solo[i][n:]))
+        g, w = np.concatenate(chunks[i] + [tails[i]]), np.concatenate(solo[i])
+        rel = float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-12)) if g.shape == w.shape else float("inf")
+        rows.append(dict(chunks=n, solo_chunks=len(solo[i]), lens_equal=lens_ok, rel=rel))
+    want_hops = 4 * stream_plan(BATCH_TOKENS, 0, cfg)[0]
+    ok = all(r["lens_equal"] and r["rel"] <= BATCH_REL_TOL for r in rows) and counts["hops"] == want_hops
+    ratio = counts["t2w"]["rows"] / max(counts["t2w"]["steps"], 1)
+    log(f"(c) StreamScheduler against solo, {len(sessions)} sessions of {BATCH_TOKENS} tokens: rel |batched - solo| "
+        f"{', '.join(f'{r['rel']:.3e}' for r in rows)} (limit {BATCH_REL_TOL}), chunk lengths equal "
+        f"{[r['lens_equal'] for r in rows]} ({[r['chunks'] for r in rows]} fed chunks + the close; solo "
+        f"{[r['solo_chunks'] for r in rows]}); token2wav batching {ratio:.2f}; {counts['flow_calls']} flow calls, "
+        f"{counts['hops']} hops (derived {want_hops}); launches {counts['launches']} [{card}] {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("(c) the StreamScheduler's streams disagree with the solo streams")
+    return dict(rows=rows, t2w_batch=ratio, **counts)
+
+
+def serving_llm_vs_solo(results: dict, card: str, tts) -> dict:
+    """(c) four greedy decodes (top_k 1, the RAS fallback off) through a
+    width-4 LLMScheduler, two opened a chunk after the others (rows at
+    different depths and write slots), against each one's solo decode:
+    tokens equal up to the first step whose two best logits lie within
+    GREEDY_TIE in the solo decode (there M = 1 and M = 4 may round a tie
+    differently); the agreeing prefix lengths are printed."""
+    from dataclasses import replace
+
+    import torch
+
+    from fangyan_tts_torch.data.lm_plan import pad_plans_left
+    from fangyan_tts_torch.infer.llm_batch import LLMScheduler
+    from fangyan_tts_torch.infer.tts import stream_buckets
+    from fangyan_tts_torch.models.llm import decode_chunk, decode_prefill
+
+    cfg, dev = tts.cfg, tts.device
+    inner = tts.llm.cfg
+    tts.llm.cfg = replace(inner, top_k=1, tau_r=1.1)
+    try:
+        rng = np.random.default_rng(40)
+        texts = [rng.integers(0, 50000, SERVE_TEXT_TOKENS).astype(np.int32) for _ in range(4)]
+        lsched = LLMScheduler(tts, width=4, silent_tokens=())
+        ratio = dict(min_token_text_ratio=GREEDY_RATIO, max_token_text_ratio=GREEDY_RATIO)
+
+        def run():
+            got = [[] for _ in texts]
+            streams = {i: lsched.stream(lsched.open(texts[i], **ratio)) for i in (0, 1)}
+            late = [2, 3]
+            while streams or late:
+                for i in list(streams):
+                    try:
+                        got[i].append(next(streams[i]))
+                    except StopIteration:
+                        del streams[i]
+                while late:  # after the first chunk: the others join at depth 0
+                    i = late.pop(0)
+                    streams[i] = lsched.stream(lsched.open(texts[i], **ratio))
+            return [np.concatenate(g) for g in got]
+
+        got, counts = serving_counted(results, "(c) LLMScheduler against solo (greedy)", cfg, lsched, None, run)
+        zeros = np.zeros(0, np.int32)
+        rows, solo_steps = [], 0
+        with kernel_shapes(results, "(c) solo greedy decodes"), torch.inference_mode():
+            from fangyan_tts_torch.ops import decode_attention as da
+
+            da.launches = 0
+            for i, text in enumerate(texts):
+                plan, tp, cache_len, lo, hi = stream_buckets(cfg.llm, text, zeros, zeros, GREEDY_RATIO, GREEDY_RATIO)
+                b = pad_plans_left([plan], length=tp)
+                st = decode_prefill(tts.llm, *(torch.from_numpy(b[k]).to(dev) for k in ("src", "ids", "lengths")),
+                                    torch.tensor([lo]), torch.tensor([hi]), cache_len)
+                toks, ties = [], []
+                while not bool(st.done.all()) and st.i < hi:
+                    top2 = torch.topk(st.logits.float()[0, : cfg.llm.speech_token_size], 2).values
+                    st, chunk = decode_chunk(tts.llm, st, 1, tp, None)
+                    solo_steps += 1
+                    if int(chunk[0, 0]) >= 0:
+                        toks.append(int(chunk[0, 0]))
+                        ties.append(float(top2[0] - top2[1]))
+                g = got[i].tolist()
+                agree = next((j for j, (a, w) in enumerate(zip(g, toks)) if a != w), min(len(g), len(toks)))
+                ok = (agree == len(g) == len(toks)) or (agree < len(toks) and ties[agree] <= GREEDY_TIE)
+                rows.append(dict(tokens=len(toks), batched_tokens=len(g), agree=agree,
+                                 gap_at_split=ties[agree] if agree < len(toks) else None, ok=ok))
+            solo_launches = da.launches
+        _count(results, {"decode_attention": solo_launches})
+    finally:
+        tts.llm.cfg = inner
+    ok = all(r["ok"] for r in rows) and solo_launches == cfg.llm.qwen.num_hidden_layers * solo_steps
+    log(f"(c) LLMScheduler against solo, greedy, 4 rows (two joined a chunk later): agreeing prefix "
+        f"{[r['agree'] for r in rows]} of {[r['tokens'] for r in rows]} tokens; best-two logit gap where they part "
+        f"{[r['gap_at_split'] for r in rows]} (a tie within {GREEDY_TIE} may fall either way); LLM batching "
+        f"{counts['llm']['rows']}/{counts['llm']['steps']}; launches {counts['launches']}, solo decodes "
+        f"{solo_launches} [{card}] {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("(c) a batched greedy decode parts from its solo decode away from a near-tie")
+    return dict(rows=rows, **counts)
+
+
+def serving_http(results: dict, card: str, model_dir, api: dict, serving: dict) -> dict:
+    """(b) the port's HTTP server in this process on 127.0.0.1 (a free port),
+    phase 4's model directory loaded with --batched_streams HTTP_WIDTH, and
+    four concurrent /inference_zero_shot clients (runtime/http_client.
+    stream_request) sharing the prompt wav, each with its own sentence.
+    Each response must be well-formed int16 PCM of whole mel frames."""
+    import threading
+
+    import torch
+
+    from fangyan_tts_torch.runtime import http_server
+    from fangyan_tts_torch.runtime.http_client import stream_request
+
+    t0 = time.perf_counter()
+    model = http_server.load_model(str(model_dir), batched_streams=HTTP_WIDTH)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    srv = http_server.serve(model, host="127.0.0.1", port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}/inference_zero_shot"
+    wav = (model_dir / "prompt.wav").read_bytes()
+    n = len(HTTP_TEXTS)
+    pcm, arrivals = [], []
+
+    def run():
+        t1 = time.perf_counter()
+
+        def client(i):
+            for chunk in stream_request(url, {"tts_text": HTTP_TEXTS[i], "prompt_text": API_PROMPT_TEXT},
+                                        {"prompt_wav": wav}, timeout=600):
+                arrivals[i].append(time.perf_counter() - t1)
+                pcm[i] += chunk
+
+        _threads(n, client)
+        return time.perf_counter() - t1
+
+    out = {"load_s": load_s}
+    try:
+        tts = model.model
+        for name in ("warm-up", "measured"):  # the warm-up pays the groups' first calls at the prompt's shapes
+            pcm, arrivals = [b""] * n, [[] for _ in range(n)]
+            wall, counts = serving_counted(results, f"(b) HTTP server {name}", tts.cfg, tts.llm_scheduler,
+                                           tts.stream_scheduler, run)
+            samples = [len(p) // 2 for p in pcm]
+            peaks = [int(np.abs(np.frombuffer(p, "<i2")).max()) if p else 0 for p in pcm]
+            ok = all(len(p) > 0 and len(p) % (480 * 2) == 0 for p in pcm) and all(peaks)
+            audio_s = sum(samples) / 24000
+            ratio = lambda st: st["rows"] / max(st["steps"], 1)
+            first_ms = [a[0] * 1e3 if a else None for a in arrivals]
+            log(f"(b) HTTP server {name} (--batched_streams {HTTP_WIDTH}, load {load_s:.2f} s): {n} concurrent "
+                f"/inference_zero_shot clients, text ids {serving['http_ids']}: {samples} samples of int16 PCM (peaks "
+                f"{peaks}), wall {wall:.3f} s for {audio_s:.2f} s audio, aggregate RTF {wall / max(audio_s, 1e-9):.4f}, "
+                f"first chunk ms {', '.join(f'{m:.1f}' for m in first_ms if m is not None)}; batching LLM "
+                f"{ratio(counts['llm']):.2f}, token2wav {ratio(counts['t2w']):.2f}; {counts['flow_calls']} flow calls; "
+                f"launches {counts['launches']} [{card}] {'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"(b) HTTP {name}: a response was empty or not whole int16 mel frames")
+            out[name] = dict(samples=samples, wall_s=wall, rtf=wall / audio_s, first_ms=first_ms,
+                             llm_batch=ratio(counts["llm"]), t2w_batch=ratio(counts["t2w"]), **counts)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def serving_phase(results: dict, card: str, model_dir, api: dict, serving: dict) -> None:
+    """Phase 9 at full width, random bf16 weights: (a) the async workload at
+    each of SERVE_WIDTHS, (c) batched against solo, (b) the HTTP server."""
+    import torch
+
+    from fangyan_tts_torch.config import CosyVoiceConfig
+    from fangyan_tts_torch.infer.tts import CosyVoice3TTS
+
+    t0 = time.perf_counter()
+    tts = CosyVoice3TTS.random_init(CosyVoiceConfig(), dtype=torch.bfloat16, seed=9)
+    log(f"phase 9 model: random_init in {time.perf_counter() - t0:.2f} s")
+    out = results.setdefault("serving", {})
+    for c in SERVE_WIDTHS:
+        out[f"async_c{c}"] = serving_async(results, card, tts, c)
+    out["stream_vs_solo"] = serving_stream_vs_solo(results, card, tts)
+    out["llm_vs_solo"] = serving_llm_vs_solo(results, card, tts)
+    del tts
+    torch.cuda.empty_cache()
+    out["http"] = serving_http(results, card, model_dir, api, serving)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8", help="comma-separated phases to run (see above)")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9", help="comma-separated phases to run (see above)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -1445,23 +2021,27 @@ def main() -> int:
     launch_probe(results, "start")
     api = api_request_spec()
     stream = stream_shapes(api)
-    states = frontend_states() if phases & {4, 7, 8} else None
+    serving = serving_spec(api)
+    states = frontend_states() if phases & {4, 7, 8, 9} else None
     if 3 in phases:
         batches = [batch_shapes(r) for r in batch_requests_spec()]
-        log(f"batched requests' shapes (a), (b): {batches}; the API request's: {api}; the streams': {stream}")
-        check_decode(results, batches, api, stream)
-        check_flash(results, batches, api, stream)
+        log(f"batched requests' shapes (a), (b): {batches}; the API request's: {api}; the streams': {stream}; "
+            f"the serving runs' decode (B, S, tp) {serving['decode']} and flow calls (rows, L): kind "
+            f"{dict(sorted(serving['flash'].items()))}")
+        check_decode(results, batches, api, stream, serving)
+        check_decode_rows(results, serving)
+        check_flash(results, batches, api, stream, serving)
         check_int4(results, batches[1])
     with contextlib.ExitStack() as stack:
         if 4 in phases:
             small_reference_check()
             tts, req = full_path(results, card)
-        elif 8 in phases:
+        elif phases & {8, 9}:
             from fangyan_tts_torch.config import CosyVoiceConfig
             from fangyan_tts_torch.infer.tts import CosyVoice3TTS
 
             tts = CosyVoice3TTS.random_init(CosyVoiceConfig(), dtype=torch.bfloat16)
-        model_dir = stack.enter_context(api_model_dir(tts, states)) if phases & {4, 8} else None
+        model_dir = stack.enter_context(api_model_dir(tts, states)) if phases & {4, 8, 9} else None
         if 4 in phases:
             api_request(results, card, model_dir, api)
             batched = batched_requests(results, card)
@@ -1482,6 +2062,12 @@ def main() -> int:
             streaming_phase(results, card, stream_tts, api_model, str(model_dir / "prompt.wav"), api)
             del stream_tts, api_model
             torch.cuda.empty_cache()
+        if 9 in phases:  # after phase 8, before the profiler passes
+            launch_probe(results, "before phase 9")
+            t = time.perf_counter()
+            serving_phase(results, card, model_dir, api, serving)
+            log(f"phase 9 took {time.perf_counter() - t:.1f} s")
+            launch_probe(results, "after phase 9")
         if 4 in phases and 5 in phases:
             profile_stages(tts, req, results, card)
             (tts_a, req_a), (tts_b, req_b) = batched["a"], batched["b"]
@@ -1521,7 +2107,7 @@ def main() -> int:
         log("detail: " + json.dumps({k: results[k] for k in ("decode_timing", "flash_timing", "int4_timing", "requests",
                                                              "api_request", "batch_requests", "profile",
                                                              "profile_batch", "frontend", "streaming",
-                                                             "launch_probe_us")
+                                                             "serving", "decode_rows_bit_equal", "launch_probe_us")
                                      if k in results}))
         log(json.dumps({"kernels": kernels}), stamp=False)
     launch_probe(results, "end")

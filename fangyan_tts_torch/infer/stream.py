@@ -112,24 +112,30 @@ class VocStream:
         self.carry = torch.zeros((1, self.nh), dtype=torch.float32, device=tts.device)
         self.emitted = 0  # mel frames' worth of audio handed out
 
-    @torch.inference_mode()
-    def _push(self, variant: str, mel_h: torch.Tensor, noise_off: int) -> torch.Tensor:
+    def push_rows(self, variant: str, tail: torch.Tensor, mel_h: torch.Tensor, carry: torch.Tensor,
+                  noise_off: int | torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """One push of `variant` for B rows at the same push index (this
+        session's, or a batched group's): tail (B, TAIL, 80), mel_h (B, H,
+        80), carry (B, nh), noise_off an int or (B,) per row. Returns (new
+        tail, audio (B, samples), new carry); touches no session state."""
         hift, H, LA, WIN, F0L, up = self.t.hift, self.H, self.LA, self.WIN, self.F0L, self.up
-        self.tail = torch.cat([self.tail, mel_h], dim=1)[:, -self.TAIL :]
-        tail = self.tail
+        tail = torch.cat([tail, mel_h], dim=1)[:, -self.TAIL :]
         if variant == "young1":  # frames [0, H): emit [0, H - LA)
-            return hift(tail[:, -H:], finalize=False)[0]
+            return tail, hift(tail[:, -H:], finalize=False)[0], carry
         if variant == "young2":  # frames [0, 2H): emit [H - LA, 2H - LA)
-            return hift(tail[:, -2 * H :], finalize=False)[0][:, (H - LA) * up :]
-        audio = hift.stream_window(tail[:, LA : LA + WIN], self.carry, noise_off, _nsf_noise(self.t))
+            return tail, hift(tail[:, -2 * H :], finalize=False)[0][:, (H - LA) * up :], carry
+        audio = hift.stream_window(tail[:, LA : LA + WIN], carry, noise_off, _nsf_noise(self.t))
         if variant == "first":  # frames [0, 2H): emit [2H - LA, 2H)
             delta = hift.rad_delta(tail[:, LA : LA + H + 3], n_left=0)
-            self.carry = torch.remainder(delta, 1.0)
-            return audio[:, (2 * H - LA) * up : 2 * H * up]
+            return tail, audio[:, (2 * H - LA) * up : 2 * H * up], torch.remainder(delta, 1.0)
         # steady: window [a, a + WIN), emit [a + H, a + 2H)
         delta = hift.rad_delta(tail[:, LA - F0L : LA + H + 3], n_left=F0L)
-        self.carry = torch.remainder(self.carry + delta, 1.0)
-        return audio[:, H * up : 2 * H * up]
+        return tail, audio[:, H * up : 2 * H * up], torch.remainder(carry + delta, 1.0)
+
+    @torch.inference_mode()
+    def _push(self, variant: str, mel_h: torch.Tensor, noise_off: int) -> torch.Tensor:
+        self.tail, audio, self.carry = self.push_rows(variant, self.tail, mel_h, self.carry, noise_off)
+        return audio
 
     def push_dev(self, mel_h: torch.Tensor) -> HostAudio:
         """mel_h (1, H, 80) device mel on the 50-frame grid. Returns the new

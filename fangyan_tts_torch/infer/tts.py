@@ -232,6 +232,8 @@ class CosyVoice3TTS:
         self.stream_no_speculation = False
         self.stream_no_prefetch = False
         self.stream_stats: dict | None = None  # a dict here collects the per-hop budget (ms lists)
+        self.llm_scheduler = None  # enable_batched_llm: streaming decodes share a continuous batch
+        self.stream_scheduler = None  # enable_batched_streaming: streams share batched token2wav
 
     @classmethod
     def random_init(
@@ -273,6 +275,30 @@ class CosyVoice3TTS:
         sd = quantize_dit_state(self.flow.state_dict())
         self.cfg = replace(self.cfg, flow=replace(self.cfg.flow, dit=replace(self.cfg.flow.dit, quant_int8=True)))
         self.flow = _load(lambda: CausalMaskedDiffWithDiT(self.cfg.flow), sd, self.device)
+
+    def next_generator(self) -> torch.Generator:
+        """A generator for one request's own random stream (the JAX package's
+        next_key), seeded from the TTS object's generator."""
+        seed = int(torch.randint(0, 2**62, (1,), generator=self.generator, device=self.device))
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def enable_batched_llm(self, width: int = 4) -> None:
+        """Continuous batching of the streaming LLM decodes: concurrent
+        requests' decode chunks run as one width-N batch with each row's own
+        depth, generator and cache slots (infer/llm_batch.LLMScheduler).
+        With enable_batched_streaming both serving stages batch."""
+        from .llm_batch import LLMScheduler
+
+        self.llm_scheduler = LLMScheduler(self, width=width)
+
+    def enable_batched_streaming(self, width: int = 4) -> None:
+        """Concurrent streaming requests' flow and vocoder hops run as
+        batched calls (infer/batch_stream.StreamScheduler): sessions are
+        grouped by prompt length, slots recycle. Thread-safe, for the
+        serving runtimes."""
+        from .batch_stream import StreamScheduler
+
+        self.stream_scheduler = StreamScheduler(self, width=width)
 
     def warmup_streaming(self, prompt_token_len: int = 0, n_tokens: int | None = None) -> None:
         """Run a silent stream of one prompt length on the vc route through
@@ -511,14 +537,20 @@ class CosyVoice3TTS:
 
     def _tts_stream(self, text, flow_embedding, prompt_text, llm_prompt_speech_token, flow_prompt_speech_token,
                     prompt_speech_feat, source_speech_token, ratios):
-        # the session comes first, so that the LLM side can speculate its first hop
-        sess = Token2WavSession(self, flow_prompt_speech_token, prompt_speech_feat, flow_embedding)
+        sched, lsched = self.stream_scheduler, self.llm_scheduler
+        # the solo session comes first, so that the LLM side can speculate its first hop
+        sess = None if sched is not None else Token2WavSession(self, flow_prompt_speech_token, prompt_speech_feat,
+                                                               flow_embedding)
         bistream = hasattr(text, "__next__")
         llm = bistream or source_speech_token.shape[0] == 0
+        lh = None
         if bistream:
             token_iter = self._bistream_tokens(text, prompt_text, llm_prompt_speech_token)
+        elif llm and lsched is not None:  # the decode joins the continuous batch
+            lh = lsched.open(text, prompt_text, llm_prompt_speech_token, **ratios)
+            token_iter = lsched.stream(lh)
         elif llm:
-            spec = None if self.stream_no_speculation else sess.speculate_first
+            spec = None if self.stream_no_speculation or sess is None else sess.speculate_first
             token_iter = self._stream_tokens(text, prompt_text, llm_prompt_speech_token, first_hop_spec=spec,
                                              spec_n=sess.first_hop_tokens if spec is not None else 0, **ratios)
         else:
@@ -526,7 +558,37 @@ class CosyVoice3TTS:
         prefetch = None
         if llm and not self.stream_no_prefetch:
             token_iter = prefetch = _TokenPrefetcher(token_iter)
+        try:
+            if sched is not None:
+                yield from self._scheduled_stream(sched, token_iter, prefetch, flow_prompt_speech_token,
+                                                  prompt_speech_feat, flow_embedding)
+            else:
+                yield from self._solo_stream(sess, token_iter, prefetch)
+        finally:
+            if prefetch is not None:
+                prefetch.close()
+            if lh is not None:
+                lsched.close(lh)  # a stream that was abandoned, or never started, frees its row
 
+    @staticmethod
+    def _scheduled_stream(sched, token_iter, prefetch, flow_prompt_speech_token, prompt_speech_feat, flow_embedding):
+        """Token2wav through the StreamScheduler: each token chunk is fed, the
+        hops its feed made ready come back (batched with other sessions'),
+        and close() returns the tail; a consumer that goes away frees the
+        slot."""
+        h = sched.open(flow_prompt_speech_token, prompt_speech_feat, flow_embedding)
+        try:
+            for tok_chunk in token_iter:
+                for audio in sched.feed(h, tok_chunk):
+                    if prefetch is not None:
+                        prefetch.release()  # first audio in hand
+                    yield {"tts_speech": audio}
+        except BaseException:
+            sched.close(h)
+            raise
+        yield {"tts_speech": sched.close(h)}
+
+    def _solo_stream(self, sess, token_iter, prefetch):
         # One-hop audio pipeline: hop k's audio is fetched only after hop k+1
         # is dispatched, so its copy rides under device work; the first chunk
         # is fetched at once. stream_stats (a dict, opt-in) collects the
@@ -534,53 +596,49 @@ class CosyVoice3TTS:
         stats = self.stream_stats
         clock = time.perf_counter
         note = (lambda k, t0: stats.setdefault(k, []).append((clock() - t0) * 1e3)) if stats is not None else None
-        try:
-            pending = None
-            emitted = 0
-            it = iter(token_iter)
-            while True:
-                t0 = clock()
-                try:
-                    tok_chunk = next(it)
-                except StopIteration:
-                    break
-                if note:
-                    note("decode_wait_ms", t0)
-                t0 = clock()
-                if isinstance(tok_chunk, _SpecFirstChunk):
-                    if tok_chunk.spec_audio is not None:  # the speculation held
-                        devs = [tok_chunk.spec_audio] + sess.commit_first(tok_chunk.tokens)
-                    else:  # suppression (or an early stop) changed the first window: replay
-                        sess.reset()
-                        devs = sess.push_dev(tok_chunk.tokens)
-                else:
-                    devs = sess.push_dev(tok_chunk)
-                if note:
-                    note("t2w_dispatch_ms", t0)
-                for dev in devs:
-                    t0 = clock()
-                    if emitted == 0:
-                        if prefetch is not None:
-                            prefetch.release()  # first audio in hand
-                        yield {"tts_speech": dev.numpy()}
-                    else:
-                        if pending is not None:
-                            yield {"tts_speech": pending.numpy()}
-                        pending = dev
-                    if note:
-                        note("fetch_ms", t0)
-                    emitted += 1
+        pending = None
+        emitted = 0
+        it = iter(token_iter)
+        while True:
             t0 = clock()
-            # the finalize is dispatched before the last pending fetch, so it runs under it
-            fin = sess.finish_dev()
-            if pending is not None:
-                yield {"tts_speech": pending.numpy()}
-            yield {"tts_speech": fin()}
+            try:
+                tok_chunk = next(it)
+            except StopIteration:
+                break
             if note:
-                note("finalize_ms", t0)
-        finally:
-            if prefetch is not None:
-                prefetch.close()
+                note("decode_wait_ms", t0)
+            t0 = clock()
+            if isinstance(tok_chunk, _SpecFirstChunk):
+                if tok_chunk.spec_audio is not None:  # the speculation held
+                    devs = [tok_chunk.spec_audio] + sess.commit_first(tok_chunk.tokens)
+                else:  # suppression (or an early stop) changed the first window: replay
+                    sess.reset()
+                    devs = sess.push_dev(tok_chunk.tokens)
+            else:
+                devs = sess.push_dev(tok_chunk)
+            if note:
+                note("t2w_dispatch_ms", t0)
+            for dev in devs:
+                t0 = clock()
+                if emitted == 0:
+                    if prefetch is not None:
+                        prefetch.release()  # first audio in hand
+                    yield {"tts_speech": dev.numpy()}
+                else:
+                    if pending is not None:
+                        yield {"tts_speech": pending.numpy()}
+                    pending = dev
+                if note:
+                    note("fetch_ms", t0)
+                emitted += 1
+        t0 = clock()
+        # the finalize is dispatched before the last pending fetch, so it runs under it
+        fin = sess.finish_dev()
+        if pending is not None:
+            yield {"tts_speech": pending.numpy()}
+        yield {"tts_speech": fin()}
+        if note:
+            note("finalize_ms", t0)
 
     @torch.inference_mode()
     def _bistream_tokens(self, text, prompt_text, llm_prompt_speech_token):
@@ -663,11 +721,11 @@ def stream_buckets(c, text_tokens, prompt_text_tokens, prompt_speech_tokens, min
     return plan, tp, _round_up(tp + _round_up(max(max_len, 1), 256), 256), min_len, max_len
 
 
-def silent_run_filter():
+def silent_run_filter(silent_tokens=SILENT_TOKENS):
     """A token filter that drops FSQ silent tokens beyond MAX_SILENT_RUN
     consecutive ones; the run it counts carries over from call to call (a
     stream's chunks)."""
-    silent, run = set(SILENT_TOKENS), 0
+    silent, run = set(silent_tokens), 0
 
     def keep(t: int) -> bool:
         nonlocal run

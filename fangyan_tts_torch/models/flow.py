@@ -86,13 +86,20 @@ class CausalMaskedDiffWithDiT(nn.Module):
         self.pre_lookahead_layer = PreLookaheadLayer(cfg.input_size, cfg.pre_lookahead_channels, cfg.pre_lookahead_len)
         self.estimator = DiT(cfg.dit)
 
-    def prepare_inference(self, token, token_len, prompt_feat, prompt_feat_len, embedding, finalize: bool = True):
+    def prepare_inference(self, token, token_len, prompt_feat, prompt_feat_len, embedding, finalize: bool = True,
+                          padded_streaming: bool = False):
         """Preprocessing. token (B, Lt) prompt + target speech tokens;
         prompt_feat (B, Lp_mel, mel); embedding (B, 192). With
         finalize=False (a streaming step) each row's last pre_lookahead_len
-        positions are the lookahead context and give no frames. Returns
-        (mu (B, L, mel), spks (B, mel), conds (B, L, mel), mel_len (B,)
-        int32)."""
+        positions are the lookahead context and give no frames. With
+        padded_streaming as well, the rows are right-padded instead,
+        [tokens ++ lookahead ++ zeros] with token_len covering the
+        lookahead: the convolution runs over the whole buffer and the frames
+        below token_len - lookahead equal the context-split form's (their
+        receptive field never reaches the padding), so rows of different
+        lengths share one batched call (infer/batch_stream.py young hops).
+        Returns (mu (B, L, mel), spks (B, mel), conds (B, L, mel), mel_len
+        (B,) int32)."""
         c = self.cfg
         emb = embedding / torch.linalg.vector_norm(embedding, dim=1, keepdim=True).clamp_min(1e-12)
         spks = flax_dense(emb, self.spk_embed_affine_layer)
@@ -103,6 +110,9 @@ class CausalMaskedDiffWithDiT(nn.Module):
         token_emb = token_emb * valid[..., None].to(token_emb.dtype)
         if finalize:
             h = self.pre_lookahead_layer(token_emb)
+        elif padded_streaming:
+            h = self.pre_lookahead_layer(token_emb)
+            valid = valid & (torch.arange(l, device=token.device)[None, :] < (token_len - c.pre_lookahead_len)[:, None])
         else:
             la = c.pre_lookahead_len
             h = self.pre_lookahead_layer(token_emb[:, :-la], token_emb[:, -la:])

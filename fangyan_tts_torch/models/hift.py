@@ -169,10 +169,11 @@ class SourceModule(nn.Module):
             rad_up[:, 0, :] += torch.from_numpy(nsf_buffers(hplus)[0][0]).to(rad_up.device)
         return downsample_linear(rad_up, c.total_upsample)
 
-    def forward(self, f0_frame: torch.Tensor, carry: torch.Tensor | None = None, noise_offset: int | None = None,
-                noise_buf: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(self, f0_frame: torch.Tensor, carry: torch.Tensor | None = None,
+                noise_offset: int | torch.Tensor | None = None, noise_buf: torch.Tensor | None = None) -> torch.Tensor:
         """f0_frame (B, L) -> source (B, L*upsample, 1). carry (B, H);
-        noise_offset (samples) and noise_buf (1, N, H) on f0's device."""
+        noise_offset (samples: an int, or a (B,) tensor of each row's) and
+        noise_buf (1, N, H) on f0's device."""
         c = self.cfg
         hplus = c.nb_harmonics + 1
         up = c.total_upsample
@@ -185,7 +186,12 @@ class SourceModule(nn.Module):
         sines = torch.sin(upsample_nearest(phase * (2.0 * np.pi) * up, up))
         uv = (f0_up > c.nsf_voiced_threshold).to(sines.dtype)
         noise_amp = uv * c.nsf_sigma + (1.0 - uv) * c.nsf_alpha / 3.0
-        if noise_offset is not None and noise_buf is not None:
+        if noise_buf is not None and isinstance(noise_offset, torch.Tensor) and noise_offset.dim() == 1:
+            # per-row offsets (the batched streams): gather (B, n_samp, H)
+            off = torch.remainder(noise_offset.long(), max(noise_buf.shape[1] - n_samp, 1))
+            idx = off[:, None] + torch.arange(n_samp, device=off.device)[None, :]
+            noise = noise_amp * noise_buf[0][idx].to(sines.dtype)
+        elif noise_offset is not None and noise_buf is not None:
             off = int(noise_offset) % max(noise_buf.shape[1] - n_samp, 1)
             noise = noise_amp * noise_buf[:, off : off + n_samp].to(sines.dtype)
         else:
@@ -276,23 +282,27 @@ class CausalHiFT(nn.Module):
     # its noise taken at its absolute sample offset, gives the same samples
     # as vocoding the whole mel (infer/stream.py VocStream).
 
-    def stream_window(self, mel: torch.Tensor, carry: torch.Tensor, noise_offset: int,
+    def stream_window(self, mel: torch.Tensor, carry: torch.Tensor, noise_offset: int | torch.Tensor,
                       noise_buf: torch.Tensor) -> torch.Tensor:
         """Streaming step on a window mel (B, W, 80) ending at the stream
         head: audio for its frames [0, W-8). carry (B, H): cumulative phase
-        over [0, window start); noise_offset = window start * 480."""
+        over [0, window start); noise_offset = window start * 480 (an int,
+        or (B,) for rows at different offsets)."""
         pad = CausalConv.causal_padding(4)  # 3
         mel32 = mel.float()
         f0 = self.f0_predictor(mel32[:, :-pad], context=mel32[:, -pad:])
         s = self.m_source(f0, carry=carry, noise_offset=noise_offset, noise_buf=noise_buf).to(mel.dtype)
         return self.decode(mel[:, :-pad], s, finalize=False)
 
-    def finalize_window(self, mel: torch.Tensor, n_valid: int, carry: torch.Tensor, noise_offset: int,
-                        noise_buf: torch.Tensor) -> torch.Tensor:
+    def finalize_window(self, mel: torch.Tensor, n_valid: int | torch.Tensor, carry: torch.Tensor,
+                        noise_offset: int | torch.Tensor, noise_buf: torch.Tensor) -> torch.Tensor:
         """Last window: mel (B, W, 80), zeroed past n_valid frames, with
-        finalize semantics (no lookahead). Returns audio (B, W*480); the
-        caller keeps [.., n_valid*480)."""
+        finalize semantics (no lookahead). n_valid and noise_offset are ints,
+        or (B,) tensors of each row's. Returns audio (B, W*480); the caller
+        keeps [.., n_valid*480)."""
         w = mel.shape[1]
+        if isinstance(n_valid, torch.Tensor):
+            n_valid = n_valid.reshape(-1, 1, 1)
         mel = mel * (torch.arange(w, device=mel.device)[None, :, None] < n_valid).to(mel.dtype)
         f0 = self.f0_predictor(mel.float())
         s = self.m_source(f0, carry=carry, noise_offset=noise_offset, noise_buf=noise_buf).to(mel.dtype)

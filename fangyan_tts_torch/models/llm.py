@@ -1,10 +1,13 @@
 """CosyVoice3 AR speech-token LM on the Qwen2 backbone
 (fangyan_tts_tpu/models/llm.py: CosyVoice3LM, generate_speech_tokens, the
-resumable streaming decode `decode_prefill` / `decode_chunk`, and the
-bistream context extension `bistream_append`).
+resumable streaming decode `decode_prefill` / `decode_chunk`, the bistream
+context extension `bistream_append`, and the continuous batch `ContState`
+with `decode_chunk_cont`).
 
 Prompts are left-padded so every row's valid cache slots are contiguous and
-the decode write slot is the same for all rows. The JAX package decodes in
+the decode write slot is the same for all rows, except in the continuous
+batch, where each row has its own write slot, step count and attention
+window, and its own generator. The JAX package decodes in
 one `lax.while_loop`; here the loop is a Python loop whose early exit reads
 `done.all()` once per step (one device-to-host synchronisation a step).
 Sampling draws from an explicit `torch.Generator`.
@@ -61,13 +64,15 @@ class CosyVoice3LM(nn.Module):
         h = self.llm(x, positions, bias, cache)
         return h[:, -1]
 
-    def decode_step(self, token, positions, start, end: int, cache: dict) -> torch.Tensor:
+    def decode_step(self, token, positions, start, end: int | torch.Tensor, cache: dict) -> torch.Tensor:
         """One AR step for every row. token (B,); positions (B, 1); start (B,)
-        first valid slot; end: exclusive slot bound. Runs in the cache's
-        dtype. Returns logits (B, V)."""
+        first valid slot; end: exclusive slot bound, an int or (B,) per row.
+        Runs in the cache's dtype. Returns logits (B, V)."""
         emb = self.speech_embedding(token)[:, None, :]
         max_len = cache["k"].shape[2]
         slot = torch.arange(max_len, dtype=torch.int32, device=token.device)[None, None, :]
+        if isinstance(end, torch.Tensor):
+            end = end[:, None, None]
         bias = torch.where((slot >= start[:, None, None]) & (slot < end), 0.0, -1e10).to(torch.float32)
         h = self.llm(emb.to(cache["k"].dtype), positions, bias, cache)
         return self.decode_logits(h[:, 0])
@@ -193,24 +198,141 @@ def decode_chunk(model: CosyVoice3LM, state: DecodeState, n_steps: int, prompt_p
     prompt_pad is the prefill's padded length. Returns (state, chunk
     (B, n_steps) int32, -1 where no token was emitted); the caller fetches
     the chunk with state.done in one copy."""
-    c = model.cfg
-    b = state.logits.shape[0]
-    dev = state.logits.device
-    non_stop = torch.arange(c.head_size, device=dev)[None, :] < c.speech_token_size
     logits, recent, done, counts, i = state.logits, state.recent, state.done, state.counts, state.i
-    out = torch.empty((b, n_steps), dtype=torch.int32, device=dev)
+    out = torch.empty((logits.shape[0], n_steps), dtype=torch.int32, device=logits.device)
     for j in range(n_steps):
-        logp = torch.log_softmax(logits.float(), dim=-1)
-        allowed = non_stop | ~(i < state.min_lens)[:, None]
-        tok = ras_sample(logp, recent, recent >= 0, allowed, generator,
-                         top_p=c.top_p, top_k=c.top_k, win_size=c.win_size, tau_r=c.tau_r)
-        emit = ~done & ~(tok >= c.speech_token_size) & (i < state.max_lens)
-        tok_clean = torch.where(emit, tok, torch.zeros_like(tok))
-        counts = counts + emit.to(torch.int32)
-        recent = torch.where(emit[:, None], torch.cat([recent[:, 1:], tok_clean[:, None]], dim=1), recent)
-        done = done | (tok >= c.speech_token_size) | (i + 1 >= state.max_lens)
-        out[:, j] = torch.where(emit, tok_clean, torch.full_like(tok_clean, -1))
-        logits = model.decode_step(tok_clean, (state.prompt_lens + i)[:, None], state.start_slots, prompt_pad + i + 1,
+        tok, out[:, j], recent, done, counts = _sample_step(model.cfg, state, logits, recent, done, counts, i,
+                                                            generator)
+        logits = model.decode_step(tok, (state.prompt_lens + i)[:, None], state.start_slots, prompt_pad + i + 1,
                                    state.cache)
         i += 1
+    return state._replace(logits=logits, recent=recent, done=done, counts=counts, i=i), out
+
+
+def _sample_step(c: LLMConfig, state, logits, recent, done, counts, i, generator):
+    """One sampling step of the streaming decodes (decode_chunk with a host
+    step count i, decode_chunk_cont with a (B,) one): RAS sampling, stop ids
+    suppressed while i < min_len, stop on a stop id or at max_len. Returns
+    (the token fed back, 0 where none was emitted; the chunk's entry, -1
+    there; recent; done; counts)."""
+    non_stop = torch.arange(c.head_size, device=logits.device)[None, :] < c.speech_token_size
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    allowed = non_stop | ~(i < state.min_lens)[:, None]
+    tok = ras_sample(logp, recent, recent >= 0, allowed, generator,
+                     top_p=c.top_p, top_k=c.top_k, win_size=c.win_size, tau_r=c.tau_r)
+    emit = ~done & ~(tok >= c.speech_token_size) & (i < state.max_lens)
+    tok_clean = torch.where(emit, tok, torch.zeros_like(tok))
+    counts = counts + emit.to(torch.int32)
+    recent = torch.where(emit[:, None], torch.cat([recent[:, 1:], tok_clean[:, None]], dim=1), recent)
+    done = done | (tok >= c.speech_token_size) | (i + 1 >= state.max_lens)
+    return tok_clean, torch.where(emit, tok_clean, torch.full_like(tok_clean, -1)), recent, done, counts
+
+
+class ContState(NamedTuple):
+    """Continuous-batching decode state: N rows at independent depths
+    (fangyan_tts_tpu/models/llm.py ContState). Each row has its own step
+    count, write slot (cache['index']), attention window and generator, so
+    sessions join and leave between chunks without touching each other, and
+    a row's tokens equal a solo decode_chunk run with the same generator.
+    Free and finished rows are done and step masked; a free row's write
+    slot runs on past the cache and the kernel clamps it to S-1. The tensors
+    are updated in place (an insert is an index_copy_ along the row axis)."""
+
+    cache: dict  # {'k', 'v': (L, N, S, KV, hd), 'index': (N,)}
+    logits: torch.Tensor  # (N, V)
+    recent: torch.Tensor  # (N, win)
+    done: torch.Tensor  # (N,) bool; True for free and finished rows
+    counts: torch.Tensor  # (N,)
+    i: torch.Tensor  # (N,) int32 decode steps of each row
+    generators: list  # N torch.Generators; free rows share a spare one
+    prompt_lens: torch.Tensor  # (N,)
+    start_slots: torch.Tensor  # (N,)
+    min_lens: torch.Tensor
+    max_lens: torch.Tensor
+
+
+def cont_empty(example: DecodeState, n: int) -> ContState:
+    """An all-done width-n ContState shaped after a DecodeState of the same
+    (tp, cache_len) bucket."""
+    s = example
+    dev = s.logits.device
+
+    def zeros(x: torch.Tensor, axis: int = 0) -> torch.Tensor:
+        shape = list(x.shape)
+        shape[axis] = n
+        return torch.zeros(shape, dtype=x.dtype, device=dev)
+
+    z = lambda: torch.zeros((n,), dtype=torch.int32, device=dev)
+    spare = torch.Generator(device=dev).manual_seed(0)
+    return ContState(
+        cache={"k": zeros(s.cache["k"], 1), "v": zeros(s.cache["v"], 1), "index": z()},
+        logits=zeros(s.logits), recent=torch.full((n, s.recent.shape[1]), -1, dtype=torch.int32, device=dev),
+        done=torch.ones((n,), dtype=torch.bool, device=dev), counts=z(), i=z(), generators=[spare] * n,
+        prompt_lens=z(), start_slots=z(), min_lens=z(), max_lens=z(),
+    )
+
+
+def _insert(big: ContState, small: DecodeState, src_rows: list, dst_rows: list, generators: list) -> ContState:
+    """Rows src_rows of `small` into rows dst_rows of `big`, in place."""
+    if not dst_rows:
+        return big
+    dev = big.logits.device
+    src = torch.tensor(src_rows, dtype=torch.long, device=dev)
+    dst = torch.tensor(dst_rows, dtype=torch.long, device=dev)
+
+    def put(b: torch.Tensor, x: torch.Tensor, axis: int = 0) -> None:
+        b.index_copy_(axis, dst, x.index_select(axis, src).to(b.dtype))
+
+    put(big.cache["k"], small.cache["k"], 1)
+    put(big.cache["v"], small.cache["v"], 1)
+    # same tp bucket: the prefill's write index is every row's
+    for b, x in ((big.cache["index"], small.cache["index"]), (big.logits, small.logits), (big.recent, small.recent),
+                 (big.prompt_lens, small.prompt_lens), (big.start_slots, small.start_slots),
+                 (big.min_lens, small.min_lens), (big.max_lens, small.max_lens)):
+        put(b, x)
+    big.done.index_fill_(0, dst, False)
+    big.counts.index_fill_(0, dst, 0)
+    big.i.index_fill_(0, dst, 0)
+    for d, g in zip(dst_rows, generators):
+        big.generators[d] = g
+    return big
+
+
+def cont_insert(big: ContState, small: DecodeState, slot: int, generator: torch.Generator) -> ContState:
+    """Insert a one-row prefilled DecodeState into row `slot`."""
+    return _insert(big, small, [0], [slot], [generator])
+
+
+def cont_insert_rows(big: ContState, small: DecodeState, slots: list, generators: list) -> ContState:
+    """Insert every row of a batched prefill: small row j into row slots[j],
+    with generators[j] (decode_prefill's state has no generator of its own)."""
+    return _insert(big, small, list(range(len(slots))), list(slots), list(generators))
+
+
+def cont_insert_rows_masked(big: ContState, small: DecodeState, slots: list, generators: list) -> ContState:
+    """The serving front's insert: `small` is a prefill at the full group
+    width whose first k rows are real; slots[j] is the row small row j goes
+    to, or -1 for a padding row, which is dropped."""
+    src = [j for j, s in enumerate(slots) if s >= 0]
+    return _insert(big, small, src, [slots[j] for j in src], [generators[j] for j in src])
+
+
+@torch.no_grad()
+def decode_chunk_cont(model: CosyVoice3LM, state: ContState, n_steps: int,
+                      prompt_pad: int) -> tuple[ContState, torch.Tensor]:
+    """n_steps more decode steps of every row (done and free rows step
+    masked, and every step launches the decode-attention kernel for all
+    rows), with no device-to-host read. Each row samples from its own
+    generator, attends over its own window [start_slot, prompt_pad + i + 1)
+    and writes at its own slot, so a row's tokens equal decode_chunk's at
+    B = 1 with that generator. Returns (state, chunk (N, n_steps) int32, -1
+    where no token was emitted)."""
+    logits, recent, done, counts, i = state.logits, state.recent, state.done, state.counts, state.i
+    out = torch.empty((logits.shape[0], n_steps), dtype=torch.int32, device=logits.device)
+    for j in range(n_steps):
+        tok, out[:, j], recent, done, counts = _sample_step(model.cfg, state, logits, recent, done, counts, i,
+                                                            state.generators)
+        logits = model.decode_step(tok, (state.prompt_lens + i)[:, None], state.start_slots, prompt_pad + i + 1,
+                                   state.cache)
+        i = i + 1
     return state._replace(logits=logits, recent=recent, done=done, counts=counts, i=i), out

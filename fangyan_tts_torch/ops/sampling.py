@@ -6,6 +6,13 @@ renormalising (one draw, no resample loop), top-k is taken before the
 nucleus cut, and both the nucleus draw and the full-distribution fallback
 are drawn every step so that no step depends on a device-to-host read.
 Categorical draws use the Gumbel-max form: argmax(logits + Gumbel noise).
+
+`generator` is one `torch.Generator` for the whole batch, or a list of one
+generator per row (the continuous batch of models/llm.decode_chunk_cont):
+row r then draws its nucleus and fallback uniforms from its own generator
+in the order a one-row call draws them, so that its tokens equal a solo
+decode's with that generator, whatever the other rows do (the JAX package's
+per-row PRNG keys). That costs two small draws a row a step.
 """
 
 from __future__ import annotations
@@ -13,16 +20,27 @@ from __future__ import annotations
 import torch
 
 
-def _categorical(logits: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
+def _uniform(shape, generator: torch.Generator | list[torch.Generator] | None, device) -> torch.Tensor:
+    """Uniforms of `shape` (rows first): from one generator, or row r's from
+    generator[r]."""
+    if isinstance(generator, (list, tuple)):
+        if len(generator) != shape[0]:
+            raise ValueError(f"sampling: {len(generator)} generators for {shape[0]} rows")
+        return torch.cat([torch.rand((1, *shape[1:]), generator=g, device=device, dtype=torch.float32)
+                          for g in generator])
+    return torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
+
+
+def _categorical(logits: torch.Tensor, generator: torch.Generator | list[torch.Generator] | None) -> torch.Tensor:
     """One draw per row from softmax(logits) (rows on the last axis)."""
-    u = torch.rand(logits.shape, generator=generator, device=logits.device, dtype=torch.float32)
+    u = _uniform(logits.shape, generator, logits.device)
     gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)).clamp_min(1e-20))
     return torch.argmax(logits.float() + gumbel, dim=-1)
 
 
 def nucleus_pick(
     probs: torch.Tensor,
-    generator: torch.Generator | None,
+    generator: torch.Generator | list[torch.Generator] | None,
     top_p: float = 0.8,
     top_k: int = 25,
 ) -> torch.Tensor:
@@ -40,7 +58,7 @@ def ras_sample(
     recent_tokens: torch.Tensor,
     recent_valid: torch.Tensor,
     allowed_mask: torch.Tensor,
-    generator: torch.Generator | None,
+    generator: torch.Generator | list[torch.Generator] | None,
     top_p: float = 0.8,
     top_k: int = 25,
     win_size: int = 10,

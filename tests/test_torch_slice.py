@@ -148,6 +148,7 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'fangyan_tts_tpu')]\n"
         "assert not bad, bad\n"
+        "assert 'fangyan_tts_torch.runtime.grpc_server' in sys.modules\n"
         "print(len([m for m in sys.modules if m.startswith('fangyan_tts_torch')]))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
@@ -157,17 +158,20 @@ def test_port_imports_no_jax():
 
 def test_port_imports_without_optional_packages():
     """The port imports, and serves the byte tokenizer, with jax, flax,
-    regex, msgpack, transformers and tiktoken unimportable (a CUDA host needs
-    none of them); a tokenizer directory then raises, as in the JAX
+    regex, msgpack, transformers, tiktoken, grpc and protobuf unimportable
+    (a CUDA host needs none of them; runtime/ imports grpc and protobuf only
+    to serve or call); a tokenizer directory then raises, as in the JAX
     package."""
     code = (
         "import sys\n"
-        "for name in ('jax', 'flax', 'regex', 'msgpack', 'transformers', 'tiktoken', 'fangyan_tts_tpu'):\n"
+        "for name in ('jax', 'flax', 'regex', 'msgpack', 'transformers', 'tiktoken', 'fangyan_tts_tpu', 'grpc',\n"
+        "             'google.protobuf'):\n"
         "    sys.modules[name] = None\n"
         "import importlib, pkgutil, warnings\n"
         "import fangyan_tts_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'fangyan_tts_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "from fangyan_tts_torch.runtime import grpc_client, grpc_server, http_server\n"
         "from fangyan_tts_torch.infer.textnorm import is_only_punctuation, text_normalize\n"
         "from fangyan_tts_torch.tokenizer import get_qwen_tokenizer\n"
         "warnings.simplefilter('ignore')\n"

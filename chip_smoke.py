@@ -4,6 +4,7 @@
     python3 chip_smoke.py --phases 1,2,3     # build and check the kernels only
     python3 chip_smoke.py --phases 1,2,3,8   # the streaming slice alone
     python3 chip_smoke.py --phases 1,2,3,9   # the serving slice alone
+    python3 chip_smoke.py --phases 1,2,3,10  # the CosyVoice2 / CosyVoice1 families alone
 
 Phases:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -78,8 +79,20 @@ Phases:
      decode launches 24 a scheduler step, its flash launches 220 a flow
      call, its hops those its token counts imply, and every shape held to
      phase 3's checks
-  6. one JSON line of per-kernel results (printed after phases 7, 8 and 9)
-Phases 8 and 9 run after phase 4's requests and before the profiler passes
+  10. the CosyVoice2 and CosyVoice1 families with random weights: small v2
+     (bf16) and v1 (float32) models on the card against the CPU; then
+     CosyVoice2-0.5B in bf16: the 150-token bench request through
+     CosyVoice2TTS.tts (a warm-up and a timed run, then its stages under
+     torch.profiler), a 200-token stream, a v2 model directory written by
+     the port through AutoModel(dir).inference_zero_shot with phase 4's 5 s
+     prompt, and four greedy decodes through a width-4 LLMScheduler against
+     their solo decodes; then CosyVoice-300M in float32: one offline request
+     of 300 speech tokens and one stream, through the byte tokenizer. Every
+     v2 run's decode launches are 24 a decode step and its shapes held to
+     phase 3's checks (phase 3 works the v2 caches out from
+     infer/tts_v12.v2_decode_buckets); every v1 run launches no kernel
+  6. one JSON line of per-kernel results (printed after phases 7, 8, 9 and 10)
+Phases 8, 9 and 10 run after phase 4's requests and before the profiler passes
 of phases 5 and 7 (phase 8 runs S1 three times and S2 and S3 twice each,
 to leave phase 9 its time); a probe of the
 host's cost of one eager launch is logged at the start, around phases 8 and
@@ -160,6 +173,17 @@ HTTP_WIDTH = 4
 # and at M = N)
 BATCH_TOKENS, BATCH_REL_TOL = 320, 5e-2
 GREEDY_RATIO, GREEDY_TIE = 10.0, 2e-2
+# The v1/v2 families (phase 10). v2 offline: the bench workload, 30 text
+# tokens and exactly 150 speech tokens (min = max ratio 5); v2 stream: 10
+# text tokens, 200 speech tokens (ratio 20); v1: a sentence of 15 byte-
+# tokenizer ids, 300 speech tokens (ratio 20, 6 s at 50 Hz).
+V2_TEXT_TOKENS, V2_RATIO = 30, 5.0
+V2_STREAM_TEXT_TOKENS, V2_STREAM_RATIO = 10, 20.0
+V1_TEXT, V1_RATIO = "你好世界。", 20.0
+# The small v1 model on the card against the CPU, both float32 with TF32
+# off: only the order of the sums differs (the v1 source's phase is a
+# float32 cumulative sum at the sample rate, which that order moves most).
+V1_REL_TOL = 1e-3
 
 CARDS_USED = 1  # every phase runs on card 0
 PORT_KERNELS = ("decode_attention", "flash_attention", "int4_matmul")  # kernel names the profile reports
@@ -491,7 +515,7 @@ def check_decode_rows(results: dict, serving: dict) -> None:
             raise AssertionError(f"decode_attention B={b} S={s}: a row differs from the B=1 call on it")
 
 
-def check_decode(results: dict, batches: list[dict], api: dict, stream: dict, serving: dict) -> None:
+def check_decode(results: dict, batches: list[dict], api: dict, stream: dict, serving: dict, v12: dict) -> None:
     import torch
     import torch.nn.functional as F
 
@@ -509,6 +533,9 @@ def check_decode(results: dict, batches: list[dict], api: dict, stream: dict, se
     edge = da.plan(2, 256, kv)[1]
     shapes = [(1, 256, [100], [0]), (4, 256, [0, 100, 255, 300], [0, 0, 0, 256]), (1, 768, [700], [0]),
               (2, 256, [edge - 1, edge], [0, 0]), (1, 4096, [4000], [0])]
+    # phase 10's v2 decodes, each at its own last write slot and first valid slot (tts_v12's formulas)
+    for label, b, s, idx, start in v12["decode"]:
+        shapes.append((b, s, idx, start, label))
     for s in sorted({sh["cache_len"] for sh in batches}):
         shapes.append((16, s, [s - 56] * 16, starts16))
     if api["cache_len"] not in {sh[1] for sh in shapes if sh[0] == 1}:  # the API request's cache
@@ -517,9 +544,9 @@ def check_decode(results: dict, batches: list[dict], api: dict, stream: dict, se
     for _, s, idx, start in stream["decode"]:  # the streams' caches (one row each), not checked above
         if s not in {sh[1] for sh in shapes if sh[0] == 1}:
             shapes.append((1, s, [idx], [start]))
-    for b, s, tp in serving["decode"]:  # the continuous batches: a write slot and a window per row
+    for b, s, tp in serving["decode"] + v12["sched"]:  # the continuous batches: a write slot and a window per row
         shapes.append((b, s, *serving_decode_rows(b, s, tp, kv)))
-    for b, s, idx_list, starts in shapes:
+    for b, s, idx_list, starts, *label in shapes:
         _checked(results, "decode_attention", (b, s))
         rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
         q = (torch.randn((b, qh, hd), generator=gen, device=dev) * QK_SCALE).to(torch.bfloat16)
@@ -580,8 +607,9 @@ def check_decode(results: dict, batches: list[dict], api: dict, stream: dict, se
         flops = 2 * 2 * qh * hd * open_slots
         bms, by = bound(nbytes, flops)
         results.setdefault("decode_timing", []).append(
-            dict(b=b, s=s, ms=ms_k, eager_ms=ms_e, plain_ms=ms_p, library_ms=ms_l, bound_ms=bms, bound_by=by))
-        log(f"decode_attention B={b} S={s}: kernel {ms_k * 1e3:.2f} us (eager call {ms_e * 1e3:.1f} us), "
+            dict(b=b, s=s, ms=ms_k, eager_ms=ms_e, plain_ms=ms_p, library_ms=ms_l, bound_ms=bms, bound_by=by,
+                 label=label[0] if label else ""))
+        log(f"decode_attention B={b} S={s}{' (' + label[0] + ')' if label else ''}: kernel {ms_k * 1e3:.2f} us (eager call {ms_e * 1e3:.1f} us), "
             f"plain {ms_p * 1e3:.1f} us, "
             f"sdpa {ms_l * 1e3:.1f} us, bound {bms * 1e3:.3f} us ({by})")
     results["decode_err"] = max(r["err"] for r in rows)
@@ -993,12 +1021,13 @@ def frontend_states(seed: int = 7) -> tuple[dict, dict]:
 
 
 @contextlib.contextmanager
-def api_model_dir(tts, states: tuple[dict, dict]):
+def api_model_dir(tts, states: tuple[dict, dict], cfg=None):
     """The full-width model of `tts` written to a model directory as the JAX
-    package lays one out (config.json, llm / flow / hift msgpack with bf16
-    leaves through from_jax.to_jax_tree and the port's save_params,
-    campplus.msgpack and s3tokenizer.msgpack from `states`) with a 5 s
-    prompt wav at 24 kHz, under build/ (ignored by git); removed after."""
+    package lays one out (config.json of `cfg`, tts.cfg by default, llm /
+    flow / hift msgpack with bf16 leaves through from_jax.to_jax_tree and
+    the port's save_params, campplus.msgpack and s3tokenizer.msgpack from
+    `states`) with a 5 s prompt wav at 24 kHz, under build/ (ignored by
+    git); removed after."""
     import tempfile
     from pathlib import Path
 
@@ -1016,7 +1045,7 @@ def api_model_dir(tts, states: tuple[dict, dict]):
     with tempfile.TemporaryDirectory(dir=build, prefix="api_model_") as tmp:
         d = Path(tmp)
         t0 = time.perf_counter()
-        (d / "config.json").write_text(config_to_json(tts.cfg))
+        (d / "config.json").write_text(config_to_json(tts.cfg if cfg is None else cfg))
         for name, m in (("llm", tts.llm), ("flow", tts.flow), ("hift", tts.hift)):
             save_params(d / f"{name}.msgpack", to_jax_tree(m.state_dict(), m))
         bf16 = lambda sd: {k: v.to(torch.bfloat16) if v.dim() >= 2 else v for k, v in sd.items()}
@@ -1820,13 +1849,15 @@ def serving_stream_vs_solo(results: dict, card: str, tts) -> dict:
     return dict(rows=rows, t2w_batch=ratio, **counts)
 
 
-def serving_llm_vs_solo(results: dict, card: str, tts) -> dict:
+def serving_llm_vs_solo(results: dict, card: str, tts, cfg=None, label: str = "(c)") -> dict:
     """(c) four greedy decodes (top_k 1, the RAS fallback off) through a
     width-4 LLMScheduler, two opened a chunk after the others (rows at
     different depths and write slots), against each one's solo decode:
     tokens equal up to the first step whose two best logits lie within
     GREEDY_TIE in the solo decode (there M = 1 and M = 4 may round a tie
-    differently); the agreeing prefix lengths are printed."""
+    differently); the agreeing prefix lengths are printed. `cfg` (tts.cfg
+    by default) gives the LLM's configuration; a TTS with `_plan` (the v2
+    family) plans its solo decodes through it, as its scheduler does."""
     from dataclasses import replace
 
     import torch
@@ -1836,7 +1867,7 @@ def serving_llm_vs_solo(results: dict, card: str, tts) -> dict:
     from fangyan_tts_torch.infer.tts import stream_buckets
     from fangyan_tts_torch.models.llm import decode_chunk, decode_prefill
 
-    cfg, dev = tts.cfg, tts.device
+    cfg, dev = tts.cfg if cfg is None else cfg, tts.device
     inner = tts.llm.cfg
     tts.llm.cfg = replace(inner, top_k=1, tau_r=1.1)
     try:
@@ -1860,15 +1891,17 @@ def serving_llm_vs_solo(results: dict, card: str, tts) -> dict:
                     streams[i] = lsched.stream(lsched.open(texts[i], **ratio))
             return [np.concatenate(g) for g in got]
 
-        got, counts = serving_counted(results, "(c) LLMScheduler against solo (greedy)", cfg, lsched, None, run)
+        got, counts = serving_counted(results, f"{label} LLMScheduler against solo (greedy)", cfg, lsched, None, run)
         zeros = np.zeros(0, np.int32)
         rows, solo_steps = [], 0
-        with kernel_shapes(results, "(c) solo greedy decodes"), torch.inference_mode():
+        with kernel_shapes(results, f"{label} solo greedy decodes"), torch.inference_mode():
             from fangyan_tts_torch.ops import decode_attention as da
 
             da.launches = 0
             for i, text in enumerate(texts):
                 plan, tp, cache_len, lo, hi = stream_buckets(cfg.llm, text, zeros, zeros, GREEDY_RATIO, GREEDY_RATIO)
+                if hasattr(tts, "_plan"):
+                    plan = tts._plan(text, zeros)
                 b = pad_plans_left([plan], length=tp)
                 st = decode_prefill(tts.llm, *(torch.from_numpy(b[k]).to(dev) for k in ("src", "ids", "lengths")),
                                     torch.tensor([lo]), torch.tensor([hi]), cache_len)
@@ -1890,13 +1923,13 @@ def serving_llm_vs_solo(results: dict, card: str, tts) -> dict:
     finally:
         tts.llm.cfg = inner
     ok = all(r["ok"] for r in rows) and solo_launches == cfg.llm.qwen.num_hidden_layers * solo_steps
-    log(f"(c) LLMScheduler against solo, greedy, 4 rows (two joined a chunk later): agreeing prefix "
+    log(f"{label} LLMScheduler against solo, greedy, 4 rows (two joined a chunk later): agreeing prefix "
         f"{[r['agree'] for r in rows]} of {[r['tokens'] for r in rows]} tokens; best-two logit gap where they part "
         f"{[r['gap_at_split'] for r in rows]} (a tie within {GREEDY_TIE} may fall either way); LLM batching "
         f"{counts['llm']['rows']}/{counts['llm']['steps']}; launches {counts['launches']}, solo decodes "
         f"{solo_launches} [{card}] {'OK' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("(c) a batched greedy decode parts from its solo decode away from a near-tie")
+        raise AssertionError(f"{label} a batched greedy decode parts from its solo decode away from a near-tie")
     return dict(rows=rows, **counts)
 
 
@@ -1990,9 +2023,396 @@ def serving_phase(results: dict, card: str, model_dir, api: dict, serving: dict)
     out["http"] = serving_http(results, card, model_dir, api, serving)
 
 
+# ---------------------------------------------------------------- phase 10
+
+
+def v12_spec(api: dict) -> dict:
+    """The decode shapes of phase 10's v2 runs, from infer/tts_v12's own
+    formulas (v2_decode_buckets) and the v2 plans (remap_plan_v2): each B = 1
+    decode's cache with the last slot it writes and its first valid slot,
+    and the width-4 scheduler's (B, S, tp). The offline decode (150 steps)
+    writes its last token at tp + max_len - 1; a stream runs whole 32-step
+    chunks, past max_len; the API request's decode runs to its max_len
+    (random weights sample no stop id)."""
+    from fangyan_tts_torch.data.lm_plan import build_prompt_plan, remap_plan_v2
+    from fangyan_tts_torch.infer.tts_v12 import v2_decode_buckets, v2_llm_config
+
+    cfg = v2_llm_config()
+    up = lambda n, m: -(-n // m) * m
+
+    def plan_len(n_text: int, n_prompt_text: int = 0, n_prompt_speech: int = 0) -> int:
+        plan = build_prompt_plan(cfg, [0] * (n_prompt_text + n_text), [0] * n_prompt_speech)
+        return len(remap_plan_v2(cfg, plan).ids)
+
+    decode = []
+    n = plan_len(V2_TEXT_TOKENS)
+    tp, _, s, _, hi = v2_decode_buckets(V2_TEXT_TOKENS, n, False, V2_RATIO, V2_RATIO)
+    decode.append(("v2 offline", 1, s, [tp + hi - 1], [tp - n]))
+    n = plan_len(V2_STREAM_TEXT_TOKENS)
+    tp, _, s, _, hi = v2_decode_buckets(V2_STREAM_TEXT_TOKENS, n, True, V2_STREAM_RATIO, V2_STREAM_RATIO)
+    decode.append(("v2 stream", 1, s, [tp + up(hi, 32) - 1], [tp - n]))
+    n = plan_len(api["text_ids"], api["prompt_text_ids"], api["prompt_tokens"])
+    tp, _, s, _, hi = v2_decode_buckets(api["text_ids"], n, False)
+    decode.append(("v2 API", 1, s, [tp + hi - 1], [tp - n]))
+    n = plan_len(SERVE_TEXT_TOKENS)
+    tp, _, s, _, hi = v2_decode_buckets(SERVE_TEXT_TOKENS, n, True, GREEDY_RATIO, GREEDY_RATIO)
+    decode.append(("v2 solo greedy", 1, s, [tp + up(hi, 32) - 1], [tp - n]))
+    return dict(decode=decode, sched=[(4, s, tp)])
+
+
+def v2_stream_chunks(n_tokens: int, n_prompt: int, hop: int = 25, la: int = 3) -> int:
+    """The chunks CosyVoice2TTS.tts(stream=True) yields for n_tokens after a
+    prompt of n_prompt tokens: a hop (the first one absorbing the prompt's
+    padding to a hop boundary) whenever hop + lookahead tokens are in, then
+    the final chunk."""
+    pad = -n_prompt % hop
+    offset = chunks = 0
+    while n_tokens - offset >= (hop + pad if offset == 0 else hop) + la:
+        offset += hop + pad if offset == 0 else hop
+        chunks += 1
+    return chunks + 1
+
+
+def _launches() -> dict:
+    from fangyan_tts_torch.ops import decode_attention as da
+    from fangyan_tts_torch.ops import flash_attention as fa
+    from fangyan_tts_torch.ops import int4_matmul as i4
+
+    return {"decode_attention": da.launches, "chunk_flash_attention": fa.launches, "int4_matmul": i4.launches}
+
+
+def _zero_launches() -> None:
+    from fangyan_tts_torch.ops import decode_attention as da
+    from fangyan_tts_torch.ops import flash_attention as fa
+    from fangyan_tts_torch.ops import int4_matmul as i4
+
+    da.launches = fa.launches = i4.launches = 0
+
+
+def _rel(a, b) -> float:
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+
+
+def v12_small_check() -> None:
+    """Small v1 and v2 models on the card against the same weights on the
+    CPU: v2 in bf16 (head dim 64, as decode attention takes) within
+    SMALL_REL_TOL, v1 in float32 within V1_REL_TOL; prefill + teacher-forced
+    decode logits, the flow's mel and a vc request's wav (both sides on the
+    same CFM noise)."""
+    import torch
+
+    from fangyan_tts_torch.config import HiFTConfig, LLMConfig, QwenConfig
+    from fangyan_tts_torch.infer.tts_v12 import V1_HIFT, CosyVoice2TTS, CosyVoiceV1TTS
+    from fangyan_tts_torch.models.qwen2 import init_cache
+
+    sd = lambda m: {k: v.clone() for k, v in m.state_dict().items()}
+    rng = np.random.default_rng(2)
+    # v2
+    qwen = QwenConfig(hidden_size=128, intermediate_size=256, num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, head_dim=64, vocab_size=300)
+    llm = LLMConfig(llm_input_size=128, llm_output_size=128, speech_token_size=50, extra_tokens=3, qwen=qwen,
+                    top_k=1, tau_r=1.1)
+    flow_kw = dict(vocab_size=50, input_size=64, decoder_channels=(32,), num_mid_blocks=2, n_blocks=1, num_heads=2,
+                   attention_head_dim=64, enc_heads=2, enc_ffn=128, enc_blocks=2, enc_up_blocks=1, n_timesteps=4)
+    hift = HiFTConfig(base_channels=64, f0_cond_channels=32)
+    ref = CosyVoice2TTS.random_init(llm, flow_kw, hift, dtype=torch.bfloat16, device="cpu", seed=3)
+    gpu = CosyVoice2TTS(llm, sd(ref.llm), flow_kw, sd(ref.flow), hift, sd(ref.hift), device="cuda")
+
+    def logits(t) -> np.ndarray:
+        dev = t.device
+        with torch.inference_mode():
+            ids = torch.tensor([[0] + list(range(3, 15)) + [1]], device=dev)
+            src = torch.tensor([[2] + [0] * 12 + [2]], device=dev)
+            cache = init_cache(qwen, 1, 64, device=dev)
+            out = [t.llm.decode_logits(t.llm.prefill_leftpad(src, ids, torch.tensor([14], device=dev), cache))]
+            start = torch.zeros(1, dtype=torch.int32, device=dev)
+            for i, tok in enumerate([5, 9, 17, 33]):
+                out.append(t.llm.decode_step(torch.tensor([tok], device=dev), torch.tensor([[14 + i]], device=dev),
+                                             start, 14 + i + 1, cache))
+            return torch.stack(out).float().cpu().numpy()
+
+    req = dict(source_speech_token=rng.integers(0, 50, 37).astype(np.int32),
+               flow_prompt_speech_token=rng.integers(0, 50, 6).astype(np.int32),
+               prompt_speech_feat=(rng.standard_normal((12, 80)) * 0.5).astype(np.float32),
+               flow_embedding=rng.standard_normal(192).astype(np.float32))
+    lg_g, lg_c = logits(gpu), logits(ref)
+    mel_g, mel_c = (t.token2mel(req["source_speech_token"], req["flow_prompt_speech_token"], req["prompt_speech_feat"],
+                                req["flow_embedding"], 0, False, True) for t in (gpu, ref))
+    wav_g, wav_c = (next(t.tts(**req))["tts_speech"] for t in (gpu, ref))
+    r = (_rel(lg_g, lg_c), _rel(mel_g, mel_c), _rel(wav_g, wav_c))
+    ok = max(r) <= SMALL_REL_TOL and wav_g.shape == wav_c.shape and np.isfinite(wav_g).all()
+    log(f"small v2 model card vs CPU (bf16): logits rel {r[0]:.3e} (argmax agreement "
+        f"{float((lg_g.argmax(-1) == lg_c.argmax(-1)).mean()):.2f}), mel rel {r[1]:.3e}, wav rel {r[2]:.3e} "
+        f"(limit {SMALL_REL_TOL}) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the v2 port on the card disagrees with its CPU path on a small model")
+    # v1
+    llm_kw = dict(text_token_size=300, speech_token_size=50, text_encoder_input_size=64, llm_input_size=128,
+                  llm_output_size=128, text_enc_blocks=2, llm_blocks=2, heads=2, ffn=256)
+    flow1 = dict(vocab_size=50, input_size=64, decoder_channels=(32, 32), num_mid_blocks=2, n_blocks=1, num_heads=2,
+                 attention_head_dim=64, enc_heads=2, enc_ffn=128, enc_blocks=2, n_timesteps=4)
+    hift1 = HiFTConfig(**{**V1_HIFT.__dict__, "base_channels": 64, "f0_cond_channels": 32})
+    ref = CosyVoiceV1TTS.random_init(llm_kw, flow1, hift1, device="cpu", seed=4)
+    gpu = CosyVoiceV1TTS(llm_kw, sd(ref.llm), flow1, sd(ref.flow), hift1, sd(ref.hift), device="cuda")
+    for t in (gpu, ref):  # the same CFM noise on both sides
+        t._flow_noise = (lambda out_len, _d=t.device: torch.from_numpy(
+            np.random.default_rng(out_len).standard_normal((1, out_len, 80)).astype(np.float32)).to(_d))
+    text = rng.integers(0, 300, (1, 9)).astype(np.int32)
+    speech = rng.integers(0, 50, (1, 12)).astype(np.int32)
+    emb = rng.standard_normal((1, 192)).astype(np.float32)
+    with torch.inference_mode():
+        lg1 = [t.llm.logits(*(torch.from_numpy(x).to(t.device) for x in (text, np.asarray([9]), speech,
+                                                                          np.asarray([12]), emb))).cpu().numpy()
+               for t in (gpu, ref)]
+    req1 = dict(source_speech_token=rng.integers(0, 50, 70).astype(np.int32),
+                flow_prompt_speech_token=rng.integers(0, 50, 10).astype(np.int32),
+                prompt_speech_feat=(rng.standard_normal((17, 80)) * 0.5).astype(np.float32),
+                flow_embedding=emb[0])
+    wav1 = [next(t.tts(**req1))["tts_speech"] for t in (gpu, ref)]
+    r1 = (_rel(*lg1), _rel(*wav1))
+    ok = max(r1) <= V1_REL_TOL and wav1[0].shape == wav1[1].shape and np.isfinite(wav1[0]).all()
+    log(f"small v1 model card vs CPU (float32, TF32 off): logits rel {r1[0]:.3e}, vc wav rel {r1[1]:.3e} "
+        f"(limit {V1_REL_TOL}) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the v1 port on the card disagrees with its CPU path on a small model")
+
+
+def v2_offline(results: dict, card: str, tts) -> dict:
+    """The bench workload through CosyVoice2TTS.tts(stream=False): 30 text
+    tokens, exactly 150 speech tokens (min = max ratio 5), no prompt; a
+    warm-up run, then the timed one. Launches held to 24 a decode step, no
+    other kernel."""
+    rng = np.random.default_rng(10)
+    req = dict(text=rng.integers(0, 50000, V2_TEXT_TOKENS).astype(np.int32),
+               flow_embedding=rng.standard_normal(192).astype(np.float32),
+               min_token_text_ratio=V2_RATIO, max_token_text_ratio=V2_RATIO)
+    stage: dict = {}
+    steps = counted_steps(tts)
+    n_tokens, mel_frames = [], []
+    inner = (tts.generate_tokens, tts.token2mel, tts.vocode)
+    tts.generate_tokens = clocked(stage, "llm", tts.generate_tokens, lambda a, k, out: n_tokens.append(len(out)))
+    tts.token2mel = clocked(stage, "flow", tts.token2mel)
+    tts.vocode = clocked(stage, "vocoder", tts.vocode, lambda a, k, out: mel_frames.append(a[0].shape[0]))
+    out = {}
+    try:
+        for run in ("warm-up", "timed"):
+            stage.clear()
+            steps[0] = 0
+            _zero_launches()
+            with kernel_shapes(results, f"v2 offline ({run})"):
+                t = time.perf_counter()
+                wav = next(tts.tts(**req))["tts_speech"]
+                wall = time.perf_counter() - t
+            counts = _launches()
+            _count(results, counts)
+            audio_s = len(wav) / 24000
+            ok = (np.isfinite(wav).all() and np.abs(wav).max() <= 0.99 and len(wav) == mel_frames[-1] * 480
+                  and n_tokens[-1] == int(V2_TEXT_TOKENS * V2_RATIO) and steps[0] > 0
+                  and counts == {"decode_attention": 24 * steps[0], "chunk_flash_attention": 0, "int4_matmul": 0})
+            out = dict(tokens=n_tokens[-1], steps=steps[0], mel_frames=mel_frames[-1], audio_s=audio_s,
+                       llm_s=stage["llm"], ms_per_step=stage["llm"] / steps[0] * 1e3, flow_s=stage["flow"],
+                       vocoder_s=stage["vocoder"], wall_s=wall, rtf=wall / audio_s, launches=counts)
+            log(f"v2 offline ({run}): {n_tokens[-1]} tokens in {steps[0]} decode steps, {mel_frames[-1]} mel frames, "
+                f"{audio_s:.2f} s audio; decode {stage['llm']:.3f} s ({out['ms_per_step']:.2f} ms/step), flow "
+                f"{stage['flow']:.3f} s, vocoder {stage['vocoder']:.3f} s, wall {wall:.3f} s, RTF {wall / audio_s:.4f}; "
+                f"launches {counts} [{card}] {'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"v2 offline ({run}) failed its checks")
+    finally:
+        tts.generate_tokens, tts.token2mel, tts.vocode = inner
+        del tts.llm.decode_step  # counted_steps' wrapper is an instance attribute
+    text, emb = req["text"], req["flow_embedding"]
+    ratio = dict(min_token_text_ratio=V2_RATIO, max_token_text_ratio=V2_RATIO)
+    tokens = tts.generate_tokens(text, **ratio)
+    no_prompt = (np.zeros(0, np.int32), np.zeros((0, 80), np.float32))
+    mel = tts.token2mel(tokens, *no_prompt, emb, 0, False, True)
+    out["profile"] = _profile({
+        "llm": lambda: tts.generate_tokens(text, **ratio),
+        "flow": lambda: tts.token2mel(tokens, *no_prompt, emb, 0, False, True),
+        "vocoder": lambda: tts.vocode(mel, np.zeros((0, 1), np.float32), pad_to=-(-mel.shape[0] // 32) * 32),
+    }, card, "v2 150 tokens, bf16")
+    return out
+
+
+def v2_stream(results: dict, card: str, tts) -> dict:
+    """A stream of 200 tokens (10 text tokens, min = max ratio 20, no
+    prompt) through CosyVoice2TTS.tts(stream=True): a warm-up stream, then
+    the timed one; first-chunk ms, RTF and the chunk count (v2_stream_chunks)."""
+    rng = np.random.default_rng(11)
+    req = dict(text=rng.integers(0, 50000, V2_STREAM_TEXT_TOKENS).astype(np.int32),
+               flow_embedding=rng.standard_normal(192).astype(np.float32), stream=True,
+               min_token_text_ratio=V2_STREAM_RATIO, max_token_text_ratio=V2_STREAM_RATIO)
+    n_tok = int(V2_STREAM_TEXT_TOKENS * V2_STREAM_RATIO)
+    want_chunks = v2_stream_chunks(n_tok, 0, tts.token_hop, tts.flow.pre_lookahead_len)
+    steps = counted_steps(tts)
+    stage: dict = {}
+    inner = (tts.token2mel, tts.vocode)
+    tts.token2mel = clocked(stage, "flow", tts.token2mel)
+    tts.vocode = clocked(stage, "vocoder", tts.vocode)
+    out = {}
+    try:
+        for run in ("warm-up", "timed"):
+            steps[0] = 0
+            stage.clear()
+            _zero_launches()
+            with kernel_shapes(results, f"v2 stream ({run})"):
+                t0 = time.perf_counter()
+                first, chunks, n, finite = None, 0, 0, True
+                for o in tts.tts(**req):
+                    first = time.perf_counter() - t0 if first is None else first
+                    chunks += 1
+                    n += len(o["tts_speech"])
+                    finite &= bool(np.isfinite(o["tts_speech"]).all())
+                wall = time.perf_counter() - t0
+            counts = _launches()
+            _count(results, counts)
+            audio_s = n / 24000
+            ok = (finite and chunks == want_chunks and n == n_tok * 2 * 480 and steps[0] > 0
+                  and counts == {"decode_attention": 24 * steps[0], "chunk_flash_attention": 0, "int4_matmul": 0})
+            rest = wall - stage["flow"] - stage["vocoder"]
+            out = dict(tokens=n_tok, chunks=chunks, steps=steps[0], first_ms=first * 1e3, wall_s=wall,
+                       audio_s=audio_s, rtf=wall / audio_s, flow_s=stage["flow"], vocoder_s=stage["vocoder"],
+                       llm_s=rest, launches=counts)
+            log(f"v2 stream ({run}): {n_tok} tokens, {chunks} chunks (derived {want_chunks}), first chunk "
+                f"{first * 1e3:.1f} ms, {audio_s:.2f} s audio in {wall:.3f} s, RTF {wall / audio_s:.4f}; flow "
+                f"{stage['flow']:.3f} s over {chunks} calls (the whole prefix each hop), vocoder "
+                f"{stage['vocoder']:.3f} s, the rest (decode) {rest:.3f} s for {steps[0]} decode steps; launches "
+                f"{counts} [{card}] {'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"v2 stream ({run}) failed its checks")
+    finally:
+        tts.token2mel, tts.vocode = inner
+        del tts.llm.decode_step
+    return out
+
+
+def v2_api_request(results: dict, card: str, d, api: dict) -> dict:
+    """AutoModel(d) on the v2 model directory, one inference_zero_shot of the
+    API request's sentence and 5 s prompt (phase 4's), launches counted."""
+    import torch
+
+    from fangyan_tts_torch.api import AutoModel, CosyVoice2
+
+    t0 = time.perf_counter()
+    model = AutoModel(str(d))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    steps = counted_steps(model.model)
+    _zero_launches()
+    with kernel_shapes(results, "v2 API request"):
+        t = time.perf_counter()
+        outs = list(model.inference_zero_shot(API_TEXT, API_PROMPT_TEXT, str(d / "prompt.wav")))
+        wall = time.perf_counter() - t
+    counts = _launches()
+    _count(results, counts)
+    wav = outs[0]["tts_speech"]
+    audio_s = len(wav) / 24000
+    ok = (isinstance(model, CosyVoice2) and model.model.dtype == torch.bfloat16 and len(outs) == 1
+          and np.isfinite(wav).all() and np.abs(wav).max() <= 0.99 and len(wav) % 960 == 0 and steps[0] > 0
+          and counts == {"decode_attention": 24 * steps[0], "chunk_flash_attention": 0, "int4_matmul": 0})
+    log(f"v2 API request: AutoModel load {load_s:.2f} s ({type(model).__name__}, {model.model.dtype}); "
+        f"inference_zero_shot: {steps[0]} decode steps, {audio_s:.2f} s audio, wall {wall:.3f} s, "
+        f"RTF {wall / audio_s:.4f}; launches {counts} [{card}] {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the v2 API request failed its checks")
+    del model
+    torch.cuda.empty_cache()
+    return dict(load_s=load_s, steps=steps[0], audio_s=audio_s, wall_s=wall, rtf=wall / audio_s, launches=counts)
+
+
+def v1_runs(results: dict, card: str) -> dict:
+    """CosyVoice-300M (CosyVoiceV1TTS, float32, random weights): one offline
+    request and one stream of V1_TEXT through the byte tokenizer, exactly
+    300 speech tokens (min = max ratio 20), an x-vector, no prompt. No
+    kernel may launch."""
+    import torch
+
+    from fangyan_tts_torch.infer.tts_v12 import V1_HIFT, CosyVoiceV1TTS
+    from fangyan_tts_torch.tokenizer import get_tokenizer
+
+    t0 = time.perf_counter()
+    tts = CosyVoiceV1TTS.random_init({}, {}, V1_HIFT, device="cuda", seed=12)
+    torch.cuda.synchronize()
+    log(f"v1 random_init at full width (float32, cuda): {time.perf_counter() - t0:.2f} s")
+    text = np.asarray(get_tokenizer(True, None).encode(V1_TEXT), np.int32)
+    rng = np.random.default_rng(13)
+    xvec = rng.standard_normal(192).astype(np.float32)
+    n_tok = int(len(text) * V1_RATIO)
+    req = dict(text=text, flow_embedding=xvec, llm_embedding=xvec, min_token_text_ratio=V1_RATIO,
+               max_token_text_ratio=V1_RATIO)
+    stage: dict = {}
+    toks = []
+    tts.token2mel = clocked(stage, "flow", tts.token2mel, lambda a, k, out: toks.append(len(a[0])))
+    tts.vocode = clocked(stage, "vocoder", tts.vocode)
+    out = {}
+    for name, stream in (("offline", False), ("stream", True)):
+        stage.clear()
+        toks.clear()
+        _zero_launches()
+        with kernel_shapes(results, f"v1 {name}"):
+            t0 = time.perf_counter()
+            first, chunks, n, finite = None, 0, 0, True
+            for o in tts.tts(stream=stream, **req):
+                first = time.perf_counter() - t0 if first is None else first
+                chunks += 1
+                n += len(o["tts_speech"])
+                finite &= bool(np.isfinite(o["tts_speech"]).all())
+            wall = time.perf_counter() - t0
+        counts = _launches()
+        audio_s = n / 22050
+        # the stream's chunks overlap by 20 tokens; its tokens are the first chunk's and every later hop's
+        n_stream_tok = toks[0] + sum(t - tts.token_overlap for t in toks[1:])
+        want_chunks = 1 if not stream else 1 + max(0, (n_tok - tts.token_overlap) // tts.token_min_hop)
+        ok = (finite and counts == {"decode_attention": 0, "chunk_flash_attention": 0, "int4_matmul": 0}
+              and (n_stream_tok if stream else toks[0]) == n_tok and chunks == want_chunks
+              and (stream or n == int(n_tok / 50 * 22050 / 256) * 256))
+        llm_s = wall - stage["flow"] - stage["vocoder"]
+        out[name] = dict(tokens=n_tok, chunks=chunks, first_ms=first * 1e3, wall_s=wall, audio_s=audio_s,
+                         rtf=wall / audio_s, llm_s=llm_s, flow_s=stage["flow"], vocoder_s=stage["vocoder"],
+                         launches=counts)
+        log(f"v1 {name}: {n_tok} tokens ({len(text)} byte-tokenizer text ids), {chunks} chunks (derived "
+            f"{want_chunks}), first chunk {first * 1e3:.1f} ms, {audio_s:.2f} s audio in {wall:.3f} s, RTF "
+            f"{wall / audio_s:.4f}; LLM {llm_s:.3f} s ({llm_s / n_tok * 1e3:.2f} ms a token), flow "
+            f"{stage['flow']:.3f} s, vocoder {stage['vocoder']:.3f} s; launches {counts} [{card}] "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"v1 {name} failed its checks")
+    del tts
+    torch.cuda.empty_cache()
+    return out
+
+
+def v12_phase(results: dict, card: str, states: tuple[dict, dict], api: dict) -> None:
+    """Phase 10 at full width, random weights: the small-model checks, then
+    CosyVoice2-0.5B in bf16 (offline, streamed, through the API, through a
+    width-4 LLMScheduler) and CosyVoice-300M in float32 (offline, streamed)."""
+    from dataclasses import replace
+
+    import torch
+
+    from fangyan_tts_torch.config import cosyvoice2_config
+    from fangyan_tts_torch.infer.tts_v12 import CosyVoice2TTS, v2_llm_config
+
+    v12_small_check()
+    out = results.setdefault("v12", {})
+    cfg = cosyvoice2_config()
+    t0 = time.perf_counter()
+    tts = CosyVoice2TTS.random_init(v2_llm_config(), {}, cfg.hift, dtype=torch.bfloat16, seed=11)
+    torch.cuda.synchronize()
+    log(f"v2 random_init at full width (bf16, cuda): {time.perf_counter() - t0:.2f} s")
+    out["v2_offline"] = v2_offline(results, card, tts)
+    out["v2_stream"] = v2_stream(results, card, tts)
+    out["v2_sched"] = serving_llm_vs_solo(results, card, tts, cfg=replace(cfg, llm=tts.llm_cfg), label="v2")
+    with api_model_dir(tts, states, cfg=cfg) as d:
+        out["v2_api"] = v2_api_request(results, card, d, api)
+    del tts
+    torch.cuda.empty_cache()
+    out["v1"] = v1_runs(results, card)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9", help="comma-separated phases to run (see above)")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10", help="comma-separated phases to run (see above)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -2022,13 +2442,15 @@ def main() -> int:
     api = api_request_spec()
     stream = stream_shapes(api)
     serving = serving_spec(api)
-    states = frontend_states() if phases & {4, 7, 8, 9} else None
+    v12 = v12_spec(api)
+    states = frontend_states() if phases & {4, 7, 8, 9, 10} else None
     if 3 in phases:
         batches = [batch_shapes(r) for r in batch_requests_spec()]
         log(f"batched requests' shapes (a), (b): {batches}; the API request's: {api}; the streams': {stream}; "
             f"the serving runs' decode (B, S, tp) {serving['decode']} and flow calls (rows, L): kind "
-            f"{dict(sorted(serving['flash'].items()))}")
-        check_decode(results, batches, api, stream, serving)
+            f"{dict(sorted(serving['flash'].items()))}; phase 10's v2 decodes (label, B, S, last slot, first "
+            f"slot) {v12['decode']} and scheduler (B, S, tp) {v12['sched']}")
+        check_decode(results, batches, api, stream, serving, v12)
         check_decode_rows(results, serving)
         check_flash(results, batches, api, stream, serving)
         check_int4(results, batches[1])
@@ -2068,6 +2490,11 @@ def main() -> int:
             serving_phase(results, card, model_dir, api, serving)
             log(f"phase 9 took {time.perf_counter() - t:.1f} s")
             launch_probe(results, "after phase 9")
+        if 10 in phases:  # after phase 9, before the profiler passes of phases 5 and 7
+            t = time.perf_counter()
+            v12_phase(results, card, states, api)
+            log(f"phase 10 took {time.perf_counter() - t:.1f} s")
+            launch_probe(results, "after phase 10")
         if 4 in phases and 5 in phases:
             profile_stages(tts, req, results, card)
             (tts_a, req_a), (tts_b, req_b) = batched["a"], batched["b"]
@@ -2107,7 +2534,8 @@ def main() -> int:
         log("detail: " + json.dumps({k: results[k] for k in ("decode_timing", "flash_timing", "int4_timing", "requests",
                                                              "api_request", "batch_requests", "profile",
                                                              "profile_batch", "frontend", "streaming",
-                                                             "serving", "decode_rows_bit_equal", "launch_probe_us")
+                                                             "serving", "v12", "decode_rows_bit_equal",
+                                                             "launch_probe_us")
                                      if k in results}))
         log(json.dumps({"kernels": kernels}), stamp=False)
     launch_probe(results, "end")

@@ -1,5 +1,6 @@
 """Public model API, the cli/cosyvoice.py equivalent
-(fangyan_tts_tpu/api.py: `CosyVoice3` and `AutoModel`).
+(fangyan_tts_tpu/api.py: `CosyVoice3`, `CosyVoice2`, `CosyVoice` and
+`AutoModel`).
 
 A model directory holds:
     config.json                                (CosyVoiceConfig overrides; optional)
@@ -13,8 +14,14 @@ hift.pt) are converted to msgpack on first load when the msgpack is absent
 (models/convert.py). Without a tokenizer directory the byte tokenizer
 serves, as in the JAX package.
 
-Only the CosyVoice3 family is ported; AutoModel raises NotImplementedError
-for versions 1 and 2.
+`AutoModel` picks the family by config.json's "version", else by the
+reference yaml present. The CosyVoice2 and CosyVoice (v1) directories may
+carry module-size overrides in config.json ("xvec_flow": the flow's
+arguments, "llm_v1": the v1 LM's), as the JAX package reads them. The v1
+family runs float32 (fp16=True is refused with a warning, as in the
+reference) and tokenizes with the whisper-style tiktoken tokenizer when the
+directory holds its rank file (multilingual_zh_ja_yue_char_del.tiktoken),
+else with the byte tokenizer.
 """
 
 from __future__ import annotations
@@ -27,19 +34,34 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .config import CosyVoiceConfig, config_from_dict
+from .config import CosyVoiceConfig, _to_jsonable, config_from_dict, cosyvoice1_config, cosyvoice2_config
 from .infer.frontend import Frontend, make_campplus_fn, make_s3_fn
 from .infer.tts import CosyVoice3TTS, _cast_state
+from .infer.tts_v12 import CosyVoice2TTS, CosyVoiceV1TTS
 from .models.convert import (
     filter_training_meta,
     flow_params_from_reference,
+    flow_v1_params_from_reference,
+    flow_v2_params_from_reference,
     fuse_qwen_split_params,
+    hift_nc_params_from_reference,
     hift_params_from_reference,
     llm_params_from_reference,
+    llm_v1_params_from_reference,
+    llm_v2_params_from_reference,
 )
-from .models.from_jax import flow_from_jax, hift_from_jax, llm_from_jax
+from .models.from_jax import (
+    flow_from_jax,
+    flow_v1_from_jax,
+    flow_v2_from_jax,
+    hift_from_jax,
+    hift_nc_from_jax,
+    llm_from_jax,
+    llm_v1_from_jax,
+    llm_v2_from_jax,
+)
 from .ops.device import resolve_device
-from .tokenizer import get_qwen_tokenizer
+from .tokenizer import get_qwen_tokenizer, get_tokenizer
 from .train.checkpoint import load_params, save_params
 
 
@@ -55,6 +77,31 @@ def _maybe_convert(model_dir: Path, name: str, convert_fn) -> Path | None:
         logging.info("converted %s -> %s", pt, msg)
         return msg
     return None
+
+
+def _checkpoints(model_dir: Path, converters: dict) -> dict:
+    """{name: msgpack path} for llm / flow / hift, converted from .pt when
+    only that exists; raises when one is missing."""
+    paths = {name: _maybe_convert(model_dir, name, fn) for name, fn in converters.items()}
+    missing = [k for k, v in paths.items() if v is None]
+    if missing:
+        raise FileNotFoundError(f"missing checkpoints in {model_dir}: {missing}")
+    return paths
+
+
+def _family_config(model_dir: Path, preset: CosyVoiceConfig) -> tuple[CosyVoiceConfig, dict]:
+    """config.json overlaid on the family's preset (omitted sections keep
+    the family's defaults), and the raw config.json dict."""
+    cfg_path = model_dir / "config.json"
+    extra = json.loads(cfg_path.read_text()) if cfg_path.exists() else {}
+    cfg = config_from_dict({**_deep_merge(_to_jsonable(preset), extra), "version": preset.version})
+    return cfg, extra
+
+
+def _module_kw(extra: dict, key: str, **defaults) -> dict:
+    """config.json's module-size overrides under `key` (lists as tuples)."""
+    kw = {k: tuple(v) if isinstance(v, list) else v for k, v in extra.get(key, {}).items()}
+    return {**defaults, **kw}
 
 
 def _deep_merge(base: dict, extra: dict) -> dict:
@@ -93,14 +140,8 @@ class CosyVoice3:
         self.cfg = cfg
 
         dtype = torch.bfloat16 if fp16 else torch.float32
-        paths = {
-            "llm": _maybe_convert(self.model_dir, "llm", llm_params_from_reference),
-            "flow": _maybe_convert(self.model_dir, "flow", flow_params_from_reference),
-            "hift": _maybe_convert(self.model_dir, "hift", hift_params_from_reference),
-        }
-        missing = [k for k, v in paths.items() if v is None]
-        if missing:
-            raise FileNotFoundError(f"missing checkpoints in {model_dir}: {missing}")
+        paths = _checkpoints(self.model_dir, {"llm": llm_params_from_reference, "flow": flow_params_from_reference,
+                                              "hift": hift_params_from_reference})
         llm_sd = _cast_state(llm_from_jax(fuse_qwen_split_params(load_params(paths["llm"])), cfg.llm), dtype)
         flow_sd = flow_from_jax(load_params(paths["flow"]), cfg.flow)
         hift_sd = hift_from_jax(load_params(paths["hift"]), cfg.hift)
@@ -195,6 +236,77 @@ class CosyVoice3:
         yield from self._run(mi, stream, speed, "vc")
 
 
+class CosyVoice2(CosyVoice3):
+    """The CosyVoice2 family: Qwen2LMV2 (the 2-row sos / task table), the
+    x-vector flow (UpsampleConformerEncoder + causal U-Net CFM) and the
+    non-causal 24 kHz HiFT with its mel / source / speech streaming cache.
+    fp16=True runs bfloat16, the only dtype on CUDA."""
+
+    sample_rate = 24000
+
+    def __init__(self, model_dir: str, fp16: bool = True, load_frontend_models: bool = True,
+                 device: str | torch.device | None = None, **_):
+        self.device = resolve_device(device)
+        self.model_dir = Path(model_dir)
+        self.cfg, extra = _family_config(self.model_dir, cosyvoice2_config())
+        cfg = self.cfg
+        dtype = torch.bfloat16 if fp16 else torch.float32
+        paths = _checkpoints(self.model_dir, {"llm": llm_v2_params_from_reference,
+                                              "flow": flow_v2_params_from_reference,
+                                              "hift": hift_nc_params_from_reference})
+        llm_sd = _cast_state(llm_v2_from_jax(fuse_qwen_split_params(load_params(paths["llm"])), cfg.llm), dtype)
+        flow_kw = _module_kw(extra, "xvec_flow", vocab_size=cfg.llm.speech_token_size)
+        self.model = CosyVoice2TTS(cfg.llm, llm_sd, flow_kw, flow_v2_from_jax(load_params(paths["flow"]), **flow_kw),
+                                   cfg.hift, hift_nc_from_jax(load_params(paths["hift"]), cfg.hift), dtype=dtype,
+                                   device=self.device)
+        tok_dir = self.model_dir / "CosyVoice-BlankEN"
+        if not tok_dir.exists():
+            tok_dir = self.model_dir / "tokenizer"
+        tokenizer = get_qwen_tokenizer(str(tok_dir) if tok_dir.exists() else None, True, "cosyvoice2")
+        self._build_frontend(tokenizer, load_frontend_models)
+
+
+class CosyVoice(CosyVoice3):
+    """The CosyVoice1 family: TransformerLM, the conformer flow with the
+    InterpolateRegulator and the non-causal U-Net, and the 22.05 kHz HiFT;
+    streaming through mel-overlap fades and the z / mu flow cache. Runs
+    float32, as the reference serves it."""
+
+    sample_rate = 22050
+
+    def __init__(self, model_dir: str, fp16: bool = False, load_frontend_models: bool = True,
+                 device: str | torch.device | None = None, **_):
+        self.device = resolve_device(device)
+        self.model_dir = Path(model_dir)
+        self.cfg, extra = _family_config(self.model_dir, cosyvoice1_config())
+        cfg = self.cfg
+        paths = _checkpoints(self.model_dir, {
+            "llm": llm_v1_params_from_reference, "flow": flow_v1_params_from_reference,
+            "hift": lambda sd: hift_nc_params_from_reference(sd, upsample_rates=(8, 8))})
+        llm_kw = _module_kw(extra, "llm_v1", speech_token_size=cfg.llm.speech_token_size)
+        flow_kw = _module_kw(extra, "xvec_flow", vocab_size=cfg.llm.speech_token_size)
+        if fp16:
+            logging.warning("CosyVoice (v1) ignores fp16=True and runs float32, as the reference does")
+        self.model = CosyVoiceV1TTS(
+            llm_kw, llm_v1_from_jax(load_params(paths["llm"]), **llm_kw),
+            flow_kw, flow_v1_from_jax(load_params(paths["flow"]), **flow_kw),
+            cfg.hift, hift_nc_from_jax(load_params(paths["hift"]), cfg.hift), device=self.device)
+        vocab = self.model_dir / "multilingual_zh_ja_yue_char_del.tiktoken"
+        tokenizer = get_tokenizer(multilingual=True, vocab_path=str(vocab) if vocab.exists() else None)
+        self._build_frontend(tokenizer, load_frontend_models)
+
+    def inference_instruct2(self, *args, **kwargs):
+        raise NotImplementedError("inference_instruct2 requires CosyVoice2/3")
+
+    def inference_instruct(self, tts_text, spk_id, instruct_text, stream=False, speed=1.0, text_frontend=True):
+        """A saved speaker and a natural-language instruction: frontend_sft
+        without the LLM embedding, the instruction as prompt text."""
+        instruct_norm = self.frontend.text_normalize(instruct_text, split=False, text_frontend=text_frontend)
+        for seg in self.frontend.text_normalize(tts_text, split=True, text_frontend=text_frontend):
+            mi = self.frontend.frontend_instruct(seg, spk_id, instruct_norm)
+            yield from self._run(mi, stream, speed, seg)
+
+
 def AutoModel(model_dir: str, **kwargs):
     """Dispatch by the files present: config.json's "version", else the
     reference yaml's name, else 3."""
@@ -209,9 +321,4 @@ def AutoModel(model_dir: str, **kwargs):
         version = 1
     else:
         version = 3
-    if version in (1, 2):
-        raise NotImplementedError(
-            f"fangyan_tts_torch: the CosyVoice{'' if version == 1 else '2'} family (version {version}) is not "
-            "ported yet (ROADMAP queue 1 item 6, the v1/v2 families)"
-        )
-    return {3: CosyVoice3}[version](model_dir, **kwargs)
+    return {1: CosyVoice, 2: CosyVoice2, 3: CosyVoice3}[version](model_dir, **kwargs)

@@ -1,5 +1,7 @@
 """Bistream inference: speech tokens decoded while the text still arrives
-(fangyan_tts_tpu/infer/bistream.py, the CosyVoice3 id layout).
+(fangyan_tts_tpu/infer/bistream.py), in the CosyVoice3 id layout or, for a
+Qwen2LMV2, the CosyVoice2 one (sos / task in the 2-row llm_embedding table
+as src 2, ids 0 / 1; fill = speech_token_size + 2).
 
 The 5:15 text / speech interleave: the context starts as [sos] and the
 prompt text seeds the text buffer; while prompt speech remains, every 5
@@ -18,7 +20,7 @@ from typing import Generator, Iterable
 import numpy as np
 import torch
 
-from ..models.llm import CosyVoice3LM, bistream_append
+from ..models.llm import CosyVoice3LM, Qwen2LMV2, bistream_append
 from ..ops.sampling import ras_sample
 
 
@@ -36,6 +38,10 @@ def inference_bistream(
     mt, ms = c.mix_ratio  # 5, 15
     dev = model.speech_embedding.weight.device
     state: dict = {"cache": None, "seq_pos": 0, "logits": None}
+    v2 = isinstance(model, Qwen2LMV2)
+    sos_seg = ([2], [0]) if v2 else ([1], [c.sos])
+    task_seg = ([2], [1]) if v2 else ([1], [c.task_id])
+    fill_id = c.speech_token_size + 2 if v2 else c.fill
 
     def append(src_vals, id_vals):
         src = torch.tensor([src_vals], dtype=torch.int32, device=dev)
@@ -43,7 +49,7 @@ def inference_bistream(
         state["cache"], state["logits"], state["seq_pos"] = bistream_append(
             model, state["cache"], state["seq_pos"], src, ids, cache_len)
 
-    append([1], [c.sos])
+    append(*sos_seg)
     text_cache: list[int] = np.asarray(prompt_text, np.int32).tolist()
     speech_cache: list[int] = np.asarray(prompt_speech, np.int32).tolist()
     next_fill_index = (len(speech_cache) // ms + 1) * ms - len(speech_cache)
@@ -75,7 +81,7 @@ def inference_bistream(
         if speech_cache:
             continue
         # a text block after a fill, or at the start of the stream
-        if (out_tokens and out_tokens[-1] == c.fill) or (not out_tokens and not appended_any):
+        if (out_tokens and out_tokens[-1] == fill_id) or (not out_tokens and not appended_any):
             if len(text_cache) >= mt:
                 t5, text_cache = text_cache[:mt], text_cache[mt:]
                 append([0] * mt, t5)
@@ -85,12 +91,12 @@ def inference_bistream(
         # decode up to the next fill
         while len(out_tokens) < max_tokens:
             if next_fill_index != -1 and len(out_tokens) == next_fill_index:
-                tok = c.fill
+                tok = fill_id
                 next_fill_index += ms + 1
             else:
                 tok = sample_one(non_stop)
             out_tokens.append(tok)
-            if tok == c.fill:
+            if tok == fill_id:
                 # never fed to the model: the next text block takes its place
                 break
             yield tok
@@ -100,7 +106,7 @@ def inference_bistream(
     # the rest of the text and the task id, then decode to a stop id
     for t in text_cache:
         append([0], [t])
-    append([1], [c.task_id])
+    append(*task_seg)
     while len(out_tokens) < max_tokens:
         tok = sample_one(all_ids)
         out_tokens.append(tok)

@@ -79,10 +79,14 @@ class LLMScheduler:
         from the TTS object's when None) is the row's own random stream."""
         t = self.t
         zeros = np.zeros(0, np.int32)
+        prompt_text_tokens = zeros if prompt_text_tokens is None else prompt_text_tokens
+        prompt_speech_tokens = zeros if prompt_speech_tokens is None else prompt_speech_tokens
         plan, tp, cache_len, min_len, max_len = stream_buckets(
-            t.cfg.llm, text_tokens, zeros if prompt_text_tokens is None else prompt_text_tokens,
-            zeros if prompt_speech_tokens is None else prompt_speech_tokens, min_token_text_ratio,
+            t.llm.cfg, text_tokens, prompt_text_tokens, prompt_speech_tokens, min_token_text_ratio,
             max_token_text_ratio)
+        if hasattr(t, "_plan"):  # the v2 family: sos / task remapped (same length, same buckets)
+            plan = t._plan(np.concatenate([prompt_text_tokens, text_tokens]).astype(np.int32),
+                           np.asarray(prompt_speech_tokens, np.int32))
         generator = t.next_generator() if generator is None else generator
         with self._lock:
             g = self.groups.get((tp, cache_len))

@@ -1,6 +1,6 @@
 """Torch state_dicts of the reference checkpoints -> the JAX package's
 parameter trees (the port's copy of the pure-numpy converters of
-fangyan_tts_tpu/models/convert.py that the v3 API and the frontend need).
+fangyan_tts_tpu/models/convert.py that the API and the frontend need).
 
 - `llm_params_from_reference`, `flow_params_from_reference` (with
   `dit_estimator_params`) and `hift_params_from_reference` map llm.pt,
@@ -8,10 +8,14 @@ fangyan_tts_tpu/models/convert.py that the v3 API and the frontend need).
   split q/k/v and gate/up kernels; `filter_training_meta` drops the
   epoch/step scalars of a training checkpoint;
 - `campplus_params_from_torch` and `s3_params_from_torch` map the CAM++ and
-  S3 tokenizer state dicts.
+  S3 tokenizer state dicts;
+- the CosyVoice1/2 converters: `llm_v1_params_from_reference`,
+  `llm_v2_params_from_reference`, `flow_v1_params_from_reference`,
+  `flow_v2_params_from_reference` and `hift_nc_params_from_reference`, on
+  the conformer, U-Net and BatchNorm-fold helpers.
 
 The trees are nested dicts of numpy arrays, in the JAX package's layout;
-models/from_jax.py carries them into the port's modules. The v1/v2 and ONNX
+models/from_jax.py carries them into the port's modules. The ONNX
 converters are not copied yet.
 """
 
@@ -402,3 +406,342 @@ def s3_params_from_torch(sd: Mapping[str, Any]) -> tuple[dict, dict]:
         }
     hyper = {"dim": dim, "n_mels": n_mels, "layers": layers, "fsmn_kernel": fsmn_k}
     return p, hyper
+
+
+# --------------------------------------------- CosyVoice1/2 families
+
+
+def _fold_bn_affine(sd, base, eps: float = 1e-5) -> tuple[np.ndarray, np.ndarray]:
+    """BatchNorm1d (eval) -> (scale, bias) affine fold."""
+    w = _t(sd[base + ".weight"])
+    b = _t(sd[base + ".bias"])
+    mean = _t(sd[base + ".running_mean"])
+    var = _t(sd[base + ".running_var"])
+    scale = w / np.sqrt(var + eps)
+    return scale, b - mean * scale
+
+
+def _conformer_layer_params(sd, base, macaron: bool, use_cnn: bool, cnn_norm: str = "batch_norm", transformer: bool = False) -> dict:
+    """One (Conformer/Transformer)EncoderLayer (encoder_layer.py:40-236) ->
+    our ConformerEncoderLayer params. TransformerEncoderLayer names its
+    norms norm1/norm2 (encoder_layer.py:52-53) instead of norm_mha/norm_ff."""
+    n_mha, n_ff = ("norm1", "norm2") if transformer else ("norm_mha", "norm_ff")
+    p: dict = {
+        "self_attn": {
+            "linear_q": _lin(sd, base + ".self_attn.linear_q"),
+            "linear_k": _lin(sd, base + ".self_attn.linear_k"),
+            "linear_v": _lin(sd, base + ".self_attn.linear_v"),
+            "linear_out": _lin(sd, base + ".self_attn.linear_out"),
+            "linear_pos": {"kernel": _t(sd[base + ".self_attn.linear_pos.weight"]).T},
+            "pos_bias_u": _t(sd[base + ".self_attn.pos_bias_u"]),
+            "pos_bias_v": _t(sd[base + ".self_attn.pos_bias_v"]),
+        },
+        "ff": {
+            "w_1": _lin(sd, base + ".feed_forward.w_1"),
+            "w_2": _lin(sd, base + ".feed_forward.w_2"),
+        },
+        "norm_mha": {"scale": _t(sd[f"{base}.{n_mha}.weight"]), "bias": _t(sd[f"{base}.{n_mha}.bias"])},
+        "norm_ff": {"scale": _t(sd[f"{base}.{n_ff}.weight"]), "bias": _t(sd[f"{base}.{n_ff}.bias"])},
+    }
+    if macaron:
+        p["ff_macaron"] = {
+            "w_1": _lin(sd, base + ".feed_forward_macaron.w_1"),
+            "w_2": _lin(sd, base + ".feed_forward_macaron.w_2"),
+        }
+        p["norm_ff_macaron"] = {
+            "scale": _t(sd[base + ".norm_ff_macaron.weight"]),
+            "bias": _t(sd[base + ".norm_ff_macaron.bias"]),
+        }
+    if use_cnn:
+        cm = base + ".conv_module"
+        cp: dict = {
+            "pw1_kernel": _conv_w(sd, cm + ".pointwise_conv1"),
+            "pw1_bias": _t(sd[cm + ".pointwise_conv1.bias"]),
+            "dw_kernel": _conv_w(sd, cm + ".depthwise_conv"),
+            "dw_bias": _t(sd[cm + ".depthwise_conv.bias"]),
+            "pw2_kernel": _conv_w(sd, cm + ".pointwise_conv2"),
+            "pw2_bias": _t(sd[cm + ".pointwise_conv2.bias"]),
+        }
+        if cnn_norm == "batch_norm":
+            cp["bn_scale"], cp["bn_bias"] = _fold_bn_affine(sd, cm + ".norm")
+        else:
+            cp["norm"] = {"scale": _t(sd[cm + ".norm.weight"]), "bias": _t(sd[cm + ".norm.bias"])}
+        p["conv_module"] = cp
+        p["norm_conv"] = {"scale": _t(sd[base + ".norm_conv.weight"]), "bias": _t(sd[base + ".norm_conv.bias"])}
+        p["norm_final"] = {"scale": _t(sd[base + ".norm_final.weight"]), "bias": _t(sd[base + ".norm_final.bias"])}
+    return p
+
+
+def _stack_layers(layers: list) -> dict:
+    return _stack_trees(layers)
+
+
+def _linear_embed_params(sd, base) -> dict:
+    """LinearNoSubsampling (subsampling.py linear layer: out.0 Linear,
+    out.1 LayerNorm)."""
+    return {
+        "linear": _lin(sd, base + ".out.0"),
+        "norm": {"scale": _t(sd[base + ".out.1.weight"]), "bias": _t(sd[base + ".out.1.bias"])},
+    }
+
+
+def upsample_encoder_params_from_reference(
+    sd: Mapping[str, Any],
+    prefix: str = "",
+    num_blocks: int = 6,
+    num_up_blocks: int = 4,
+    macaron: bool = False,
+    use_cnn: bool = False,
+) -> dict:
+    """UpsampleConformerEncoder (upsample_encoder.py:106-321) -> our
+    UpsampleConformerEncoder params. `prefix` is 'encoder.' inside a v2
+    flow.pt."""
+    p: dict = {
+        "embed": _linear_embed_params(sd, prefix + "embed"),
+        "pre_lookahead_layer": {
+            "conv1_kernel": _conv_w(sd, prefix + "pre_lookahead_layer.conv1"),
+            "conv1_bias": _t(sd[prefix + "pre_lookahead_layer.conv1.bias"]),
+            "conv2_kernel": _conv_w(sd, prefix + "pre_lookahead_layer.conv2"),
+            "conv2_bias": _t(sd[prefix + "pre_lookahead_layer.conv2.bias"]),
+        },
+        "up_conv_kernel": _conv_w(sd, prefix + "up_layer.conv"),
+        "up_conv_bias": _t(sd[prefix + "up_layer.conv.bias"]),
+        "up_embed": _linear_embed_params(sd, prefix + "up_embed"),
+        "after_norm": {"scale": _t(sd[prefix + "after_norm.weight"]), "bias": _t(sd[prefix + "after_norm.bias"])},
+        "encoders": _stack_layers(
+            [_conformer_layer_params(sd, f"{prefix}encoders.{i}", macaron, use_cnn) for i in range(num_blocks)]
+        ),
+        "up_encoders": _stack_layers(
+            [_conformer_layer_params(sd, f"{prefix}up_encoders.{i}", macaron, use_cnn) for i in range(num_up_blocks)]
+        ),
+    }
+    return p
+
+
+def conformer_encoder_params_from_reference(
+    sd: Mapping[str, Any],
+    prefix: str = "",
+    num_blocks: int = 6,
+    macaron: bool = True,
+    use_cnn: bool = True,
+    cnn_norm: str = "batch_norm",
+    transformer: bool = False,
+) -> dict:
+    """(Conformer/Transformer)Encoder (encoder.py:338-474) -> our
+    ConformerEncoder params. v1 llm text encoder / v1 flow encoder;
+    `transformer=True` for TransformerEncoder stacks (v1 LM: norm1/norm2
+    layer norms; the 'linear_legacy' input layer shares the LinearNo-
+    Subsampling parameter layout, subsampling.py:352-356)."""
+    return {
+        "embed": _linear_embed_params(sd, prefix + "embed"),
+        "after_norm": {"scale": _t(sd[prefix + "after_norm.weight"]), "bias": _t(sd[prefix + "after_norm.bias"])},
+        "encoders": _stack_layers(
+            [_conformer_layer_params(sd, f"{prefix}encoders.{i}", macaron, use_cnn, cnn_norm, transformer) for i in range(num_blocks)]
+        ),
+    }
+
+
+# --------------------------------------------- U-Net CFM estimator (v1/v2)
+
+
+def _unet_block1d(sd, base, causal: bool) -> dict:
+    """matcha Block1D (conv+GroupNorm) / CausalBlock1D (causal conv+LayerNorm),
+    decoder.py:65-78."""
+    norm_idx = 2 if causal else 1
+    return {
+        "kernel": _conv_w(sd, f"{base}.block.0"),
+        "bias": _t(sd[f"{base}.block.0.bias"]),
+        "norm": {
+            "scale": _t(sd[f"{base}.block.{norm_idx}.weight"]),
+            "bias": _t(sd[f"{base}.block.{norm_idx}.bias"]),
+        },
+    }
+
+
+def _unet_resnet(sd, base, causal: bool) -> dict:
+    return {
+        "block1": _unet_block1d(sd, f"{base}.block1", causal),
+        "block2": _unet_block1d(sd, f"{base}.block2", causal),
+        "mlp": _lin(sd, f"{base}.mlp.1"),
+        "res_kernel": _conv_w(sd, f"{base}.res_conv"),
+        "res_bias": _t(sd[f"{base}.res_conv.bias"]),
+    }
+
+
+def _unet_transformer(sd, base) -> dict:
+    """matcha BasicTransformerBlock (transformer.py:138-300, gelu FF)."""
+    return {
+        "norm1": {"scale": _t(sd[f"{base}.norm1.weight"]), "bias": _t(sd[f"{base}.norm1.bias"])},
+        "to_q": {"kernel": _t(sd[f"{base}.attn1.to_q.weight"]).T},
+        "to_k": {"kernel": _t(sd[f"{base}.attn1.to_k.weight"]).T},
+        "to_v": {"kernel": _t(sd[f"{base}.attn1.to_v.weight"]).T},
+        "to_out": _lin(sd, f"{base}.attn1.to_out.0"),
+        "norm3": {"scale": _t(sd[f"{base}.norm3.weight"]), "bias": _t(sd[f"{base}.norm3.bias"])},
+        "ff_in": _lin(sd, f"{base}.ff.net.0.proj"),
+        "ff_out": _lin(sd, f"{base}.ff.net.2"),
+    }
+
+
+def _unet_level(sd, base, n_blocks: int, causal: bool) -> dict:
+    p = {"resnet": _unet_resnet(sd, f"{base}.0", causal)}
+    for j in range(n_blocks):
+        p[f"tb_{j}"] = _unet_transformer(sd, f"{base}.1.{j}")
+    return p
+
+
+def unet_estimator_params(
+    sd: Mapping[str, Any],
+    prefix: str = "",
+    channels: tuple = (256,),
+    n_blocks: int = 4,
+    num_mid_blocks: int = 12,
+    causal: bool = False,
+) -> dict:
+    """(Causal)ConditionalDecoder (flow/decoder.py:88-494) -> our
+    models/unet_decoder.py ConditionalDecoder params. `prefix` is
+    'decoder.estimator.' inside a v1/v2 flow.pt."""
+    p: dict = {
+        "time_mlp_1": _lin(sd, prefix + "time_mlp.linear_1"),
+        "time_mlp_2": _lin(sd, prefix + "time_mlp.linear_2"),
+        "final_block": _unet_block1d(sd, prefix + "final_block", causal),
+        "final_proj_kernel": _conv_w(sd, prefix + "final_proj"),
+        "final_proj_bias": _t(sd[prefix + "final_proj.bias"]),
+    }
+    n_levels = len(channels)
+    for i in range(n_levels):
+        p[f"down_{i}"] = _unet_level(sd, f"{prefix}down_blocks.{i}", n_blocks, causal)
+        ds = f"{prefix}down_blocks.{i}.2"
+        # Downsample1D wraps its conv in `.conv`; the is_last plain conv doesn't
+        ds_base = ds + ".conv" if ds + ".conv.weight" in sd else ds
+        p[f"down_conv_{i}_kernel"] = _conv_w(sd, ds_base)
+        p[f"down_conv_{i}_bias"] = _t(sd[ds_base + ".bias"])
+    mids = [_unet_level(sd, f"{prefix}mid_blocks.{i}", n_blocks, causal) for i in range(num_mid_blocks)]
+    p["mid"] = {"level": _stack_layers(mids)}
+    for i in range(n_levels):
+        p[f"up_{i}"] = _unet_level(sd, f"{prefix}up_blocks.{i}", n_blocks, causal)
+        us = f"{prefix}up_blocks.{i}.2"
+        if us + ".conv.weight" in sd:  # Upsample1D conv_transpose
+            w = _t(sd[us + ".conv.weight"])  # torch (Cin, Cout, W)
+            p[f"up_tconv_{i}_kernel"] = w.transpose(2, 1, 0)
+            p[f"up_tconv_{i}_bias"] = _t(sd[us + ".conv.bias"])
+        else:
+            p[f"up_conv_{i}_kernel"] = _conv_w(sd, us)
+            p[f"up_conv_{i}_bias"] = _t(sd[us + ".bias"])
+    return p
+
+
+# --------------------------------------------- CosyVoice1/2 family checkpoints
+
+
+def llm_v1_params_from_reference(sd: Mapping[str, Any], text_enc_blocks: int = 6, llm_blocks: int = 14) -> dict:
+    """CosyVoice1 llm.pt (TransformerLM, llm.py:33-98) -> models/llm_v1.py
+    TransformerLM params. text_encoder is a ConformerEncoder (no macaron/cnn,
+    conf/cosyvoice.yaml:27-43); llm is a TransformerEncoder (norm1/norm2
+    naming + relu ffn + linear_legacy input, yaml:44-56)."""
+    return {
+        "text_embedding": {"embedding": _t(sd["text_embedding.weight"])},
+        "text_encoder": conformer_encoder_params_from_reference(
+            sd, "text_encoder.", text_enc_blocks, macaron=False, use_cnn=False
+        ),
+        "text_encoder_affine_layer": _lin(sd, "text_encoder_affine_layer"),
+        "llm_embedding": {"embedding": _t(sd["llm_embedding.weight"])},
+        "spk_embed_affine_layer": _lin(sd, "spk_embed_affine_layer"),
+        "speech_embedding": {"embedding": _t(sd["speech_embedding.weight"])},
+        "llm": conformer_encoder_params_from_reference(
+            sd, "llm.", llm_blocks, macaron=False, use_cnn=False, transformer=True
+        ),
+        "llm_decoder": _lin(sd, "llm_decoder"),
+    }
+
+
+def llm_v2_params_from_reference(sd: Mapping[str, Any], num_layers: int = 24) -> dict:
+    """CosyVoice2 llm.pt (Qwen2LM, llm.py:261-353) -> models/llm.py Qwen2LMV2
+    params: HF Qwen2 backbone under llm.model.model.*, a 2-row sos/task
+    llm_embedding, and a biased speech head (llm.py:271-280)."""
+    return {
+        "embed_tokens": {"embedding": _t(sd["llm.model.model.embed_tokens.weight"])},
+        "llm_embedding": {"embedding": _t(sd["llm_embedding.weight"])},
+        "speech_embedding": {"embedding": _t(sd["speech_embedding.weight"])},
+        "llm_decoder": _lin(sd, "llm_decoder"),
+        "llm": qwen2_params_from_hf(sd, num_layers, prefix="llm.model.model."),
+    }
+
+
+def _regulator_params(sd, prefix: str, num_blocks: int = 4) -> dict:
+    """InterpolateRegulator conv stack (length_regulator.py:32-42:
+    [Conv1d k3, GroupNorm, Mish] x num_blocks ++ Conv1d k1 at
+    model.{3*num_blocks})."""
+    p: dict = {}
+    for i in range(num_blocks):
+        p[f"conv_{i}_kernel"] = _conv_w(sd, f"{prefix}model.{3 * i}")
+        p[f"conv_{i}_bias"] = _t(sd[f"{prefix}model.{3 * i}.bias"])
+        p[f"norm_{i}_scale"] = _t(sd[f"{prefix}model.{3 * i + 1}.weight"])
+        p[f"norm_{i}_bias"] = _t(sd[f"{prefix}model.{3 * i + 1}.bias"])
+    p["out_kernel"] = _conv_w(sd, f"{prefix}model.{3 * num_blocks}")
+    p["out_bias"] = _t(sd[f"{prefix}model.{3 * num_blocks}.bias"])
+    return p
+
+
+def flow_v1_params_from_reference(
+    sd: Mapping[str, Any], num_blocks: int = 6, est_levels: int = 2, est_blocks: int = 4, est_mid: int = 12
+) -> dict:
+    """CosyVoice1 flow.pt (MaskedDiffWithXvec, flow.py:24-145) ->
+    models/flow_xvec.py MaskedDiffWithXvec params. est_* describe the U-Net
+    LAYOUT (level/block counts, conf/cosyvoice.yaml:104-113) — dims come from
+    the weights themselves."""
+    return {
+        "input_embedding": {"embedding": _t(sd["input_embedding.weight"])},
+        "spk_embed_affine_layer": _lin(sd, "spk_embed_affine_layer"),
+        "encoder": conformer_encoder_params_from_reference(
+            sd, "encoder.", num_blocks, macaron=False, use_cnn=False
+        ),
+        "encoder_proj": _lin(sd, "encoder_proj"),
+        "length_regulator": _regulator_params(sd, "length_regulator."),
+        "estimator": unet_estimator_params(
+            sd, "decoder.estimator.", channels=(0,) * est_levels, n_blocks=est_blocks, num_mid_blocks=est_mid, causal=False
+        ),
+    }
+
+
+def flow_v2_params_from_reference(
+    sd: Mapping[str, Any], num_blocks: int = 6, num_up_blocks: int = 4, est_blocks: int = 4, est_mid: int = 12
+) -> dict:
+    """CosyVoice2 flow.pt (CausalMaskedDiffWithXvec, flow.py:148-275) ->
+    models/flow_xvec.py CausalMaskedDiffWithXvec params."""
+    return {
+        "input_embedding": {"embedding": _t(sd["input_embedding.weight"])},
+        "spk_embed_affine_layer": _lin(sd, "spk_embed_affine_layer"),
+        "encoder": upsample_encoder_params_from_reference(sd, "encoder.", num_blocks, num_up_blocks),
+        "encoder_proj": _lin(sd, "encoder_proj"),
+        "estimator": unet_estimator_params(
+            sd, "decoder.estimator.", channels=(0,), n_blocks=est_blocks, num_mid_blocks=est_mid, causal=True
+        ),
+    }
+
+
+def hift_nc_params_from_reference(
+    sd: Mapping[str, Any],
+    upsample_rates: tuple = (8, 5, 3),
+    num_resblock_kernels: int = 3,
+    resblock_dilations: int = 3,
+) -> dict:
+    """Non-causal hift.pt (HiFTGenerator, generator.py:378-569) ->
+    models/hift.py HiFT params. Unlike the causal stack, ups.{i} are
+    weight-normed ConvTranspose1d — torch weight layout (in, out, k) ->
+    flax (k, out, in)."""
+    p: dict = {
+        "conv_pre": _conv(sd, "conv_pre"),
+        "conv_post": _conv(sd, "conv_post"),
+        "m_source": {"l_linear": _lin(sd, "m_source.l_linear")},
+        "f0_predictor": {"classifier": _lin(sd, "f0_predictor.classifier")},
+    }
+    for i in range(5):
+        p["f0_predictor"][f"conv{i}"] = _conv(sd, f"f0_predictor.condnet.{2 * i}")
+    for i in range(len(upsample_rates)):
+        p[f"ups_{i}_kernel"] = _fold_weight_norm(sd, f"ups.{i}").transpose(2, 1, 0)
+        p[f"ups_{i}_bias"] = _t(sd[f"ups.{i}.bias"])
+        p[f"source_downs_{i}"] = _conv(sd, f"source_downs.{i}")
+        p[f"source_resblocks_{i}"] = _resblock(sd, f"source_resblocks.{i}", resblock_dilations)
+        for j in range(num_resblock_kernels):
+            p[f"resblocks_{i}_{j}"] = _resblock(sd, f"resblocks.{i * num_resblock_kernels + j}", resblock_dilations)
+    return p

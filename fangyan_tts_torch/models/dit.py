@@ -49,6 +49,16 @@ class ConvParams(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout))
 
 
+def tconv_params(cin: int, cout: int, k: int) -> nn.Module:
+    """A transposed convolution's weight (Cin, Cout, K) and bias (Cout,),
+    held by a bare module (the JAX package's `<name>_kernel` / `_bias`
+    leaves; models/from_jax.py maps both ways)."""
+    m = nn.Module()
+    m.weight = nn.Parameter(torch.empty(cin, cout, k))
+    m.bias = nn.Parameter(torch.zeros(cout))
+    return m
+
+
 def layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """flax LayerNorm without scale or bias: float32 statistics
     (E[x^2] - E[x]^2, clamped at 0), result in x's dtype."""

@@ -1,19 +1,23 @@
 """Carry the JAX package's parameters into the port's modules.
 
-`llm_from_jax`, `flow_from_jax`, `hift_from_jax`, `campplus_from_jax` and
-`s3_from_jax` take a param tree of the JAX package (nested dicts of numpy
-arrays, as `jax.device_get` returns them, or of torch tensors where
+`llm_from_jax`, `flow_from_jax`, `hift_from_jax`, `campplus_from_jax`,
+`s3_from_jax` and the CosyVoice1/2 carriers `llm_v2_from_jax`,
+`llm_v1_from_jax`, `flow_v2_from_jax`, `flow_v1_from_jax` and
+`hift_nc_from_jax` take a param tree of the JAX package (nested dicts of
+numpy arrays, as `jax.device_get` returns them, or of torch tensors where
 train/checkpoint.py reads bfloat16) and return the port's state_dict:
 
-- the leading layer axis of `layers` / `blocks` (nn.scan) is unstacked
-  into `layers.{i}` / `blocks.{i}`;
+- the leading layer axis of the nn.scan stacks (`layers`, `blocks`,
+  `encoders`, `up_encoders`, `mid`) is unstacked into `layers.{i}` etc.;
 - a Dense kernel (in, out) becomes a Linear weight (out, in);
 - a Conv kernel (K, Cin/g, Cout) becomes (Cout, Cin/g, K), and a
   `conv_transpose1d` kernel (K, Cout, Cin) (ops/convs.py of the JAX package)
   becomes torch's (Cin, Cout, K): both are the axis reversal; a 2-D
   `nn.Conv` kernel (kh, kw, Cin, Cout) becomes (Cout, Cin, kh, kw);
 - `embedding` becomes an Embedding's `weight`; `<name>_kernel` /
-  `<name>_bias` leaves become `<name>.weight` / `<name>.bias`;
+  `<name>_bias` leaves become `<name>.weight` / `<name>.bias`, and
+  `<name>_scale` becomes `<name>.scale` (an AffineParams of
+  models/conformer.py);
 - the weight-only quantized leaves of ops/quant.py (`kernel_q` (in, out)
   int8, `kernel_q4` (in//2, out) int8, `scale`) keep their names and JAX
   layout: models built with `quant_int8` (`quant_int4_mlp`) hold them in
@@ -31,7 +35,8 @@ back to the JAX package's nested tree (layers re-stacked, transposes
 undone), so that the port writes model directories the JAX package reads
 (train/checkpoint.save_params). A module whose type is exactly ConvParams,
 or a bare nn.Module holding a weight, stands for the JAX module's
-`<name>_kernel` / `<name>_bias` leaves.
+`<name>_kernel` / `<name>_bias` leaves, and an AffineParams for
+`<name>_scale` / `<name>_bias`.
 """
 
 from __future__ import annotations
@@ -44,13 +49,16 @@ import torch.nn as nn
 
 from ..config import FlowConfig, HiFTConfig, LLMConfig
 from .campplus import CAMPPlus
+from .conformer import AffineParams
 from .dit import ConvParams
 from .flow import CausalMaskedDiffWithDiT
-from .hift import CausalHiFT
-from .llm import CosyVoice3LM
+from .flow_xvec import CausalMaskedDiffWithXvec, MaskedDiffWithXvec
+from .hift import HiFT, CausalHiFT
+from .llm import CosyVoice3LM, Qwen2LMV2
+from .llm_v1 import TransformerLM
 from .s3tokenizer import S3TokenizerV3
 
-_STACKED = ("layers", "blocks")
+_STACKED = ("layers", "blocks", "encoders", "up_encoders", "mid")
 
 
 def _to_torch(arr: np.ndarray | torch.Tensor) -> torch.Tensor:
@@ -89,6 +97,8 @@ def _leaf(path: tuple[str, ...], arr: np.ndarray) -> tuple[str, np.ndarray]:
         mods, leaf = mods + [leaf[: -len("_kernel")], "weight"], None
     elif leaf.endswith("_bias"):
         mods, leaf = mods + [leaf[: -len("_bias")], "bias"], None
+    elif leaf.endswith("_scale"):
+        return ".".join(mods + [leaf[: -len("_scale")], "scale"]), arr
     elif leaf == "embedding":
         return ".".join(mods + ["weight"]), arr
     else:
@@ -148,6 +158,30 @@ def s3_from_jax(params: Mapping[str, Any], **kwargs) -> dict[str, torch.Tensor]:
     return convert(params, _skeleton(lambda: S3TokenizerV3(**kwargs)))
 
 
+def llm_v2_from_jax(params: Mapping[str, Any], cfg: LLMConfig) -> dict[str, torch.Tensor]:
+    return convert(params, _skeleton(lambda: Qwen2LMV2(cfg)))
+
+
+def llm_v1_from_jax(params: Mapping[str, Any], **kwargs) -> dict[str, torch.Tensor]:
+    """TransformerLM tree -> state_dict; kwargs are TransformerLM's."""
+    return convert(params, _skeleton(lambda: TransformerLM(**kwargs)))
+
+
+def flow_v2_from_jax(params: Mapping[str, Any], **kwargs) -> dict[str, torch.Tensor]:
+    """CausalMaskedDiffWithXvec tree -> state_dict; kwargs are its."""
+    return convert(params, _skeleton(lambda: CausalMaskedDiffWithXvec(**kwargs)))
+
+
+def flow_v1_from_jax(params: Mapping[str, Any], **kwargs) -> dict[str, torch.Tensor]:
+    """MaskedDiffWithXvec tree -> state_dict; kwargs are its."""
+    return convert(params, _skeleton(lambda: MaskedDiffWithXvec(**kwargs)))
+
+
+def hift_nc_from_jax(params: Mapping[str, Any], cfg: HiFTConfig) -> dict[str, torch.Tensor]:
+    """The non-causal HiFT (v1 / v2) tree -> state_dict."""
+    return convert(params, _skeleton(lambda: HiFT(cfg)))
+
+
 def _jax_leaf(t: torch.Tensor) -> np.ndarray | torch.Tensor:
     """numpy where numpy has the dtype; a bfloat16 tensor stays a tensor."""
     t = t.detach().cpu().contiguous()
@@ -164,6 +198,8 @@ def to_jax_tree(state_dict: Mapping[str, torch.Tensor], module: nn.Module) -> di
         parts = mod_path.split(".") if mod_path else []
         if isinstance(owner, nn.Embedding):
             path = parts + ["embedding"]
+        elif isinstance(owner, AffineParams):
+            path = parts[:-1] + [f"{parts[-1]}_{leaf}"]
         elif type(owner) in (ConvParams, nn.Module) and leaf in ("weight", "bias"):
             path = parts[:-1] + [f"{parts[-1]}_{'kernel' if leaf == 'weight' else 'bias'}"]
             if leaf == "weight":

@@ -1,8 +1,15 @@
-"""Causal HiFT vocoder: NSF harmonic source plus iSTFT synthesis
-(fangyan_tts_tpu/models/hift.py, `CausalHiFT` with the sinegen2_causal
-source): offline (finalize) inference, the streaming step
-(`finalize=False`, the lookahead frames as context) and the windows of
-constant-cost streaming (`stream_window`, `finalize_window`, `rad_delta`).
+"""HiFT vocoders: NSF harmonic source plus iSTFT synthesis
+(fangyan_tts_tpu/models/hift.py).
+
+- `CausalHiFT` (CosyVoice3, the sinegen2_causal source): offline
+  (finalize) inference, the streaming step (`finalize=False`, the lookahead
+  frames as context) and the windows of constant-cost streaming
+  (`stream_window`, `finalize_window`, `rad_delta`).
+- `HiFT` (CosyVoice1/2, non-causal): symmetric-padded convolutions, a
+  transposed-convolution upsampler, the `F0Predictor` and the sinegen1
+  (22.05 kHz, v1) or non-causal sinegen2 (24 kHz, v2) source, with the
+  caller's source cache and Gaussian noise taken from `nsf_gauss_buffer` at
+  the chunk's absolute sample offset.
 
 Tensors are channels-last (B, L, C). Every convolution casts its weights to
 the activation's dtype, as the JAX modules do, and mixed-dtype adds promote
@@ -24,11 +31,13 @@ from ..ops.convs import (
     causal_conv1d_left,
     causal_conv1d_right,
     conv1d,
+    conv_transpose1d,
     downsample_linear,
+    upsample_linear,
     upsample_nearest,
 )
 from ..ops.stft import hann_window, istft, stft
-from .dit import ConvParams
+from .dit import ConvParams, tconv_params
 from .qwen2 import flax_dense
 
 
@@ -44,6 +53,23 @@ def nsf_buffers(harmonics_plus_one: int = 9, max_samples: int = 300 * 24000):
     rand_ini[:, 0] = 0.0
     uniform_noise = rng.random((1, max_samples, harmonics_plus_one), dtype=np.float32)
     return rand_ini, uniform_noise
+
+
+def nsf_gauss_noise(n_samples: int, harmonics_plus_one: int = 9) -> np.ndarray:
+    """Fixed standard-normal noise (1, n, H) from numpy rng(1): the additive
+    noise of the non-causal source when no buffer is given."""
+    rng = np.random.default_rng(1)
+    return rng.standard_normal((1, n_samples, harmonics_plus_one)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=2)
+def nsf_gauss_buffer(harmonics_plus_one: int = 9, max_samples: int = 120 * 24000) -> np.ndarray:
+    """The long Gaussian buffer of the v1/v2 vocoders (1, max_samples, H),
+    rng(1) in nsf_gauss_noise's fill order, so its head equals
+    nsf_gauss_noise(n): chunks indexed at their absolute sample offsets draw
+    the noise one whole-utterance call would."""
+    rng = np.random.default_rng(1)
+    return rng.standard_normal((1, max_samples, harmonics_plus_one)).astype(np.float32)
 
 
 def snake(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
@@ -96,17 +122,35 @@ class CausalConvUp(ConvParams):
         return conv1d(x, self.weight.to(x.dtype), self.bias.to(x.dtype), padding=(self.weight.shape[-1] - 1, 0))
 
 
-class ResBlock(nn.Module):
-    """Snake residual block with left-padded causal convolutions."""
+class PlainConv(ConvParams):
+    """Symmetric-padding convolution (the non-causal HiFT's Conv1d with
+    get_padding); `pad` overrides the derived padding (the strided source
+    downsamplers pad stride // 2)."""
 
-    def __init__(self, channels: int, kernel: int, dilations: tuple[int, ...]):
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, dilation: int = 1, stride: int = 1,
+                 pad: int | None = None):
+        super().__init__(in_ch, out_ch, kernel)
+        self.dilation, self.stride = dilation, stride
+        self.pad = (kernel * dilation - dilation) // 2 if pad is None else pad
+
+    def forward(self, x):
+        return conv1d(x, self.weight.to(x.dtype), self.bias.to(x.dtype), stride=self.stride, padding=self.pad,
+                      dilation=self.dilation)
+
+
+class ResBlock(nn.Module):
+    """Snake residual block: left-padded causal convolutions, or symmetric
+    ones with causal=False (the non-causal HiFT)."""
+
+    def __init__(self, channels: int, kernel: int, dilations: tuple[int, ...], causal: bool = True):
         super().__init__()
         self.n = len(dilations)
+        conv = CausalConv if causal else PlainConv
         for i, d in enumerate(dilations):
             setattr(self, f"alpha1_{i}", nn.Parameter(torch.ones(channels)))
             setattr(self, f"alpha2_{i}", nn.Parameter(torch.ones(channels)))
-            setattr(self, f"convs1_{i}", CausalConv(channels, channels, kernel, dilation=d))
-            setattr(self, f"convs2_{i}", CausalConv(channels, channels, kernel, dilation=1))
+            setattr(self, f"convs1_{i}", conv(channels, channels, kernel, dilation=d))
+            setattr(self, f"convs2_{i}", conv(channels, channels, kernel, dilation=1))
 
     def forward(self, x):
         for i in range(self.n):
@@ -138,9 +182,16 @@ class CausalF0Predictor(nn.Module):
 
 
 class SourceModule(nn.Module):
-    """NSF source (SineGen2, causal): per-frame phase increments, cumulative
-    phase at frame rate, nearest upsampling to the sample rate, the fixed
-    uniform noise, and a linear merge of the harmonics.
+    """NSF source: per-frame phase increments, cumulative phase at frame
+    rate, upsampling to the sample rate, additive noise, and a linear merge
+    of the harmonics. `variant` picks the reference's SineGen:
+
+    - "sinegen2_causal" (CausalHiFT): nearest phase upsampling, the fixed
+      uniform noise;
+    - "sinegen2" (the v2 HiFT): linear phase upsampling, Gaussian noise;
+    - "sinegen1" (the v1 HiFT at 22.05 kHz): the phase is the cumulative sum
+      at the sample rate, wrapped mod 1, plus a random initial phase per
+      harmonic in [-pi, pi) (0 for the fundamental); Gaussian noise.
 
     Streaming: `carry` (B, H) is the cumulative phase (cycles, mod 1) over
     every frame before the window, and the noise is taken from `noise_buf`
@@ -148,9 +199,10 @@ class SourceModule(nn.Module):
     reproduces the whole signal's source (phase continuity and the same
     noise draws)."""
 
-    def __init__(self, cfg: HiFTConfig):
+    def __init__(self, cfg: HiFTConfig, variant: str = "sinegen2_causal"):
         super().__init__()
         self.cfg = cfg
+        self.variant = variant
         self.l_linear = nn.Linear(cfg.nb_harmonics + 1, 1)
 
     def rad_frames(self, f0_frame: torch.Tensor, first: bool = True) -> torch.Tensor:
@@ -180,10 +232,18 @@ class SourceModule(nn.Module):
         n_samp = f0_frame.shape[1] * up
 
         f0_up = upsample_nearest(f0_frame[..., None], up)
-        phase = torch.cumsum(self.rad_frames(f0_frame, first=carry is None), dim=1)
-        if carry is not None:
-            phase = phase + carry[:, None, :].to(phase.dtype)
-        sines = torch.sin(upsample_nearest(phase * (2.0 * np.pi) * up, up))
+        if self.variant == "sinegen1":
+            harmonic_mult = torch.arange(1, hplus + 1, dtype=torch.float32, device=f0_frame.device)
+            theta = 2.0 * np.pi * torch.remainder(torch.cumsum(f0_up * harmonic_mult / c.sampling_rate, dim=1), 1.0)
+            phase_vec = (nsf_buffers(hplus)[0][0] * 2.0 - 1.0) * np.pi
+            phase_vec[0] = 0.0
+            sines = torch.sin(theta + torch.from_numpy(phase_vec.astype(np.float32)).to(theta.device))
+        else:
+            phase = torch.cumsum(self.rad_frames(f0_frame, first=carry is None), dim=1)
+            if carry is not None:
+                phase = phase + carry[:, None, :].to(phase.dtype)
+            upsample = upsample_nearest if self.variant == "sinegen2_causal" else upsample_linear
+            sines = torch.sin(upsample(phase * (2.0 * np.pi) * up, up))
         uv = (f0_up > c.nsf_voiced_threshold).to(sines.dtype)
         noise_amp = uv * c.nsf_sigma + (1.0 - uv) * c.nsf_alpha / 3.0
         if noise_buf is not None and isinstance(noise_offset, torch.Tensor) and noise_offset.dim() == 1:
@@ -194,8 +254,10 @@ class SourceModule(nn.Module):
         elif noise_offset is not None and noise_buf is not None:
             off = int(noise_offset) % max(noise_buf.shape[1] - n_samp, 1)
             noise = noise_amp * noise_buf[:, off : off + n_samp].to(sines.dtype)
-        else:
+        elif self.variant == "sinegen2_causal":
             noise = noise_amp * torch.from_numpy(nsf_buffers(hplus)[1][:, :n_samp]).to(sines.device, sines.dtype)
+        else:
+            noise = noise_amp * torch.from_numpy(nsf_gauss_noise(n_samp, hplus)).to(sines.device, sines.dtype)
         sine_waves = sines * c.nsf_alpha * uv + noise
         return torch.tanh(flax_dense(sine_waves, self.l_linear, sines.dtype))
 
@@ -318,3 +380,97 @@ class CausalHiFT(nn.Module):
         f0 = self.f0_predictor(mel32[:, :-pad], context=mel32[:, -pad:])
         return self.m_source.rad_frames(f0[:, n_left:], first=n_left == 0).sum(dim=1)
 
+
+
+class F0Predictor(nn.Module):
+    """Non-causal ConvRNNF0Predictor: five k=3 symmetric convs with ELU, a
+    linear head and abs. Returns (B, L)."""
+
+    def __init__(self, in_channels: int = 80, cond_channels: int = 512):
+        super().__init__()
+        for i in range(5):
+            setattr(self, f"conv{i}", PlainConv(in_channels if i == 0 else cond_channels, cond_channels, 3))
+        self.classifier = nn.Linear(cond_channels, 1)
+
+    def forward(self, x):
+        h = x
+        for i in range(5):
+            h = F.elu(getattr(self, f"conv{i}")(h))
+        return torch.abs(flax_dense(h, self.classifier, h.dtype)[..., 0])
+
+
+class HiFT(nn.Module):
+    """Non-causal HiFTGenerator, the CosyVoice1/2 vocoder: conv_pre k7,
+    transposed-convolution upsampling, reflection pad at the last stage,
+    symmetric ResBlocks, the sinegen1 (22.05 kHz) or sinegen2 source and
+    the iSTFT. forward(mel, cache_source, noise_offset, noise_buf): the
+    caller's source cache replaces the first source samples (phase
+    continuity across streaming chunks) and the noise comes from noise_buf
+    at the chunk's absolute sample offset."""
+
+    def __init__(self, cfg: HiFTConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.f0_predictor = F0Predictor(cfg.in_channels, cfg.f0_cond_channels)
+        self.m_source = SourceModule(cfg, variant="sinegen1" if cfg.sampling_rate == 22050 else "sinegen2")
+        self.conv_pre = PlainConv(cfg.in_channels, cfg.base_channels, 7)
+        down_rates = [1] + list(cfg.upsample_rates[::-1][:-1])
+        down_cum = list(np.cumprod(down_rates))[::-1]
+        nfft2 = cfg.istft_n_fft + 2
+        self.n_res = len(cfg.resblock_kernel_sizes)
+        for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
+            ch_in = cfg.base_channels // (2**i)
+            ch_out = cfg.base_channels // (2 ** (i + 1))
+            setattr(self, f"ups_{i}", tconv_params(ch_in, ch_out, k))
+            du = int(down_cum[i])
+            setattr(self, f"source_downs_{i}", PlainConv(nfft2, ch_out, 1) if du == 1 else
+                    PlainConv(nfft2, ch_out, du * 2, stride=du, pad=du // 2))
+            setattr(self, f"source_resblocks_{i}", ResBlock(
+                ch_out, cfg.source_resblock_kernel_sizes[i], cfg.source_resblock_dilation_sizes[i], causal=False))
+            for j, (rk, rd) in enumerate(zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes)):
+                setattr(self, f"resblocks_{i}_{j}", ResBlock(ch_out, rk, rd, causal=False))
+        self.conv_post = PlainConv(cfg.base_channels // (2 ** len(cfg.upsample_rates)), nfft2, 7)
+
+    def forward(self, mel: torch.Tensor, cache_source: torch.Tensor | None = None,
+                noise_offset: int | torch.Tensor | None = None,
+                noise_buf: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """mel (B, L, 80) -> (audio (B, L*hop), source (B, L*hop, 1)). The f0
+        predictor runs on a float32 copy of the mel; cache_source (B, Lc, 1)
+        replaces the first Lc source samples."""
+        f0 = self.f0_predictor(mel.float())
+        s = self.m_source(f0, noise_offset=noise_offset, noise_buf=noise_buf).to(mel.dtype)
+        if cache_source is not None and cache_source.shape[1] > 0:
+            lc = cache_source.shape[1]
+            s = torch.cat([cache_source.to(s.dtype), s[:, lc:]], dim=1)
+        return self.decode(mel, s), s
+
+    def decode(self, mel: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+        """mel + NSF source -> waveform (B, L*hop)."""
+        c = self.cfg
+        win = torch.from_numpy(hann_window(c.istft_n_fft)).to(mel.device)
+        s_real, s_imag = stft(s[..., 0], c.istft_n_fft, c.istft_hop_len, win, center=True)
+        s_stft = torch.cat([s_real, s_imag], dim=1).transpose(1, 2)
+
+        x = self.conv_pre(mel)
+        n_up = len(c.upsample_rates)
+        for i, (u, k) in enumerate(zip(c.upsample_rates, c.upsample_kernel_sizes)):
+            x = F.leaky_relu(x, negative_slope=c.lrelu_slope)
+            up = getattr(self, f"ups_{i}")
+            x = conv_transpose1d(x, up.weight.to(x.dtype), up.bias.to(x.dtype), stride=u, padding=(k - u) // 2)
+            if i == n_up - 1:
+                x = torch.cat([x[:, 1:2], x], dim=1)  # ReflectionPad1d((1, 0))
+            si = getattr(self, f"source_resblocks_{i}")(getattr(self, f"source_downs_{i}")(s_stft))
+            n = min(x.shape[1], si.shape[1])
+            x = x[:, :n] + si[:, :n]
+            xs = None
+            for j in range(self.n_res):
+                r = getattr(self, f"resblocks_{i}_{j}")(x)
+                xs = r if xs is None else xs + r
+            x = xs / self.n_res
+
+        x = self.conv_post(F.leaky_relu(x, negative_slope=0.01))
+        nbins = c.istft_n_fft // 2 + 1
+        magnitude = torch.clamp(torch.exp(x[..., :nbins].transpose(1, 2)), max=1e2)
+        phase = torch.sin(x[..., nbins:]).transpose(1, 2)
+        audio = istft(magnitude * torch.cos(phase), magnitude * torch.sin(phase), c.istft_n_fft, c.istft_hop_len, win)
+        return torch.clamp(audio, -c.audio_limit, c.audio_limit)

@@ -1,5 +1,6 @@
 """CosyVoice3 AR speech-token LM on the Qwen2 backbone
-(fangyan_tts_tpu/models/llm.py: CosyVoice3LM, generate_speech_tokens, the
+(fangyan_tts_tpu/models/llm.py: CosyVoice3LM, its CosyVoice2 variant
+Qwen2LMV2, generate_speech_tokens, the
 resumable streaming decode `decode_prefill` / `decode_chunk`, the bistream
 context extension `bistream_append`, and the continuous batch `ContState`
 with `decode_chunk_cont`).
@@ -76,6 +77,26 @@ class CosyVoice3LM(nn.Module):
         bias = torch.where((slot >= start[:, None, None]) & (slot < end), 0.0, -1e10).to(torch.float32)
         h = self.llm(emb.to(cache["k"].dtype), positions, bias, cache)
         return self.decode_logits(h[:, 0])
+
+
+class Qwen2LMV2(CosyVoice3LM):
+    """The CosyVoice2 speech LM: CosyVoice3LM but for the special-id layout.
+    sos (0) and task (1) live in a separate 2-row `llm_embedding` table,
+    selected by plan src == 2 (data/lm_plan.remap_plan_v2); the head has
+    speech_token_size + 3 rows and a bias; the stop ids are size + {0, 1, 2}
+    (every id from speech_token_size on, as in CosyVoice3LM's decode)."""
+
+    def __init__(self, cfg: LLMConfig, dtype: torch.dtype = torch.float32):
+        super().__init__(cfg, dtype)
+        self.llm_embedding = nn.Embedding(2, cfg.llm_input_size)
+        self.llm_decoder = nn.Linear(cfg.llm_output_size, cfg.head_size, bias=True)
+
+    def embed_plan(self, src: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        text_e = self.embed_tokens(ids.clamp(0, self.cfg.qwen.vocab_size - 1))
+        speech_e = self.speech_embedding(ids.clamp(0, self.cfg.head_size - 1))
+        special_e = self.llm_embedding(ids.clamp(0, 1))
+        out = torch.where((src == 1)[..., None], speech_e, text_e)
+        return torch.where((src == 2)[..., None], special_e, out).to(self.dtype)
 
 
 @torch.no_grad()

@@ -64,6 +64,18 @@ def upsample_nearest(x: torch.Tensor, scale: int) -> torch.Tensor:
     return x[:, :, None, :].expand(b, l, scale, c).reshape(b, l * scale, c)
 
 
+def upsample_linear(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """(B, L, C) -> (B, L*scale, C) as F.interpolate(mode='linear',
+    align_corners=False) for an integer scale factor."""
+    l = x.shape[1]
+    coords = (torch.arange(l * scale, dtype=torch.float32, device=x.device) + 0.5) / scale - 0.5
+    coords = coords.clamp(0.0, l - 1)
+    lo = torch.floor(coords).to(torch.int64)
+    hi = torch.clamp(lo + 1, max=l - 1)
+    w = (coords - lo.to(torch.float32))[None, :, None]
+    return x[:, lo, :] * (1.0 - w) + x[:, hi, :] * w
+
+
 def downsample_linear(x: torch.Tensor, scale: int) -> torch.Tensor:
     """(B, L, C) -> (B, L//scale, C) as F.interpolate(mode='linear',
     scale_factor=1/scale, align_corners=False)."""

@@ -3,5 +3,7 @@ from .tokenizer import (
     CV3_SPECIAL_TOKENS,
     ByteFallbackTokenizer,
     QwenTTSTokenizer,
+    WhisperStyleTokenizer,
     get_qwen_tokenizer,
+    get_tokenizer,
 )

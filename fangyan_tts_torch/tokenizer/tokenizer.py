@@ -1,10 +1,14 @@
-"""Text tokenizers of CosyVoice2/3 (fangyan_tts_tpu/tokenizer/tokenizer.py,
-without the CosyVoice1 whisper-style tokenizer).
+"""Text tokenizers of the three model generations
+(fangyan_tts_tpu/tokenizer/tokenizer.py).
 
 - `QwenTTSTokenizer`: the HF AutoTokenizer of a local tokenizer directory
   plus the paralinguistic specials; v3 adds <|endofsystem|> and the ARPABET
   and pinyin phoneme tokens. `transformers` is imported only when one is
   built.
+- `WhisperStyleTokenizer` (CosyVoice1): tiktoken BPE from a `.tiktoken`
+  base64 rank file, plus the language, audio-event, emotion and TTS
+  specials and 1501 timestamps. `tiktoken` is imported only when one is
+  built; `get_tokenizer` without a rank file gives the byte tokenizer.
 - `ByteFallbackTokenizer`: a UTF-8 byte tokenizer with the same
   special-token interface, so the pipeline runs without tokenizer files.
   Its ids are not those of a Qwen checkpoint.
@@ -12,6 +16,7 @@ without the CosyVoice1 whisper-style tokenizer).
 
 from __future__ import annotations
 
+import base64
 import re
 from functools import lru_cache
 
@@ -60,6 +65,9 @@ CV3_SPECIAL_TOKENS = {
     "pad_token": "<|endoftext|>",
     "additional_special_tokens": list(_PARALINGUISTIC) + ["<|endofsystem|>"] + _ARPABET_TOKENS + _PINYIN_TOKENS,
 }
+
+# dialect-extended whisper language codes (tokenizer.py:111-117)
+EXTRA_LANGUAGES = ["yue", "minnan", "wuyu", "dialect", "zh/en", "en/zh"]
 
 
 class QwenTTSTokenizer:
@@ -151,3 +159,70 @@ def get_qwen_tokenizer(token_path: str | None, skip_special_tokens: bool = True,
         except (OSError, ValueError) as e:
             print(f"⚠️ could not load Qwen tokenizer from {token_path} ({e}); using byte fallback")
     return ByteFallbackTokenizer(skip_special_tokens, version)
+
+
+class WhisperStyleTokenizer:
+    """The CosyVoice1 tiktoken tokenizer: a base64-rank BPE vocabulary
+    (`vocab_path`, the format of the reference's
+    multilingual_zh_ja_yue_char_del.tiktoken) with the language /
+    audio-event / emotion / TTS specials and 1501 timestamps after it."""
+
+    def __init__(self, vocab_path: str, num_languages: int = 99):
+        import tiktoken
+
+        with open(vocab_path) as f:
+            ranks = {base64.b64decode(token): int(rank) for token, rank in (line.split() for line in f if line.strip())}
+        n_vocab = len(ranks)
+        specials = [
+            "<|endoftext|>",
+            "<|startoftranscript|>",
+            *[f"<|{lang}|>" for lang in self._language_codes()[:num_languages]],
+            *[f"<|{e}|>" for e in ("ASR", "AED", "SER", "Speech", "/Speech", "BGM", "/BGM", "Laughter", "/Laughter",
+                                   "Applause", "/Applause")],
+            *[f"<|{e}|>" for e in ("HAPPY", "SAD", "ANGRY", "NEUTRAL")],
+            "<|translate|>", "<|transcribe|>", "<|startoflm|>", "<|startofprev|>", "<|nospeech|>", "<|notimestamps|>",
+            *[f"<|SPECIAL_TOKEN_{i}|>" for i in range(1, 31)],
+            *[f"<|{t}|>" for t in ("TTS/B", "TTS/O", "TTS/Q", "TTS/A", "TTS/CO", "TTS/CL", "TTS/H")],
+            *[f"<|TTS/SP{i:02d}|>" for i in range(1, 14)],
+            *[f"<|{i * 0.02:.2f}|>" for i in range(1501)],
+        ]
+        special_tokens = {}
+        for tok in specials:
+            special_tokens[tok] = n_vocab
+            n_vocab += 1
+        self.encoding = tiktoken.Encoding(
+            name="cosyvoice1",
+            explicit_n_vocab=n_vocab,
+            pat_str=r"""'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+""",
+            mergeable_ranks=ranks,
+            special_tokens=special_tokens,
+        )
+
+    @staticmethod
+    def _language_codes() -> list[str]:
+        # whisper's language codes and the dialect extensions
+        base = (
+            "en zh de es ru ko fr ja pt tr pl ca nl ar sv it id hi fi vi he uk el ms cs ro da hu ta no th ur hr bg lt la "
+            "mi ml cy sk te fa lv bn sr az sl kn et mk br eu is hy ne mn bs kk sq sw gl mr pa si km sn yo so af oc ka be "
+            "tg sd gu am yi lo uz fo ht ps tk nn mt sa lb my bo tl mg as tt haw ln ha ba jw su"
+        ).split()
+        return base + EXTRA_LANGUAGES
+
+    def encode(self, text: str, allowed_special="all", **kwargs) -> list[int]:
+        return self.encoding.encode(text, allowed_special=allowed_special)
+
+    def decode(self, tokens: list[int]) -> str:
+        return self.encoding.decode([int(t) for t in tokens])
+
+    @property
+    def vocab_size(self) -> int:
+        return self.encoding.n_vocab
+
+
+@lru_cache(maxsize=None)
+def get_tokenizer(multilingual: bool = True, vocab_path: str | None = None, num_languages: int = 99):
+    """The CosyVoice1 factory: the whisper-style tokenizer on a rank file,
+    else the byte tokenizer."""
+    if vocab_path:
+        return WhisperStyleTokenizer(vocab_path, num_languages)
+    return ByteFallbackTokenizer(version="cosyvoice2")

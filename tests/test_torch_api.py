@@ -10,8 +10,9 @@ configurations), as tests/test_api.py replaces the JAX package's.
 Held: every inference_* mode gives the same speech tokens and each wav
 within 1e-3, offline and streamed (the same chunks); a text generator
 (bistream) offline and streamed; AutoModel's dispatch; the .pt -> msgpack
-conversion; and the NotImplementedErrors of the port (versions 1 and 2,
-inference_instruct).
+conversion; AutoModel's dispatch of versions 1 and 2 to the port's
+CosyVoice and CosyVoice2 (tests/test_torch_api_v1v2.py runs them); and
+the port's NotImplementedError of CosyVoice3.inference_instruct.
 
 Both packages decode with a bfloat16 KV cache whatever the model dtype, so
 their decode logits agree to about 2e-2 (tests/test_torch_llm.py), and a
@@ -268,11 +269,18 @@ def test_text_generator(models, model_dir, stream):
     ({"config.json": json.dumps({"version": 1})}, 1), ({"config.json": json.dumps({"version": 2})}, 2),
     ({"cosyvoice2.yaml": ""}, 2), ({"cosyvoice.yaml": ""}, 1),
 ])
-def test_automodel_refuses_v1_v2(tmp_path, files, version):
+def test_automodel_refuses_v1_v2(tmp_path, files, version, monkeypatch):
+    """Versions 1 and 2 are no longer refused: they go to CosyVoice and
+    CosyVoice2, which then look for their checkpoints."""
     for name, text in files.items():
         (tmp_path / name).write_text(text)
-    with pytest.raises(NotImplementedError, match=f"version {version}.*item 6"):
-        tapi.AutoModel(str(tmp_path), device="cpu")
+    cls = {1: tapi.CosyVoice, 2: tapi.CosyVoice2}[version]
+    with pytest.raises(FileNotFoundError, match="llm"):
+        tapi.AutoModel(str(tmp_path), device="cpu", fp16=False)
+    seen = []
+    monkeypatch.setattr(tapi, cls.__name__, lambda d, **kw: seen.append((d, kw)))
+    tapi.AutoModel(str(tmp_path), device="cpu")
+    assert seen == [(str(tmp_path), {"device": "cpu"})]
 
 
 @pytest.mark.parametrize("files", [{"cosyvoice3.yaml": ""}, {"config.json": "{}"}, {}])

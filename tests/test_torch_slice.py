@@ -149,6 +149,9 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'fangyan_tts_tpu')]\n"
         "assert not bad, bad\n"
         "assert 'fangyan_tts_torch.runtime.grpc_server' in sys.modules\n"
+        "v12 = ('models.conformer', 'models.unet_decoder', 'models.flow_xvec', 'models.llm_v1',\n"
+        "       'models.llm_v1_decode', 'infer.tts_v12', 'utils.common')\n"
+        "assert all('fangyan_tts_torch.' + m in sys.modules for m in v12)\n"
         "print(len([m for m in sys.modules if m.startswith('fangyan_tts_torch')]))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
@@ -161,7 +164,9 @@ def test_port_imports_without_optional_packages():
     regex, msgpack, transformers, tiktoken, grpc and protobuf unimportable
     (a CUDA host needs none of them; runtime/ imports grpc and protobuf only
     to serve or call); a tokenizer directory then raises, as in the JAX
-    package."""
+    package, and so does the v1 whisper-style tokenizer (tiktoken is
+    imported only to build one), while get_tokenizer without a rank file
+    gives the byte tokenizer."""
     code = (
         "import sys\n"
         "for name in ('jax', 'flax', 'regex', 'msgpack', 'transformers', 'tiktoken', 'fangyan_tts_tpu', 'grpc',\n"
@@ -173,10 +178,18 @@ def test_port_imports_without_optional_packages():
         "    importlib.import_module(m.name)\n"
         "from fangyan_tts_torch.runtime import grpc_client, grpc_server, http_server\n"
         "from fangyan_tts_torch.infer.textnorm import is_only_punctuation, text_normalize\n"
-        "from fangyan_tts_torch.tokenizer import get_qwen_tokenizer\n"
+        "from fangyan_tts_torch.tokenizer import WhisperStyleTokenizer, get_qwen_tokenizer, get_tokenizer\n"
+        "from fangyan_tts_torch.api import CosyVoice, CosyVoice2\n"
+        "from fangyan_tts_torch.infer.tts_v12 import CosyVoice2TTS, CosyVoiceV1TTS\n"
         "warnings.simplefilter('ignore')\n"
         "tok = get_qwen_tokenizer(None)\n"
         "assert tok.encode('<|endofprompt|>a') == [259, 97]\n"
+        "assert type(get_tokenizer(True, None)).__name__ == 'ByteFallbackTokenizer'\n"
+        "try:\n"
+        "    WhisperStyleTokenizer('ranks.tiktoken')\n"
+        "    raise AssertionError('the v1 tokenizer built without tiktoken')\n"
+        "except ImportError:\n"
+        "    pass\n"
         "assert is_only_punctuation('。！')\n"
         "assert text_normalize('3.5%', list, split=False) == 'three point five percent'\n"
         "try:\n"

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases 1,2,3,8   # the streaming slice alone
     python3 chip_smoke.py --phases 1,2,3,9   # the serving slice alone
     python3 chip_smoke.py --phases 1,2,3,10  # the CosyVoice2 / CosyVoice1 families alone
+    python3 chip_smoke.py --phases 1,2,3,11  # data prep stages 0-4 alone
 
 Phases:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -91,8 +92,23 @@ Phases:
      v2 run's decode launches are 24 a decode step and its shapes held to
      phase 3's checks (phase 3 works the v2 caches out from
      infer/tts_v12.v2_decode_buckets); every v1 run launches no kernel
-  6. one JSON line of per-kernel results (printed after phases 7, 8, 9 and 10)
-Phases 8, 9 and 10 run after phase 4's requests and before the profiler passes
+  11. data prep stages 0-4 at bench.py's full width (bench_data_prep: 128
+     synthesized wavs of 5-30 s, 8 speakers, batch 64, 64 utterances a
+     parquet shard) with full-size CAM++ and S3, random weights, bf16 as the
+     CLIs run them: stage 0 (the Kaldi directory, validated), stages 1+2
+     (data/extract.extract_all) and, when pyarrow imports, stages 0-4
+     (prepare_corpus, then data/dataset.build_pipeline's first LLM batch);
+     a warm-up pass and two timed passes of the fused route (utt/s and
+     seconds of audio a second); the fused route against the four-call
+     route and the two extraction CLIs (--checkpoint) against the library
+     calls, x-vectors within 1e-5 and codes equal; every artifact read back
+     with wav.scp's keys; the peak memory of each bucket's batch and of a
+     batch of 64 at 30 s; one 30 s batch under torch.profiler; float32 on the
+     card against the CPU on a 5, 10, 20 and 30 s utterance (phase 7's
+     limits) and bf16 against float32 (recorded); the audio loader and the
+     kernel launches (none: no kernel of the port is on this path)
+  6. one JSON line of per-kernel results (printed after phases 7 to 11)
+Phases 8, 9, 10 and 11 run after phase 4's requests and before the profiler passes
 of phases 5 and 7 (phase 8 runs S1 three times and S2 and S3 twice each,
 to leave phase 9 its time); a probe of the
 host's cost of one eager launch is logged at the start, around phases 8 and
@@ -113,6 +129,7 @@ import subprocess
 import sys
 import time
 import traceback
+from pathlib import Path
 
 import numpy as np
 
@@ -184,6 +201,17 @@ V1_TEXT, V1_RATIO = "你好世界。", 20.0
 # off: only the order of the sums differs (the v1 source's phase is a
 # float32 cumulative sum at the sample rate, which that order moves most).
 V1_REL_TOL = 1e-3
+
+# Data prep (phase 11): bench.py's bench_data_prep corpus, 128 utterances whose
+# durations cycle through DP_SECONDS (mean 13.25 s), 8 speakers of 16 in speaker-
+# major order, at its batch of 64 and 64 utterances a parquet shard. The float32
+# card-vs-CPU check takes one utterance of each of DP_CHECK_SECONDS' buckets and
+# holds it to phase 7's limits; the fused route is held to the four-call route
+# and the CLIs to the library calls within DP_ROUTE_ATOL (x-vectors), codes equal.
+DP_UTTS, DP_SECONDS, DP_SPEAKERS = 128, (5, 6, 8, 10, 12, 15, 20, 30), 8
+DP_BATCH, DP_SHARD = 64, 64
+DP_CHECK_SECONDS = (5, 10, 20, 30)
+DP_ROUTE_ATOL = 1e-5
 
 CARDS_USED = 1  # every phase runs on card 0
 PORT_KERNELS = ("decode_attention", "flash_attention", "int4_matmul")  # kernel names the profile reports
@@ -2410,9 +2438,320 @@ def v12_phase(results: dict, card: str, states: tuple[dict, dict], api: dict) ->
     out["v1"] = v1_runs(results, card)
 
 
+# ---------------------------------------------------------------- phase 11
+
+
+def dp_corpus(root, seed: int = 17) -> tuple[dict, dict, float]:
+    """bench.py's data-prep corpus (bench_data_prep), written before any
+    timer: utterance i lasts DP_SECONDS[i % 8] s, a sine at 80 + 10 (i % 12)
+    Hz under a 3.1 Hz envelope plus N(0, 0.02) noise, as 16 kHz 16-bit wavs
+    under root/raw. Returns (wav paths, texts, seconds of audio)."""
+    from fangyan_tts_torch.data.audio import write_wav
+
+    rng = np.random.default_rng(seed)
+    raw = root / "raw"
+    raw.mkdir()
+    wavs, texts, total = {}, {}, 0.0
+    for i in range(DP_UTTS):
+        dur = DP_SECONDS[i % len(DP_SECONDS)]
+        t = np.arange(16000 * dur) / 16000
+        f0 = 80.0 + 10.0 * (i % 12)
+        audio = 0.3 * np.sin(2 * np.pi * f0 * t) * (0.6 + 0.4 * np.sin(2 * np.pi * 3.1 * t))
+        audio += 0.02 * rng.standard_normal(t.size)
+        u = f"utt{i:04d}"
+        write_wav(raw / f"{u}.wav", audio.astype(np.float32), 16000)
+        wavs[u], texts[u] = str(raw / f"{u}.wav"), f"这是第{i}句合成测试文本。"
+        total += dur
+    return wavs, texts, total
+
+
+def dp_stage0(d, wavs: dict, texts: dict) -> dict:
+    """Stage 0: the Kaldi directory with instruct lines (data/kaldi_io
+    write_kaldi_dir), validated (validate_dir: the required files present,
+    one line an utterance, one a speaker in spk2utt). Returns utt2spk."""
+    from fangyan_tts_torch.data.kaldi_io import validate_dir, write_kaldi_dir
+
+    per = DP_UTTS // DP_SPEAKERS
+    utt2spk = {u: f"spk{i // per}" for i, u in enumerate(wavs)}
+    write_kaldi_dir(d, wavs, texts, utt2spk, {u: "请用普通话说。<|endofprompt|>" for u in wavs})
+    v = validate_dir(d)
+    lines = v["line_counts"]
+    if not v["valid"] or {lines[f] for f in ("wav.scp", "text", "utt2spk")} != {DP_UTTS} or \
+            lines["spk2utt"] != DP_SPEAKERS or not v["instruct"]:
+        raise AssertionError(f"stage 0 validation failed: {v}")
+    return utt2spk
+
+
+class _Bytes:
+    """Stage 4's tokenizer: UTF-8 bytes (bench.py's byte stand-in)."""
+
+    def encode(self, s, **kw):
+        return list(s.encode("utf-8"))
+
+
+def dp_stage4(list_path) -> int:
+    """Stage 4: the training pipeline (data/dataset.build_pipeline, llm mode)
+    yields a collated LLM batch from the shards; returns its rows."""
+    from fangyan_tts_torch.config import CosyVoiceConfig
+    from fangyan_tts_torch.data.dataset import build_pipeline
+
+    it = build_pipeline(str(list_path), _Bytes(), None, mode="llm", llm_cfg=CosyVoiceConfig().llm,
+                        shuffle_size=64, sort_size=32)
+    batch = next(iter(it))
+    ids = batch["ids"]
+    if ids.ndim != 2 or ids.shape[0] < 1 or ids.shape[1] % 64 or not (batch["lengths"] > 0).all():
+        raise AssertionError(f"stage 4 yielded a malformed batch: {({k: np.shape(v) for k, v in batch.items()})}")
+    return int(ids.shape[0])
+
+
+def dp_artifacts(d, utt2spk: dict, shards: bool) -> None:
+    """Every artifact is written and reads back with the keys of wav.scp
+    (the speakers of utt2spk for spk2embedding): finite 192-d float32
+    x-vectors, non-empty int32 token rows; with `shards`, the two parquet
+    shards, their json sidecars and the three lists, whose utt columns hold
+    every utterance once."""
+    import torch
+
+    from fangyan_tts_torch.data.kaldi_io import read_scp
+
+    keys = set(read_scp(d / "wav.scp"))
+    for name, want in (("utt2embedding.pt", keys), ("spk2embedding.pt", set(utt2spk.values())),
+                       ("utt2speech_token.pt", keys)):
+        got = torch.load(d / name, weights_only=False)
+        if set(got) != want:
+            raise AssertionError(f"{name}: keys differ from wav.scp's ({len(got)} against {len(want)})")
+        for k, v in got.items():
+            ok = (v.dtype == torch.int32 and v.dim() == 1 and v.numel() > 0) if "token" in name else \
+                (v.dtype == torch.float32 and tuple(v.shape) == (192,) and bool(torch.isfinite(v).all()))
+            if not ok:
+                raise AssertionError(f"{name}[{k}]: {v.dtype} {tuple(v.shape)}")
+    if not shards:
+        return
+    import pyarrow.parquet as pq
+
+    pq_dir = d / "pq"
+    lists = {n: (pq_dir / n).read_text().splitlines() for n in ("data.list", "utt2data.list", "spk2data.list")}
+    n_shards = -(-DP_UTTS // DP_SHARD)
+    if any(len(v) != n_shards for v in lists.values()):
+        raise AssertionError(f"shard lists: {lists}")
+    utts = []
+    for pf, uf in zip(lists["data.list"], lists["utt2data.list"]):
+        cols = pq.read_table(pf, columns=["utt", "sample_rate", "num_samples", "instruct"]).to_pydict()
+        utts += cols["utt"]
+        if set(json.loads(Path(uf).read_text())) != set(cols["utt"]) or set(cols["sample_rate"]) != {16000}:
+            raise AssertionError(f"shard {pf} and its sidecar disagree")
+    if sorted(utts) != sorted(keys):
+        raise AssertionError("the shards' utt columns do not hold every utterance once")
+
+
+def dp_pass(root, tag: str, wavs: dict, texts: dict, total_s: float, emb, tok, fused_apply, full: bool) -> dict:
+    """One pass on a fresh directory: stages 1+2 (`extract_all`, stage 0
+    before the clock) or, with `full`, stages 0-4 (stage 0, `prepare_corpus`
+    with the shards packed between drains, then `build_pipeline`'s first
+    batch) on the clock; each stage's wall, and the artifacts checked after."""
+    import torch
+
+    from fangyan_tts_torch.data.extract import extract_all, prepare_corpus
+
+    d = root / tag
+    out: dict = {}
+    t0 = time.perf_counter()
+    utt2spk = dp_stage0(d, wavs, texts)
+    t1 = time.perf_counter()
+    if full:
+        prepare_corpus(d, d / "pq", emb, tok, batch_size=DP_BATCH, num_utts_per_parquet=DP_SHARD, instruct=True,
+                       fused_apply=fused_apply)
+        t2 = time.perf_counter()
+        out["stage4_rows"] = dp_stage4(d / "pq" / "data.list")
+        t3 = time.perf_counter()
+        out.update(stage0_s=t1 - t0, stages123_s=t2 - t1, stage4_s=t3 - t2, wall_s=t3 - t0)
+    else:
+        out["maps"] = extract_all(d, emb, tok, batch_size=DP_BATCH, fused_apply=fused_apply)
+        torch.cuda.synchronize()
+        out["wall_s"] = time.perf_counter() - t1
+    out.update(utt_per_s=DP_UTTS / out["wall_s"], audio_s_per_s=total_s / out["wall_s"])
+    dp_artifacts(d, utt2spk, shards=full)
+    return out
+
+
+def _route_check(label: str, got: tuple[dict, dict], want: tuple[dict, dict]) -> tuple[float, bool]:
+    """x-vectors within DP_ROUTE_ATOL and codes equal, utterance by utterance."""
+    (ge, gt), (we, wt) = got, want
+    err = max(float(np.abs(ge[u] - we[u]).max()) for u in we)
+    same = sorted(gt) == sorted(wt) and all(np.array_equal(gt[u], wt[u]) for u in wt)
+    ok = sorted(ge) == sorted(we) and err <= DP_ROUTE_ATOL and same
+    log(f"data prep {label}: x-vectors max|diff| {err:.3e} (limit {DP_ROUTE_ATOL}), codes "
+        f"{'equal' if same else 'DIFFER'} {'OK' if ok else 'FAIL'}")
+    return err, ok
+
+
+def dp_checks(card: str, utts: list, states: tuple[dict, dict], emb16, tok16) -> dict:
+    """Float32 on the card against float32 on the CPU (the same weights and
+    audio, one utterance of each of DP_CHECK_SECONDS' buckets through the
+    fused route), gated by phase 7's limits; then the bf16 route against
+    float32 on the card, recorded."""
+    import torch
+
+    from fangyan_tts_torch.data.extract import _batched_buckets, fused
+    from fangyan_tts_torch.infer.tts import _load
+    from fangyan_tts_torch.models.campplus import CAMPPlus
+    from fangyan_tts_torch.models.s3tokenizer import S3TokenizerV3
+
+    picks = [utts[DP_SECONDS.index(s)] for s in DP_CHECK_SECONDS]
+
+    def run(dev: str, emb, tok) -> dict:
+        out = {}
+        for names, pad, lens in _batched_buckets(picks, 16000, DP_BATCH):
+            e, c, n = (x.cpu().numpy() for x in fused(emb, tok)(torch.from_numpy(pad).to(dev),
+                                                                 torch.from_numpy(lens).to(dev)))
+            for i, u in enumerate(names):
+                out[u] = (e[i].astype(np.float32), c[i, : n[i]], int(n[i]))
+        return out
+
+    camp_sd, s3_sd = states
+    f32 = {}
+    for dev in ("cuda", "cpu"):
+        cm, sm = _load(CAMPPlus, camp_sd, torch.device(dev)), _load(S3TokenizerV3, s3_sd, torch.device(dev))
+        f32[dev] = run(dev, lambda f, fl: cm(f), lambda m, ml: sm(m, ml))
+        del cm, sm
+    b16 = run("cuda", emb16, tok16)
+    rows, ok = [], True
+    for (u, _), sec in zip(picks, DP_CHECK_SECONDS):
+        (xg, cg, lg), (xc, cc, lc), (xb, cb, lb) = f32["cuda"][u], f32["cpu"][u], b16[u]
+        xerr = float(np.abs(xg - xc).max())
+        x_ok = bool(np.allclose(xg, xc, atol=XVEC_ATOL, rtol=XVEC_RTOL))
+        same = float((cg == cc).mean()) if lg == lc else 0.0
+        cos = float(np.dot(xb, xg) / (np.linalg.norm(xb) * np.linalg.norm(xg)))
+        same16 = float((cb == cg).mean()) if lb == lg else float("nan")
+        row_ok = x_ok and lg == lc and same >= S3_CODES_EQUAL and np.isfinite(xb).all() and lb == lg
+        ok &= row_ok
+        rows.append(dict(seconds=sec, xvec_max_abs_err=xerr, code_len=(lg, lc), codes_equal=same,
+                         unique_codes=int(len(np.unique(cg))), bf16_xvec_cos=cos, bf16_codes_equal=same16))
+        log(f"data prep {sec} s utterance, fused route: CAM++ card vs CPU float32 max|diff| {xerr:.3e} (atol "
+            f"{XVEC_ATOL}, rtol {XVEC_RTOL}), S3 code lengths {lg} / {lc}, codes equal on {same:.4f} (limit "
+            f"{S3_CODES_EQUAL}; {rows[-1]['unique_codes']} distinct); bf16 vs float32 on the card: x-vector cosine "
+            f"{cos:.6f}, codes equal {same16:.4f} (recorded) [{card}] {'OK' if row_ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("data prep: float32 card against CPU failed its limits")
+    return {"card_vs_cpu": rows}
+
+
+def dataprep_phase(results: dict, card: str, states: tuple[dict, dict]) -> None:
+    """Phase 11, data prep stages 0-4 at bench.py's full width (128
+    utterances of 5-30 s, batch 64, 64 a shard), full-size CAM++ and S3
+    with random weights from `states` in bf16 as the CLIs run them: a
+    warm-up pass, two timed passes of the fused route (stages 1+2, and
+    stages 0-4 when pyarrow imports), the fused route against the four-call
+    route and the two extraction CLIs against the library calls on the
+    card, the peak memory of each bucket's batch and of a 64-row 30 s batch,
+    one 30 s batch under torch.profiler, and the float32 / bf16 checks."""
+    import tempfile
+    import torch
+
+    from fangyan_tts_torch.cli import extract_embedding, extract_speech_token
+    from fangyan_tts_torch.data import native
+    from fangyan_tts_torch.data.extract import _batched_buckets, fused, load_utts
+    from fangyan_tts_torch.infer.frontend import make_campplus_fn, make_s3_fn
+    from fangyan_tts_torch.models.campplus import CAMPPlus
+    from fangyan_tts_torch.models.from_jax import to_jax_tree
+    from fangyan_tts_torch.models.s3tokenizer import S3TokenizerV3
+    from fangyan_tts_torch.train.checkpoint import save_params
+
+    try:
+        import pyarrow
+        full, why = True, f"pyarrow {pyarrow.__version__} imports"
+    except ImportError as e:
+        full, why = False, f"pyarrow does not import ({e})"
+    log(f"data prep: stages {'0-4' if full else '1+2 only'} run: {why}; audio loader: {native.loader()}")
+    out: dict = {"stages": "0-4" if full else "1+2", "pyarrow": why, "loader": native.loader()}
+    with torch.device("meta"):
+        skels = CAMPPlus(), S3TokenizerV3()
+    trees = [to_jax_tree(sd, skel) for sd, skel in zip(states, skels)]
+    camp, s3 = make_campplus_fn(trees[0]), make_s3_fn(trees[1])  # bf16 on the card, as the CLIs build them
+    emb, tok = (lambda f, fl: camp(f)), s3
+    fused_apply = fused(emb, tok)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build, prefix="dataprep_") as tmp:
+        root = Path(tmp)
+        t = time.perf_counter()
+        wavs, texts, total_s = dp_corpus(root)
+        log(f"data prep corpus: {DP_UTTS} wavs, {total_s:.0f} s of audio ({total_s / DP_UTTS:.2f} s mean), "
+            f"{DP_SPEAKERS} speakers, written in {time.perf_counter() - t:.2f} s (not timed)")
+        t = time.perf_counter()
+        dp_pass(root, "warm", wavs, texts, total_s, emb, tok, fused_apply, full)
+        log(f"data prep warm-up pass (stages {'0-4' if full else '1+2'}): {time.perf_counter() - t:.2f} s")
+        _zero_launches()
+        passes = [("1+2", False), ("1+2", False)] + ([("0-4", True), ("0-4", True)] if full else [])
+        timed = []
+        for i, (label, f) in enumerate(passes):
+            r = dp_pass(root, f"pass{i}", wavs, texts, total_s, emb, tok, fused_apply, f)
+            timed.append((label, r))
+            parts = (f" (stage 0 {r['stage0_s']:.3f} s, stages 1-3 {r['stages123_s']:.3f} s, stage 4 "
+                     f"{r['stage4_s']:.3f} s, a batch of {r['stage4_rows']} rows)") if f else ""
+            log(f"data prep stages {label}, fused route, pass {i + 1}: {r['wall_s']:.3f} s{parts}, "
+                f"{r['utt_per_s']:.2f} utt/s, {r['audio_s_per_s']:.1f} s of audio a second [{card}]")
+        launches = _launches()
+        log(f"data prep: kernel launches of the timed passes {launches} (this path has no kernel of the port)")
+        out["passes"] = [dict(stages=label, **{k: v for k, v in r.items() if k != "maps"}) for label, r in timed]
+        out["launches"] = launches
+        # the four-call route, then the two stage CLIs, against the fused route's last stages 1+2 pass
+        four = dp_pass(root, "four_call", wavs, texts, total_s, emb, tok, None, False)
+        last = timed[1][1]["maps"]
+        route_err, route_ok = _route_check("fused against four-call", last, four["maps"])
+        ckpt = root / "ckpt"
+        bf16 = lambda sd: {k: v.to(torch.bfloat16) if v.dim() >= 2 else v for k, v in sd.items()}
+        for name, sd, skel in zip(("campplus", "s3tokenizer"), states, skels):
+            save_params(ckpt / f"{name}.msgpack", to_jax_tree(bf16(sd), skel))
+        cli_dir = root / "cli"
+        dp_stage0(cli_dir, wavs, texts)
+        t = time.perf_counter()
+        extract_embedding.main(["--dir", str(cli_dir), "--checkpoint", str(ckpt / "campplus.msgpack"),
+                                "--batch-size", str(DP_BATCH)])
+        extract_speech_token.main(["--dir", str(cli_dir), "--checkpoint", str(ckpt / "s3tokenizer.msgpack"),
+                                   "--batch-size", str(DP_BATCH)])
+        cli_s = time.perf_counter() - t
+        cli_maps = tuple({k: v.numpy() for k, v in torch.load(cli_dir / n, weights_only=False).items()}
+                         for n in ("utt2embedding.pt", "utt2speech_token.pt"))
+        cli_err, cli_ok = _route_check(f"stage CLIs (--checkpoint, {cli_s:.2f} s for both)", cli_maps, four["maps"])
+        out.update(route_err=route_err, cli_err=cli_err, cli_s=cli_s)
+        if not (route_ok and cli_ok):
+            raise AssertionError("data prep: a route disagrees with the four-call route")
+
+        # peak memory and time of each bucket's batch, and of a batch of DP_BATCH rows at 30 s
+        utts = load_utts(wavs, progress=False)
+        mem = []
+        batches = list(_batched_buckets(utts, 16000, DP_BATCH))
+        pad30, lens30 = next((p, n) for _, p, n in batches if p.shape[1] == 30 * 16000)
+        rep = -(-DP_BATCH // len(lens30))
+        batches.append(([], np.concatenate([pad30] * rep)[:DP_BATCH], np.concatenate([lens30] * rep)[:DP_BATCH]))
+        for _, pad, lens in batches:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t = time.perf_counter()
+            outs = [o.cpu() for o in fused_apply(torch.from_numpy(pad).cuda(), torch.from_numpy(lens).cuda())]
+            ms = (time.perf_counter() - t) * 1e3
+            peak = torch.cuda.max_memory_allocated()
+            del outs
+            mem.append(dict(bucket_s=pad.shape[1] // 16000, rows=pad.shape[0], peak_gib=peak / 2**30,
+                            above_resident_gib=(peak - base) / 2**30, ms=ms))
+            log(f"data prep memory: {pad.shape[0]} rows of the {pad.shape[1] // 16000} s bucket: peak "
+                f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB above the resident "
+                f"{base / 2**30:.2f}), {ms:.1f} ms for the batch (upload, fused step, read back) [{card}]")
+        out["memory"] = mem
+        d30, n30 = torch.from_numpy(pad30), torch.from_numpy(lens30)
+        out["profile"] = _profile({f"fused step, 30 s bucket ({len(lens30)} rows)":
+                                   lambda: [o.cpu() for o in fused_apply(d30.cuda(), n30.cuda())]},
+                                  card, "data prep")
+        out.update(dp_checks(card, utts, states, emb, tok))
+    results["dataprep"] = out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10", help="comma-separated phases to run (see above)")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11", help="comma-separated phases to run (see above)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -2443,7 +2782,7 @@ def main() -> int:
     stream = stream_shapes(api)
     serving = serving_spec(api)
     v12 = v12_spec(api)
-    states = frontend_states() if phases & {4, 7, 8, 9, 10} else None
+    states = frontend_states() if phases & {4, 7, 8, 9, 10, 11} else None
     if 3 in phases:
         batches = [batch_shapes(r) for r in batch_requests_spec()]
         log(f"batched requests' shapes (a), (b): {batches}; the API request's: {api}; the streams': {stream}; "
@@ -2495,6 +2834,11 @@ def main() -> int:
             v12_phase(results, card, states, api)
             log(f"phase 10 took {time.perf_counter() - t:.1f} s")
             launch_probe(results, "after phase 10")
+        if 11 in phases:  # after phase 10, before the profiler passes of phases 5 and 7
+            t = time.perf_counter()
+            dataprep_phase(results, card, states)
+            log(f"phase 11 took {time.perf_counter() - t:.1f} s")
+            launch_probe(results, "after phase 11")
         if 4 in phases and 5 in phases:
             profile_stages(tts, req, results, card)
             (tts_a, req_a), (tts_b, req_b) = batched["a"], batched["b"]
@@ -2534,7 +2878,7 @@ def main() -> int:
         log("detail: " + json.dumps({k: results[k] for k in ("decode_timing", "flash_timing", "int4_timing", "requests",
                                                              "api_request", "batch_requests", "profile",
                                                              "profile_batch", "frontend", "streaming",
-                                                             "serving", "v12", "decode_rows_bit_equal",
+                                                             "serving", "v12", "dataprep", "decode_rows_bit_equal",
                                                              "launch_probe_us")
                                      if k in results}))
         log(json.dumps({"kernels": kernels}), stamp=False)

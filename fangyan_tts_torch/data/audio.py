@@ -1,14 +1,18 @@
 """Host-side audio I/O and resampling (fangyan_tts_tpu/data/audio.py).
 
 WAV read and write with the standard library's `wave` and numpy; anything
-else is decoded by an ffmpeg subprocess; polyphase resampling with a
-Kaiser-windowed sinc filter through scipy's overlap-add convolution.
+else is decoded by an ffmpeg subprocess; durations of other containers by
+mutagen, else pydub, else ffprobe (each imported or looked up only when a
+non-wav file asks); MP3 (or anything) to 16 kHz wav by ffmpeg; polyphase
+resampling with a Kaiser-windowed sinc filter through scipy's overlap-add
+convolution.
 """
 
 from __future__ import annotations
 
 import functools
 import shutil
+import struct
 import subprocess
 import wave
 from pathlib import Path
@@ -53,6 +57,76 @@ def write_wav(path: str | Path, data: np.ndarray, sr: int) -> None:
         w.setsampwidth(2)
         w.setframerate(sr)
         w.writeframes(pcm.tobytes())
+
+
+def wav_duration(path: str | Path) -> float:
+    with wave.open(str(path), "rb") as w:
+        return w.getnframes() / float(w.getframerate())
+
+
+@functools.lru_cache(maxsize=1)
+def _duration_backend() -> str:
+    try:
+        import mutagen  # noqa: F401
+
+        return "mutagen"
+    except ImportError:
+        pass
+    try:
+        import pydub  # noqa: F401
+
+        return "pydub"
+    except ImportError:
+        pass
+    if shutil.which("ffprobe"):
+        return "ffprobe"
+    return "wave-only"
+
+
+def audio_duration(path: str | Path) -> float:
+    """Duration in seconds, 0.0 on failure (stats_duration.py backend chain)."""
+    p = str(path)
+    if p.lower().endswith(".wav"):
+        try:
+            return wav_duration(p)
+        except (wave.Error, OSError, EOFError, struct.error):
+            pass
+    backend = _duration_backend()
+    try:
+        if backend == "mutagen":
+            import mutagen
+
+            m = mutagen.File(p)
+            return float(m.info.length) if m is not None else 0.0
+        if backend == "pydub":
+            from pydub import AudioSegment
+
+            return len(AudioSegment.from_file(p)) / 1000.0
+        if backend == "ffprobe":
+            out = subprocess.run(
+                ["ffprobe", "-v", "error", "-show_entries", "format=duration", "-of", "csv=p=0", p],
+                capture_output=True, timeout=30,
+            )
+            return float(out.stdout.decode().strip()) if out.returncode == 0 else 0.0
+    except Exception:  # noqa: BLE001 - any unreadable file counts as a failed one, as in the reference
+        return 0.0
+    return 0.0
+
+
+def ffmpeg_to_wav16k(src: str | Path, dst: str | Path, sr: int = 16000, timeout: int = 30) -> tuple[bool, str]:
+    """MP3/any -> mono 16k pcm_s16le WAV (prepare_training_data.py:96-117)."""
+    if Path(dst).exists():
+        return True, str(dst)
+    try:
+        r = subprocess.run(
+            ["ffmpeg", "-y", "-i", str(src), "-ar", str(sr), "-ac", "1", "-acodec", "pcm_s16le", str(dst)],
+            capture_output=True, timeout=timeout,
+        )
+        if r.returncode == 0:
+            return True, str(dst)
+        return False, f"FFmpeg error: {r.stderr.decode()[:100]}"
+    except (OSError, subprocess.SubprocessError) as e:
+        return False, str(e)
 
 
 def load_audio(path: str | Path, target_sr: int | None = None) -> tuple[np.ndarray, int]:

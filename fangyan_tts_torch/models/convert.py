@@ -8,15 +8,16 @@ fangyan_tts_tpu/models/convert.py that the API and the frontend need).
   split q/k/v and gate/up kernels; `filter_training_meta` drops the
   epoch/step scalars of a training checkpoint;
 - `campplus_params_from_torch` and `s3_params_from_torch` map the CAM++ and
-  S3 tokenizer state dicts;
+  S3 tokenizer state dicts, and `campplus_params_from_onnx` /
+  `s3_params_from_onnx` the same weights read from the reference's
+  campplus.onnx / speech_tokenizer_v3.onnx (data/onnx_proto.py);
 - the CosyVoice1/2 converters: `llm_v1_params_from_reference`,
   `llm_v2_params_from_reference`, `flow_v1_params_from_reference`,
   `flow_v2_params_from_reference` and `hift_nc_params_from_reference`, on
   the conformer, U-Net and BatchNorm-fold helpers.
 
 The trees are nested dicts of numpy arrays, in the JAX package's layout;
-models/from_jax.py carries them into the port's modules. The ONNX
-converters are not copied yet.
+models/from_jax.py carries them into the port's modules.
 """
 
 from __future__ import annotations
@@ -360,6 +361,26 @@ def campplus_params_from_torch(sd: Mapping[str, Any], block_layers=(12, 24, 16))
     return p
 
 
+def campplus_params_from_onnx(path, block_layers=(12, 24, 16)) -> dict:
+    """campplus.onnx -> CAMPPlus params (tools/extract_embedding.py:36-41).
+
+    Torch ONNX exports keep state-dict names for initializers when BN is not
+    constant-folded; folded graphs rename them onnx::Conv_*, and are refused."""
+    from ..data.onnx_proto import load_graph
+
+    sd = load_graph(path).weights()
+    if "xvector.tdnn.linear.weight" not in sd:
+        raise ValueError(
+            "campplus.onnx initializers are not state-dict-named (likely a "
+            "constant-folded export); export it without constant folding"
+        )
+    # architecture check against the graph: the dense layers' conv1x1 bottlenecks
+    n_tdnnd = sum(1 for k in sd if ".linear1.weight" in k and ".cam_layer" not in k)
+    if n_tdnnd != sum(block_layers):
+        raise ValueError(f"graph has {n_tdnnd} dense layers, expected {sum(block_layers)}")
+    return campplus_params_from_torch(sd, block_layers)
+
+
 # ------------------------------------------------------- S3 tokenizer frontend
 
 
@@ -406,6 +427,21 @@ def s3_params_from_torch(sd: Mapping[str, Any]) -> tuple[dict, dict]:
         }
     hyper = {"dim": dim, "n_mels": n_mels, "layers": layers, "fsmn_kernel": fsmn_k}
     return p, hyper
+
+
+def s3_params_from_onnx(path) -> tuple[dict, dict]:
+    """speech_tokenizer_v3.onnx -> (params, derived hyperparams)
+    (tools/extract_speech_token.py:38-48). Requires a state-dict-named
+    export; folded / renamed graphs are refused."""
+    from ..data.onnx_proto import load_graph
+
+    sd = load_graph(path).weights()
+    if "encoder.conv1.weight" not in sd:
+        raise ValueError(
+            "speech tokenizer ONNX initializers are not state-dict-named "
+            "(likely a constant-folded export); export it without constant folding"
+        )
+    return s3_params_from_torch(sd)
 
 
 # --------------------------------------------- CosyVoice1/2 families

@@ -152,7 +152,11 @@ def kaldi_fbank(
     hop = int(sampling_rate * frame_shift_ms / 1000.0)  # 160
     padded = 1 << (win - 1).bit_length()  # 512
 
-    frames = frame_signal(y, win, hop)  # (B, F, win)
+    # the framing and the DFT in float64, the power float32 again: the low
+    # mel bins of speech hold a millionth of a frame's energy after the
+    # pre-emphasis, and the rounding of a float32 product (its order differs
+    # between BLAS libraries) moves their log by more than 1e-4
+    frames = frame_signal(y.double(), win, hop)  # (B, F, win)
     frames = frames - frames.mean(dim=-1, keepdim=True)
     shifted = torch.cat([frames[..., :1], frames[..., :-1]], dim=-1)
     frames = frames - preemphasis * shifted
@@ -160,9 +164,9 @@ def kaldi_fbank(
     frames = F.pad(frames, (0, padded - win))
 
     cos_b, sin_b = _dft_bases(padded)
-    real = torch.einsum("bfn,nk->bfk", frames, _basis(cos_b, frames))
-    imag = torch.einsum("bfn,nk->bfk", frames, _basis(sin_b, frames))
-    power = real * real + imag * imag  # (B, F, padded//2+1)
+    real = torch.einsum("bfn,nk->bfk", frames, _basis(cos_b, frames).double())
+    imag = torch.einsum("bfn,nk->bfk", frames, _basis(sin_b, frames).double())
+    power = (real * real + imag * imag).float()  # (B, F, padded//2+1)
 
     fb = _basis(mel_filterbank_kaldi(sampling_rate, padded, num_mel_bins, low_freq), power)
     mel = torch.einsum("mk,bfk->bfm", fb, power[..., :-1])

@@ -34,7 +34,7 @@ from fangyan_tts_tpu.models.campplus import CAMPPlus
 from fangyan_tts_tpu.models.convert import campplus_params_from_torch, s3_params_from_torch
 from fangyan_tts_tpu.models.s3tokenizer import S3TokenizerV3
 from fangyan_tts_tpu.tokenizer import ByteFallbackTokenizer as JaxBytes
-from torch_port_util import campplus_kwargs, campplus_oracle, s3_kwargs, s3_oracle
+from torch_port_util import FE_CAMP, FE_S3, campplus_kwargs, campplus_oracle, s3_kwargs, s3_oracle
 
 XVEC_ATOL, XVEC_RTOL = 2e-4, 2e-3  # tests/test_campplus_parity.py
 FEAT_ATOL = 1e-3
@@ -95,10 +95,6 @@ def test_s3_padding_invariance():
 
 
 # ---------------------------------------------------------------- Frontend
-
-FE_CAMP = dict(feat_dim=80, embedding_size=192, growth_rate=4, bn_size=4, init_channels=16, block_layers=(2, 2, 2))
-FE_S3 = dict(n_mels=128, n_state=32, n_head=4, n_layer=2, kernel_size=7)
-
 
 def _jax_fns(camp_params, s3_params):
     jkw, _ = campplus_kwargs(FE_CAMP)

@@ -111,3 +111,46 @@ def s3_kwargs(tiny: dict) -> dict:
     """The kwargs of either package's S3TokenizerV3 for an oracle configuration."""
     return dict(dim=tiny["n_state"], heads=tiny["n_head"], layers=tiny["n_layer"], n_mels=tiny["n_mels"],
                 fsmn_kernel=tiny["kernel_size"])
+
+
+# CAM++ and S3 at sizes whose features are the real ones (80 fbank bins, 128
+# whisper mels, 192-d x-vectors, as the training pipeline's collates need)
+# and whose depth and width are tiny
+FE_CAMP = dict(feat_dim=80, embedding_size=192, growth_rate=4, bn_size=4, init_channels=16, block_layers=(2, 2, 2))
+FE_S3 = dict(n_mels=128, n_state=32, n_head=4, n_layer=2, kernel_size=7)
+
+
+def speech_like(n: int, sr: int, rng) -> np.ndarray:
+    """float32 audio of n samples: a voiced harmonic series on a gliding f0,
+    a syllable-rate envelope and a little noise, so S3 codes vary."""
+    t = np.arange(n) / sr
+    f0 = rng.uniform(100.0, 220.0) + 30.0 * np.sin(2 * np.pi * rng.uniform(0.3, 1.5) * t)
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    voiced = sum(np.sin(h * phase + h) / h for h in range(1, 9))
+    env = 0.3 + np.sin(2 * np.pi * rng.uniform(2.0, 4.0) * t) ** 2
+    x = env * voiced + 0.05 * rng.standard_normal(n)
+    return (0.5 * x / np.abs(x).max()).astype(np.float32)
+
+
+def write_corpus(root, lengths, seed: int, spk_size: int = 4, sr: int = 16000) -> dict:
+    """A Kaldi directory under `root`: one 16-bit wav per entry of `lengths`
+    (samples) in root/wavs, wav.scp / text / utt2spk / spk2utt / instruct,
+    speaker-major (spk_size utterances a speaker). Returns wav.scp as a dict."""
+    from pathlib import Path
+
+    from fangyan_tts_tpu.data import kaldi_io
+    from fangyan_tts_tpu.data.audio import write_wav
+
+    root = Path(root)
+    (root / "wavs").mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    wav_scp, text, utt2spk, instruct = {}, {}, {}, {}
+    for i, n in enumerate(lengths):
+        u = f"utt{i:03d}"
+        write_wav(root / "wavs" / f"{u}.wav", speech_like(int(n), sr, rng), sr)
+        wav_scp[u] = str(root / "wavs" / f"{u}.wav")
+        text[u] = f"这是第{i}句测试文本。"
+        utt2spk[u] = f"spk{i // spk_size}"
+        instruct[u] = "请用四川话说。<|endofprompt|>"
+    kaldi_io.write_kaldi_dir(root, wav_scp, text, utt2spk, instruct)
+    return wav_scp

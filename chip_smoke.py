@@ -99,9 +99,10 @@ Phases:
      (data/extract.extract_all) and, when pyarrow imports, stages 0-4
      (prepare_corpus, then data/dataset.build_pipeline's first LLM batch);
      a warm-up pass and two timed passes of the fused route (utt/s and
-     seconds of audio a second); the fused route against the four-call
-     route and the two extraction CLIs (--checkpoint) against the library
-     calls, x-vectors within 1e-5 and codes equal; every artifact read back
+     seconds of audio a second); the fused route against the separate
+     stages (extract_embeddings + extract_speech_tokens, each its own load
+     and upload) and the two extraction CLIs (--checkpoint) against the
+     separate stages, x-vectors within 1e-5 and codes equal; every artifact read back
      with wav.scp's keys; the peak memory of each bucket's batch and of a
      batch of 64 at 30 s; one 30 s batch under torch.profiler; float32 on the
      card against the CPU on a 5, 10, 20 and 30 s utterance (phase 7's
@@ -206,8 +207,8 @@ V1_REL_TOL = 1e-3
 # durations cycle through DP_SECONDS (mean 13.25 s), 8 speakers of 16 in speaker-
 # major order, at its batch of 64 and 64 utterances a parquet shard. The float32
 # card-vs-CPU check takes one utterance of each of DP_CHECK_SECONDS' buckets and
-# holds it to phase 7's limits; the fused route is held to the four-call route
-# and the CLIs to the library calls within DP_ROUTE_ATOL (x-vectors), codes equal.
+# holds it to phase 7's limits; the fused route and the CLIs are held to the
+# separate stages' library calls within DP_ROUTE_ATOL (x-vectors), codes equal.
 DP_UTTS, DP_SECONDS, DP_SPEAKERS = 128, (5, 6, 8, 10, 12, 15, 20, 30), 8
 DP_BATCH, DP_SHARD = 64, 64
 DP_CHECK_SECONDS = (5, 10, 20, 30)
@@ -2544,7 +2545,7 @@ def dp_artifacts(d, utt2spk: dict, shards: bool) -> None:
         raise AssertionError("the shards' utt columns do not hold every utterance once")
 
 
-def dp_pass(root, tag: str, wavs: dict, texts: dict, total_s: float, emb, tok, fused_apply, full: bool) -> dict:
+def dp_pass(root, tag: str, wavs: dict, texts: dict, total_s: float, emb, tok, full: bool) -> dict:
     """One pass on a fresh directory: stages 1+2 (`extract_all`, stage 0
     before the clock) or, with `full`, stages 0-4 (stage 0, `prepare_corpus`
     with the shards packed between drains, then `build_pipeline`'s first
@@ -2559,14 +2560,13 @@ def dp_pass(root, tag: str, wavs: dict, texts: dict, total_s: float, emb, tok, f
     utt2spk = dp_stage0(d, wavs, texts)
     t1 = time.perf_counter()
     if full:
-        prepare_corpus(d, d / "pq", emb, tok, batch_size=DP_BATCH, num_utts_per_parquet=DP_SHARD, instruct=True,
-                       fused_apply=fused_apply)
+        prepare_corpus(d, d / "pq", emb, tok, batch_size=DP_BATCH, num_utts_per_parquet=DP_SHARD, instruct=True)
         t2 = time.perf_counter()
         out["stage4_rows"] = dp_stage4(d / "pq" / "data.list")
         t3 = time.perf_counter()
         out.update(stage0_s=t1 - t0, stages123_s=t2 - t1, stage4_s=t3 - t2, wall_s=t3 - t0)
     else:
-        out["maps"] = extract_all(d, emb, tok, batch_size=DP_BATCH, fused_apply=fused_apply)
+        out["maps"] = extract_all(d, emb, tok, batch_size=DP_BATCH)
         torch.cuda.synchronize()
         out["wall_s"] = time.perf_counter() - t1
     out.update(utt_per_s=DP_UTTS / out["wall_s"], audio_s_per_s=total_s / out["wall_s"])
@@ -2641,16 +2641,17 @@ def dataprep_phase(results: dict, card: str, states: tuple[dict, dict]) -> None:
     utterances of 5-30 s, batch 64, 64 a shard), full-size CAM++ and S3
     with random weights from `states` in bf16 as the CLIs run them: a
     warm-up pass, two timed passes of the fused route (stages 1+2, and
-    stages 0-4 when pyarrow imports), the fused route against the four-call
-    route and the two extraction CLIs against the library calls on the
-    card, the peak memory of each bucket's batch and of a 64-row 30 s batch,
+    stages 0-4 when pyarrow imports), the fused route and the two
+    extraction CLIs against the separate stages' library calls on the card,
+    the fbank's own time and peak memory, the peak memory of each bucket's batch and of a 64-row 30 s batch,
     one 30 s batch under torch.profiler, and the float32 / bf16 checks."""
     import tempfile
     import torch
 
     from fangyan_tts_torch.cli import extract_embedding, extract_speech_token
     from fangyan_tts_torch.data import native
-    from fangyan_tts_torch.data.extract import _batched_buckets, fused, load_utts
+    from fangyan_tts_torch.data.extract import (_batched_buckets, embed_features, extract_embeddings,
+                                                extract_speech_tokens, fused, load_utts)
     from fangyan_tts_torch.infer.frontend import make_campplus_fn, make_s3_fn
     from fangyan_tts_torch.models.campplus import CAMPPlus
     from fangyan_tts_torch.models.from_jax import to_jax_tree
@@ -2669,7 +2670,7 @@ def dataprep_phase(results: dict, card: str, states: tuple[dict, dict]) -> None:
     trees = [to_jax_tree(sd, skel) for sd, skel in zip(states, skels)]
     camp, s3 = make_campplus_fn(trees[0]), make_s3_fn(trees[1])  # bf16 on the card, as the CLIs build them
     emb, tok = (lambda f, fl: camp(f)), s3
-    fused_apply = fused(emb, tok)
+    step = fused(emb, tok)
     build = Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build, prefix="dataprep_") as tmp:
@@ -2679,13 +2680,13 @@ def dataprep_phase(results: dict, card: str, states: tuple[dict, dict]) -> None:
         log(f"data prep corpus: {DP_UTTS} wavs, {total_s:.0f} s of audio ({total_s / DP_UTTS:.2f} s mean), "
             f"{DP_SPEAKERS} speakers, written in {time.perf_counter() - t:.2f} s (not timed)")
         t = time.perf_counter()
-        dp_pass(root, "warm", wavs, texts, total_s, emb, tok, fused_apply, full)
+        dp_pass(root, "warm", wavs, texts, total_s, emb, tok, full)
         log(f"data prep warm-up pass (stages {'0-4' if full else '1+2'}): {time.perf_counter() - t:.2f} s")
         _zero_launches()
         passes = [("1+2", False), ("1+2", False)] + ([("0-4", True), ("0-4", True)] if full else [])
         timed = []
         for i, (label, f) in enumerate(passes):
-            r = dp_pass(root, f"pass{i}", wavs, texts, total_s, emb, tok, fused_apply, f)
+            r = dp_pass(root, f"pass{i}", wavs, texts, total_s, emb, tok, f)
             timed.append((label, r))
             parts = (f" (stage 0 {r['stage0_s']:.3f} s, stages 1-3 {r['stages123_s']:.3f} s, stage 4 "
                      f"{r['stage4_s']:.3f} s, a batch of {r['stage4_rows']} rows)") if f else ""
@@ -2695,10 +2696,17 @@ def dataprep_phase(results: dict, card: str, states: tuple[dict, dict]) -> None:
         log(f"data prep: kernel launches of the timed passes {launches} (this path has no kernel of the port)")
         out["passes"] = [dict(stages=label, **{k: v for k, v in r.items() if k != "maps"}) for label, r in timed]
         out["launches"] = launches
-        # the four-call route, then the two stage CLIs, against the fused route's last stages 1+2 pass
-        four = dp_pass(root, "four_call", wavs, texts, total_s, emb, tok, None, False)
-        last = timed[1][1]["maps"]
-        route_err, route_ok = _route_check("fused against four-call", last, four["maps"])
+        # the separate stages (extract_embeddings, then extract_speech_tokens: two loads and two uploads of
+        # the corpus), then the two stage CLIs, against the fused route's last stages 1+2 pass
+        sep_dir = root / "separate"
+        sep_spk = dp_stage0(sep_dir, wavs, texts)
+        t = time.perf_counter()
+        sep = (extract_embeddings(sep_dir, emb, batch_size=DP_BATCH),
+               extract_speech_tokens(sep_dir, tok, batch_size=DP_BATCH))
+        sep_s = time.perf_counter() - t
+        dp_artifacts(sep_dir, sep_spk, shards=False)
+        route_err, route_ok = _route_check(f"fused route against the separate stages ({sep_s:.3f} s for both)",
+                                           timed[1][1]["maps"], sep)
         ckpt = root / "ckpt"
         bf16 = lambda sd: {k: v.to(torch.bfloat16) if v.dim() >= 2 else v for k, v in sd.items()}
         for name, sd, skel in zip(("campplus", "s3tokenizer"), states, skels):
@@ -2713,10 +2721,11 @@ def dataprep_phase(results: dict, card: str, states: tuple[dict, dict]) -> None:
         cli_s = time.perf_counter() - t
         cli_maps = tuple({k: v.numpy() for k, v in torch.load(cli_dir / n, weights_only=False).items()}
                          for n in ("utt2embedding.pt", "utt2speech_token.pt"))
-        cli_err, cli_ok = _route_check(f"stage CLIs (--checkpoint, {cli_s:.2f} s for both)", cli_maps, four["maps"])
-        out.update(route_err=route_err, cli_err=cli_err, cli_s=cli_s)
+        cli_err, cli_ok = _route_check(f"stage CLIs (--checkpoint, {cli_s:.2f} s for both) against the separate "
+                                       "stages", cli_maps, sep)
+        out.update(route_err=route_err, cli_err=cli_err, cli_s=cli_s, separate_s=sep_s)
         if not (route_ok and cli_ok):
-            raise AssertionError("data prep: a route disagrees with the four-call route")
+            raise AssertionError("data prep: a route disagrees with the separate stages")
 
         # peak memory and time of each bucket's batch, and of a batch of DP_BATCH rows at 30 s
         utts = load_utts(wavs, progress=False)
@@ -2731,7 +2740,7 @@ def dataprep_phase(results: dict, card: str, states: tuple[dict, dict]) -> None:
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
             t = time.perf_counter()
-            outs = [o.cpu() for o in fused_apply(torch.from_numpy(pad).cuda(), torch.from_numpy(lens).cuda())]
+            outs = [o.cpu() for o in step(torch.from_numpy(pad).cuda(), torch.from_numpy(lens).cuda())]
             ms = (time.perf_counter() - t) * 1e3
             peak = torch.cuda.max_memory_allocated()
             del outs
@@ -2741,9 +2750,30 @@ def dataprep_phase(results: dict, card: str, states: tuple[dict, dict]) -> None:
                 f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB above the resident "
                 f"{base / 2**30:.2f}), {ms:.1f} ms for the batch (upload, fused step, read back) [{card}]")
         out["memory"] = mem
+        # the fbank alone (kaldi_fbank frames and takes its DFT in float64): its own peak on the 64-row 30 s
+        # batch, its wall time there and on one 30 s row (the prompt frontend's largest bucket), and the one
+        # row under the profiler (under it the 64-row call showed 11 of its device operations, so that call
+        # is timed by its wall alone, which its device work fills)
+        pad64, lens64 = (torch.from_numpy(a).cuda() for a in batches[-1][1:])
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        embed_features(pad64, lens64)
+        torch.cuda.synchronize()
+        fb_above = (torch.cuda.max_memory_allocated() - base) / 2**30
+        log(f"data prep fbank alone (embed_features) on {DP_BATCH} rows of the 30 s bucket: peak {fb_above:.2f} GiB "
+            f"above the resident, against {mem[-1]['above_resident_gib']:.2f} GiB for the fused step [{card}]")
+        fb_ms = {rows: eager_ms(lambda: embed_features(pad64[:rows], lens64[:rows]), iters=iters)
+                 for rows, iters in ((DP_BATCH, 5), (1, 20))}
+        log(f"data prep fbank alone (embed_features), warm wall a call: {fb_ms[DP_BATCH]:.3f} ms for {DP_BATCH} "
+            f"rows of the 30 s bucket, {fb_ms[1]:.3f} ms for one row [{card}]")
+        out["fbank"] = dict(above_resident_gib=fb_above, ms=fb_ms, profile=_profile(
+            {"fbank alone, 1 row at 30 s": lambda: embed_features(pad64[:1], lens64[:1])}, card, "data prep"))
+        del pad64, lens64
         d30, n30 = torch.from_numpy(pad30), torch.from_numpy(lens30)
         out["profile"] = _profile({f"fused step, 30 s bucket ({len(lens30)} rows)":
-                                   lambda: [o.cpu() for o in fused_apply(d30.cuda(), n30.cuda())]},
+                                   lambda: [o.cpu() for o in step(d30.cuda(), n30.cuda())]},
                                   card, "data prep")
         out.update(dp_checks(card, utts, states, emb, tok))
     results["dataprep"] = out

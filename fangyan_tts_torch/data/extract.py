@@ -270,14 +270,12 @@ def extract_all(
     tok_apply: Callable,
     batch_size: int = 64,
     device: str | torch.device | None = None,
-    fused_apply: Callable | None = None,
 ) -> tuple[dict[str, np.ndarray], dict[str, np.ndarray]]:
     """Stages 1+2 in ONE pass: the corpus is loaded once and each padded
     batch is uploaded once, feeding both CAM++ and S3 (the separate CLIs
-    each load and upload the corpus). `fused_apply(pad, lens)` -> (x-vectors,
-    codes, code lengths), when given, replaces the features and the two
-    apply functions. Writes the same utt2embedding.pt / spk2embedding.pt /
-    utt2speech_token.pt artifacts as the two stages."""
+    each load and upload the corpus), through `fused(emb_apply, tok_apply)`.
+    Writes the same utt2embedding.pt / spk2embedding.pt / utt2speech_token.pt
+    artifacts as the two stages."""
     dev = _device(device)
     data_dir = Path(data_dir)
     utt2spk = read_scp(data_dir / "utt2spk")
@@ -291,7 +289,7 @@ def extract_all(
             utt2emb[utt] = embs[i].astype(np.float32)
             utt2tok[utt] = codes[i, : code_len[i]].astype(np.int32)
 
-    _pipelined(utts, fused_apply or fused(emb_apply, tok_apply), dev, batch_size, on_batch)
+    _pipelined(utts, fused(emb_apply, tok_apply), dev, batch_size, on_batch)
     _torch_save(utt2emb, data_dir / "utt2embedding.pt")
     _torch_save(_spk_means(utt2emb, utt2spk), data_dir / "spk2embedding.pt")
     _torch_save(utt2tok, data_dir / "utt2speech_token.pt")
@@ -306,7 +304,6 @@ def prepare_corpus(
     batch_size: int = 64,
     num_utts_per_parquet: int = 1000,
     instruct: bool = False,
-    fused_apply: Callable | None = None,
     device: str | torch.device | None = None,
 ) -> list[str]:
     """Stages 1+2+3 as ONE pipelined pass.
@@ -385,7 +382,7 @@ def prepare_corpus(
             utt_done(utt, embs[i].astype(np.float32), codes[i, : code_len[i]].astype(np.int32))
 
     utts = load_utts(wav_scp)
-    _pipelined(utts, fused_apply or fused(emb_apply, tok_apply), dev, batch_size, on_batch, between=pack_ready)
+    _pipelined(utts, fused(emb_apply, tok_apply), dev, batch_size, on_batch, between=pack_ready)
     pack_ready()
 
     _torch_save(maps["utt2embedding"], data_dir / "utt2embedding.pt")

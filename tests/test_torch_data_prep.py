@@ -14,8 +14,10 @@ Tolerances:
 - S3 codes and code lengths bit-equal; x-vectors and speaker means within
   CAM++'s atol 2e-4 / rtol 2e-3 (tests/test_campplus_parity.py);
 - parquet shards: every column but the two embedding columns equal, those
-  within the x-vector limits; the fused route against the four-call route
-  and `prepare_corpus` against `extract_all` + `make_parquet_list`: x-vectors
+  within the x-vector limits; `extract_all` (one upload, the fused
+  per-batch function) against the separate stages `extract_embeddings` +
+  `extract_speech_tokens` (each its own load and upload), and
+  `prepare_corpus` against `extract_all` + `make_parquet_list`: x-vectors
   within 1e-5, codes equal (the same operations in the same order);
 - `build_pipeline`: llm-mode batches equal; flow-mode mels within 1e-4,
   the rest equal;
@@ -161,8 +163,9 @@ def test_extract_all_matches_jax(models, corpus, tmp_path):
 
 
 def test_single_stages_match_extract_all(models, corpus, tmp_path):
-    """extract_embeddings and extract_speech_tokens (the two CLIs' calls)
-    write what extract_all writes."""
+    """The separate stages, extract_embeddings and extract_speech_tokens
+    (the two CLIs' calls, each loading and uploading the corpus), write what
+    extract_all's fused route writes."""
     adir, sdir = _copy(corpus, tmp_path / "all"), _copy(corpus, tmp_path / "single")
     tex.extract_all(adir, *models["torch"], batch_size=BATCH, device="cpu")
     camp, s3 = models["torch"]
@@ -195,17 +198,18 @@ def _assert_shards(got_list: Path, want_list: Path, xvec_limits: tuple[float, fl
         assert len((got_list.parent / name).read_text().splitlines()) == 3
 
 
-@pytest.mark.parametrize("fused", [False, True])
-def test_prepare_corpus_matches_sequential(models, corpus, tmp_path, fused):
-    """prepare_corpus (four-call, or with the fused per-batch function)
-    against extract_all + make_parquet_list of the port: the same .pt maps
-    and shards."""
+@pytest.mark.parametrize("batch_size", [1, BATCH])
+def test_prepare_corpus_matches_sequential(models, corpus, tmp_path, batch_size):
+    """prepare_corpus against extract_all + make_parquet_list of the port:
+    the same .pt maps and shards, at batch 1 (every utterance a batch of its
+    own: eight batches through the four-deep window) and at BATCH (the
+    buckets split into six batches)."""
     seq, pipe = _copy(corpus, tmp_path / "seq"), _copy(corpus, tmp_path / "pipe")
     camp, s3 = models["torch"]
-    tex.extract_all(seq, camp, s3, batch_size=BATCH, device="cpu")
+    tex.extract_all(seq, camp, s3, batch_size=batch_size, device="cpu")
     t_make_parquet_list(seq, seq / "pq", num_utts_per_parquet=3, instruct=True)
-    shards = tex.prepare_corpus(pipe, pipe / "pq", camp, s3, batch_size=BATCH, num_utts_per_parquet=3,
-                                instruct=True, fused_apply=tex.fused(camp, s3) if fused else None, device="cpu")
+    shards = tex.prepare_corpus(pipe, pipe / "pq", camp, s3, batch_size=batch_size, num_utts_per_parquet=3,
+                                instruct=True, device="cpu")
     assert shards == (pipe / "pq" / "data.list").read_text().splitlines()
     for name in ("utt2embedding.pt", "spk2embedding.pt"):
         _assert_xvecs(_load_pt(pipe / name), _load_pt(seq / name), atol=ROUTE_ATOL, rtol=0)

@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases 1,2,3,9   # the serving slice alone
     python3 chip_smoke.py --phases 1,2,3,10  # the CosyVoice2 / CosyVoice1 families alone
     python3 chip_smoke.py --phases 1,2,3,11  # data prep stages 0-4 alone
+    python3 chip_smoke.py --phases 1,2,3,11,12  # data prep, then training, alone
 
 Phases:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -53,7 +54,7 @@ Phases:
      frontend serves) against float32, and the frontend's times
   8. streaming, CosyVoice3TTS.tts(stream=True) at full width with random
      weights: warmup_streaming timed; S1 first chunk (bench.py's
-     bench_first_chunk), S2 solo stream (bench_solo_streaming: 320 tokens,
+     bench_first_chunk; a warm-up stream and a timed one), S2 solo stream (bench_solo_streaming: 320 tokens,
      window hops), S3 a zero-shot stream (60 prompt tokens, 400 tokens), S4
      AutoModel(dir).inference_zero_shot(stream=True) on phase 4's model
      directory, S5 a bistream text generator (stopped after 100 tokens); S1
@@ -66,7 +67,7 @@ Phases:
   9. serving at full width with random weights: (a) bench.py's async
      streaming workload (each client 10 text tokens, 200 speech tokens, no
      prompt) through an LLMScheduler and a StreamScheduler of width 4, then
-     8: a warm-up round and a measured one, aggregate RTF, each stream's
+     8: one measured round, aggregate RTF, each stream's
      first chunk ms, both schedulers' batching (rows / steps), the p99 and
      max arrival gap and the underruns (gaps over one hop of audio); (c) four
      fixed-token sessions of 320 tokens through a width-4 StreamScheduler
@@ -108,12 +109,30 @@ Phases:
      card against the CPU on a 5, 10, 20 and 30 s utterance (phase 7's
      limits) and bf16 against float32 (recorded); the audio loader and the
      kernel launches (none: no kernel of the port is on this path)
-  6. one JSON line of per-kernel results (printed after phases 7 to 11)
-Phases 8, 9, 10 and 11 run after phase 4's requests and before the profiler passes
-of phases 5 and 7 (phase 8 runs S1 three times and S2 and S3 twice each,
-to leave phase 9 its time); a probe of the
-host's cost of one eager launch is logged at the start, around phases 8 and
-9 and at the end.
+  12. training: one LM train step on the card in bf16 against the same step
+     on the CPU in float32 (small model, same weights and batch), and one
+     flow step in float32 on both with the same draws: loss and grad_norm;
+     bench.py's bench_train at full width: the CosyVoice3-0.5B LM (remat
+     "full", bf16 compute, float32 parameters and Adam, accum 2 x (8 x 256)),
+     a warm-up and four timed steps (ms a step, tokens/s, peak memory, each
+     step's loss), one step under torch.profiler, the same at accum 2 x
+     (64 x 256) (bench.py's max-throughput point), one step with remat off
+     for its peak memory, and the DiT flow (float32, 4 x 200 mel frames), a
+     warm-up and two timed steps and one under the profiler; the
+     kernel wrappers raise on CUDA inputs that require grad; then
+     `python -m fangyan_tts_torch.cli.train` for the LM and the flow, one
+     epoch each on phase 11's corpus (shard 0 the train list, shard 1 the CV
+     list) with the JAX executor's checkpoints and sidecars checked,
+     cli.average_model --val_best --num 2, and the averaged LM in a copy of
+     phase 4's model directory (a fresh one without phase 4) for one
+     inference_zero_shot; the training launches no kernel of the port
+  6. one JSON line of per-kernel results (printed after phases 7 to 12)
+Phases 8 to 12 run after phase 4's requests and before the profiler passes
+of phases 5 and 7 (phase 8 runs S1 twice and S2, S3 and S4 once each, and
+phase 9's async and HTTP rounds have no warm-up round, to leave phases 10-12
+their time);
+a probe of the host's cost of one eager launch is logged at the start,
+around phases 8, 9, 10, 11 and 12 and at the end.
 The last line is {"ok": true, "device": {...}} and the exit code is 0 only
 when every phase passed. Without a CUDA card it exits non-zero before
 printing any result.
@@ -213,6 +232,18 @@ DP_UTTS, DP_SECONDS, DP_SPEAKERS = 128, (5, 6, 8, 10, 12, 15, 20, 30), 8
 DP_BATCH, DP_SHARD = 64, 64
 DP_CHECK_SECONDS = (5, 10, 20, 30)
 DP_ROUTE_ATOL = 1e-5
+
+# Training (phase 12). bench.py's bench_train (bench.py:323-378): CosyVoice3-0.5B's LM with remat "full", bf16
+# compute, float32 parameters and Adam, accum 2 microbatches of 8 x 256 tokens, a warm-up step and TRAIN_STEPS
+# timed ones; the DiT flow (1024 x 22, float32) on 4 x 200 mel frames, a warm-up and FLOW_STEPS timed steps. The
+# small models' train steps on the card against the CPU: the LM in bf16 against float32 within SMALL_REL_TOL,
+# the flow float32 on both within FLOW_TRAIN_REL_TOL (TF32 off). The CLIs train one epoch each on phase 11's
+# corpus (shard 0 the train list, shard 1 the CV list) with a step checkpoint every TRAIN_SAVE_PER_STEP steps.
+TRAIN_B, TRAIN_T, TRAIN_ACCUM, TRAIN_STEPS = 8, 256, 2, 4
+TRAIN_MAX_B = 64  # bench.py's max-throughput point (llm_train_max_tokens_per_s_per_chip), three timed steps
+FLOW_TRAIN_B, FLOW_TRAIN_TOKENS, FLOW_STEPS = 4, 100, 2
+FLOW_TRAIN_REL_TOL = 1e-3
+TRAIN_SAVE_PER_STEP = 8
 
 CARDS_USED = 1  # every phase runs on card 0
 PORT_KERNELS = ("decode_attention", "flash_attention", "int4_matmul")  # kernel names the profile reports
@@ -1089,10 +1120,12 @@ def api_model_dir(tts, states: tuple[dict, dict], cfg=None):
         yield d
 
 
-def api_request(results: dict, card: str, d, api: dict) -> None:
+def api_request(results: dict, card: str, d, api: dict, key: str = "api_request", count: bool = True) -> None:
     """The public API on the card: AutoModel(d) on the model directory of
     api_model_dir and one inference_zero_shot of a zh sentence through the
-    byte tokenizer and text_normalize. Launches counted as in full_path."""
+    byte tokenizer and text_normalize. Launches counted as in full_path
+    (added to the main path's totals with `count`); the result is stored
+    under results[key]."""
     import torch
 
     from fangyan_tts_torch.api import AutoModel
@@ -1123,7 +1156,8 @@ def api_request(results: dict, card: str, d, api: dict) -> None:
     # the request paid the frontend's first-use costs; the same prompt again, warm
     warm_ms = eager_ms(lambda: prompt_inputs(API_TEXT, API_PROMPT_TEXT, str(d / "prompt.wav")), iters=3)
     n_dec, n_flash = da.launches, fa.launches
-    _count(results, {"decode_attention": n_dec, "chunk_flash_attention": n_flash})
+    if count:
+        _count(results, {"decode_attention": n_dec, "chunk_flash_attention": n_flash})
     wav = outs[0]["tts_speech"]
     mi = prompts[0]
     lengths = tuple(len(mi[k]) for k in ("text", "prompt_text", "llm_prompt_speech_token", "prompt_speech_feat"))
@@ -1133,20 +1167,20 @@ def api_request(results: dict, card: str, d, api: dict) -> None:
           and steps[0] > 0 and n_dec == cfg.llm.qwen.num_hidden_layers * steps[0]
           and n_flash == cfg.flow.dit.depth * cfg.flow.n_timesteps and lengths == want_lengths
           and np.isfinite(mi["llm_embedding"]).all() and mi["llm_embedding"].shape == (192,))
-    log(f"API request: AutoModel load {load_s:.2f} s; inference_zero_shot: text/prompt-text ids, prompt tokens, "
+    log(f"{key}: AutoModel load {load_s:.2f} s; inference_zero_shot: text/prompt-text ids, prompt tokens, "
         f"prompt mel frames {lengths} (derived {want_lengths}); frontend {stage['frontend']:.3f} s (first call; "
         f"{warm_ms:.1f} ms warm), "
         f"{steps[0]} decode steps in {stage['llm']:.3f} s ({stage['llm'] / steps[0] * 1e3:.2f} ms/step), flow "
         f"{stage['flow']:.3f} s, vocoder {stage['vocoder']:.3f} s, {mel_frames[0]} mel frames, {audio_s:.2f} s "
         f"audio, wall {wall:.3f} s, RTF {wall / audio_s:.4f}; launches decode {n_dec} flash {n_flash} [{card}] "
         f"{'OK' if ok else 'FAIL'}")
-    results["api_request"] = dict(load_s=load_s, frontend_s=stage["frontend"], frontend_warm_ms=warm_ms,
+    results[key] = dict(load_s=load_s, frontend_s=stage["frontend"], frontend_warm_ms=warm_ms,
                                   llm_s=stage["llm"],
                                   flow_s=stage["flow"], vocoder_s=stage["vocoder"], steps=steps[0],
                                   mel_frames=mel_frames[0], audio_s=audio_s, wall_s=wall, rtf=wall / audio_s,
                                   decode_launches=n_dec, flash_launches=n_flash)
     if not ok:
-        raise AssertionError("the API request failed its checks")
+        raise AssertionError(f"{key} failed its checks")
     del model
     torch.cuda.empty_cache()
 
@@ -1506,8 +1540,8 @@ def streaming_phase(results: dict, card: str, tts, api_model, prompt_wav: str, a
     out["warmup_s"] = warm["s"]
 
     run = lambda req: (lambda: tts.tts(stream=True, **req))
-    # S1: bench.py's first chunk: a warm-up, then two timed streams (few, to leave phase 9 its time)
-    firsts = [counted(f"S1 first chunk, run {i + 1}", tts, run(reqs["S1"]), 0, lambda: steps[0]) for i in range(3)]
+    # S1: bench.py's first chunk: a warm-up, then one timed stream (to leave phases 9-12 their time)
+    firsts = [counted(f"S1 first chunk, run {i + 1}", tts, run(reqs["S1"]), 0, lambda: steps[0]) for i in range(2)]
     ms = [r["first_ms"] for r in firsts[1:]]
     out["S1"] = dict(first_ms_min=min(ms), first_ms_median=float(np.median(ms)), first_ms=ms,
                      warmup_first_ms=[r["first_ms"] for r in firsts[:1]], tokens=firsts[-1]["tokens"],
@@ -1516,27 +1550,23 @@ def streaming_phase(results: dict, card: str, tts, api_model, prompt_wav: str, a
         f"{np.median(ms):.1f} ms of {', '.join(f'{m:.1f}' for m in ms)} (warm-up "
         f"{', '.join(f'{r['first_ms']:.1f}' for r in firsts[:1])}); RTF {firsts[-1]['rtf']:.4f} [{card}]")
 
-    # S2 and S3: one timed run after a warm-up (one, to leave phase 9 its time)
+    # S2 and S3: one run each, after warmup_streaming and S1 (to leave phases 9-12 their time)
     for name, n_prompt in (("S2", 0), ("S3", 60)):
-        runs = [counted(f"{name} run {i + 1}", tts, run(reqs[name]), n_prompt, lambda: steps[0]) for i in range(2)]
-        best = min(runs[1:], key=lambda r: r["wall_s"])
-        out[name] = dict(best, runs_wall_s=[r["wall_s"] for r in runs], runs_first_ms=[r["first_ms"] for r in runs])
-        log(f"{name} stream ({best['tokens']} tokens, prompt {n_prompt}): wall {best['wall_s']:.3f} s for "
-            f"{best['audio_s']:.2f} s audio, RTF {best['rtf']:.4f} (best of {', '.join(f'{r['wall_s']:.3f}' for r in runs[1:])} s; "
-            f"warm-up {runs[0]['wall_s']:.3f} s), first chunk {best['first_ms']:.1f} ms, {best['decode_calls']} "
-            f"decode steps, {best['pushes']} token chunks pushed, {best['hops']} hops and a finalize "
-            f"({best['window_calls']} flow calls on the window), {best['chunks']} audio chunks; budget "
-            f"{_budget(best['budget'])}; launches {best['launches']} [{card}]")
+        r = out[name] = counted(f"{name} run", tts, run(reqs[name]), n_prompt, lambda: steps[0])
+        log(f"{name} stream ({r['tokens']} tokens, prompt {n_prompt}): wall {r['wall_s']:.3f} s for "
+            f"{r['audio_s']:.2f} s audio, RTF {r['rtf']:.4f}, first chunk {r['first_ms']:.1f} ms, "
+            f"{r['decode_calls']} decode steps, {r['pushes']} token chunks pushed, {r['hops']} hops and a finalize "
+            f"({r['window_calls']} flow calls on the window), {r['chunks']} audio chunks; budget "
+            f"{_budget(r['budget'])}; launches {r['launches']} [{card}]")
 
-    # S4: the public API, streamed; the sampled decode decides the length
-    api_runs = [counted(f"S4 API stream, run {i + 1}", api_model.model,
-                        lambda: api_model.inference_zero_shot(API_TEXT, API_PROMPT_TEXT, prompt_wav, stream=True),
-                        api["prompt_tokens"], lambda: api_steps[0]) for i in range(2)]
-    r = api_runs[-1]
-    out["S4"] = dict(r, first_run_wall_s=api_runs[0]["wall_s"], first_run_first_ms=api_runs[0]["first_ms"])
+    # S4: the public API, streamed once (its first call pays the API model's first-use costs); the sampled
+    # decode decides the length
+    r = out["S4"] = counted("S4 API stream", api_model.model,
+                            lambda: api_model.inference_zero_shot(API_TEXT, API_PROMPT_TEXT, prompt_wav, stream=True),
+                            api["prompt_tokens"], lambda: api_steps[0])
     log(f"S4 API stream: {r['tokens']} tokens, {r['chunks']} chunks, first chunk {r['first_ms']:.1f} ms, wall "
-        f"{r['wall_s']:.3f} s, RTF {r['rtf']:.4f} (run 1: first chunk {api_runs[0]['first_ms']:.1f} ms, RTF "
-        f"{api_runs[0]['rtf']:.4f}); budget {_budget(r['budget'])}; launches {r['launches']} [{card}]")
+        f"{r['wall_s']:.3f} s, RTF {r['rtf']:.4f} (first-use costs included); budget {_budget(r['budget'])}; "
+        f"launches {r['launches']} [{card}]")
 
     # S5: a text generator of 4 chunks of 5 tokens, stopped at S5_TOKENS
     r = counted("S5 bistream", tts, lambda: tts.tts(text=iter(text_chunks), flow_embedding=reqs["S1"]["flow_embedding"],
@@ -1772,7 +1802,7 @@ def async_round(lsched, sched, texts: list, embs: list) -> dict:
 
 def serving_async(results: dict, card: str, tts, c: int) -> dict:
     """(a) c async clients through an LLMScheduler and a StreamScheduler of
-    width c: a warm-up round (the groups' first calls), then a measured one."""
+    width c: one measured round (it pays the groups' first calls too)."""
     from fangyan_tts_torch.infer.batch_stream import StreamScheduler
     from fangyan_tts_torch.infer.llm_batch import LLMScheduler
 
@@ -1783,7 +1813,7 @@ def serving_async(results: dict, card: str, tts, c: int) -> dict:
     embs = [rng.standard_normal(192).astype(np.float32) for _ in range(c)]
     hop_s = cfg.chunk_size / cfg.token_frame_rate
     out = {}
-    for name in ("warm-up", "measured"):
+    for name in ("measured",):
         with stage_times(lsched) as times:
             r, counts = serving_counted(results, f"(a) async c={c} {name}", cfg, lsched, sched,
                                         lambda: async_round(lsched, sched, texts, embs))
@@ -2002,7 +2032,7 @@ def serving_http(results: dict, card: str, model_dir, api: dict, serving: dict) 
     out = {"load_s": load_s}
     try:
         tts = model.model
-        for name in ("warm-up", "measured"):  # the warm-up pays the groups' first calls at the prompt's shapes
+        for name in ("measured",):  # one round: it pays the groups' first calls at the prompt's shapes too
             pcm, arrivals = [b""] * n, [[] for _ in range(n)]
             wall, counts = serving_counted(results, f"(b) HTTP server {name}", tts.cfg, tts.llm_scheduler,
                                            tts.stream_scheduler, run)
@@ -2442,6 +2472,22 @@ def v12_phase(results: dict, card: str, states: tuple[dict, dict], api: dict) ->
 # ---------------------------------------------------------------- phase 11
 
 
+def dp_models(states: tuple[dict, dict]) -> tuple:
+    """The CAM++ and S3 functions of `states` for data/extract, bf16 on the
+    card as the extraction CLIs build them."""
+    import torch
+
+    from fangyan_tts_torch.infer.frontend import make_campplus_fn, make_s3_fn
+    from fangyan_tts_torch.models.campplus import CAMPPlus
+    from fangyan_tts_torch.models.from_jax import to_jax_tree
+    from fangyan_tts_torch.models.s3tokenizer import S3TokenizerV3
+
+    with torch.device("meta"):
+        skels = CAMPPlus(), S3TokenizerV3()
+    camp, s3 = (make(to_jax_tree(sd, skel)) for make, sd, skel in zip((make_campplus_fn, make_s3_fn), states, skels))
+    return (lambda f, fl: camp(f)), s3
+
+
 def dp_corpus(root, seed: int = 17) -> tuple[dict, dict, float]:
     """bench.py's data-prep corpus (bench_data_prep), written before any
     timer: utterance i lasts DP_SECONDS[i % 8] s, a sine at 80 + 10 (i % 12)
@@ -2652,7 +2698,6 @@ def dataprep_phase(results: dict, card: str, states: tuple[dict, dict]) -> None:
     from fangyan_tts_torch.data import native
     from fangyan_tts_torch.data.extract import (_batched_buckets, embed_features, extract_embeddings,
                                                 extract_speech_tokens, fused, load_utts)
-    from fangyan_tts_torch.infer.frontend import make_campplus_fn, make_s3_fn
     from fangyan_tts_torch.models.campplus import CAMPPlus
     from fangyan_tts_torch.models.from_jax import to_jax_tree
     from fangyan_tts_torch.models.s3tokenizer import S3TokenizerV3
@@ -2667,9 +2712,7 @@ def dataprep_phase(results: dict, card: str, states: tuple[dict, dict]) -> None:
     out: dict = {"stages": "0-4" if full else "1+2", "pyarrow": why, "loader": native.loader()}
     with torch.device("meta"):
         skels = CAMPPlus(), S3TokenizerV3()
-    trees = [to_jax_tree(sd, skel) for sd, skel in zip(states, skels)]
-    camp, s3 = make_campplus_fn(trees[0]), make_s3_fn(trees[1])  # bf16 on the card, as the CLIs build them
-    emb, tok = (lambda f, fl: camp(f)), s3
+    emb, tok = dp_models(states)
     step = fused(emb, tok)
     build = Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
@@ -2778,10 +2821,353 @@ def dataprep_phase(results: dict, card: str, states: tuple[dict, dict]) -> None:
         out.update(dp_checks(card, utts, states, emb, tok))
     results["dataprep"] = out
 
+# ---------------------------------------------------------------- phase 12
+
+
+def _train_cfgs():
+    """The small configuration of the card-vs-CPU train steps (head dim 64,
+    as small_reference_check) and the full-width one."""
+    from fangyan_tts_torch.config import CosyVoiceConfig, DiTConfig, FlowConfig, LLMConfig, QwenConfig
+
+    qwen = QwenConfig(hidden_size=128, intermediate_size=256, num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, head_dim=64, vocab_size=300)
+    llm = LLMConfig(llm_input_size=128, llm_output_size=128, speech_token_size=50, extra_tokens=8, qwen=qwen)
+    dit = DiTConfig(dim=128, depth=2, heads=2, dim_head=64, static_chunk_size=10)
+    return CosyVoiceConfig(llm=llm, flow=FlowConfig(vocab_size=50, dit=dit, pre_lookahead_channels=64)), \
+        CosyVoiceConfig()
+
+
+def llm_train_batch(rng, cfg, b: int, t: int, accum: int) -> dict:
+    """bench.py's bench_train batch: random src / ids / targets over the
+    speech tokens, every row full, `accum` microbatches stacked."""
+    v = cfg.speech_token_size
+    return {"src": rng.integers(0, 2, (accum, b, t)).astype(np.int32),
+            "ids": rng.integers(0, v, (accum, b, t)).astype(np.int32),
+            "lengths": np.full((accum, b), t, np.int32),
+            "targets": rng.integers(0, v, (accum, b, t)).astype(np.int32)}
+
+
+def flow_train_batch(rng, cfg, b: int, lt: int) -> dict:
+    return {"token": rng.integers(0, cfg.vocab_size, (b, lt)).astype(np.int32),
+            "token_len": np.full((b,), lt, np.int32),
+            "feat": rng.standard_normal((b, lt * 2, 80)).astype(np.float32),
+            "feat_len": np.full((b,), lt * 2, np.int32),
+            "embedding": rng.standard_normal((b, 192)).astype(np.float32)}
+
+
+def train_small_checks(card: str) -> dict:
+    """One LM train step on the card (bf16 compute) against the same step on
+    the CPU (float32), and one flow step float32 on both with the same draws,
+    from the same weights and batch: loss and grad_norm."""
+    import torch
+
+    from fangyan_tts_torch.models.flow import CausalMaskedDiffWithDiT, flow_train_draws
+    from fangyan_tts_torch.models.llm import CosyVoice3LM
+    from fangyan_tts_torch.train import trainer
+    from fangyan_tts_torch.train.scheduler import build_optimizer
+
+    small, _ = _train_cfgs()
+    rng = np.random.default_rng(12)
+    out = {}
+    lbatch = {k: v[0] for k, v in llm_train_batch(rng, small.llm, 4, 64, 1).items()}
+    lbatch["targets"][:, :8] = -1  # IGNORE_ID, as a plan's text positions
+    fbatch = flow_train_batch(rng, small.flow, 3, 24)
+    draws = flow_train_draws(3, fbatch["feat"].shape, "cpu", torch.Generator().manual_seed(5))
+    for name, dtype, ctor, make_step, batch, limit in (
+            ("LM", torch.bfloat16, lambda d: CosyVoice3LM(small.llm, dtype=d), trainer.make_llm_train_step, lbatch,
+             SMALL_REL_TOL),
+            ("flow", torch.float32, lambda d: CausalMaskedDiffWithDiT(small.flow), trainer.make_flow_train_step,
+             fbatch, FLOW_TRAIN_REL_TOL)):
+        ref = trainer.random_module(lambda: ctor(torch.float32), 4, "cpu")
+        got = {}
+        for dev, dt in (("cuda", dtype), ("cpu", torch.float32)):
+            model = trainer.random_module(lambda: ctor(dt), 4, dev)
+            model.load_state_dict(ref.state_dict())
+            tx = build_optimizer(lr=1e-4)
+            rng_arg = {k: v.to(dev) for k, v in draws.items()} if name == "flow" else None
+            _, m = make_step(model, tx)(trainer.init_state(model, tx), batch, rng_arg)
+            got[dev] = {k: float(m[k]) for k in ("loss", "grad_norm")}
+        rel = {k: abs(got["cuda"][k] - got["cpu"][k]) / abs(got["cpu"][k]) for k in ("loss", "grad_norm")}
+        ok = max(rel.values()) <= limit and all(np.isfinite(v) for v in got["cuda"].values())
+        log(f"small {name} train step, card ({str(dtype).split('.')[-1]}) vs CPU (float32): loss {got['cuda']['loss']:.6f}"
+            f" / {got['cpu']['loss']:.6f} (rel {rel['loss']:.3e}), grad_norm {got['cuda']['grad_norm']:.6f} / "
+            f"{got['cpu']['grad_norm']:.6f} (rel {rel['grad_norm']:.3e}), limit {limit} [{card}] {'OK' if ok else 'FAIL'}")
+        out[name] = dict(card=got["cuda"], cpu=got["cpu"], rel=rel, limit=limit)
+        if not ok:
+            raise AssertionError(f"the {name} train step on the card disagrees with the CPU")
+    return out
+
+
+def _timed_steps(step, state, batch, rng, n: int) -> tuple:
+    """A warm-up step, then n timed ones (synchronised around them). Returns
+    (state, ms a step, the n losses, peak GiB over the timed steps)."""
+    import torch
+
+    state, m = step(state, batch, rng)
+    losses = [m["loss"]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        state, m = step(state, batch, rng)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) * 1e3 / n
+    return state, dt, [float(x) for x in losses], torch.cuda.max_memory_allocated() / 2**30
+
+
+def train_full_width(card: str) -> dict:
+    """bench.py's bench_train at full width: the CosyVoice3-0.5B LM (remat
+    "full", bf16 compute, float32 parameters and Adam, accum 2 x (8 x 256)),
+    one step of it under the profiler, the same at accum 2 x (64 x 256),
+    then one step without remat for its peak memory; the DiT flow (float32)
+    on 4 x 200 mel frames, one step under the profiler."""
+    import dataclasses
+
+    import torch
+
+    from fangyan_tts_torch.models.flow import CausalMaskedDiffWithDiT
+    from fangyan_tts_torch.models.llm import CosyVoice3LM
+    from fangyan_tts_torch.train import trainer
+    from fangyan_tts_torch.train.scheduler import build_optimizer
+
+    _, cfg = _train_cfgs()
+    rng = np.random.default_rng(13)
+    out = {}
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 2**30  # earlier phases' models: the peaks below are above it
+    lcfg = dataclasses.replace(cfg.llm, qwen=dataclasses.replace(cfg.llm.qwen, remat="full"))
+    t0 = time.perf_counter()
+    model = trainer.random_module(lambda: CosyVoice3LM(lcfg, dtype=torch.bfloat16), 0, "cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    tx = build_optimizer(optim="adam", lr=1e-5, scheduler="constantlr", grad_clip=5.0)
+    state = trainer.init_state(model, tx)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = {k: torch.from_numpy(v).cuda() for k, v in llm_train_batch(rng, cfg.llm, TRAIN_B, TRAIN_T,
+                                                                         TRAIN_ACCUM).items()}
+    step = trainer.make_llm_train_step(model, tx, accum=TRAIN_ACCUM)
+    state, ms, losses, peak = _timed_steps(step, state, batch, None, TRAIN_STEPS)
+    peak -= resident
+    tokens = TRAIN_ACCUM * TRAIN_B * TRAIN_T
+    tok_s = tokens / (ms / 1e3)
+    mfu = 6.0 * n_params * tok_s / BF16_FLOP_PER_S
+    held = [state]
+
+    def one_step():
+        held[0], _ = step(held[0], batch)
+
+    prof = _profile({"one LM step (remat full)": one_step}, card, "training")
+    # bench.py's max-throughput point: the same step at accum 2 x (64 x 256), a warm-up and three timed steps
+    big = {k: torch.from_numpy(v).cuda() for k, v in llm_train_batch(rng, cfg.llm, TRAIN_MAX_B, TRAIN_T,
+                                                                       TRAIN_ACCUM).items()}
+    state, max_ms, max_losses, max_peak = _timed_steps(step, held[0], big, None, 3)
+    max_peak -= resident
+    max_tok_s = TRAIN_ACCUM * TRAIN_MAX_B * TRAIN_T / (max_ms / 1e3)
+    del big, held
+    # the same model and state, one step with remat off (its config is read at every forward)
+    model.llm.cfg = dataclasses.replace(model.llm.cfg, remat="")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    off_ms, off_loss = (time.perf_counter() - t0) * 1e3, float(m["loss"])
+    off_peak = torch.cuda.max_memory_allocated() / 2**30 - resident
+    ok = all(np.isfinite(losses + max_losses + [off_loss]))
+    log(f"LM train step at full width (CosyVoice3-0.5B, {n_params / 1e6:.1f}M params, remat full, bf16 compute, "
+        f"float32 params and Adam, accum {TRAIN_ACCUM} x {TRAIN_B} x {TRAIN_T}): {ms:.2f} ms a step, {tok_s:.0f} "
+        f"tokens/s (llm_train_tokens_per_s_per_chip), 6*N*tokens/s {mfu:.3f} of {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s; "
+        f"peak {peak:.2f} GiB above the resident {resident:.2f}; losses {', '.join(f'{x:.4f}' for x in losses)} "
+        f"(warm-up first); at accum "
+        f"{TRAIN_ACCUM} x {TRAIN_MAX_B} x {TRAIN_T}: {max_ms:.2f} ms a step, {max_tok_s:.0f} tokens/s, peak "
+        f"{max_peak:.2f} GiB, losses {', '.join(f'{x:.4f}' for x in max_losses)}; remat off: one step "
+        f"{off_ms:.2f} ms, peak {off_peak:.2f} GiB, loss {off_loss:.4f}; init {init_s:.2f} s [{card}] "
+        f"{'OK' if ok else 'FAIL'}")
+    out["llm"] = dict(params=n_params, ms=ms, tokens_per_s=tok_s, mfu_6n=mfu, resident_gib=resident,
+                      peak_above_resident_gib=peak, losses=losses,
+                      max_ms=max_ms, max_tokens_per_s=max_tok_s, max_peak_above_resident_gib=max_peak,
+                      max_losses=max_losses, remat_off_ms=off_ms, remat_off_peak_above_resident_gib=off_peak, remat_off_loss=off_loss, init_s=init_s,
+                      profile=prof)
+    if not ok:
+        raise AssertionError("the full-width LM train step gave a non-finite loss")
+    del model, state, step, batch, tx
+    torch.cuda.empty_cache()
+
+    model = trainer.random_module(lambda: CausalMaskedDiffWithDiT(cfg.flow), 1, "cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    tx = build_optimizer(optim="adam", lr=1e-4, scheduler="constantlr", grad_clip=5.0)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in flow_train_batch(rng, cfg.flow, FLOW_TRAIN_B,
+                                                                          FLOW_TRAIN_TOKENS).items()}
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    step = trainer.make_flow_train_step(model, tx)
+    state, ms, losses, peak = _timed_steps(step, trainer.init_state(model, tx), batch, gen, FLOW_STEPS)
+    peak -= resident
+    held = [state]
+
+    def one_step():
+        held[0], _ = step(held[0], batch, gen)
+
+    prof = _profile({"one flow step": one_step}, card, "training")
+    ok = all(np.isfinite(losses))
+    log(f"flow train step at full width (DiT {cfg.flow.dit.dim} x {cfg.flow.dit.depth}, {n_params / 1e6:.1f}M params, "
+        f"float32, {FLOW_TRAIN_B} x {2 * FLOW_TRAIN_TOKENS} mel frames, dense attention): {ms:.2f} ms a step, peak "
+        f"{peak:.2f} GiB above the resident; losses {', '.join(f'{x:.4f}' for x in losses)} [{card}] {'OK' if ok else 'FAIL'}")
+    out["flow"] = dict(params=n_params, ms=ms, peak_above_resident_gib=peak, losses=losses, profile=prof)
+    if not ok:
+        raise AssertionError("the full-width flow train step gave a non-finite loss")
+    del model, tx, batch, state, step, held
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_guard(card: str) -> dict:
+    """Each kernel wrapper raises on a CUDA input that requires grad (the
+    kernels have no backward), before it launches."""
+    import torch
+
+    from fangyan_tts_torch.ops.decode_attention import decode_attention
+    from fangyan_tts_torch.ops.flash_attention import chunk_flash_attention
+    from fangyan_tts_torch.ops.int4_matmul import int4_matmul
+
+    bf = dict(dtype=torch.bfloat16, device="cuda")
+    q = torch.zeros((1, 2, 64, 64), requires_grad=True, **bf)
+    kv = torch.zeros((1, 2, 64, 64), **bf)
+    ck = torch.zeros((2, 1, 128, 2, 64), **bf)
+    calls = {
+        "chunk_flash_attention": lambda: chunk_flash_attention(q, kv, kv, torch.tensor([64], dtype=torch.int32,
+                                                                                     device="cuda"), 0),
+        "decode_attention": lambda: decode_attention(torch.zeros((1, 14, 64), requires_grad=True, **bf),
+                                                     torch.zeros((1, 2, 64), **bf), torch.zeros((1, 2, 64), **bf), ck,
+                                                     ck.clone(), torch.zeros(1, dtype=torch.int32, device="cuda"),
+                                                     torch.zeros((1, 128), device="cuda"), 0),
+        "int4_matmul": lambda: int4_matmul(torch.zeros((16, 896), requires_grad=True, **bf),
+                                           torch.zeros((448, 4864), dtype=torch.int8, device="cuda"),
+                                           torch.ones(4864, device="cuda")),
+    }
+    before = _launches()
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            out[name] = "returned"
+        except RuntimeError as e:
+            out[name] = "raised" if "no backward" in str(e) else f"raised another error: {e}"
+    ok = all(v == "raised" for v in out.values()) and _launches() == before
+    log(f"kernel wrappers on CUDA inputs that require grad: {out}, launches unchanged {_launches() == before} "
+        f"[{card}] {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("a kernel wrapper took an input that requires grad")
+    return out
+
+
+def train_clis(results: dict, card: str, states: tuple[dict, dict], model_dir, api: dict) -> dict:
+    """The entry points at full width: phase 11's corpus through
+    prepare_corpus (shard 0 the train list, shard 1 the CV list), then
+    `python -m fangyan_tts_torch.cli.train` for the LM and the flow, one
+    epoch each (the JAX executor's checkpoints and sidecars checked), then
+    cli.average_model --val_best --num 2 on the LM, loaded into a copy of
+    phase 4's model directory (or a fresh one) for one zero-shot request."""
+    import contextlib
+    import shutil
+    import tempfile
+
+    import torch
+
+    from fangyan_tts_torch.cli import average_model, train
+    from fangyan_tts_torch.config import CosyVoiceConfig
+    from fangyan_tts_torch.data.extract import prepare_corpus
+    from fangyan_tts_torch.infer.tts import CosyVoice3TTS
+    from fangyan_tts_torch.train.checkpoint import load_meta
+
+    emb, tok = dp_models(states)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    out: dict = {}
+    with tempfile.TemporaryDirectory(dir=build, prefix="train_") as tmp, contextlib.ExitStack() as stack:
+        root = Path(tmp)
+        wavs, texts, total_s = dp_corpus(root)
+        d = root / "kaldi"
+        dp_stage0(d, wavs, texts)
+        t = time.perf_counter()
+        shards = prepare_corpus(d, d / "pq", emb, tok, batch_size=DP_BATCH, num_utts_per_parquet=DP_SHARD,
+                                instruct=True)
+        log(f"training corpus: {len(wavs)} utterances ({total_s:.0f} s) through prepare_corpus in "
+            f"{time.perf_counter() - t:.2f} s, {len(shards)} shards")
+        (root / "train.list").write_text(shards[0] + "\n")
+        (root / "cv.list").write_text(shards[1] + "\n")
+        for model in ("llm", "flow"):
+            exp = root / model
+            t = time.perf_counter()
+            train.main(["--model", model, "--train_data", str(root / "train.list"), "--cv_data",
+                        str(root / "cv.list"), "--model_dir", str(exp), "--max_epoch", "1", "--save_per_step",
+                        str(TRAIN_SAVE_PER_STEP), "--log_interval", "4"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            metas = {f.name: load_meta(f) for f in sorted(exp.glob("*.msgpack"))}
+            last = metas.get("epoch_0_whole.msgpack") or {}
+            want = {"init.msgpack", "epoch_0_whole.msgpack"} | {
+                f"step_{s}.msgpack" for s in range(TRAIN_SAVE_PER_STEP, last.get("step", 0) + 1, TRAIN_SAVE_PER_STEP)}
+            records = [json.loads(x) for x in (exp / "metrics.jsonl").read_text().splitlines()]
+            ok = (set(metas) == want and len(want) >= 3 and metas["init.msgpack"] == {"epoch": -1, "step": 0}
+                  and all(set(m) >= {"epoch", "step", "cv_loss"} and np.isfinite(m["cv_loss"])
+                          for n, m in metas.items() if n != "init.msgpack")
+                  and {r["tag"] for r in records} == {"train", "cv"}
+                  and all(np.isfinite(r["loss"]) for r in records if r["tag"] == "train"))
+            gib = sum(f.stat().st_size for f in exp.iterdir()) / 2**30
+            log(f"cli.train --model {model}: one epoch, {last.get('step')} steps in {wall:.2f} s (model init, "
+                f"{len(metas)} checkpoints of {gib / len(metas):.2f} GiB and CV included); checkpoints "
+                f"{sorted(metas)}, cv_loss {[round(m['cv_loss'], 4) for m in metas.values() if 'cv_loss' in m]}; "
+                f"metrics.jsonl {len(records)} records [{card}] {'OK' if ok else 'FAIL'}")
+            out[model] = dict(wall_s=wall, steps=last.get("step"), checkpoints=sorted(metas),
+                              cv_loss={n: m.get("cv_loss") for n, m in metas.items()})
+            if not ok:
+                raise AssertionError(f"cli.train --model {model} did not write what the JAX executor writes")
+            if model == "flow":
+                shutil.rmtree(exp)
+        avg = root / "llm_avg.msgpack"
+        t = time.perf_counter()
+        average_model.main(["--dst_model", str(avg), "--src_path", str(root / "llm"), "--num", "2", "--val_best"])
+        avg_from = load_meta(avg)["averaged_from"]
+        log(f"cli.average_model --val_best --num 2: {[Path(p).name for p in avg_from]} in "
+            f"{time.perf_counter() - t:.2f} s")
+        out["averaged_from"] = [Path(p).name for p in avg_from]
+        if len(avg_from) != 2:
+            raise AssertionError("average_model did not average two checkpoints")
+        shutil.rmtree(root / "llm")
+        launches = _launches()
+        log(f"training kernel launches (small checks, full-width steps, both CLI epochs, averaging): {launches} "
+            f"(no kernel of the port is on this path)")
+        out["launches"] = launches
+        if any(launches.values()):
+            raise AssertionError("training launched a kernel of the port")
+        if model_dir is None:  # phase 4 did not run: a full-width directory of random weights
+            tts = CosyVoice3TTS.random_init(CosyVoiceConfig(), dtype=torch.bfloat16, seed=11)
+            model_dir = stack.enter_context(api_model_dir(tts, states))
+            del tts
+        d2 = root / "api_model"
+        shutil.copytree(model_dir, d2)
+        shutil.copy(avg, d2 / "llm.msgpack")
+        api_request(results, card, d2, api, key="train_api_request", count=False)
+    return out
+
+
+def train_phase(results: dict, card: str, states: tuple[dict, dict], model_dir, api: dict) -> None:
+    """Phase 12, training: the small train steps card against CPU, the
+    full-width LM and flow steps, the guard of the kernel wrappers, the CLIs
+    (train, average_model) and a zero-shot request from the averaged LM. No
+    kernel of the port is on the training path: the counts must stay 0."""
+    _zero_launches()
+    out = results.setdefault("train", {})
+    out["small"] = train_small_checks(card)
+    out["full"] = train_full_width(card)
+    out["guard"] = train_guard(card)
+    out["clis"] = train_clis(results, card, states, model_dir, api)
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11", help="comma-separated phases to run (see above)")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12", help="comma-separated phases to run (see above)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -2812,7 +3198,7 @@ def main() -> int:
     stream = stream_shapes(api)
     serving = serving_spec(api)
     v12 = v12_spec(api)
-    states = frontend_states() if phases & {4, 7, 8, 9, 10, 11} else None
+    states = frontend_states() if phases & {4, 7, 8, 9, 10, 11, 12} else None
     if 3 in phases:
         batches = [batch_shapes(r) for r in batch_requests_spec()]
         log(f"batched requests' shapes (a), (b): {batches}; the API request's: {api}; the streams': {stream}; "
@@ -2869,6 +3255,11 @@ def main() -> int:
             dataprep_phase(results, card, states)
             log(f"phase 11 took {time.perf_counter() - t:.1f} s")
             launch_probe(results, "after phase 11")
+        if 12 in phases:  # after phase 11, before the profiler passes of phases 5 and 7
+            t = time.perf_counter()
+            train_phase(results, card, states, model_dir, api)
+            log(f"phase 12 took {time.perf_counter() - t:.1f} s")
+            launch_probe(results, "after phase 12")
         if 4 in phases and 5 in phases:
             profile_stages(tts, req, results, card)
             (tts_a, req_a), (tts_b, req_b) = batched["a"], batched["b"]
@@ -2908,7 +3299,8 @@ def main() -> int:
         log("detail: " + json.dumps({k: results[k] for k in ("decode_timing", "flash_timing", "int4_timing", "requests",
                                                              "api_request", "batch_requests", "profile",
                                                              "profile_batch", "frontend", "streaming",
-                                                             "serving", "v12", "dataprep", "decode_rows_bit_equal",
+                                                             "serving", "v12", "dataprep", "train",
+                                                             "train_api_request", "decode_rows_bit_equal",
                                                              "launch_probe_us")
                                      if k in results}))
         log(json.dumps({"kernels": kernels}), stamp=False)

@@ -2,11 +2,12 @@
 
 The port's own copy of fangyan_tts_tpu/config.py: the same dataclasses,
 fields and defaults, so one configuration describes a model on both sides.
-Fields that only the JAX package reads (the Qwen decode-path switches and
-remat) are kept so configurations stay interchangeable; the port's Qwen2
-model raises NotImplementedError when one of them is set away from its
-default (`reject_unported`), so such a setting is never ignored without a
-word.
+Fields that only the JAX package reads (the Qwen decode-path switches) are
+kept so configurations stay interchangeable; the port's Qwen2 model raises
+NotImplementedError when one of them is set away from its default
+(`reject_unported`), so such a setting is never ignored without a word.
+`QwenConfig.remat` is read by both: gradient rematerialisation of the
+cache-free (training) forward.
 """
 
 from __future__ import annotations
@@ -41,10 +42,12 @@ class QwenConfig:
     # (int4 without int8 is ignored, as in the JAX package).
     quant_int8: bool = False
     quant_int4_mlp: bool = False
-    # Read by the JAX package only (decode-path variants, training remat);
-    # kept so configurations round-trip.
+    # Read by the JAX package only (decode-path variants); kept so
+    # configurations round-trip.
     fused_decode_attention: bool = True
     use_pallas_decode_attention: bool = False
+    # Gradient remat of the training forward: "" off, "full" recomputes each
+    # block in the backward pass, "dots" keeps its matmul outputs.
     remat: str = ""
 
 
@@ -240,7 +243,7 @@ def cosyvoice2_config() -> CosyVoiceConfig:
     )
 
 
-_UNPORTED = ("fused_decode_attention", "use_pallas_decode_attention", "remat")
+_UNPORTED = ("fused_decode_attention", "use_pallas_decode_attention")
 
 
 def reject_unported(cfg: QwenConfig) -> None:

@@ -17,6 +17,11 @@ outputs keep the reference's artifact formats: utt2embedding.pt /
 spk2embedding.pt / utt2speech_token.pt (torch.save dicts of CPU tensors),
 and prepare_corpus's parquet shards, json sidecars and data.list files, so
 downstream packing and training recipes are drop-in compatible.
+
+`extract_all` and `prepare_corpus` raise, before they write or pack
+anything, when `load_utts` could not read an utterance of wav.scp (naming
+every such utterance), where the JAX package drops it and returns a partial
+result (a shard holding it, and every later shard, would never be packed).
 """
 
 from __future__ import annotations
@@ -126,6 +131,16 @@ def load_utts(wav_scp: dict[str, str], target_sr: int = SAMPLE_RATE, progress: b
         _fallback(utt, path)
         _tick()
     return out
+
+
+def load_all_utts(wav_scp: dict[str, str], target_sr: int = SAMPLE_RATE) -> list[tuple[str, np.ndarray]]:
+    """load_utts, raising if any utterance of `wav_scp` could not be read."""
+    utts = load_utts(wav_scp, target_sr)
+    missing = sorted(set(wav_scp) - {u for u, _ in utts})
+    if missing:
+        raise RuntimeError(f"{len(missing)} of {len(wav_scp)} utterances could not be read, so the corpus would "
+                           f"be partial: {', '.join(missing)}")
+    return utts
 
 
 def embed_features(pad: torch.Tensor, lens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -275,11 +290,12 @@ def extract_all(
     batch is uploaded once, feeding both CAM++ and S3 (the separate CLIs
     each load and upload the corpus), through `fused(emb_apply, tok_apply)`.
     Writes the same utt2embedding.pt / spk2embedding.pt / utt2speech_token.pt
-    artifacts as the two stages."""
+    artifacts as the two stages. Raises when a wav cannot be read
+    (load_all_utts)."""
     dev = _device(device)
     data_dir = Path(data_dir)
     utt2spk = read_scp(data_dir / "utt2spk")
-    utts = load_utts(read_scp(data_dir / "wav.scp"))
+    utts = load_all_utts(read_scp(data_dir / "wav.scp"))
 
     utt2emb: dict[str, np.ndarray] = {}
     utt2tok: dict[str, np.ndarray] = {}
@@ -316,7 +332,9 @@ def prepare_corpus(
     in flight keep the device busy. Artifacts are the same as running
     extract_all then parquet.make_parquet_list: the same .pt maps, shards,
     json sidecars and data.list files (reference pipeline:
-    examples/dialect/cosyvoice3/run.sh:23-88). Returns the shard paths."""
+    examples/dialect/cosyvoice3/run.sh:23-88). Returns the shard paths.
+    Raises, before anything is packed, when a wav cannot be read
+    (load_all_utts)."""
     from .parquet import make_lists, pack_shard
 
     dev = _device(device)
@@ -381,7 +399,7 @@ def prepare_corpus(
         for i, utt in enumerate(names):
             utt_done(utt, embs[i].astype(np.float32), codes[i, : code_len[i]].astype(np.int32))
 
-    utts = load_utts(wav_scp)
+    utts = load_all_utts(wav_scp)
     _pipelined(utts, fused(emb_apply, tok_apply), dev, batch_size, on_batch, between=pack_ready)
     pack_ready()
 

@@ -5,7 +5,12 @@ follow the JAX tree with the layer axis unstacked: `blocks.{i}.attn.to_qkv`
 (fused q/k/v), `.attn.to_out`, `.attn_norm_linear` (AdaLN-Zero), `.ff_0`,
 `.ff_2`; under `quant_int8` these five are int8 QLinear (models/qwen2.py).
 Attention goes through ops/flash_attention.chunk_flash_attention
-with the CFG-doubled `mel_len` and the chunk size, not a bias.
+with the CFG-doubled `mel_len` and the chunk size, not a bias. The training
+forward (`DiT.forward(..., dense=True)`, which models/flow.py's
+`CausalMaskedDiffWithDiT.forward` selects) takes the JAX DiT's own dense
+attention instead (chunk_flash_attention_plain: the same math, with
+autograd), because the kernel has no backward; it also computes the AdaLN
+modulation from t in the pass (mods=None), with gradients.
 
 `DiTChunk` is the KV-cached streaming estimator: one hop of new frames
 through the same blocks, against per-layer K/V caches that it only reads.
@@ -29,7 +34,7 @@ import torch.nn.functional as F
 
 from ..config import DiTConfig
 from ..ops.convs import conv1d
-from ..ops.flash_attention import chunk_flash_attention
+from ..ops.flash_attention import chunk_flash_attention, chunk_flash_attention_plain
 from .qwen2 import QLinear, dense, flax_dense, qdense
 
 
@@ -143,7 +148,9 @@ class DiTAttention(nn.Module):
         self.to_qkv = _block_dense(cfg, cfg.dim, 3 * inner)
         self.to_out = _block_dense(cfg, inner, cfg.dim)
 
-    def forward(self, x, mel_len, chunk: int, cos, sin):
+    def forward(self, x, mel_len, chunk: int, cos, sin, dense: bool = False):
+        """dense: the JAX DiT's dense attention in plain PyTorch (the
+        training route, differentiable) in place of the flash kernel."""
         c = self.cfg
         b, l, _ = x.shape
         q, k, v = qdense(x, self.to_qkv).chunk(3, dim=-1)
@@ -153,8 +160,9 @@ class DiTAttention(nn.Module):
         def heads(t):  # (B, L, inner) -> (B, H, L, D) view, no copy (v stays inside the qkv buffer)
             return t.reshape(b, l, c.heads, c.dim_head).transpose(1, 2)
 
-        # on the card the output is a (B, H, L, D) view of (B, L, H, D) memory: the reshape is free
-        out = chunk_flash_attention(heads(q), heads(k), heads(v), mel_len, chunk)
+        # on the card the kernel's output is a (B, H, L, D) view of (B, L, H, D) memory: the reshape is free
+        attend = chunk_flash_attention_plain if dense else chunk_flash_attention
+        out = attend(heads(q), heads(k), heads(v), mel_len, chunk)
         return qdense(out.transpose(1, 2).reshape(b, l, c.heads * c.dim_head), self.to_out)
 
 
@@ -166,23 +174,23 @@ class DiTBlock(nn.Module):
         self.ff_0 = _block_dense(cfg, cfg.dim, cfg.dim * cfg.ff_mult)
         self.ff_2 = _block_dense(cfg, cfg.dim * cfg.ff_mult, cfg.dim)
 
-    def forward(self, x, mod, mel_len, chunk: int, cos, sin):
+    def forward(self, x, mod, mel_len, chunk: int, cos, sin, dense: bool = False):
         """mod: this block's AdaLN-Zero modulation (B, 6*dim), from
-        precompute_mods."""
+        precompute_mods; dense: see DiTAttention."""
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.chunk(6, dim=-1)
         norm = layer_norm(x) * (1 + scale_msa[:, None]) + shift_msa[:, None]
-        x = x + gate_msa[:, None] * self.attn(norm, mel_len, chunk, cos, sin)
+        x = x + gate_msa[:, None] * self.attn(norm, mel_len, chunk, cos, sin, dense)
         ff_norm = layer_norm(x) * (1 + scale_mlp[:, None]) + shift_mlp[:, None]
         h = qdense(F.gelu(qdense(ff_norm, self.ff_0), approximate="tanh"), self.ff_2)
         return x + gate_mlp[:, None] * h
 
 
-@torch.no_grad()
 def precompute_mods(dit: "DiT", t_all: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """AdaLN-Zero modulations for every (timestep, block) in one pass.
     t_all (T, B) -> (T, depth, B, 6*dim); the same math as the JAX
     DiTBlock's in-block modulation, without re-reading the modulation
-    weights at every Euler step."""
+    weights at every Euler step. Autograd records it when grad is enabled
+    (the training forward); the Euler solves call it under no_grad."""
     T, B = t_all.shape
     s = F.silu(dit.time_embed(t_all.reshape(-1).to(dtype))).reshape(T, B, dit.cfg.dim)
 
@@ -222,18 +230,22 @@ class DiT(nn.Module):
         self.norm_out_linear = nn.Linear(cfg.dim, cfg.dim * 2)
         self.proj_out = nn.Linear(cfg.dim, cfg.mel_dim)
 
-    def forward(self, x, mu, t, spks, cond, mel_len, chunk: int, mods):
+    def forward(self, x, mu, t, spks, cond, mel_len, chunk: int, mods=None, dense: bool = False):
         """x, mu, cond (B, L, mel); t (B,); spks (B, spk_dim); mel_len (B,)
         int32 valid frames (keys past it are masked); chunk: 0 for full
         attention, else chunk-causal; mods (depth, B, 6*dim) from
-        precompute_mods."""
+        precompute_mods, or None to compute them from t here (the JAX
+        DiTBlock's in-block modulation); dense: the differentiable dense
+        attention route of training (DiTAttention) instead of the kernel."""
         t_emb, h = _embed(self, x, mu, t, spks, cond)
         h = self.conv_pos_embed(h) + h
+        if mods is None:
+            mods = precompute_mods(self, t[None], x.dtype)[0]
 
         freqs = torch.from_numpy(_rotary_freqs(x.shape[1], self.cfg.dim_head)).to(x.device)
         cos, sin = torch.cos(freqs).to(x.dtype), torch.sin(freqs).to(x.dtype)
         for i, blk in enumerate(self.blocks):
-            h = blk(h, mods[i], mel_len, chunk, cos, sin)
+            h = blk(h, mods[i], mel_len, chunk, cos, sin, dense)
         return _final(self, h, t_emb, x.dtype)
 
 

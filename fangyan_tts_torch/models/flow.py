@@ -1,11 +1,15 @@
 """Token-to-mel conditional flow matching, CosyVoice3 `CausalMaskedDiffWithDiT`
-(fangyan_tts_tpu/models/flow.py): offline inference, the streaming
-shapes of `prepare_inference` (finalize=False) and the chunk-masked solve
-(`cfm_solve(streaming=True)`), and the KV-cached streaming hop
-(`prepare_chunk`, `empty_kv_cache`, `cfm_solve_chunk`).
+(fangyan_tts_tpu/models/flow.py): the training loss (`forward`), offline
+inference, the streaming shapes of `prepare_inference` (finalize=False) and
+the chunk-masked solve (`cfm_solve(streaming=True)`), and the KV-cached
+streaming hop (`prepare_chunk`, `empty_kv_cache`, `cfm_solve_chunk`).
 
 The classifier-free-guidance pair rides the batch: every DiT call sees 2B
-rows, and the flash-attention kernel gets the doubled `mel_len`.
+rows, and the flash-attention kernel gets the doubled `mel_len`. The
+training loss runs the DiT on its dense attention route, which has a
+backward. Torch cannot reproduce `jax.random`, so the loss takes its five
+random draws as an argument (`flow_train_draws` makes them from a
+torch.Generator, with the JAX package's distributions).
 """
 
 from __future__ import annotations
@@ -146,10 +150,61 @@ class CausalMaskedDiffWithDiT(nn.Module):
         h = self.pre_lookahead_layer(emb, chunk_left=2, chunk_finalize=finalize)
         return upsample_nearest(h, c.token_mel_ratio)
 
+    def forward(self, token, token_len, feat, feat_len, embedding, draws: dict,
+                streaming: bool = False) -> tuple[torch.Tensor, dict]:
+        """Training loss: token (B, Lt), token_len (B,), feat (B, L_mel, mel)
+        target mel, feat_len (B,), embedding (B, 192), draws from
+        flow_train_draws. Half the rows (draws["use_cond"]) keep a random
+        prefix of up to 0.3 of their mel as the prompt condition; the CFM
+        target is the straight path from the noise z to feat at time t; rows
+        whose draws["cfg"] is at or under training_cfg_rate lose mu, spks
+        and the condition. The DiT runs on its dense route, full attention
+        over the valid frames or, with `streaming`, the static chunk mask.
+        Returns (loss, {"loss_cfm": loss}): the squared error over the valid
+        frames, divided by their count times the mel dim."""
+        c = self.cfg
+        emb = embedding / torch.linalg.vector_norm(embedding, dim=1, keepdim=True).clamp_min(1e-12)
+        spks = flax_dense(emb, self.spk_embed_affine_layer)
+
+        valid = torch.arange(token.shape[1], device=token.device)[None, :] < token_len[:, None]
+        token_emb = self.input_embedding(token.clamp(0, c.vocab_size - 1))
+        h = self.pre_lookahead_layer(token_emb * valid[..., None].to(token_emb.dtype))
+        b, l_mel, d = feat.shape
+        h = upsample_nearest(h, c.token_mel_ratio)[:, :l_mel]
+        pos = torch.arange(l_mel, device=feat.device)[None, :]
+        mask = (pos < feat_len[:, None])[..., None].to(feat.dtype)
+
+        cond_len = (draws["cond_len"] * 0.3 * feat_len.float()).to(torch.int32)
+        cond_mask = (pos < cond_len[:, None]) & draws["use_cond"][:, None]
+        conds = feat * cond_mask[..., None].to(feat.dtype)
+
+        t, z = draws["t"], draws["z"]
+        y = (1 - (1 - c.sigma_min) * t) * z + t * feat
+        u = feat - (1 - c.sigma_min) * z
+        keep = (draws["cfg"] > c.training_cfg_rate).to(feat.dtype)
+        mu, spks, conds = h * keep[:, None, None], spks * keep[:, None], conds * keep[:, None, None]
+
+        chunk = c.dit.static_chunk_size if streaming else 0
+        pred = self.estimator(y, mu, t[:, 0, 0], spks, conds, feat_len.to(torch.int32), chunk, dense=True)
+        loss = (((pred - u) * mask) ** 2).sum() / (mask.sum() * d)
+        return loss, {"loss_cfm": loss}
+
     @functools.cached_property
     def estimator_chunk(self) -> DiTChunk:
         """The KV-cached streaming estimator on the estimator's own tensors."""
         return DiTChunk.of(self.estimator)
+
+
+def flow_train_draws(b: int, feat_shape: tuple, device, generator: torch.Generator) -> dict:
+    """The five random draws of one training loss, float32, made on `device`
+    from `generator` (on that device), with the distributions of the JAX
+    package's loss: "t" (b, 1, 1) and "cfg", "cond_len" (b,) uniform on
+    [0, 1), "z" standard normal of feat_shape, "use_cond" (b,) Bernoulli(0.5)."""
+    def uniform(*shape):
+        return torch.rand(shape, generator=generator, device=device)
+
+    return {"t": uniform(b, 1, 1), "z": torch.randn(feat_shape, generator=generator, device=device),
+            "cfg": uniform(b), "use_cond": uniform(b) < 0.5, "cond_len": uniform(b)}
 
 
 @torch.no_grad()

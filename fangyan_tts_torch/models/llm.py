@@ -1,9 +1,9 @@
 """CosyVoice3 AR speech-token LM on the Qwen2 backbone
-(fangyan_tts_tpu/models/llm.py: CosyVoice3LM, its CosyVoice2 variant
-Qwen2LMV2, generate_speech_tokens, the
-resumable streaming decode `decode_prefill` / `decode_chunk`, the bistream
-context extension `bistream_append`, and the continuous batch `ContState`
-with `decode_chunk_cont`).
+(fangyan_tts_tpu/models/llm.py: CosyVoice3LM with its training forward and
+`label_smoothed_ce`, its CosyVoice2 variant Qwen2LMV2, generate_speech_tokens,
+the resumable streaming decode `decode_prefill` / `decode_chunk`, the
+bistream context extension `bistream_append`, and the continuous batch
+`ContState` with `decode_chunk_cont`).
 
 Prompts are left-padded so every row's valid cache slots are contiguous and
 the decode write slot is the same for all rows, except in the continuous
@@ -11,7 +11,9 @@ batch, where each row has its own write slot, step count and attention
 window, and its own generator. The JAX package decodes in
 one `lax.while_loop`; here the loop is a Python loop whose early exit reads
 `done.all()` once per step (one device-to-host synchronisation a step).
-Sampling draws from an explicit `torch.Generator`.
+Sampling draws from an explicit `torch.Generator`. The decode functions run
+under torch.no_grad(); `CosyVoice3LM.forward` is the cache-free training
+pass on right-padded plans.
 """
 
 from __future__ import annotations
@@ -25,12 +27,14 @@ from ..config import LLMConfig
 from ..ops.sampling import ras_sample
 from . import qwen2 as q
 
+IGNORE_ID = -1
+
 
 class CosyVoice3LM(nn.Module):
     def __init__(self, cfg: LLMConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
-        self.dtype = dtype  # compute dtype of the prompt prefill
+        self.dtype = dtype  # compute dtype of the training forward and the prompt prefill
         self.embed_tokens = nn.Embedding(cfg.qwen.vocab_size, cfg.qwen.hidden_size)
         self.speech_embedding = nn.Embedding(cfg.head_size, cfg.llm_input_size)
         self.llm = q.Qwen2Model(cfg.qwen)
@@ -45,6 +49,18 @@ class CosyVoice3LM(nn.Module):
     def decode_logits(self, h: torch.Tensor) -> torch.Tensor:
         """The bias-free head, with flax Dense's dtype promotion."""
         return q.flax_dense(h, self.llm_decoder)
+
+    def forward(self, src, ids, lengths, targets) -> tuple[torch.Tensor, torch.Tensor]:
+        """Training forward on right-padded plans (B, L) (data/lm_plan
+        pad_plans_right): the cache-free Qwen2 pass under a causal + padding
+        bias, then label-smoothed CE over the targets that are not
+        IGNORE_ID. Returns (loss, acc), float32 scalars."""
+        c = self.cfg
+        x = self.embed_plan(src, ids)
+        b, t, _ = x.shape
+        positions = torch.arange(t, dtype=torch.int32, device=x.device).expand(b, t)
+        h = self.llm(x, positions, q.prefill_attn_bias(t, lengths))
+        return label_smoothed_ce(self.decode_logits(h), targets, c.lsm_weight, c.length_normalized_loss)
 
     def prefill_leftpad(self, src, ids, lengths, cache: dict) -> torch.Tensor:
         """Left-padded prompt prefill into a fresh cache. Row b's tokens
@@ -118,6 +134,26 @@ def bistream_append(model: CosyVoice3LM, cache: dict | None, seq_pos: int, src: 
     bias = torch.where(slot <= qpos, 0.0, -1e10).to(torch.float32)
     h = model.llm(x.to(cache["k"].dtype), positions, bias, cache)
     return cache, model.decode_logits(h[:, -1]), seq_pos + n
+
+
+def label_smoothed_ce(logits: torch.Tensor, targets: torch.Tensor, smoothing: float,
+                      normalize_length: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """Label-smoothed NLL summed over the targets that are not IGNORE_ID, a
+    float32 log-softmax, divided by their count (normalize_length) or by the
+    batch size. Returns (loss, acc), acc the argmax hits over those targets."""
+    v = logits.shape[-1]
+    mask = targets != IGNORE_ID
+    tgt = torch.where(mask, targets, 0).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    picked = logp.gather(-1, tgt[..., None])[..., 0]
+    nll = -(1.0 - smoothing) * picked
+    if smoothing > 0.0:
+        nll = nll - smoothing / (v - 1) * (logp.sum(dim=-1) - picked)
+    nll = torch.where(mask, nll, 0.0)
+    n_valid = mask.sum().clamp(min=1)
+    loss = nll.sum() / (n_valid if normalize_length else logits.shape[0])
+    acc = ((logits.argmax(dim=-1) == targets) & mask).sum() / n_valid
+    return loss, acc
 
 
 class DecodeResult(NamedTuple):

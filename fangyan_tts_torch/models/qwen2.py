@@ -12,17 +12,24 @@ int32 next write slot}. A prompt prefill (T > 1) writes slots
 [index, index + T) and attends over the whole buffer in plain PyTorch, as
 the JAX package leaves it to XLA; a single-step decode goes through
 ops/decode_attention.decode_attention, which writes the new row in place.
+With cache=None (the training forward) the same dense attention runs over
+the call's own keys and nothing is written; there `QwenConfig.remat`
+recomputes each block in the backward pass ("full") or keeps its matmul
+outputs and recomputes the rest ("dots"), as the JAX package's nn.remat
+does. Decode and prefill ignore remat.
 Every matmul casts its weight to the activation dtype, as the JAX QDense
 does, so a float32 model decodes in the cache's bfloat16.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ..config import QwenConfig, reject_unported
 from ..ops.decode_attention import decode_attention
@@ -116,6 +123,20 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return x * cos[:, :, None, :] + rotated * sin[:, :, None, :]
 
 
+def dense_attention(q, k, v, attn_bias, dtype: torch.dtype) -> torch.Tensor:
+    """The JAX Qwen2Attention's dense GQA attention: q (B, T, QH, hd), k, v
+    (B, S, KV, hd), attn_bias (B, T, >= S) additive float32. Scores in
+    `dtype` divided by sqrt(hd), then the bias and the softmax in float32,
+    the probabilities cast back to `dtype`. Returns (B, T, QH * hd)."""
+    b, t, qh, hd = q.shape
+    kvh, tk = k.shape[2], k.shape[1]
+    qg = q.reshape(b, t, kvh, qh // kvh, hd)
+    scores = torch.einsum("btkgh,bskh->bkgts", qg, k) / math.sqrt(hd)
+    scores = scores.float() + attn_bias[:, None, None, :, :tk]
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    return torch.einsum("bkgts,bskh->btkgh", probs, v).reshape(b, t, qh * hd)
+
+
 class Qwen2Attention(nn.Module):
     def __init__(self, cfg: QwenConfig):
         super().__init__()
@@ -126,7 +147,7 @@ class Qwen2Attention(nn.Module):
         self.qkv_proj = dense(cfg.hidden_size, self.nq + 2 * self.nkv, True, bits)
         self.o_proj = dense(self.nq, cfg.hidden_size, False, bits)
 
-    def forward(self, x, cos, sin, attn_bias, layer: int, cache: dict):
+    def forward(self, x, cos, sin, attn_bias, layer: int, cache: dict | None = None):
         c = self.cfg
         b, t, _ = x.shape
         hd, qh, kvh = c.head_dim, c.num_attention_heads, c.num_key_value_heads
@@ -136,6 +157,8 @@ class Qwen2Attention(nn.Module):
         k = apply_rope(k.reshape(b, t, kvh, hd), cos, sin)
         v = v.reshape(b, t, kvh, hd)
 
+        if cache is None:  # the training forward: the call's own keys, no cache write
+            return qdense(dense_attention(q, k, v, attn_bias, x.dtype), self.o_proj)
         if t == 1:
             # v[:, 0] stays a view of the qkv buffer (a batch stride): the kernel reads it as it is
             ck = cache["k"]
@@ -150,15 +173,7 @@ class Qwen2Attention(nn.Module):
         cache["k"][layer, :, i0 : i0 + t] = k.to(cache["k"].dtype)
         cache["v"][layer, :, i0 : i0 + t] = v.to(cache["v"].dtype)
         k, v = cache["k"][layer].to(x.dtype), cache["v"][layer].to(x.dtype)
-
-        groups = qh // kvh
-        tk = k.shape[1]
-        qg = q.reshape(b, t, kvh, groups, hd)
-        scores = torch.einsum("btkgh,bskh->bkgts", qg, k) / math.sqrt(hd)
-        scores = scores.float() + attn_bias[:, None, None, :, :tk]
-        probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        out = torch.einsum("bkgts,bskh->btkgh", probs, v).reshape(b, t, self.nq)
-        return qdense(out, self.o_proj)
+        return qdense(dense_attention(q, k, v, attn_bias, x.dtype), self.o_proj)
 
 
 class Qwen2MLP(nn.Module):
@@ -181,9 +196,18 @@ class Qwen2Block(nn.Module):
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
         self.mlp = Qwen2MLP(cfg)
 
-    def forward(self, x, cos, sin, attn_bias, layer: int, cache: dict):
+    def forward(self, x, cos, sin, attn_bias, layer: int, cache: dict | None = None):
         x = x + self.self_attn(self.input_layernorm(x), cos, sin, attn_bias, layer, cache)
         return x + self.mlp(self.post_attention_layernorm(x))
+
+
+# remat "dots" keeps what jax.checkpoint_policies.dots_saveable keeps: the
+# outputs of the matrix products
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
 
 
 class Qwen2Model(nn.Module):
@@ -193,19 +217,31 @@ class Qwen2Model(nn.Module):
     def __init__(self, cfg: QwenConfig):
         super().__init__()
         reject_unported(cfg)
+        if cfg.remat not in ("", "full", "dots"):
+            raise ValueError(f"QwenConfig.remat must be '', 'full' or 'dots', got {cfg.remat!r}")
         self.cfg = cfg
         self.layers = nn.ModuleList([Qwen2Block(cfg) for _ in range(cfg.num_hidden_layers)])
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
 
-    def forward(self, inputs_embeds, positions, attn_bias, cache: dict):
+    def forward(self, inputs_embeds, positions, attn_bias, cache: dict | None = None):
         """inputs_embeds (B, T, D); positions (B, T); attn_bias (B, T, S)
-        additive float32. Updates `cache` in place (index advances by T)."""
+        additive float32. With a cache, updates it in place (index advances
+        by T); without one (training), attends over the T inputs themselves
+        (S = T) and remats each block when `cfg.remat` is set and autograd
+        records."""
         c = self.cfg
         cos, sin = rope_cos_sin(positions, c.head_dim, c.rope_theta, dtype=inputs_embeds.dtype)
         x = inputs_embeds
+        remat = cache is None and c.remat and torch.is_grad_enabled()
+        policy = {"context_fn": functools.partial(create_selective_checkpoint_contexts, _dots_saveable)} \
+            if c.remat == "dots" else {}
         for i, layer in enumerate(self.layers):
-            x = layer(x, cos, sin, attn_bias, i, cache)
-        cache["index"] += inputs_embeds.shape[1]
+            if remat:
+                x = checkpoint(layer, x, cos, sin, attn_bias, i, None, use_reentrant=False, **policy)
+            else:
+                x = layer(x, cos, sin, attn_bias, i, cache)
+        if cache is not None:
+            cache["index"] += inputs_embeds.shape[1]
         return self.norm(x)
 
 
@@ -217,3 +253,18 @@ def init_cache(cfg: QwenConfig, batch: int, max_len: int, dtype=torch.bfloat16, 
         "v": torch.zeros(shape, dtype=dtype, device=device),
         "index": torch.zeros((batch,), dtype=torch.int32, device=device),
     }
+
+
+def causal_attn_bias(t: int, device=None) -> torch.Tensor:
+    """(1, T, T) additive float32 causal bias: 0 where key <= query, -1e10
+    elsewhere."""
+    pos = torch.arange(t, dtype=torch.int32, device=device)
+    return torch.where(pos[None, :] <= pos[:, None], 0.0, -1e10).to(torch.float32)[None]
+
+
+def prefill_attn_bias(t: int, lengths: torch.Tensor) -> torch.Tensor:
+    """(B, T, T) causal + right-padding bias of a variable-length batch:
+    keys at or past a row's length are masked (-1e10 added)."""
+    pos = torch.arange(t, dtype=torch.int32, device=lengths.device)[None, :]
+    pad = torch.where(pos < lengths[:, None], 0.0, -1e10).to(torch.float32)
+    return causal_attn_bias(t, lengths.device) + pad[:, None, :]

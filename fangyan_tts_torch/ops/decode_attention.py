@@ -29,6 +29,7 @@ import math
 import torch
 
 from . import _build
+from .device import refuse_grad
 
 launches = 0  # kernel launches since the last reset (CPU calls do not count)
 MAX_CLUSTER = 8  # the largest portable thread-block cluster
@@ -123,11 +124,12 @@ def decode_attention(q, k_new, v_new, cache_k, cache_v, idx, bias, layer: int) -
     """One decode step: writes the new rows into the caches in place and
     returns the attention output (B, QH, hd). CPU tensors take the plain
     version; CUDA tensors launch csrc/decode_attention.cu (one launch) or
-    raise."""
+    raise (also when an input requires grad: the kernel has no backward)."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_new, v_new, cache_k, cache_v, idx, bias, layer)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
+    refuse_grad("decode_attention", "the cache-free forward (Qwen2Model with cache=None)", q, k_new, v_new)
     layer = int(layer)
     _check(q, k_new, v_new, cache_k, cache_v, idx, bias, layer)
     nl, b, s, kv, hd = cache_k.shape

@@ -17,6 +17,16 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
     return dev
 
 
+def refuse_grad(kernel: str, route: str, *tensors: torch.Tensor) -> None:
+    """Raise when autograd would record a kernel call: the hand-written CUDA
+    kernels have no backward, so their output would carry no grad_fn and
+    the inputs' gradients would be dropped without a word. `route` names
+    the differentiable plain-PyTorch route the caller should select."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{kernel}: the CUDA kernel has no backward and an input requires grad; "
+                           f"run it under torch.no_grad(), or take {route}")
+
+
 def exact_fp32() -> None:
     """Pin full-precision float32 matmuls and convolutions on the card.
     cuDNN convolutions default to TF32, which keeps about three decimal

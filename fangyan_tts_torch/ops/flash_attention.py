@@ -14,7 +14,10 @@ a (B, H, L, D) view. See the source for the design.
 
 `chunk_flash_attention` launches the kernel for CUDA tensors and runs
 `chunk_flash_attention_plain` for CPU tensors; there is no fallback from
-one to the other.
+one to the other. The kernel has no backward: on a CUDA input that requires
+grad (with grad enabled) the wrapper raises, and training takes the DiT's
+dense route (models/dit.DiTAttention with dense=True), as the JAX DiT trains
+on dense attention.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import math
 import torch
 
 from . import _build
+from .device import refuse_grad
 from .masks import chunk_attn_mask, mask_to_bias
 
 launches = 0  # kernel launches since the last reset (CPU calls do not count)
@@ -68,12 +72,14 @@ def chunk_flash_attention(q, k, v, mel_len, chunk: int = 0) -> torch.Tensor:
     """softmax(q k^T / sqrt(D) + mask) v on (B, H, L, D), where key j is
     valid iff j < mel_len[b] and, with chunk > 0, j // chunk <= i // chunk.
     q, k and v may be strided views. CPU tensors take the plain version;
-    CUDA tensors launch csrc/flash_attention.cu or raise, and get back a
+    CUDA tensors launch csrc/flash_attention.cu or raise (also when an
+    input requires grad: the kernel has no backward), and get back a
     (B, H, L, D) view of (B, L, H, D) memory."""
     if q.device.type == "cpu":
         return chunk_flash_attention_plain(q, k, v, mel_len, chunk)
     if q.device.type != "cuda":
         raise ValueError(f"chunk_flash_attention: unsupported device {q.device}")
+    refuse_grad("chunk_flash_attention", "the DiT's dense route (DiT.forward(..., dense=True))", q, k, v)
     _check(q, k, v, mel_len, chunk)
     b, h, l, d = q.shape
     out = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)

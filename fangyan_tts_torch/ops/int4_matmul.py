@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .device import refuse_grad
 from .quant import int4_dot
 
 launches = 0  # kernel launches since the last reset (CPU calls do not count)
@@ -93,11 +94,13 @@ def _check(x, w_packed, scale):
 def int4_matmul(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """x (…, K) @ dequant(w_packed (K//2, N)) * scale (N,) -> (…, N) in x's
     dtype. CPU tensors take the plain version; CUDA tensors launch
-    csrc/int4_matmul.cu or raise."""
+    csrc/int4_matmul.cu or raise (also when x requires grad: the kernel has
+    no backward)."""
     if x.device.type == "cpu":
         return int4_matmul_plain(x, w_packed, scale)
     if x.device.type != "cuda":
         raise ValueError(f"int4_matmul: unsupported device {x.device}")
+    refuse_grad("int4_matmul", "float weights (quantization is an inference mode)", x)
     _check(x, w_packed, scale)
     k, n = x.shape[-1], w_packed.shape[1]
     m = x.numel() // k

@@ -1,5 +1,8 @@
 """Parameter trees in flax's msgpack format, without flax or msgpack
-(fangyan_tts_tpu/train/checkpoint.py `save_params` / `load_params`).
+(fangyan_tts_tpu/train/checkpoint.py `save_params` / `load_params`), and
+the JAX package's training-checkpoint helpers `load_meta` (the json
+sidecar), `average_checkpoints` and `select_val_best` (by the sidecars'
+cv_loss).
 
 A file is one msgpack map: nested maps of str keys whose leaves are arrays.
 flax writes an array as ext type 1, whose payload is the msgpack of
@@ -18,6 +21,7 @@ Every other leaf is read as a numpy array (a numpy scalar for ext type 3).
 from __future__ import annotations
 
 import json
+import os
 import struct
 from pathlib import Path
 from typing import Any
@@ -290,3 +294,45 @@ def save_params(path: str | Path, params: Any, meta: dict | None = None) -> None
 def load_params(path: str | Path) -> Any:
     with open(path, "rb") as f:
         return msgpack_restore(f.read())
+
+
+def load_meta(path: str | Path) -> dict | None:
+    """The json sidecar `<path>.json` that save_params wrote with `meta`, or
+    None."""
+    p = str(path) + ".json"
+    if os.path.exists(p):
+        with open(p, encoding="utf-8") as f:
+            return json.load(f)
+    return None
+
+
+def _tree_map(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _mean(*xs):
+    """np.mean over the stacked leaves, as the JAX package averages; a
+    bfloat16 leaf (a torch tensor here) is averaged in float32 and kept
+    bfloat16."""
+    if isinstance(xs[0], torch.Tensor):
+        return torch.stack([x.float() for x in xs]).mean(dim=0).to(xs[0].dtype)
+    return np.mean(np.stack(xs), axis=0)
+
+
+def average_checkpoints(paths: list[str | Path]) -> Any:
+    """The element-wise mean of N checkpoints' trees (bin/average_model.py)."""
+    return _tree_map(_mean, *(load_params(p) for p in paths))
+
+
+def select_val_best(ckpt_dir: str | Path, n: int = 5) -> list[str]:
+    """The N checkpoints of `ckpt_dir` with the lowest cv_loss in their json
+    sidecars."""
+    scored = []
+    for p in sorted(Path(ckpt_dir).glob("*.msgpack")):
+        meta = load_meta(p)
+        if meta and "cv_loss" in meta:
+            scored.append((meta["cv_loss"], str(p)))
+    scored.sort()
+    return [p for _, p in scored[:n]]

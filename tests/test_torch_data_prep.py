@@ -326,3 +326,27 @@ def test_native_loader(corpus, tmp_path, monkeypatch):
     finally:
         monkeypatch.undo()
         tnative._load.cache_clear()
+
+
+@pytest.mark.parametrize("stage", ["prepare_corpus", "extract_all"])
+def test_unreadable_wav_raises(tmp_path, stage):
+    """One wav of shard 0 is not a RIFF file (6 utterances of 2 speakers, 2
+    a shard): both passes raise, naming it, before anything is packed or
+    written, where the JAX package drops it and returns a partial result."""
+    wav_scp = write_corpus(tmp_path, [16000] * 6, seed=3, spk_size=3)
+    Path(wav_scp["utt001"]).write_bytes(b"not a wav file" * 100)
+
+    def emb(feats, frame_len):
+        return torch.zeros(feats.shape[0], 192)
+
+    def tok(mel, mel_len):
+        return torch.zeros(mel.shape[0], 4, dtype=torch.int32), torch.full((mel.shape[0],), 4, dtype=torch.int32)
+
+    with pytest.raises(RuntimeError, match="utt001") as err:
+        if stage == "prepare_corpus":
+            tex.prepare_corpus(tmp_path, tmp_path / "pq", emb, tok, batch_size=2, num_utts_per_parquet=2,
+                               device="cpu")
+        else:
+            tex.extract_all(tmp_path, emb, tok, batch_size=2, device="cpu")
+    assert "1 of 6" in str(err.value)
+    assert not list(tmp_path.glob("*.pt")) and not list(tmp_path.glob("pq/*.tar"))

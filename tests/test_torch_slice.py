@@ -254,7 +254,7 @@ def test_generator_text_raises():
 
 
 @pytest.mark.parametrize("sub, field, value", [
-    ("qwen", "fused_decode_attention", False), ("qwen", "use_pallas_decode_attention", True), ("qwen", "remat", "full"),
+    ("qwen", "fused_decode_attention", False), ("qwen", "use_pallas_decode_attention", True),
 ])
 def test_unported_options_raise(sub, field, value):
     """A JAX-package-only option set away from its default is refused, not

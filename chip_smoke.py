@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases 1,2,3,10  # the CosyVoice2 / CosyVoice1 families alone
     python3 chip_smoke.py --phases 1,2,3,11  # data prep stages 0-4 alone
     python3 chip_smoke.py --phases 1,2,3,11,12  # data prep, then training, alone
+    python3 chip_smoke.py --phases 1,2,3,13  # the rest of training (GAN, DPO, GRPO) alone
 
 Phases:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -19,8 +20,10 @@ Phases:
      caches and window lengths, from infer/tts.stream_buckets and the
      flow window, and phase 9's continuous batches at B = 4 and 8 and every
      flow call of its groups, from the schedulers' own formulas:
-     infer/tts.stream_buckets and infer/batch_stream.flow_shapes), with the
-     tolerances below, and
+     infer/tts.stream_buckets and infer/batch_stream.flow_shapes), and
+     phase 13's GRPO rollouts (decode at B = 4 prompts x 8 rollouts and its
+     cache, flash at every length bucket a rollout can reach, from
+     train/grpo.rollout_buckets), with the tolerances below, and
      decode attention also with a row that has no open slot, write slots on
      a block boundary of its launch plan, one long cache (S = 4096) and
      strided q / k_new / v_new views (bit-equal to the contiguous call), and
@@ -46,8 +49,8 @@ Phases:
      inference_zero_shot through the byte tokenizer and text_normalize,
      with its launches counted as above
   5. each stage under torch.profiler, for the 150-token request and the
-     batched requests: device busy time, idle share, device operations,
-     largest kernels
+     batched requests (a) int8 and (b): device busy time, idle share, device
+     operations, largest kernels
   7. the prompt frontend at full size, random weights (no kernel of its
      own): CAM++ and S3 at the 5 s and the 30 s bucket in float32 on the
      card against the same weights on the CPU, then in bf16 (what the
@@ -84,8 +87,8 @@ Phases:
   10. the CosyVoice2 and CosyVoice1 families with random weights: small v2
      (bf16) and v1 (float32) models on the card against the CPU; then
      CosyVoice2-0.5B in bf16: the 150-token bench request through
-     CosyVoice2TTS.tts (a warm-up and a timed run, then its stages under
-     torch.profiler), a 200-token stream, a v2 model directory written by
+     CosyVoice2TTS.tts (one run, then its stages under torch.profiler), a
+     200-token stream, a v2 model directory written by
      the port through AutoModel(dir).inference_zero_shot with phase 4's 5 s
      prompt, and four greedy decodes through a width-4 LLMScheduler against
      their solo decodes; then CosyVoice-300M in float32: one offline request
@@ -126,13 +129,33 @@ Phases:
      cli.average_model --val_best --num 2, and the averaged LM in a copy of
      phase 4's model directory (a fresh one without phase 4) for one
      inference_zero_shot; the training launches no kernel of the port
-  6. one JSON line of per-kernel results (printed after phases 7 to 12)
-Phases 8 to 12 run after phase 4's requests and before the profiler passes
-of phases 5 and 7 (phase 8 runs S1 twice and S2, S3 and S4 once each, and
-phase 9's async and HTTP rounds have no warm-up round, to leave phases 10-12
+  13. the rest of training: small models card against CPU (each GAN turn
+     in float32, a DPO step and a GRPO update in bf16 against float32 on the
+     CPU); at full width the vocoder's GAN turns (CosyVoiceConfig().hift and
+     the full MultipleDiscriminator, float32, on one batch of 38 crops of
+     24,960 samples as the recipe's pipeline gives it: ms a turn, peak
+     memory, one turn of each under torch.profiler) and a DPO step of the
+     CosyVoice3-0.5B LM with a frozen copy (8 pairs x 256 tokens: ms,
+     tokens/s, peak); these steps launch no kernel; then
+     `python -m fangyan_tts_torch.cli.grpo_train` at its defaults (4
+     prompts x 8 rollouts, echo reward) for two iterations on phase 4's
+     model directory (a fresh one without phase 4), each iteration's wall
+     split into rollouts, token2wav and update, its decode launches held to
+     24 a decode step and the steps to what the rollouts' lengths imply,
+     its flash launches to 220 a token2mel call, none in the update, every
+     shape held to phase 3's checks; and `python -m
+     fangyan_tts_torch.cli.train_gan` for one epoch on phase 11's corpus,
+     its generator checkpoint loaded as AutoModel loads a vocoder and run on
+     one mel
+  6. one JSON line of per-kernel results (printed after phases 7 to 13)
+Phases 8 to 13 run after phase 4's requests and before the profiler passes
+of phases 5 and 7 (phase 8 runs S1 twice and S2, S3 and S4 once each,
+phase 9's async and HTTP rounds have no warm-up round, phase 10 runs its v2
+offline request and stream once each, and phase 5 profiles the batched
+requests (a) and (b) in their serving modes only, to leave phases 10-13
 their time);
 a probe of the host's cost of one eager launch is logged at the start,
-around phases 8, 9, 10, 11 and 12 and at the end.
+around phases 8, 9, 10, 11, 12 and 13 and at the end.
 The last line is {"ok": true, "device": {...}} and the exit code is 0 only
 when every phase passed. Without a CUDA card it exits non-zero before
 printing any result.
@@ -244,6 +267,21 @@ TRAIN_MAX_B = 64  # bench.py's max-throughput point (llm_train_max_tokens_per_s_
 FLOW_TRAIN_B, FLOW_TRAIN_TOKENS, FLOW_STEPS = 4, 100, 2
 FLOW_TRAIN_REL_TOL = 1e-3
 TRAIN_SAVE_PER_STEP = 8
+
+# The rest of training (phase 13). The small models' GAN turns float32 on the card and the CPU within
+# GAN_TRAIN_REL_TOL; the DPO step and the GRPO update bf16 on the card against float32 on the CPU within
+# SMALL_REL_TOL. At full width: the GAN turns on one batch as the recipe's pipeline gives it (GAN_ROWS crops of
+# GAN_CROP samples, max_frames_in_batch 2000), a warm-up pair and GAN_STEPS timed pairs; a DPO step of
+# DPO_PAIRS chosen / rejected pairs of DPO_T tokens, a warm-up and DPO_STEPS timed steps. cli.grpo_train at its
+# defaults (GRPO_PROMPTS prompts x GRPO_GROUP rollouts, the echo reward) for GRPO_ITERS iterations on
+# GRPO_TEXTS (12 byte-tokenizer ids each: rollouts of 24 to 240 tokens).
+GAN_TRAIN_REL_TOL = 1e-3
+GAN_CROP = 24960  # data/dataset.truncate
+GAN_ROWS = 2000 // (GAN_CROP // 480)  # dynamic_batch at max_frames_in_batch 2000: 38 crops of 52 frames
+GAN_STEPS = 2
+DPO_PAIRS, DPO_T, DPO_STEPS = 8, 256, 2
+GRPO_TEXTS = ("你好吗。", "早上好。", "谢谢你。", "再见了。")
+GRPO_PROMPTS, GRPO_GROUP, GRPO_ITERS = 4, 8, 2
 
 CARDS_USED = 1  # every phase runs on card 0
 PORT_KERNELS = ("decode_attention", "flash_attention", "int4_matmul")  # kernel names the profile reports
@@ -575,7 +613,8 @@ def check_decode_rows(results: dict, serving: dict) -> None:
             raise AssertionError(f"decode_attention B={b} S={s}: a row differs from the B=1 call on it")
 
 
-def check_decode(results: dict, batches: list[dict], api: dict, stream: dict, serving: dict, v12: dict) -> None:
+def check_decode(results: dict, batches: list[dict], api: dict, stream: dict, serving: dict, v12: dict,
+                 grpo: dict) -> None:
     import torch
     import torch.nn.functional as F
 
@@ -606,6 +645,9 @@ def check_decode(results: dict, batches: list[dict], api: dict, stream: dict, se
             shapes.append((1, s, [idx], [start]))
     for b, s, tp in serving["decode"] + v12["sched"]:  # the continuous batches: a write slot and a window per row
         shapes.append((b, s, *serving_decode_rows(b, s, tp, kv)))
+    # phase 13's GRPO rollouts: prompts x group left-padded rows, each at the last slot a rollout can write
+    shapes.append((grpo["b"], grpo["cache_len"], [grpo["tp"] + grpo["max_new"] - 1] * grpo["b"], grpo["starts"],
+                   "GRPO rollouts"))
     for b, s, idx_list, starts, *label in shapes:
         _checked(results, "decode_attention", (b, s))
         rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -675,7 +717,7 @@ def check_decode(results: dict, batches: list[dict], api: dict, stream: dict, se
     results["decode_err"] = max(r["err"] for r in rows)
 
 
-def check_flash(results: dict, batches: list[dict], api: dict, stream: dict, serving: dict) -> None:
+def check_flash(results: dict, batches: list[dict], api: dict, stream: dict, serving: dict, grpo: dict) -> None:
     import torch
     import torch.nn.functional as F
 
@@ -716,6 +758,9 @@ def check_flash(results: dict, batches: list[dict], api: dict, stream: dict, ser
     known = {(len(mel), l) for l, mel in shapes}
     runs += [((l, (l - 6, l - 6)), "untimed") for l in api["flash_l"] if (2, l) not in known]
     known |= {(2, l) for l in api["flash_l"]}
+    # phase 13's GRPO token2mel calls: the CFG pair at every length bucket a rollout can reach
+    runs += [((l, (l - 6, l - 6)), "untimed") for l in grpo["flash_l"] if (2, l) not in known]
+    known |= {(2, l) for l in grpo["flash_l"]}
     runs += [((l, serving_mel(rows, l, kind)), "untimed") for (rows, l), kind in sorted(serving["flash"].items())
              if (rows, l) not in known]
     for (l, mel), layout in runs:
@@ -1402,20 +1447,18 @@ def profile_stages(tts, req: dict, results: dict, card: str) -> None:
     }, card, "150 tokens, bf16")
 
 
-def profile_batch(tts, req: dict, card: str, label: str, llm_only: bool = False) -> dict:
+def profile_batch(tts, req: dict, card: str, label: str) -> dict:
     """The stages of one batch_synthesize request."""
     args = (req["texts"], req.get("prompt_text", np.zeros(0, np.int32)),
             req.get("llm_prompt_speech_token", np.zeros(0, np.int32)),
             req["min_token_text_ratio"], req["max_token_text_ratio"])
-    stages = {"llm": lambda: tts._batch_tokens(*args)}
-    if not llm_only:
-        toks, n = tts._batch_tokens(*args)
-        fp = np.asarray(req.get("flow_prompt_speech_token", np.zeros(0, np.int32)), np.int32)
-        pf = np.asarray(req.get("prompt_speech_feat", np.zeros((0, 80), np.float32)), np.float32)
-        mel, _ = tts._batch_token2mel(toks, n, fp, pf, req["flow_embedding"])
-        stages["flow"] = lambda: tts._batch_token2mel(toks, n, fp, pf, req["flow_embedding"])
-        stages["vocoder"] = lambda: tts.vocode_batch(mel)
-    return _profile(stages, card, label)
+    toks, n = tts._batch_tokens(*args)
+    fp = np.asarray(req.get("flow_prompt_speech_token", np.zeros(0, np.int32)), np.int32)
+    pf = np.asarray(req.get("prompt_speech_feat", np.zeros((0, 80), np.float32)), np.float32)
+    mel, _ = tts._batch_token2mel(toks, n, fp, pf, req["flow_embedding"])
+    return _profile({"llm": lambda: tts._batch_tokens(*args),
+                     "flow": lambda: tts._batch_token2mel(toks, n, fp, pf, req["flow_embedding"]),
+                     "vocoder": lambda: tts.vocode_batch(mel)}, card, label)
 
 
 # ---------------------------------------------------------------- phase 8
@@ -2254,29 +2297,27 @@ def v2_offline(results: dict, card: str, tts) -> dict:
     tts.vocode = clocked(stage, "vocoder", tts.vocode, lambda a, k, out: mel_frames.append(a[0].shape[0]))
     out = {}
     try:
-        for run in ("warm-up", "timed"):
-            stage.clear()
-            steps[0] = 0
-            _zero_launches()
-            with kernel_shapes(results, f"v2 offline ({run})"):
-                t = time.perf_counter()
-                wav = next(tts.tts(**req))["tts_speech"]
-                wall = time.perf_counter() - t
-            counts = _launches()
-            _count(results, counts)
-            audio_s = len(wav) / 24000
-            ok = (np.isfinite(wav).all() and np.abs(wav).max() <= 0.99 and len(wav) == mel_frames[-1] * 480
-                  and n_tokens[-1] == int(V2_TEXT_TOKENS * V2_RATIO) and steps[0] > 0
-                  and counts == {"decode_attention": 24 * steps[0], "chunk_flash_attention": 0, "int4_matmul": 0})
-            out = dict(tokens=n_tokens[-1], steps=steps[0], mel_frames=mel_frames[-1], audio_s=audio_s,
-                       llm_s=stage["llm"], ms_per_step=stage["llm"] / steps[0] * 1e3, flow_s=stage["flow"],
-                       vocoder_s=stage["vocoder"], wall_s=wall, rtf=wall / audio_s, launches=counts)
-            log(f"v2 offline ({run}): {n_tokens[-1]} tokens in {steps[0]} decode steps, {mel_frames[-1]} mel frames, "
-                f"{audio_s:.2f} s audio; decode {stage['llm']:.3f} s ({out['ms_per_step']:.2f} ms/step), flow "
-                f"{stage['flow']:.3f} s, vocoder {stage['vocoder']:.3f} s, wall {wall:.3f} s, RTF {wall / audio_s:.4f}; "
-                f"launches {counts} [{card}] {'OK' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"v2 offline ({run}) failed its checks")
+        run = "one run, first calls included"
+        _zero_launches()
+        with kernel_shapes(results, f"v2 offline ({run})"):
+            t = time.perf_counter()
+            wav = next(tts.tts(**req))["tts_speech"]
+            wall = time.perf_counter() - t
+        counts = _launches()
+        _count(results, counts)
+        audio_s = len(wav) / 24000
+        ok = (np.isfinite(wav).all() and np.abs(wav).max() <= 0.99 and len(wav) == mel_frames[-1] * 480
+              and n_tokens[-1] == int(V2_TEXT_TOKENS * V2_RATIO) and steps[0] > 0
+              and counts == {"decode_attention": 24 * steps[0], "chunk_flash_attention": 0, "int4_matmul": 0})
+        out = dict(tokens=n_tokens[-1], steps=steps[0], mel_frames=mel_frames[-1], audio_s=audio_s,
+                   llm_s=stage["llm"], ms_per_step=stage["llm"] / steps[0] * 1e3, flow_s=stage["flow"],
+                   vocoder_s=stage["vocoder"], wall_s=wall, rtf=wall / audio_s, launches=counts)
+        log(f"v2 offline ({run}): {n_tokens[-1]} tokens in {steps[0]} decode steps, {mel_frames[-1]} mel frames, "
+            f"{audio_s:.2f} s audio; decode {stage['llm']:.3f} s ({out['ms_per_step']:.2f} ms/step), flow "
+            f"{stage['flow']:.3f} s, vocoder {stage['vocoder']:.3f} s, wall {wall:.3f} s, RTF {wall / audio_s:.4f}; "
+            f"launches {counts} [{card}] {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"v2 offline ({run}) failed its checks")
     finally:
         tts.generate_tokens, tts.token2mel, tts.vocode = inner
         del tts.llm.decode_step  # counted_steps' wrapper is an instance attribute
@@ -2295,8 +2336,9 @@ def v2_offline(results: dict, card: str, tts) -> dict:
 
 def v2_stream(results: dict, card: str, tts) -> dict:
     """A stream of 200 tokens (10 text tokens, min = max ratio 20, no
-    prompt) through CosyVoice2TTS.tts(stream=True): a warm-up stream, then
-    the timed one; first-chunk ms, RTF and the chunk count (v2_stream_chunks)."""
+    prompt) through CosyVoice2TTS.tts(stream=True): one stream, its first
+    calls included (no warm-up stream: phase 13 needs the time); first-chunk
+    ms, RTF and the chunk count (v2_stream_chunks)."""
     rng = np.random.default_rng(11)
     req = dict(text=rng.integers(0, 50000, V2_STREAM_TEXT_TOKENS).astype(np.int32),
                flow_embedding=rng.standard_normal(192).astype(np.float32), stream=True,
@@ -2310,35 +2352,33 @@ def v2_stream(results: dict, card: str, tts) -> dict:
     tts.vocode = clocked(stage, "vocoder", tts.vocode)
     out = {}
     try:
-        for run in ("warm-up", "timed"):
-            steps[0] = 0
-            stage.clear()
-            _zero_launches()
-            with kernel_shapes(results, f"v2 stream ({run})"):
-                t0 = time.perf_counter()
-                first, chunks, n, finite = None, 0, 0, True
-                for o in tts.tts(**req):
-                    first = time.perf_counter() - t0 if first is None else first
-                    chunks += 1
-                    n += len(o["tts_speech"])
-                    finite &= bool(np.isfinite(o["tts_speech"]).all())
-                wall = time.perf_counter() - t0
-            counts = _launches()
-            _count(results, counts)
-            audio_s = n / 24000
-            ok = (finite and chunks == want_chunks and n == n_tok * 2 * 480 and steps[0] > 0
-                  and counts == {"decode_attention": 24 * steps[0], "chunk_flash_attention": 0, "int4_matmul": 0})
-            rest = wall - stage["flow"] - stage["vocoder"]
-            out = dict(tokens=n_tok, chunks=chunks, steps=steps[0], first_ms=first * 1e3, wall_s=wall,
-                       audio_s=audio_s, rtf=wall / audio_s, flow_s=stage["flow"], vocoder_s=stage["vocoder"],
-                       llm_s=rest, launches=counts)
-            log(f"v2 stream ({run}): {n_tok} tokens, {chunks} chunks (derived {want_chunks}), first chunk "
-                f"{first * 1e3:.1f} ms, {audio_s:.2f} s audio in {wall:.3f} s, RTF {wall / audio_s:.4f}; flow "
-                f"{stage['flow']:.3f} s over {chunks} calls (the whole prefix each hop), vocoder "
-                f"{stage['vocoder']:.3f} s, the rest (decode) {rest:.3f} s for {steps[0]} decode steps; launches "
-                f"{counts} [{card}] {'OK' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"v2 stream ({run}) failed its checks")
+        run = "one run, first calls included"
+        _zero_launches()
+        with kernel_shapes(results, f"v2 stream ({run})"):
+            t0 = time.perf_counter()
+            first, chunks, n, finite = None, 0, 0, True
+            for o in tts.tts(**req):
+                first = time.perf_counter() - t0 if first is None else first
+                chunks += 1
+                n += len(o["tts_speech"])
+                finite &= bool(np.isfinite(o["tts_speech"]).all())
+            wall = time.perf_counter() - t0
+        counts = _launches()
+        _count(results, counts)
+        audio_s = n / 24000
+        ok = (finite and chunks == want_chunks and n == n_tok * 2 * 480 and steps[0] > 0
+              and counts == {"decode_attention": 24 * steps[0], "chunk_flash_attention": 0, "int4_matmul": 0})
+        rest = wall - stage["flow"] - stage["vocoder"]
+        out = dict(tokens=n_tok, chunks=chunks, steps=steps[0], first_ms=first * 1e3, wall_s=wall,
+                   audio_s=audio_s, rtf=wall / audio_s, flow_s=stage["flow"], vocoder_s=stage["vocoder"],
+                   llm_s=rest, launches=counts)
+        log(f"v2 stream ({run}): {n_tok} tokens, {chunks} chunks (derived {want_chunks}), first chunk "
+            f"{first * 1e3:.1f} ms, {audio_s:.2f} s audio in {wall:.3f} s, RTF {wall / audio_s:.4f}; flow "
+            f"{stage['flow']:.3f} s over {chunks} calls (the whole prefix each hop), vocoder "
+            f"{stage['vocoder']:.3f} s, the rest (decode) {rest:.3f} s for {steps[0]} decode steps; launches "
+            f"{counts} [{card}] {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"v2 stream ({run}) failed its checks")
     finally:
         tts.token2mel, tts.vocode = inner
         del tts.llm.decode_step
@@ -3165,9 +3205,468 @@ def train_phase(results: dict, card: str, states: tuple[dict, dict], model_dir, 
     out["clis"] = train_clis(results, card, states, model_dir, api)
 
 
+# ---------------------------------------------------------------- phase 13
+
+
+def _gan_small():
+    """The small vocoder of the card-vs-CPU GAN turns (HiFT base 32) and its
+    discriminators (periods 2 and 3, one resolution), as the CPU tests'."""
+    from fangyan_tts_torch.config import HiFTConfig
+
+    return HiFTConfig(base_channels=32, f0_cond_channels=16), dict(periods=(2, 3), fft_sizes=(512,),
+                                                                   hop_sizes=(128,), win_lengths=(240,))
+
+
+def _rel_err(a: float, b: float, floor: float = 1e-2) -> float:
+    return abs(a - b) / max(abs(b), floor)
+
+
+def _card_vs_cpu(card: str, label: str, got: dict, limit: float) -> dict:
+    """Each metric's card value against the CPU's within `limit` relative
+    (of max(|CPU|, 1e-2)), all finite."""
+    rel = {k: _rel_err(got["cuda"][k], got["cpu"][k]) for k in got["cpu"]}
+    ok = max(rel.values()) <= limit and all(np.isfinite(v) for v in got["cuda"].values())
+    log(f"small {label}, card vs CPU: " + ", ".join(f"{k} {got['cuda'][k]:.6f} / {got['cpu'][k]:.6f} (rel "
+                                                      f"{rel[k]:.3e})" for k in got["cpu"])
+        + f", limit {limit} [{card}] {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the {label} on the card disagrees with the CPU")
+    return dict(card=got["cuda"], cpu=got["cpu"], rel=rel, limit=limit)
+
+
+def rest_small_checks(card: str) -> dict:
+    """Small models, card against CPU from the same weights and batch: each
+    GAN turn from the same start in float32 on both (GAN_TRAIN_REL_TOL), one
+    DPO step in bf16 on the card against float32 on the CPU, and one GRPO
+    update likewise (SMALL_REL_TOL, as phase 12's LM step)."""
+    import torch
+
+    from fangyan_tts_torch.data.lm_plan import build_prompt_plan
+    from fangyan_tts_torch.models.discriminators import MultipleDiscriminator
+    from fangyan_tts_torch.models.hift import CausalHiFT
+    from fangyan_tts_torch.models.llm import CosyVoice3LM
+    from fangyan_tts_torch.train import dpo, gan, grpo, trainer
+    from fangyan_tts_torch.train.scheduler import build_optimizer, plain_adam
+
+    rng = np.random.default_rng(14)
+    out = {}
+    hcfg, dkw = _gan_small()
+    hift_ref = trainer.random_module(lambda: CausalHiFT(hcfg), 4, "cpu")
+    with torch.no_grad():
+        hift_ref.f0_predictor.classifier.bias.fill_(60.0)  # voiced frames: the sine phases carry gradient
+    disc_ref = trainer.random_module(lambda: MultipleDiscriminator(**dkw), 5, "cpu")
+    batch = {"speech": (rng.standard_normal((2, 12 * 480)) * 0.1).astype(np.float32),
+             "speech_feat": (rng.standard_normal((2, 12, 80)) * 0.3).astype(np.float32),
+             "pitch_feat": (np.abs(rng.standard_normal((2, 12))) * 100).astype(np.float32)}
+    for turn in (1, 0):  # the discriminator's turn, then the generator's, each from the same start
+        got = {}
+        for dev in ("cuda", "cpu"):
+            h = trainer.random_module(lambda: CausalHiFT(hcfg), 4, dev)
+            h.load_state_dict(hift_ref.state_dict())
+            d = trainer.random_module(lambda: MultipleDiscriminator(**dkw), 5, dev)
+            d.load_state_dict(disc_ref.state_dict())
+            state = gan.init_gan_state(h, d, plain_adam(2e-4), plain_adam(2e-4))
+            _, m = gan.make_hifigan_steps(h, d, plain_adam(2e-4), plain_adam(2e-4))[turn](state, batch)
+            got[dev] = {k: float(v) for k, v in m.items()}
+        out["gan_" + ("discriminator" if turn else "generator")] = _card_vs_cpu(
+            card, f"GAN {'discriminator' if turn else 'generator'} turn (float32)", got, GAN_TRAIN_REL_TOL)
+
+    small, _ = _train_cfgs()
+    lbatch = {k: v[0] for k, v in llm_train_batch(rng, small.llm, 4, 64, 1).items()}
+    lbatch["targets"][:, :8] = -1  # IGNORE_ID, as a plan's text positions
+    ref = trainer.random_module(lambda: CosyVoice3LM(small.llm), 6, "cpu")
+    other = trainer.random_module(lambda: CosyVoice3LM(small.llm), 7, "cpu")
+    got = {}
+    for dev, dt in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+        model = trainer.random_module(lambda: CosyVoice3LM(small.llm, dtype=dt), 6, dev)
+        model.load_state_dict(ref.state_dict())
+        tx = build_optimizer(lr=1e-4)
+        _, m = dpo.make_dpo_train_step(model, trainer.frozen_copy(model), tx)(trainer.init_state(model, tx), lbatch)
+        got[dev] = {k: float(m[k]) for k in ("loss", "sft_loss", "dpo_loss")}
+    out["dpo"] = _card_vs_cpu(card, "DPO step (card bf16, CPU float32)", got, SMALL_REL_TOL)
+
+    # one GRPO update: 2 prompts x group 2, a reference of other weights, old_logps off the policy's
+    plans = [build_prompt_plan(small.llm, rng.integers(0, 300, n).tolist(), []) for n in (5, 9)]
+    tokens = rng.integers(0, small.llm.speech_token_size, (4, 32)).astype(np.int32)
+    lens = np.asarray([32, 20, 27, 9], np.int32)
+    rewards = np.asarray([0.9, 0.1, 0.2, 0.7], np.float32)
+    with torch.no_grad():
+        base = grpo.make_rollout_batch(ref, plans, 2, tokens, lens, rewards)
+    noise = torch.from_numpy(rng.normal(0, 0.3, (4, 32)).astype(np.float32))
+    got = {}
+    for dev, dt in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+        model = trainer.random_module(lambda: CosyVoice3LM(small.llm, dtype=dt), 6, dev)
+        model.load_state_dict(ref.state_dict())
+        model.requires_grad_(False)
+        refm = trainer.random_module(lambda: CosyVoice3LM(small.llm, dtype=dt), 7, dev)
+        refm.load_state_dict(other.state_dict())
+        refm.requires_grad_(False)
+        batch = {k: v.to(dev) for k, v in base.items()}
+        batch["old_logps"] = batch["old_logps"] + noise.to(dev) * (batch["old_logps"] != 0)
+        tx = plain_adam(1e-4, weight_decay=1e-4, grad_clip=1.0)
+        step = grpo.make_grpo_step(model, refm, tx, grpo.GRPOConfig(group_size=2))
+        _, m = step(trainer.init_state(model, tx), batch)
+        got[dev] = {k: float(m[k]) for k in ("loss", "pg_loss", "kl")}
+    out["grpo"] = _card_vs_cpu(card, "GRPO update (card bf16, CPU float32)", got, SMALL_REL_TOL)
+    return out
+
+
+def gan_full_width(card: str) -> dict:
+    """The vocoder's GAN turns at full width: CosyVoiceConfig().hift and the
+    full MultipleDiscriminator in float32 (TF32 off) on one batch as the
+    recipe's pipeline gives it (collate_hifigan: GAN_ROWS crops of 24,960
+    samples, max_frames_in_batch 2000, their matcha mels on the card and
+    their f0): a warm-up pair, GAN_STEPS timed pairs (ms a turn), the peak
+    above what earlier phases leave resident, and one turn of each under
+    torch.profiler."""
+    import torch
+
+    from fangyan_tts_torch.config import CosyVoiceConfig
+    from fangyan_tts_torch.data.dataset import collate_hifigan, make_mel_fn
+    from fangyan_tts_torch.models.discriminators import MultipleDiscriminator
+    from fangyan_tts_torch.models.hift import CausalHiFT
+    from fangyan_tts_torch.train import gan, trainer
+    from fangyan_tts_torch.train.scheduler import plain_adam
+
+    cfg = CosyVoiceConfig()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 2**30
+    rng = np.random.default_rng(15)
+    t0 = time.perf_counter()
+    crops = [{"speech": prompt_audio(GAN_CROP / 24000, 24000, seed=int(s))[:GAN_CROP]}
+             for s in rng.integers(0, 2**31, GAN_ROWS)]
+    batch = {k: torch.from_numpy(v).cuda() for k, v in collate_hifigan(crops, make_mel_fn("cuda")).items()}
+    collate_s = time.perf_counter() - t0
+    hift = trainer.random_module(lambda: CausalHiFT(cfg.hift), 0, "cuda")
+    disc = trainer.random_module(MultipleDiscriminator, 1, "cuda")
+    n_gen, n_disc = (sum(p.numel() for p in m.parameters()) for m in (hift, disc))
+    state = gan.init_gan_state(hift, disc, plain_adam(2e-4), plain_adam(2e-4))
+    gen_step, disc_step = gan.make_hifigan_steps(hift, disc, plain_adam(2e-4), plain_adam(2e-4))
+    state, dm = disc_step(state, batch)
+    state, gm = gen_step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = {"discriminator": 0.0, "generator": 0.0}
+    losses = []
+    for _ in range(GAN_STEPS):
+        for name, step in (("discriminator", disc_step), ("generator", gen_step)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            times[name] += (time.perf_counter() - t) / GAN_STEPS
+            losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 2**30 - resident
+    held = [state]
+
+    def turn(step):
+        def run():
+            held[0], _ = step(held[0], batch)
+        return run
+
+    prof = _profile({"discriminator turn": turn(disc_step), "generator turn": turn(gen_step)}, card, "GAN")
+    ok = all(np.isfinite(losses)) and gm["loss_mel"] > 0
+    log(f"GAN turns at full width (CausalHiFT base {cfg.hift.base_channels}, {n_gen / 1e6:.1f}M params; the "
+        f"discriminators {n_disc / 1e6:.1f}M; float32, TF32 off; {GAN_ROWS} x {GAN_CROP} samples, collated in "
+        f"{collate_s:.2f} s): discriminator turn {times['discriminator'] * 1e3:.2f} ms, generator turn "
+        f"{times['generator'] * 1e3:.2f} ms; peak {peak:.2f} GiB above the resident {resident:.2f}; losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)} [{card}] {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the full-width GAN turns gave a non-finite loss")
+    out = dict(rows=GAN_ROWS, gen_params=n_gen, disc_params=n_disc, disc_ms=times["discriminator"] * 1e3,
+               gen_ms=times["generator"] * 1e3, peak_above_resident_gib=peak, losses=losses, profile=prof)
+    del hift, disc, state, held, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def dpo_full_width(card: str) -> dict:
+    """A DPO step at full width: the CosyVoice3-0.5B LM (remat "full", bf16
+    compute, float32 parameters and Adam as phase 12's LM step), its frozen
+    copy as the reference, DPO_PAIRS chosen / rejected pairs of DPO_T tokens:
+    a warm-up and DPO_STEPS timed steps, tokens/s (policy tokens), peak."""
+    import dataclasses
+
+    import torch
+
+    from fangyan_tts_torch.config import CosyVoiceConfig
+    from fangyan_tts_torch.models.llm import CosyVoice3LM
+    from fangyan_tts_torch.train import dpo, trainer
+    from fangyan_tts_torch.train.scheduler import build_optimizer
+
+    cfg = CosyVoiceConfig()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 2**30
+    lcfg = dataclasses.replace(cfg.llm, qwen=dataclasses.replace(cfg.llm.qwen, remat="full"))
+    model = trainer.random_module(lambda: CosyVoice3LM(lcfg, dtype=torch.bfloat16), 2, "cuda")
+    ref = trainer.frozen_copy(model)
+    tx = build_optimizer(optim="adam", lr=1e-5, scheduler="constantlr", grad_clip=5.0)
+    rng = np.random.default_rng(16)
+    batch = {k: torch.from_numpy(v[0]).cuda() for k, v in llm_train_batch(rng, cfg.llm, 2 * DPO_PAIRS, DPO_T,
+                                                                             1).items()}
+    batch["targets"][:, :32] = -1  # IGNORE_ID over a prompt's text positions
+    step = dpo.make_dpo_train_step(model, ref, tx)
+    state, ms, losses, peak = _timed_steps(step, trainer.init_state(model, tx), batch, None, DPO_STEPS)
+    peak -= resident
+    tokens = 2 * DPO_PAIRS * DPO_T
+    ok = all(np.isfinite(losses))
+    log(f"DPO step at full width (CosyVoice3-0.5B, remat full, bf16 compute, float32 params and Adam, a frozen "
+        f"copy as the reference; {DPO_PAIRS} pairs x {DPO_T} tokens): {ms:.2f} ms a step, {tokens / (ms / 1e3):.0f} "
+        f"tokens/s; peak {peak:.2f} GiB above the resident {resident:.2f}; losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)} (warm-up first) [{card}] {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the full-width DPO step gave a non-finite loss")
+    out = dict(ms=ms, tokens_per_s=tokens / (ms / 1e3), peak_above_resident_gib=peak, losses=losses)
+    del model, ref, state, step, batch, tx
+    torch.cuda.empty_cache()
+    return out
+
+
+def grpo_spec() -> dict:
+    """The kernel shapes of phase 13's GRPO run, from train/grpo's own
+    buckets (rollout_buckets, the function generate_rollouts uses) on
+    GRPO_TEXTS through the byte tokenizer (the card's model directories
+    have no tokenizer/): the decode at B = prompts x group with its cache
+    length and each row's first valid slot, and flash at the CFG pair for
+    every length bucket a rollout can reach between its min and max lengths
+    (token2mel pads the tokens to a multiple of 32, 2 mel frames a token)."""
+    import warnings
+
+    from fangyan_tts_torch.config import CosyVoiceConfig
+    from fangyan_tts_torch.data.lm_plan import build_prompt_plan
+    from fangyan_tts_torch.infer.frontend import Frontend
+    from fangyan_tts_torch.tokenizer import get_qwen_tokenizer
+    from fangyan_tts_torch.train.grpo import rollout_buckets
+
+    cfg = CosyVoiceConfig()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        fe = Frontend(get_qwen_tokenizer(None, True, "cosyvoice3"), cfg, device="cpu")
+    plans = [build_prompt_plan(cfg.llm, fe.extract_text_token(t).tolist(), []) for t in GRPO_TEXTS]
+    bk = rollout_buckets(plans, GRPO_GROUP)
+    up = lambda n, m: -(-n // m) * m
+    flash_l = sorted({up(max(n, 1), 32) * cfg.token_mel_ratio
+                      for n in range(int(bk["min_lens"].min()), int(bk["max_lens"].max()) + 1)})
+    return dict(b=len(bk["rows"]), tp=bk["tp"], max_new=bk["max_new"], cache_len=bk["cache_len"],
+                starts=[bk["tp"] - len(p.ids) for p in bk["rows"]], min_lens=bk["min_lens"].tolist(),
+                max_lens=bk["max_lens"].tolist(), flash_l=flash_l)
+
+
+def _decode_iterations(lens, max_lens, max_new: int) -> int:
+    """generate_speech_tokens' loop count from its result: row r is done
+    after step n_r (its stop id) or, at its max length, after step n_r - 1;
+    the loop runs until every row is done."""
+    done = [n - 1 if n >= m else n for n, m in zip(lens, max_lens)]
+    return min(max(done) + 1, max_new)
+
+
+def grpo_cli(results: dict, card: str, model_dir, spec: dict) -> dict:
+    """`python -m fangyan_tts_torch.cli.grpo_train` at its defaults (4
+    prompts x 8 rollouts, echo reward, clip 1.0 + adamw) for GRPO_ITERS steps
+    on `model_dir`: each iteration's wall split into the rollouts, token2wav
+    (token2mel + vocode) and the update (make_rollout_batch's old_logps and
+    the step); decode launches held to 24 a decode step and the steps to
+    what the rollouts' lengths imply, flash launches to 220 a token2mel
+    call, none in the update, every shape held to phase 3's checks
+    (grpo_spec); metrics.jsonl and the checkpoint read back."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from fangyan_tts_torch.cli import grpo_train
+    from fangyan_tts_torch.config import CosyVoiceConfig
+    from fangyan_tts_torch.infer.tts import CosyVoice3TTS
+    from fangyan_tts_torch.models.from_jax import llm_from_jax
+    from fangyan_tts_torch.models.llm import CosyVoice3LM
+    from fangyan_tts_torch.train import grpo
+    from fangyan_tts_torch.train.checkpoint import load_params
+
+    iters: list = []  # one dict an iteration, opened by its rollouts
+    orig = {"rollouts": grpo.generate_rollouts, "batch": grpo.make_rollout_batch, "step": grpo.make_grpo_step,
+            "token2mel": CosyVoice3TTS.token2mel, "vocode": CosyVoice3TTS.vocode, "decode": CosyVoice3LM.decode_step}
+
+    def timed(part, fn, note=None):
+        def inner(*a, **k):
+            torch.cuda.synchronize()
+            before, t = sum(_launches().values()), time.perf_counter()
+            res = fn(*a, **k)
+            torch.cuda.synchronize()
+            it = iters[-1]
+            it[part] = it.get(part, 0.0) + time.perf_counter() - t
+            if part == "update":
+                it["update_launches"] = it.get("update_launches", 0) + sum(_launches().values()) - before
+            if note:
+                note(it, res)
+            return res
+        return inner
+
+    def rollouts(model, plans, group_size, *a, **k):
+        bk = grpo.rollout_buckets(plans, group_size)
+        iters.append({"steps": 0, "token2mel_calls": 0, "max_lens": bk["max_lens"].tolist(),
+                      "max_new": bk["max_new"]})
+        return timed("rollouts", orig["rollouts"], lambda it, res: it.update(lens=res[1].tolist()))(
+            model, plans, group_size, *a, **k)
+
+    def decode_step(self, *a, **k):
+        iters[-1]["steps"] += 1
+        return orig["decode"](self, *a, **k)
+
+    def count_call(it, _):
+        it["token2mel_calls"] += 1
+
+    patches = [(grpo, "generate_rollouts", rollouts), (grpo, "make_rollout_batch", timed("update", orig["batch"])),
+               (grpo, "make_grpo_step", lambda *a, **k: timed("update", orig["step"](*a, **k))),
+               (CosyVoice3TTS, "token2mel", timed("token2wav", orig["token2mel"], count_call)),
+               (CosyVoice3TTS, "vocode", timed("token2wav", orig["vocode"])),
+               (CosyVoice3LM, "decode_step", decode_step)]
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build, prefix="grpo_") as tmp:
+        root = Path(tmp)
+        (root / "train.jsonl").write_text("".join(json.dumps({"text": t}, ensure_ascii=False) + "\n"
+                                                  for t in GRPO_TEXTS))
+        saved = [(owner, name, getattr(owner, name)) for owner, name, _ in patches]
+        for owner, name, fn in patches:
+            setattr(owner, name, fn)
+        _zero_launches()
+        try:
+            with kernel_shapes(results, "cli.grpo_train"):
+                t0 = time.perf_counter()
+                grpo_train.main(["--model_dir", str(model_dir), "--data", str(root / "train.jsonl"), "--out_dir",
+                                 str(root / "out"), "--steps", str(GRPO_ITERS)])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            for owner, name, fn in saved:
+                setattr(owner, name, fn)
+        counts = _launches()
+        _count(results, counts)
+        records = [json.loads(x) for x in (root / "out" / "metrics.jsonl").read_text().splitlines()]
+        ckpt = root / "out" / f"llm_grpo_step{GRPO_ITERS}.msgpack"
+        t = time.perf_counter()
+        n_leaves = len(llm_from_jax(load_params(ckpt), CosyVoiceConfig().llm))
+        read_s = time.perf_counter() - t
+        ckpt_gib = ckpt.stat().st_size / 2**30
+        shutil.rmtree(root / "out")
+    steps = sum(it["steps"] for it in iters)
+    calls = sum(it["token2mel_calls"] for it in iters)
+    b = spec["b"]
+    derived = [_decode_iterations(it["lens"], it["max_lens"], it["max_new"]) for it in iters]
+    ok = (len(iters) == len(records) == GRPO_ITERS and all(len(it["lens"]) == b for it in iters)
+          and [it["steps"] for it in iters] == derived and calls == b * GRPO_ITERS
+          and counts == {"decode_attention": 24 * steps, "chunk_flash_attention": 220 * calls, "int4_matmul": 0}
+          and all(it.get("update_launches") == 0 for it in iters)
+          and all(np.isfinite(r["loss"]) and r["reward_mean"] == -1.0 for r in records))
+    for i, (it, r) in enumerate(zip(iters, records)):
+        log(f"cli.grpo_train iteration {i}: {b} rollouts ({GRPO_PROMPTS} prompts x {GRPO_GROUP}), lengths "
+            f"{min(it['lens'])}-{max(it['lens'])} (mean {np.mean(it['lens']):.1f}), {it['steps']} decode steps "
+            f"(derived {derived[i]}); rollouts {it['rollouts']:.3f} s, token2wav {it['token2wav']:.3f} s over "
+            f"{it['token2mel_calls']} token2mel + vocode calls, update {it['update']:.3f} s (old_logps and the step, "
+            f"{it['update_launches']} kernel launches); wall_s {r['wall_s']}; loss {r['loss']:.6f}, kl {r['kl']:.3e}, "
+            f"reward_mean {r['reward_mean']}")
+    log(f"cli.grpo_train: {GRPO_ITERS} iterations in {wall:.2f} s (model load and the checkpoint included); "
+        f"launches {counts} (24 x {steps} decode steps, 220 x {calls} token2mel calls); checkpoint "
+        f"{ckpt_gib:.2f} GiB, {n_leaves} tensors, read back in {read_s:.2f} s [{card}] {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("cli.grpo_train failed its checks")
+    return dict(wall_s=wall, iterations=iters, derived_steps=derived,
+                launches=counts, records=records, checkpoint_gib=ckpt_gib)
+
+
+def gan_cli(card: str, states: tuple[dict, dict]) -> dict:
+    """`python -m fangyan_tts_torch.cli.train_gan` for one epoch on phase
+    11's corpus (prepare_corpus, shard 0 the train list), at full width;
+    both checkpoints read back, and the generator's loaded as AutoModel
+    loads a CausalHiFT (bf16 but the f0 predictor) to vocode one mel."""
+    import tempfile
+
+    import torch
+
+    from fangyan_tts_torch.cli import train_gan
+    from fangyan_tts_torch.config import CosyVoiceConfig
+    from fangyan_tts_torch.data.extract import prepare_corpus
+    from fangyan_tts_torch.infer.tts import _cast_state, _load
+    from fangyan_tts_torch.models.from_jax import discriminator_from_jax, hift_from_jax
+    from fangyan_tts_torch.models.hift import CausalHiFT
+    from fangyan_tts_torch.train.checkpoint import load_meta, load_params
+
+    cfg = CosyVoiceConfig()
+    emb, tok = dp_models(states)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build, prefix="gan_") as tmp:
+        root = Path(tmp)
+        wavs, texts, _ = dp_corpus(root)
+        d = root / "kaldi"
+        dp_stage0(d, wavs, texts)
+        shards = prepare_corpus(d, d / "pq", emb, tok, batch_size=DP_BATCH, num_utts_per_parquet=DP_SHARD,
+                                instruct=True)
+        (root / "train.list").write_text(shards[0] + "\n")
+        t = time.perf_counter()
+        train_gan.main(["--train_data", str(root / "train.list"), "--model_dir", str(root / "exp"), "--max_epoch",
+                        "1", "--log_interval", "1"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        names = sorted(f.name for f in (root / "exp").iterdir())
+        gen, disc = (load_params(root / "exp" / f"epoch_0_{n}.msgpack") for n in ("whole", "disc"))
+        metas = [load_meta(root / "exp" / f"epoch_0_{n}.msgpack") for n in ("whole", "disc")]
+    discriminator_from_jax(disc)  # the full set's keys and shapes
+    hift = _load(lambda: CausalHiFT(cfg.hift), _cast_state(hift_from_jax(gen, cfg.hift), torch.bfloat16,
+                                                           ("f0_predictor.",)), torch.device("cuda"))
+    mel = torch.from_numpy((np.random.default_rng(17).standard_normal((1, 64, 80)) * 0.5).astype(np.float32))
+    with torch.inference_mode():
+        audio, _ = hift(mel.cuda().to(torch.bfloat16))
+    audio = audio.float().cpu().numpy()
+    ok = (names == ["epoch_0_disc.msgpack", "epoch_0_disc.msgpack.json", "epoch_0_whole.msgpack",
+                    "epoch_0_whole.msgpack.json"] and metas == [{"epoch": 0}] * 2
+          and audio.shape == (1, 64 * 480) and np.isfinite(audio).all())
+    log(f"cli.train_gan: one epoch on shard 0 ({DP_SHARD} utterances) in {wall:.2f} s (model init, the "
+        f"pipeline's resample, crops, mels and f0, the checkpoints included); wrote {names}; the generator "
+        f"vocodes a 64-frame mel as AutoModel loads it: {audio.shape[1]} samples, max |x| "
+        f"{np.abs(audio).max():.4f} [{card}] {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("cli.train_gan did not write what the JAX CLI writes")
+    return dict(wall_s=wall, files=names)
+
+
+def rest_phase(results: dict, card: str, states: tuple[dict, dict], model_dir, grpo: dict) -> None:
+    """Phase 13, the rest of training: the small models card against CPU
+    (GAN turns, a DPO step, a GRPO update), the GAN turns and a DPO step at
+    full width, then the CLIs: cli.grpo_train (its rollouts on the decode
+    kernel and its token2wav on the flash kernel, launches counted) and
+    cli.train_gan. The GAN, DPO and GRPO-update steps launch no kernel."""
+    import contextlib
+
+    import torch
+
+    out = results.setdefault("train_rest", {})
+    _zero_launches()
+    out["small"] = rest_small_checks(card)
+    out["gan"] = gan_full_width(card)
+    out["dpo"] = dpo_full_width(card)
+    launches = _launches()
+    log(f"phase 13 training steps' kernel launches (small checks, GAN turns, DPO steps): {launches} (none expected)")
+    if any(launches.values()):
+        raise AssertionError("a GAN, DPO or GRPO-update step launched a kernel of the port")
+    with contextlib.ExitStack() as stack:
+        if model_dir is None:  # phase 4 did not run: a full-width directory of random weights
+            from fangyan_tts_torch.config import CosyVoiceConfig
+            from fangyan_tts_torch.infer.tts import CosyVoice3TTS
+
+            tts = CosyVoice3TTS.random_init(CosyVoiceConfig(), dtype=torch.bfloat16, seed=11)
+            model_dir = stack.enter_context(api_model_dir(tts, states))
+            del tts
+        out["grpo_cli"] = grpo_cli(results, card, model_dir, grpo)
+    _zero_launches()
+    out["gan_cli"] = gan_cli(card, states)
+    if any(_launches().values()):
+        raise AssertionError("cli.train_gan launched a kernel of the port")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12", help="comma-separated phases to run (see above)")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13", help="comma-separated phases to run (see above)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -3198,16 +3697,18 @@ def main() -> int:
     stream = stream_shapes(api)
     serving = serving_spec(api)
     v12 = v12_spec(api)
-    states = frontend_states() if phases & {4, 7, 8, 9, 10, 11, 12} else None
+    grpo = grpo_spec()
+    states = frontend_states() if phases & {4, 7, 8, 9, 10, 11, 12, 13} else None
     if 3 in phases:
         batches = [batch_shapes(r) for r in batch_requests_spec()]
         log(f"batched requests' shapes (a), (b): {batches}; the API request's: {api}; the streams': {stream}; "
             f"the serving runs' decode (B, S, tp) {serving['decode']} and flow calls (rows, L): kind "
             f"{dict(sorted(serving['flash'].items()))}; phase 10's v2 decodes (label, B, S, last slot, first "
-            f"slot) {v12['decode']} and scheduler (B, S, tp) {v12['sched']}")
-        check_decode(results, batches, api, stream, serving, v12)
+            f"slot) {v12['decode']} and scheduler (B, S, tp) {v12['sched']}; phase 13's GRPO rollouts: decode B "
+            f"{grpo['b']} S {grpo['cache_len']} (tp {grpo['tp']}, max_new {grpo['max_new']}), flash L {grpo['flash_l']}")
+        check_decode(results, batches, api, stream, serving, v12, grpo)
         check_decode_rows(results, serving)
-        check_flash(results, batches, api, stream, serving)
+        check_flash(results, batches, api, stream, serving, grpo)
         check_int4(results, batches[1])
     with contextlib.ExitStack() as stack:
         if 4 in phases:
@@ -3260,12 +3761,16 @@ def main() -> int:
             train_phase(results, card, states, model_dir, api)
             log(f"phase 12 took {time.perf_counter() - t:.1f} s")
             launch_probe(results, "after phase 12")
+        if 13 in phases:  # after phase 12, before the profiler passes of phases 5 and 7
+            t = time.perf_counter()
+            rest_phase(results, card, states, model_dir, grpo)
+            log(f"phase 13 took {time.perf_counter() - t:.1f} s")
+            launch_probe(results, "after phase 13")
         if 4 in phases and 5 in phases:
             profile_stages(tts, req, results, card)
             (tts_a, req_a), (tts_b, req_b) = batched["a"], batched["b"]
             results["profile_batch"] = {
                 "a_int8": profile_batch(tts_a, req_a, card, "(a) int8 LLM"),
-                "a_bf16": profile_batch(batched["a_bf16"][0], req_a, card, "(a) in bf16", llm_only=True),
                 "b_int4": profile_batch(tts_b, req_b, card, "(b) int8 LLM + int4 MLP, int8 DiT"),
             }
         if 7 in phases:

@@ -15,10 +15,15 @@ start from the JAX package's fast-init rules with --seed, or from
 model directory gets init.msgpack, step_N / epoch_N_whole checkpoints with
 their sidecars and metrics.jsonl, in the JAX package's layout.
 
+--model hifigan exits pointing at cli.train_gan, which trains the vocoder
+against its discriminators (as the JAX CLI does). DPO is the library
+train/dpo.py (make_dpo_train_step), as in the JAX package.
+
 Departures from the JAX CLI: --mesh other than dp=1 raises (one device
-here), --dpo raises (the JAX CLI parses it and never reads it), and the CV
-pipeline is built anew for every checkpoint, so that a step_N checkpoint
-does not leave the epoch's own checkpoint an empty CV set.
+here), --dpo raises (the JAX CLI parses it and never reads it: nothing in
+either package wires DPO into this CLI), and the CV pipeline is built anew
+for every checkpoint, so that a step_N checkpoint does not leave the
+epoch's own checkpoint an empty CV set.
 """
 
 from __future__ import annotations
@@ -69,7 +74,7 @@ def main(argv=None) -> None:
     p.add_argument("--log_interval", type=int, default=100)
     p.add_argument("--save_per_step", type=int, default=-1)
     p.add_argument("--use_spk_embedding", action="store_true")
-    p.add_argument("--dpo", action="store_true", help="DPO fine-tuning (llm only): not ported yet, raises")
+    p.add_argument("--dpo", action="store_true", help="DPO fine-tuning (llm only): the JAX CLI never reads it; raises")
     p.add_argument("--seed", type=int, default=1986)
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
@@ -78,9 +83,10 @@ def main(argv=None) -> None:
         raise NotImplementedError(f"--mesh {args.mesh}: fangyan_tts_torch trains on one device; multi-device "
                                   "training (the JAX package's parallel/ mesh) is not ported yet")
     if args.dpo:
-        raise NotImplementedError("--dpo: DPO fine-tuning is not ported to fangyan_tts_torch yet")
+        raise NotImplementedError("--dpo: the JAX CLI parses this flag and never reads it; DPO is the library "
+                                  "fangyan_tts_torch.train.dpo (make_dpo_train_step)")
     if args.model == "hifigan":
-        raise SystemExit("hifigan training (the JAX package's cli.train_gan) is not ported to fangyan_tts_torch yet")
+        raise SystemExit("hifigan training: use fangyan_tts_torch.cli.train_gan")
 
     import torch
 

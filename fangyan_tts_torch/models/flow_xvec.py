@@ -12,8 +12,13 @@ U-Net CFM (fangyan_tts_tpu/models/flow_xvec.py, the inference half).
   `xvec_flow_inference_v1` with the z / mu flow cache that pins the noise
   and the encoder output over the prompt and the 34-frame chunk overlap.
 
-The training forwards are not ported yet. The v1 flow draws its noise from
-a `torch.Generator` (the JAX package's PRNG key); `noise` overrides it.
+Both flows' `forward` is the training loss (`cfm_train_loss`, the
+conditional flow matching loss on the U-Net with autograd; v2 with its
+`streaming` chunk mask, v1 through `InterpolateRegulator.forward`). Torch
+cannot reproduce `jax.random`, so the loss takes its five draws as an
+argument (models/flow.flow_train_draws makes them). The v1 inference draws
+its noise from a `torch.Generator` (the JAX package's PRNG key); `noise`
+overrides it.
 """
 
 from __future__ import annotations
@@ -28,6 +33,33 @@ from .dit import ConvParams
 from .flow import cosine_t_span, fixed_cfm_noise
 from .qwen2 import flax_dense
 from .unet_decoder import ConditionalDecoder, mish
+
+
+TRAINING_CFG_RATE = 0.2  # the share of rows that lose mu, spks and the condition
+
+
+def cfm_train_loss(estimator: ConditionalDecoder, sigma_min: float, mu, spks, feat, feat_len, draws: dict,
+                   streaming: bool = False) -> torch.Tensor:
+    """The conditional flow matching loss of the x-vector flows: half the
+    rows (draws["use_cond"]) keep a random prefix of up to 0.3 of their mel
+    as the condition; the target is the straight path from the noise z to
+    feat at time t; rows whose draws["cfg"] is at or under TRAINING_CFG_RATE
+    lose mu, spks and the condition. mu (B, >= L_mel, 80) is cut to feat's
+    L_mel; the squared error over the valid frames is divided by their count
+    times the mel dim."""
+    b, l_mel, d = feat.shape
+    mu = mu[:, :l_mel]
+    pos = torch.arange(l_mel, device=feat.device)[None, :]
+    mask = (pos < feat_len[:, None])[..., None].to(feat.dtype)
+    cond_len = (draws["cond_len"] * 0.3 * feat_len.float()).to(torch.int32)
+    conds = feat * ((pos < cond_len[:, None]) & draws["use_cond"][:, None])[..., None].to(feat.dtype)
+    t, z = draws["t"].reshape(b), draws["z"]
+    y = (1 - (1 - sigma_min) * t[:, None, None]) * z + t[:, None, None] * feat
+    u = feat - (1 - sigma_min) * z
+    keep = (draws["cfg"] > TRAINING_CFG_RATE).to(feat.dtype)
+    pred = estimator(y, mu * keep[:, None, None], t, spks * keep[:, None], conds * keep[:, None, None], feat_len,
+                     streaming=streaming)
+    return (((pred - u) * mask) ** 2).sum() / (mask.sum() * d)
 
 
 def _l2_normalize(embedding: torch.Tensor) -> torch.Tensor:
@@ -140,7 +172,7 @@ class CausalMaskedDiffWithXvec(nn.Module):
         self.vocab_size, self.output_size = vocab_size, output_size
         self.token_mel_ratio, self.pre_lookahead_len = token_mel_ratio, pre_lookahead_len
         self.static_chunk_size, self.n_timesteps = static_chunk_size, n_timesteps
-        self.inference_cfg_rate = inference_cfg_rate
+        self.inference_cfg_rate, self.sigma_min = inference_cfg_rate, sigma_min
         self.input_embedding = nn.Embedding(vocab_size, input_size)
         self.spk_embed_affine_layer = nn.Linear(spk_embed_dim, output_size)
         self.encoder = UpsampleConformerEncoder(
@@ -172,6 +204,15 @@ class CausalMaskedDiffWithXvec(nn.Module):
         conds = torch.where(pos < prompt_feat_len[:, None, None], pf, torch.zeros_like(pf))
         return mu, spks, conds, out_lens
 
+    def forward(self, token, token_len, feat, feat_len, embedding, draws: dict,
+                streaming: bool = False) -> tuple[torch.Tensor, dict]:
+        """Training loss: token (B, Lt), token_len (B,), feat (B, L_mel, 80)
+        target mel, feat_len (B,), embedding (B, 192), draws from
+        models/flow.flow_train_draws; `streaming` runs the encoder and the
+        U-Net under their chunk masks. Returns (loss, {})."""
+        mu, spks, _, _ = self.prepare_inference(token, token_len, feat, feat_len, embedding, streaming=streaming)
+        return cfm_train_loss(self.estimator, self.sigma_min, mu, spks, feat, feat_len, draws, streaming), {}
+
 
 class MaskedDiffWithXvec(nn.Module):
     """The CosyVoice1 flow; the defaults are CosyVoice-300M's."""
@@ -184,7 +225,7 @@ class MaskedDiffWithXvec(nn.Module):
         super().__init__()
         self.vocab_size, self.output_size = vocab_size, output_size
         self.input_frame_rate, self.n_timesteps = input_frame_rate, n_timesteps
-        self.inference_cfg_rate = inference_cfg_rate
+        self.inference_cfg_rate, self.sigma_min = inference_cfg_rate, sigma_min
         self.input_embedding = nn.Embedding(vocab_size, input_size)
         self.spk_embed_affine_layer = nn.Linear(spk_embed_dim, output_size)
         self.encoder = ConformerEncoder(dim=input_size, heads=enc_heads, ffn_hidden=enc_ffn, num_blocks=enc_blocks,
@@ -215,6 +256,18 @@ class MaskedDiffWithXvec(nn.Module):
         conds = torch.where(pos < mel_len1, pf, torch.zeros_like(pf))
         lens = torch.full((b,), mel_len1 + mel_len2, dtype=torch.int32, device=dev)
         return mu, spks, conds, lens
+
+    def forward(self, token, token_len, feat, feat_len, embedding, draws: dict) -> tuple[torch.Tensor, dict]:
+        """Training loss: the encoded tokens projected to 80 and interpolated
+        to feat's length (InterpolateRegulator.forward), then the U-Net's
+        flow matching loss (cfm_train_loss) with the draws of
+        models/flow.flow_train_draws. Returns (loss, {})."""
+        spks = flax_dense(_l2_normalize(embedding), self.spk_embed_affine_layer)
+        valid = torch.arange(token.shape[1], device=token.device)[None, :] < token_len[:, None]
+        h = self.input_embedding(token.clamp(0, self.vocab_size - 1)) * valid[..., None].float()
+        h, _ = self.encoder(h, token_len)
+        mu = self.length_regulator(flax_dense(h, self.encoder_proj), feat.shape[1])
+        return cfm_train_loss(self.estimator, self.sigma_min, mu, spks, feat, feat_len, draws), {}
 
 
 def unet_cfg_solve(dec: ConditionalDecoder, z, mu, spks, conds, lens, n_timesteps: int, cfg_rate: float,

@@ -1,11 +1,12 @@
 """Carry the JAX package's parameters into the port's modules.
 
 `llm_from_jax`, `flow_from_jax`, `hift_from_jax`, `campplus_from_jax`,
-`s3_from_jax` and the CosyVoice1/2 carriers `llm_v2_from_jax`,
+`s3_from_jax`, the CosyVoice1/2 carriers `llm_v2_from_jax`,
 `llm_v1_from_jax`, `flow_v2_from_jax`, `flow_v1_from_jax` and
-`hift_nc_from_jax` take a param tree of the JAX package (nested dicts of
-numpy arrays, as `jax.device_get` returns them, or of torch tensors where
-train/checkpoint.py reads bfloat16) and return the port's state_dict:
+`hift_nc_from_jax`, and `discriminator_from_jax` take a param tree of the
+JAX package (nested dicts of numpy arrays, as `jax.device_get` returns
+them, or of torch tensors where train/checkpoint.py reads bfloat16) and
+return the port's state_dict:
 
 - the leading layer axis of the nn.scan stacks (`layers`, `blocks`,
   `encoders`, `up_encoders`, `mid`) is unstacked into `layers.{i}` etc.;
@@ -14,6 +15,8 @@ train/checkpoint.py reads bfloat16) and return the port's state_dict:
   `conv_transpose1d` kernel (K, Cout, Cin) (ops/convs.py of the JAX package)
   becomes torch's (Cin, Cout, K): both are the axis reversal; a 2-D
   `nn.Conv` kernel (kh, kw, Cin, Cout) becomes (Cout, Cin, kh, kw);
+- flax WeightNorm's `WeightNorm_i/{"Conv_i/kernel/scale"}` becomes
+  `Conv_i.scale` of the port's WNConv2d (models/discriminators.py);
 - `embedding` becomes an Embedding's `weight`; `<name>_kernel` /
   `<name>_bias` leaves become `<name>.weight` / `<name>.bias`, and
   `<name>_scale` becomes `<name>.scale` (an AffineParams of
@@ -35,8 +38,9 @@ back to the JAX package's nested tree (layers re-stacked, transposes
 undone), so that the port writes model directories the JAX package reads
 (train/checkpoint.save_params). A module whose type is exactly ConvParams,
 or a bare nn.Module holding a weight, stands for the JAX module's
-`<name>_kernel` / `<name>_bias` leaves, and an AffineParams for
-`<name>_scale` / `<name>_bias`.
+`<name>_kernel` / `<name>_bias` leaves, an AffineParams for
+`<name>_scale` / `<name>_bias`, and a WNConv2d's scale goes back to its
+WeightNorm_i entry.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ import torch.nn as nn
 from ..config import FlowConfig, HiFTConfig, LLMConfig
 from .campplus import CAMPPlus
 from .conformer import AffineParams
+from .discriminators import MultipleDiscriminator, WNConv2d
 from .dit import ConvParams
 from .flow import CausalMaskedDiffWithDiT
 from .flow_xvec import CausalMaskedDiffWithXvec, MaskedDiffWithXvec
@@ -182,6 +187,21 @@ def hift_nc_from_jax(params: Mapping[str, Any], cfg: HiFTConfig) -> dict[str, to
     return convert(params, _skeleton(lambda: HiFT(cfg)))
 
 
+def discriminator_from_jax(params: Mapping[str, Any], **kwargs) -> dict[str, torch.Tensor]:
+    """MultipleDiscriminator tree -> state_dict; kwargs are its (the full
+    set of periods and resolutions by default). Each WeightNorm_i's scale
+    moves beside the kernel of its Conv_i."""
+    tree = {}
+    for name, sub in params.items():
+        sub = dict(sub)
+        for wn in [k for k in sub if k.startswith("WeightNorm_")]:
+            for key, scale in sub.pop(wn).items():
+                conv = key.split("/")[0]
+                sub[conv] = dict(sub[conv], scale=scale)
+        tree[name] = sub
+    return convert(tree, _skeleton(lambda: MultipleDiscriminator(**kwargs)))
+
+
 def _jax_leaf(t: torch.Tensor) -> np.ndarray | torch.Tensor:
     """numpy where numpy has the dtype; a bfloat16 tensor stays a tensor."""
     t = t.detach().cpu().contiguous()
@@ -200,6 +220,8 @@ def to_jax_tree(state_dict: Mapping[str, torch.Tensor], module: nn.Module) -> di
             path = parts + ["embedding"]
         elif isinstance(owner, AffineParams):
             path = parts[:-1] + [f"{parts[-1]}_{leaf}"]
+        elif isinstance(owner, WNConv2d) and leaf == "scale":  # Conv_i's scale lives in WeightNorm_i
+            path = parts[:-1] + [f"WeightNorm_{parts[-1].split('_')[-1]}", f"{parts[-1]}/kernel/scale"]
         elif type(owner) in (ConvParams, nn.Module) and leaf in ("weight", "bias"):
             path = parts[:-1] + [f"{parts[-1]}_{'kernel' if leaf == 'weight' else 'bias'}"]
             if leaf == "weight":

@@ -3,8 +3,9 @@
 
 - `CausalHiFT` (CosyVoice3, the sinegen2_causal source): offline
   (finalize) inference, the streaming step (`finalize=False`, the lookahead
-  frames as context) and the windows of constant-cost streaming
-  (`stream_window`, `finalize_window`, `rad_delta`).
+  frames as context), the windows of constant-cost streaming
+  (`stream_window`, `finalize_window`, `rad_delta`) and the GAN-training
+  forward (`forward_train`, train/gan.py).
 - `HiFT` (CosyVoice1/2, non-causal): symmetric-padded convolutions, a
   transposed-convolution upsampler, the `F0Predictor` and the sinegen1
   (22.05 kHz, v1) or non-causal sinegen2 (24 kHz, v2) source, with the
@@ -337,6 +338,16 @@ class CausalHiFT(nn.Module):
         pad = CausalConv.causal_padding(4)  # 3
         s = self.m_source(self.f0_predictor(mel32[:, :-pad], context=mel32[:, -pad:])).to(mel.dtype)
         return self.decode(mel[:, :-pad], s, finalize=False), s
+
+    def forward_train(self, mel: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The GAN-training forward: mel (B, L, 80) -> (audio (B, L*480), f0
+        (B, L)). The f0 predictor runs in float32; the source is built on
+        its f0 with nothing detached between them, so the generator's
+        gradient also flows through the sine phases (as in the JAX package;
+        the reference's SineGen runs under no_grad)."""
+        f0 = self.f0_predictor(mel.float())
+        s = self.m_source(f0).to(mel.dtype)
+        return self.decode(mel, s, finalize=True), f0
 
     # ---- constant-cost windowed streaming -----------------------------------
     # Each convolution here is causal with a small receptive field, so a

@@ -6,8 +6,10 @@ A conformer text encoder (no macaron, no convolution) with an affine to
 the LM width, then a transformer LM (ReLU feed-forward, the legacy linear
 input layer with its ReLU) over [sos, spk_emb, text, task, speech], token-
 causal, and a linear head over speech_token_size + 1 (the last id is eos).
-The recompute decode runs the whole prefix for every token; it is the
-reference the KV-cached decode of models/llm_v1_decode.py is held to.
+`forward` is the training loss: label-smoothed CE over the speech tokens
+and eos, teacher-forced, with autograd. The recompute decode runs the
+whole prefix for every token, under no_grad; it is the reference the
+KV-cached decode of models/llm_v1_decode.py is held to.
 Sampling draws from a `torch.Generator` (the JAX package's PRNG key) with
 the reference's RAS parameters (V1_SAMPLING).
 """
@@ -20,6 +22,7 @@ import torch.nn as nn
 
 from ..ops.sampling import ras_sample
 from .conformer import ConformerEncoder
+from .llm import IGNORE_ID, label_smoothed_ce
 from .qwen2 import flax_dense
 
 # the reference's RAS sampling (cosyvoice.yaml: top_p 0.8, top_k 25, win 10, tau_r 0.1)
@@ -37,6 +40,7 @@ class TransformerLM(nn.Module):
         super().__init__()
         self.text_token_size, self.speech_token_size = text_token_size, speech_token_size
         self.llm_input_size, self.llm_output_size, self.heads = llm_input_size, llm_output_size, heads
+        self.lsm_weight, self.length_normalized_loss = lsm_weight, length_normalized_loss
         self.text_embedding = nn.Embedding(text_token_size, text_encoder_input_size)
         self.text_encoder = ConformerEncoder(dim=llm_input_size, heads=heads, ffn_hidden=ffn,
                                              num_blocks=text_enc_blocks, macaron=False, use_cnn=False,
@@ -89,6 +93,22 @@ class TransformerLM(nn.Module):
         lm_input, lm_len = self.build_lm_input(text_enc, text_len, speech_tokens, speech_len, embedding)
         h, _ = self.llm(lm_input, lm_len, streaming=True, static_chunk_size=1)
         return flax_dense(h, self.llm_decoder)
+
+    def forward(self, text_tokens, text_len, speech_tokens, speech_len, embedding) -> tuple[torch.Tensor, torch.Tensor]:
+        """Training loss on the token-causal logits: the target of position
+        p is speech token p - (2 + text_len) over the speech span, eos
+        (speech_token_size) after it, IGNORE_ID elsewhere (the 2 + text_len
+        prefix and the padding). Returns (loss, acc) (models/llm
+        label_smoothed_ce)."""
+        logits = self.logits(text_tokens, text_len, speech_tokens, speech_len, embedding)
+        b, total = logits.shape[:2]
+        pos = torch.arange(total, device=logits.device)[None, :]
+        sp_idx = pos - 2 - text_len[:, None]
+        ls = speech_tokens.shape[1]
+        sp_t = speech_tokens.gather(1, sp_idx.clamp(0, ls - 1).expand(b, total).long()).long()
+        tgt = torch.where((sp_idx >= 0) & (sp_idx < speech_len[:, None]), sp_t, IGNORE_ID)
+        tgt = torch.where(pos == (2 + text_len + speech_len)[:, None], self.speech_token_size, tgt)
+        return label_smoothed_ce(logits, tgt, self.lsm_weight, self.length_normalized_loss)
 
 
 @torch.no_grad()

@@ -15,10 +15,12 @@ decay, and `mu_dtype`: with moments_dtype="bfloat16" the first moment is
 stored in bfloat16 and the second in float32, and b1 is rounded to
 bfloat16 before it scales mu, as the jitted JAX step does), all inside apply_if_finite
 (max_consecutive_errors 100, optax's three counters), and optax's MultiSteps
-around it for accum_grad > 1. torch.optim.Adam cannot keep a bfloat16 first
-moment beside a float32 second one. Counters are host ints: apply_if_finite
-reads one device flag a step to choose its branch, where optax runs a
-lax.cond.
+around it for accum_grad > 1. `plain_adam` is the bare chain that the JAX
+package's GAN and GRPO code builds itself (optax.adam / adamw at a constant
+rate, optionally after clip_by_global_norm): no finite skip, no MultiSteps.
+torch.optim.Adam cannot keep a bfloat16 first moment beside a float32
+second one. Counters are host ints: apply_if_finite reads one device flag a
+step to choose its branch, where optax runs a lax.cond.
 """
 
 from __future__ import annotations
@@ -210,19 +212,24 @@ class Optimizer:
 
     schedule: Schedule
     weight_decay: float | None = None  # None: adam; a float: adamw
-    grad_clip: float = 5.0
+    grad_clip: float | None = 5.0  # None: no clip
     accum_grad: int = 1
     mu_dtype: torch.dtype | None = None
+    skip_nonfinite: bool = True  # False: the bare chain, whose state is the AdamState
 
     def init(self, params: Tensors):
         adam = AdamState(0, [torch.zeros_like(p, dtype=self.mu_dtype or p.dtype) for p in params],
                          [torch.zeros_like(p) for p in params])
+        if not self.skip_nonfinite:
+            return adam
         state = FiniteState(0, True, 0, adam)
         if self.accum_grad > 1:
             return MultiStepsState(0, 0, [torch.zeros_like(p) for p in params], state)
         return state
 
     def update(self, grads: Tensors, state, params: Tensors):
+        if not self.skip_nonfinite:
+            return self._adam(self._clip(grads), state, params)
         if self.accum_grad > 1:
             return self._multi_steps(grads, state, params)
         return self._if_finite(grads, state, params)
@@ -252,6 +259,8 @@ class Optimizer:
         return updates, FiniteState(notfinite, finite, st.total_notfinite + (not finite), inner)
 
     def _clip(self, grads: Tensors) -> Tensors:
+        if self.grad_clip is None:
+            return grads
         g_norm = global_norm(grads)
         if bool(g_norm < self.grad_clip):
             return grads
@@ -308,3 +317,10 @@ def build_optimizer(
         raise ValueError(f"unknown optimizer {optim}")
     mu_dtype = getattr(torch, moments_dtype) if isinstance(moments_dtype, str) else moments_dtype
     return Optimizer(sched, weight_decay if optim == "adamw" else None, grad_clip, accum_grad, mu_dtype)
+
+
+def plain_adam(lr: float, weight_decay: float | None = None, grad_clip: float | None = None) -> Optimizer:
+    """optax.adam(lr) (weight_decay None) or optax.adamw(lr, weight_decay),
+    after clip_by_global_norm(grad_clip) when grad_clip is given: optax's
+    default b1, b2 and eps, a constant rate, no finite skip."""
+    return Optimizer(constant_lr(lr), weight_decay, grad_clip, skip_nonfinite=False)

@@ -27,6 +27,7 @@ training is a later slice of the port).
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -64,23 +65,41 @@ def random_module(ctor: Callable[[], nn.Module], seed: int, device: str | torch.
     return _load(ctor, _random_state(ctor, torch.float32, gen, dev), dev).requires_grad_(True).train()
 
 
-def _micro(batch: dict, keys: tuple, device: torch.device, i: int | None) -> list:
+def micro_tensors(batch: dict, keys: tuple, device: torch.device, i: int | None) -> list:
     """The batch's `keys` on `device` (numpy or tensors), microbatch i of a
     stacked batch or (i None) the whole of an unstacked one."""
     return [torch.as_tensor(batch[k] if i is None else batch[k][i], device=device) for k in keys]
 
 
-def _check_mesh(mesh) -> None:
+def check_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError("fangyan_tts_torch trains on one device; multi-device training (the JAX "
                                   "package's parallel/ mesh) is not ported yet")
 
 
-def _grads(model: nn.Module, loss: torch.Tensor) -> list[torch.Tensor]:
+def grads_of(model: nn.Module, loss: torch.Tensor) -> list[torch.Tensor]:
     """d loss / d every parameter, zeros for one the loss does not reach."""
     params = list(model.parameters())
     gs = torch.autograd.grad(loss, params, allow_unused=True)
     return [torch.zeros_like(p) if g is None else g for p, g in zip(params, gs)]
+
+
+def frozen_copy(model: nn.Module) -> nn.Module:
+    """A deep copy of `model` that no optimizer step can move and autograd
+    never records: the frozen reference policy of DPO and GRPO (the JAX
+    package's immutable ref_params; a module shared with the policy would
+    follow its in-place updates)."""
+    return copy.deepcopy(model).requires_grad_(False).eval()
+
+
+def optimizer_apply(module: nn.Module, tx: Optimizer, grads: list, opt_state):
+    """One optimizer apply on the module's parameters, in place (optax's
+    update, then apply_updates). Returns the new optimizer state."""
+    params = list(module.parameters())
+    updates, opt_state = tx.update(grads, opt_state, params)
+    with torch.no_grad():
+        torch._foreach_add_(params, updates)
+    return opt_state
 
 
 def _make_step(model: nn.Module, tx: Optimizer, accum: int, micro: Callable) -> Callable:
@@ -88,11 +107,8 @@ def _make_step(model: nn.Module, tx: Optimizer, accum: int, micro: Callable) -> 
     the batch is one microbatch)."""
 
     def apply(state: TrainState, grads: list, metrics: dict):
-        params = list(model.parameters())
-        updates, opt_state = tx.update(grads, state.opt_state, params)
-        with torch.no_grad():
-            torch._foreach_add_(params, updates)
-        return TrainState(state.step + 1, state.params, opt_state), {**metrics, "grad_norm": global_norm(grads)}
+        new = TrainState(state.step + 1, state.params, optimizer_apply(model, tx, grads, state.opt_state))
+        return new, {**metrics, "grad_norm": global_norm(grads)}
 
     def step(state: TrainState, batch: dict, rng=None):
         if accum == 1:
@@ -116,12 +132,12 @@ def make_llm_train_step(model: nn.Module, tx: Optimizer, mesh=None, accum: int =
     """batch: right-padded plans src, ids (B, L), lengths (B,), targets (B,
     L) with IGNORE_ID padding (numpy or tensors); with accum > 1 each has a
     leading (accum,) axis."""
-    _check_mesh(mesh)
+    check_mesh(mesh)
     dev = next(model.parameters()).device
 
     def micro(batch, i, rng):
-        loss, acc = model(*_micro(batch, LLM_KEYS, dev, i))
-        return {"loss": loss.detach(), "acc": acc}, _grads(model, loss)
+        loss, acc = model(*micro_tensors(batch, LLM_KEYS, dev, i))
+        return {"loss": loss.detach(), "acc": acc}, grads_of(model, loss)
 
     return _make_step(model, tx, accum, micro)
 
@@ -132,11 +148,11 @@ def make_flow_train_step(model: nn.Module, tx: Optimizer, mesh=None, streaming: 
     embedding (B, 192); with accum > 1 each has a leading (accum,) axis.
     rng: a torch.Generator on the model's device, or the draws (see the
     module docstring)."""
-    _check_mesh(mesh)
+    check_mesh(mesh)
     dev = next(model.parameters()).device
 
     def micro(batch, i, rng):
-        args = _micro(batch, FLOW_KEYS, dev, i)
+        args = micro_tensors(batch, FLOW_KEYS, dev, i)
         feat = args[2]
         if isinstance(rng, torch.Generator):
             draws = flow_train_draws(feat.shape[0], feat.shape, dev, rng)
@@ -146,6 +162,6 @@ def make_flow_train_step(model: nn.Module, tx: Optimizer, mesh=None, streaming: 
         metrics = {"loss": loss.detach()}
         if i is None:  # the JAX step reports the loss's aux only without accumulation
             metrics.update({k: v.detach() for k, v in aux.items()})
-        return metrics, _grads(model, loss)
+        return metrics, grads_of(model, loss)
 
     return _make_step(model, tx, accum, micro)

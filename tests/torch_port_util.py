@@ -66,6 +66,15 @@ def to_jax(tree):
     return jax.tree.map(jnp.asarray, tree)
 
 
+def capture_grads():
+    """An optax transformation that passes the gradients on unchanged and
+    keeps them in its state: chained before a JAX optimizer, a JAX train
+    step reports its own gradients and steps as that optimizer alone."""
+    import optax
+
+    return optax.GradientTransformation(lambda p: jax.tree.map(jnp.zeros_like, p), lambda g, s, p=None: (g, g))
+
+
 
 def campplus_oracle(tiny: dict, seed: int):
     """A tests/oracles CAM++ in eval mode with N(0, 0.04) weights and

@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases 1,2,3,11  # data prep stages 0-4 alone
     python3 chip_smoke.py --phases 1,2,3,11,12  # data prep, then training, alone
     python3 chip_smoke.py --phases 1,2,3,13  # the rest of training (GAN, DPO, GRPO) alone
+    python3 chip_smoke.py --phases 1,2,3,14  # dataset generation, evaluation and the token2wav server alone
 
 Phases:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -34,7 +35,13 @@ Phases:
      at 2N rows with each row's own mel_len (the young buckets);
      kernel, plain and library times (timed only:
      scaled_dot_product_attention for the attention kernels, F.linear on the
-     dequantized weight for int4_matmul)
+     dequantized weight for int4_matmul); phase 14's shapes (the dataset
+     CLI's batches of 16, compare_inference's and run_eval's requests) too;
+     then each kernel's float32 route against its plain version in float64
+     on the same float32 inputs at the float32 paths' shapes (phase 4's
+     float32 batch and float32 API request, from infer/tts.batch_buckets
+     and the API request's buckets), timed against its plain version in
+     float32 and SDPA / F.linear in float32 (TF32 off)
   4. a small model on the card against the same weights on the CPU
      (plain versions), bf16 and then int8 LLM + int4 MLP + int8 DiT; then
      at full CosyVoice3-0.5B width with random weights: three requests
@@ -47,10 +54,19 @@ Phases:
      (config.json, the msgpack checkpoints with bf16 leaves, CAM++ and S3),
      a 5 s prompt wav at 24 kHz, AutoModel(dir) and one
      inference_zero_shot through the byte tokenizer and text_normalize,
-     with its launches counted as above
+     with its launches counted as above; float32: the small model
+     in float32 card against CPU, greedy (on the bf16 KV cache both
+     packages keep: vc mel and wav within F32_REL_TOL; on a float32 KV
+     cache and in the int4 MLP mode: tokens equal, mel, wav and logits
+     within F32_REL_TOL), one full-width float32 request through
+     `python -m fangyan_tts_torch.runtime.offline_inference --no-fp16` on
+     the model directory (flash on its float32 route, 220 a flow call;
+     decode 24 a step on the bf16 cache), and a full-width float32 batch in
+     the int4 MLP mode on a float32 KV cache (all three float32 routes,
+     launches counted)
   5. each stage under torch.profiler, for the 150-token request and the
-     batched requests (a) int8 and (b): device busy time, idle share, device
-     operations, largest kernels
+     batched requests (a) int8 and (b) (their flow and vocoder stages):
+     device busy time, idle share, device operations, largest kernels
   7. the prompt frontend at full size, random weights (no kernel of its
      own): CAM++ and S3 at the 5 s and the 30 s bucket in float32 on the
      card against the same weights on the CPU, then in bf16 (what the
@@ -85,7 +101,8 @@ Phases:
      call, its hops those its token counts imply, and every shape held to
      phase 3's checks
   10. the CosyVoice2 and CosyVoice1 families with random weights: small v2
-     (bf16) and v1 (float32) models on the card against the CPU; then
+     (bf16, then float32 with its logits on a float32 KV cache) and v1
+     (float32) models on the card against the CPU; then
      CosyVoice2-0.5B in bf16: the 150-token bench request through
      CosyVoice2TTS.tts (one run, then its stages under torch.profiler), a
      200-token stream, a v2 model directory written by
@@ -138,7 +155,7 @@ Phases:
      CosyVoice3-0.5B LM with a frozen copy (8 pairs x 256 tokens: ms,
      tokens/s, peak); these steps launch no kernel; then
      `python -m fangyan_tts_torch.cli.grpo_train` at its defaults (4
-     prompts x 8 rollouts, echo reward) for two iterations on phase 4's
+     prompts x 8 rollouts, echo reward) for one iteration on phase 4's
      model directory (a fresh one without phase 4), each iteration's wall
      split into rollouts, token2wav and update, its decode launches held to
      24 a decode step and the steps to what the rollouts' lengths imply,
@@ -147,15 +164,33 @@ Phases:
      fangyan_tts_torch.cli.train_gan` for one epoch on phase 11's corpus,
      its generator checkpoint loaded as AutoModel loads a vocoder and run on
      one mel
-  6. one JSON line of per-kernel results (printed after phases 7 to 13)
-Phases 8 to 13 run after phase 4's requests and before the profiler passes
+  14. dataset generation and evaluation at full width (CosyVoice3-0.5B,
+     random weights, bf16 as the CLIs load it) on phase 4's model directory
+     and 5 s prompt, within DG_PHASE_LIMIT_S: `cli.generate_dialect_dataset
+     --backend cuda --mode hunan` on a 24-line transcript and an 8-line
+     hunan.txt (32 utterances, 2 batches of 16; wall with and without the
+     load, utt/s, batch RTF; the index read back against the wavs; the
+     first batch bit-equal to a direct batch_synthesize on a fresh load; a
+     rerun launches nothing); `cli.evaluate.run_eval` of 4 pairs (CER 0 with
+     an ASR stub that returns each target, SS in [-1, 1], a wav against
+     itself at 1); `runtime.token2wav_asr_server.serve` in this process on
+     127.0.0.1 with a RemoteToken2Wav stream of DG_STREAM_TOKENS tokens
+     against the in-process Token2WavSession; `cli.compare_inference
+     --dialects hunan --num_texts 1` with the directory's own LLM as the
+     fine-tuned one (each fine-tuned wav bit-equal to its original); every
+     run's launches counted and its shapes held to phase 3's checks
+  6. one JSON line of per-kernel results, the float32 routes included
+     (printed after phases 7 to 14)
+Phases 8 to 14 run after phase 4's requests and before the profiler passes
 of phases 5 and 7 (phase 8 runs S1 twice and S2, S3 and S4 once each,
 phase 9's async and HTTP rounds have no warm-up round, phase 10 runs its v2
 offline request and stream once each, and phase 5 profiles the batched
-requests (a) and (b) in their serving modes only, to leave phases 10-13
-their time);
+requests (a) and (b) in their serving modes only, and only their flow
+and vocoder stages, and phase 13 runs one GRPO iteration, to leave phases
+10-14 their time);
 a probe of the host's cost of one eager launch is logged at the start,
-around phases 8, 9, 10, 11, 12 and 13 and at the end.
+around phases 8, 9, 10, 11, 12, 13 and 14 and at the end; the last line
+before the card's is the whole script's time.
 The last line is {"ok": true, "device": {...}} and the exit code is 0 only
 when every phase passed. Without a CUDA card it exits non-zero before
 printing any result.
@@ -181,6 +216,10 @@ import numpy as np
 # puts its weight on a few keys, as a trained model's does; the outputs are
 # then of order 0.1-1 (their mean |.| is printed beside each limit).
 QK_SCALE = 2.0
+# Past L = FLASH_KEYS * e^(QK_SCALE^2) (about 1,365) the flash checks scale q up with ln L, so that the softmax
+# keeps its weight on about FLASH_KEYS keys (exp(-scale^2) of L) and the outputs stay of the order they have at
+# the shorter lengths (flash_q_scale); decode attention's windows are shorter.
+FLASH_KEYS = 25
 # Each kernel is held to its plain version run in float32 on the same bf16
 # inputs (max |kernel - plain f32| over the valid rows):
 DECODE_ATOL = 1e-2  # the kernel rounds only its output to bf16
@@ -281,7 +320,35 @@ GAN_ROWS = 2000 // (GAN_CROP // 480)  # dynamic_batch at max_frames_in_batch 200
 GAN_STEPS = 2
 DPO_PAIRS, DPO_T, DPO_STEPS = 8, 256, 2
 GRPO_TEXTS = ("你好吗。", "早上好。", "谢谢你。", "再见了。")
-GRPO_PROMPTS, GRPO_GROUP, GRPO_ITERS = 4, 8, 2
+GRPO_PROMPTS, GRPO_GROUP, GRPO_ITERS = 4, 8, 1  # one iteration: phase 14 needs the time
+
+# The float32 routes. Each kernel's float32 route is held to its plain version run in float64 on the same
+# float32 inputs (max |kernel - plain f64| over the valid rows), within these limits, each under F32_LIMIT_SHARE
+# of the mean |output| it is held to (the products run in float32 FMAs, no TF32: about 1e-6 of the output).
+DECODE_F32_ATOL = 2e-5
+FLASH_F32_ATOL = 2e-5
+INT4_F32_ATOL = 1e-4  # sums of up to 4,864 products of order one
+F32_LIMIT_SHARE = 1e-3
+FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (the float32 routes' bound)
+# A float32 model on the card against the CPU (phases 4 and 10): mel, wav and, on a float32 KV cache, the logits
+# within this share of the CPU's max |.|
+F32_REL_TOL = 1e-3
+# Phase 4's float32 batch at full width: F32_B texts of F32_TEXT_TOKENS tokens, min = max ratio F32_RATIO
+F32_B, F32_TEXT_TOKENS, F32_RATIO = 4, 12, 5.0
+# Dataset generation and evaluation (phase 14): an aishell transcript of DG_AISHELL_LINES lines and a hunan.txt
+# of DG_DIALECT_LINES, each text DG_CHARS characters of DG_POOL (15 byte-tokenizer ids: 30-300 speech tokens),
+# 32 utterances in two batches of 16; run_eval on DG_EVAL_TEXTS; a RemoteToken2Wav stream of DG_STREAM_TOKENS
+# tokens (past the 300-token window, so that its window hops run the flash kernel); the phase within
+# DG_PHASE_LIMIT_S seconds.
+DG_AISHELL_LINES, DG_DIALECT_LINES, DG_CHARS = 24, 8, 5
+DG_POOL = "的一是在不了有和人这中大为上个国我以要他时来用们生到作地于出就分对成会可主发年动同工也能下过子说产种面而方后多定行学法所民得经"
+DG_EVAL_TEXTS = ("你好。", "早上好。", "谢谢你。", "再见了。")
+DG_STREAM_TOKENS = 400
+DG_PHASE_LIMIT_S = 150
+# compare_inference's sentences (39 and 45 byte-tokenizer ids) run to 20 x their ids with random weights: two took
+# 59.8 s of a 114.4 s phase 14 on an H100 80GB HBM3 at 700 W (host-bound decode steps); one keeps the phase inside
+# its limit on a host whose launches cost 1.4 x that one's
+DG_COMPARE_TEXTS = 1
 
 CARDS_USED = 1  # every phase runs on card 0
 PORT_KERNELS = ("decode_attention", "flash_attention", "int4_matmul")  # kernel names the profile reports
@@ -365,6 +432,11 @@ def cycling(fn, n: int):
     (to walk over n copies of a weight, as the layers of a model do)."""
     it = itertools.cycle(range(n))
     return lambda: fn(next(it))
+
+
+def flash_q_scale(l: int) -> float:
+    """q's scale in the flash checks at L keys (see FLASH_KEYS)."""
+    return max(QK_SCALE, math.sqrt(math.log(l / FLASH_KEYS)))
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -614,7 +686,7 @@ def check_decode_rows(results: dict, serving: dict) -> None:
 
 
 def check_decode(results: dict, batches: list[dict], api: dict, stream: dict, serving: dict, v12: dict,
-                 grpo: dict) -> None:
+                 grpo: dict, dg: dict | None = None) -> None:
     import torch
     import torch.nn.functional as F
 
@@ -648,6 +720,12 @@ def check_decode(results: dict, batches: list[dict], api: dict, stream: dict, se
     # phase 13's GRPO rollouts: prompts x group left-padded rows, each at the last slot a rollout can write
     shapes.append((grpo["b"], grpo["cache_len"], [grpo["tp"] + grpo["max_new"] - 1] * grpo["b"], grpo["starts"],
                    "GRPO rollouts"))
+    if dg is not None:  # phase 14: the dataset CLI's batches of 16, compare_inference's and run_eval's requests
+        c = dg["cli"]
+        shapes.append((16, c["cache_len"], [c["last"]] * 16, c["starts"], "phase 14 CLI batch"))
+        for r in dg["single"]:
+            if r["cache_len"] not in {sh[1] for sh in shapes if sh[0] == 1}:
+                shapes.append((1, r["cache_len"], [r["last"]], [r["start"]], "phase 14 " + r["label"]))
     for b, s, idx_list, starts, *label in shapes:
         _checked(results, "decode_attention", (b, s))
         rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -717,7 +795,8 @@ def check_decode(results: dict, batches: list[dict], api: dict, stream: dict, se
     results["decode_err"] = max(r["err"] for r in rows)
 
 
-def check_flash(results: dict, batches: list[dict], api: dict, stream: dict, serving: dict, grpo: dict) -> None:
+def check_flash(results: dict, batches: list[dict], api: dict, stream: dict, serving: dict, grpo: dict,
+                dg: dict | None = None) -> None:
     import torch
     import torch.nn.functional as F
 
@@ -761,6 +840,13 @@ def check_flash(results: dict, batches: list[dict], api: dict, stream: dict, ser
     # phase 13's GRPO token2mel calls: the CFG pair at every length bucket a rollout can reach
     runs += [((l, (l - 6, l - 6)), "untimed") for l in grpo["flash_l"] if (2, l) not in known]
     known |= {(2, l) for l in grpo["flash_l"]}
+    if dg is not None:  # phase 14: the CLI's 2 x 16 rows at every flow length, the single requests' CFG pairs
+        runs += [((l, tuple(int(v) for v in rag.integers(l // 4, l + 1, 16)) * 2), "untimed")
+                 for l in dg["cli"]["flash_l"] if (32, l) not in known]
+        known |= {(32, l) for l in dg["cli"]["flash_l"]}
+        for r in dg["single"]:
+            runs += [((l, (l - 6, l - 6)), "untimed") for l in r["flash_l"] if (2, l) not in known]
+            known |= {(2, l) for l in r["flash_l"]}
     runs += [((l, serving_mel(rows, l, kind)), "untimed") for (rows, l), kind in sorted(serving["flash"].items())
              if (rows, l) not in known]
     for (l, mel), layout in runs:
@@ -768,11 +854,11 @@ def check_flash(results: dict, batches: list[dict], api: dict, stream: dict, ser
         _checked(results, "chunk_flash_attention", (b, l))
         rnd = lambda shape, scale: (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
         if layout in ("contiguous", "untimed"):
-            q, k, v = rnd((b, h, l, d), QK_SCALE), rnd((b, h, l, d), 1.0), rnd((b, h, l, d), 1.0)
+            q, k, v = rnd((b, h, l, d), flash_q_scale(l)), rnd((b, h, l, d), 1.0), rnd((b, h, l, d), 1.0)
         else:
             heads = lambda t: t.reshape(b, l, h, d).transpose(1, 2)
             qkv = rnd((b, l, 3 * h * d), 1.0)
-            q, k = heads(rnd((b, l, h * d), QK_SCALE)), heads(rnd((b, l, h * d), 1.0))
+            q, k = heads(rnd((b, l, h * d), flash_q_scale(l))), heads(rnd((b, l, h * d), 1.0))
             v = heads(qkv[..., 2 * h * d:])
         mel_len = torch.tensor(mel, dtype=torch.int32, device=dev)
         for chunk in (0, 50):
@@ -877,44 +963,54 @@ def check_int4(results: dict, batch_b: dict) -> None:
 # ---------------------------------------------------------------- phase 4
 
 
-def small_reference_check() -> None:
-    """A small bf16 model (head dim 64, as the kernels take) on the card
-    against the same weights on the CPU, where the plain versions run."""
-    import torch
-
+def _small_config():
+    """A small CosyVoice3 configuration with head dim 64, as the kernels take,
+    and greedy sampling."""
     from fangyan_tts_torch.config import CosyVoiceConfig, DiTConfig, FlowConfig, HiFTConfig, LLMConfig, QwenConfig
-    from fangyan_tts_torch.infer.tts import CosyVoice3TTS
 
     qwen = QwenConfig(hidden_size=128, intermediate_size=256, num_hidden_layers=2, num_attention_heads=4,
                       num_key_value_heads=2, head_dim=64, vocab_size=300)
     llm = LLMConfig(llm_input_size=128, llm_output_size=128, speech_token_size=50, extra_tokens=8, qwen=qwen,
                     top_k=1, tau_r=1.1)
     dit = DiTConfig(dim=128, depth=2, heads=2, dim_head=64, static_chunk_size=10)
-    cfg = CosyVoiceConfig(llm=llm, flow=FlowConfig(vocab_size=50, dit=dit, n_timesteps=4, pre_lookahead_channels=64),
-                          hift=HiFTConfig(base_channels=64, f0_cond_channels=32))
+    return CosyVoiceConfig(llm=llm, flow=FlowConfig(vocab_size=50, dit=dit, n_timesteps=4, pre_lookahead_channels=64),
+                           hift=HiFTConfig(base_channels=64, f0_cond_channels=32))
+
+
+def _small_logits(t, cache_dtype) -> np.ndarray:
+    """The small LLM's prefill and four teacher-forced decode steps' logits,
+    on a KV cache of `cache_dtype`."""
+    import torch
+
+    from fangyan_tts_torch.models.qwen2 import init_cache
+
+    llm, dev = t.cfg.llm, t.device
+    with torch.inference_mode():
+        ids = torch.tensor([[llm.sos] + list(range(3, 15)) + [llm.task_id]], device=dev)
+        src = torch.tensor([[1] + [0] * 12 + [1]], device=dev)
+        lens = torch.tensor([14], device=dev)
+        cache = init_cache(llm.qwen, 1, 64, dtype=cache_dtype, device=dev)
+        out = [t.llm.decode_logits(t.llm.prefill_leftpad(src, ids, lens, cache))]
+        start = torch.zeros(1, dtype=torch.int32, device=dev)
+        for i, tok in enumerate([5, 9, 17, 33]):
+            pos = torch.tensor([[14 + i]], device=dev)
+            out.append(t.llm.decode_step(torch.tensor([tok], device=dev), pos, start, 14 + i + 1, cache))
+        return torch.stack(out).float().cpu().numpy()
+
+
+def small_reference_check() -> None:
+    """A small bf16 model (head dim 64, as the kernels take) on the card
+    against the same weights on the CPU, where the plain versions run."""
+    import torch
+
+    from fangyan_tts_torch.infer.tts import CosyVoice3TTS
+
+    cfg = _small_config()
     ref = CosyVoice3TTS.random_init(cfg, dtype=torch.bfloat16, device="cpu", seed=3)
     sd = lambda m: {k: v.clone() for k, v in m.state_dict().items()}
     gpu = CosyVoice3TTS(cfg, sd(ref.llm), sd(ref.flow), sd(ref.hift), dtype=torch.bfloat16, device="cuda")
-
-    # LLM: prefill + teacher-forced decode logits
-    def logits(t: CosyVoice3TTS) -> np.ndarray:
-        from fangyan_tts_torch.models.qwen2 import init_cache
-
-        dev = t.device
-        with torch.inference_mode():
-            ids = torch.tensor([[llm.sos] + list(range(3, 15)) + [llm.task_id]], device=dev)
-            src = torch.tensor([[1] + [0] * 12 + [1]], device=dev)
-            lens = torch.tensor([14], device=dev)
-            cache = init_cache(qwen, 1, 64, device=dev)
-            out = [t.llm.decode_logits(t.llm.prefill_leftpad(src, ids, lens, cache))]
-            start = torch.zeros(1, dtype=torch.int32, device=dev)
-            for i, tok in enumerate([5, 9, 17, 33]):
-                pos = torch.tensor([[14 + i]], device=dev)
-                out.append(t.llm.decode_step(torch.tensor([tok], device=dev), pos, start, 14 + i + 1, cache))
-            return torch.stack(out).float().cpu().numpy()
-
-    def rel(a, b):
-        return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+    logits = lambda t: _small_logits(t, torch.bfloat16)  # LLM: prefill + teacher-forced decode logits
+    rel = _rel
 
     rng = np.random.default_rng(0)
     req = dict(source_speech_token=rng.integers(0, 50, 37).astype(np.int32),
@@ -982,8 +1078,11 @@ def _count(results: dict, counts: dict) -> None:
 def kernel_shapes(results: dict, label: str):
     """Record the shape of every kernel call the models make inside the
     block (decode attention (B, S), flash attention (rows, L), int4 matmul
-    (M, K, N)); after it, fail if phase 3 ran and did not check one of them.
+    (M, K, N)), by route (a float32 input's under <kernel>_f32); after it,
+    fail if phase 3 ran and did not check one of them.
     The hooks count nothing: the launch counters stay in the wrappers."""
+    import torch
+
     from fangyan_tts_torch.models import dit, qwen2
 
     hooks = ((qwen2, "decode_attention", lambda a: (a[3].shape[1], a[3].shape[2])),
@@ -996,7 +1095,8 @@ def kernel_shapes(results: dict, label: str):
         saved.append((mod, name, inner))
 
         def hooked(*a, _inner=inner, _name=name, _key=key, **k):
-            seen.setdefault(_name, set()).add(tuple(int(v) for v in _key(a)))
+            route = _name + ("_f32" if a[0].dtype == torch.float32 else "")  # the wrappers pick the route so
+            seen.setdefault(route, set()).add(tuple(int(v) for v in _key(a)))
             return _inner(*a, **k)
         setattr(mod, name, hooked)
     try:
@@ -1448,7 +1548,7 @@ def profile_stages(tts, req: dict, results: dict, card: str) -> None:
 
 
 def profile_batch(tts, req: dict, card: str, label: str) -> dict:
-    """The stages of one batch_synthesize request."""
+    """The flow and vocoder stages of one batch_synthesize request."""
     args = (req["texts"], req.get("prompt_text", np.zeros(0, np.int32)),
             req.get("llm_prompt_speech_token", np.zeros(0, np.int32)),
             req["min_token_text_ratio"], req["max_token_text_ratio"])
@@ -1456,8 +1556,9 @@ def profile_batch(tts, req: dict, card: str, label: str) -> dict:
     fp = np.asarray(req.get("flow_prompt_speech_token", np.zeros(0, np.int32)), np.int32)
     pf = np.asarray(req.get("prompt_speech_feat", np.zeros((0, 80), np.float32)), np.float32)
     mel, _ = tts._batch_token2mel(toks, n, fp, pf, req["flow_embedding"])
-    return _profile({"llm": lambda: tts._batch_tokens(*args),
-                     "flow": lambda: tts._batch_token2mel(toks, n, fp, pf, req["flow_embedding"]),
+    # the LLM stage is not profiled here (25-35 s each, most of it reading back 150,000-217,000 device events;
+    # phase 14 needs the time): profile_stages profiles the 150-token request's LLM stage
+    return _profile({"flow": lambda: tts._batch_token2mel(toks, n, fp, pf, req["flow_embedding"]),
                      "vocoder": lambda: tts.vocode_batch(mel)}, card, label)
 
 
@@ -2184,11 +2285,13 @@ def _launches() -> dict:
 
 
 def _zero_launches() -> None:
+    """Every wrapper's counts to 0, both routes."""
     from fangyan_tts_torch.ops import decode_attention as da
     from fangyan_tts_torch.ops import flash_attention as fa
     from fangyan_tts_torch.ops import int4_matmul as i4
 
     da.launches = fa.launches = i4.launches = 0
+    da.launches_f32 = fa.launches_f32 = i4.launches_f32 = 0
 
 
 def _rel(a, b) -> float:
@@ -2198,7 +2301,8 @@ def _rel(a, b) -> float:
 def v12_small_check() -> None:
     """Small v1 and v2 models on the card against the same weights on the
     CPU: v2 in bf16 (head dim 64, as decode attention takes) within
-    SMALL_REL_TOL, v1 in float32 within V1_REL_TOL; prefill + teacher-forced
+    SMALL_REL_TOL, v2 in float32 within F32_REL_TOL (its logits on a float32
+    KV cache), v1 in float32 within V1_REL_TOL; prefill + teacher-forced
     decode logits, the flow's mel and a vc request's wav (both sides on the
     same CFM noise)."""
     import torch
@@ -2220,12 +2324,12 @@ def v12_small_check() -> None:
     ref = CosyVoice2TTS.random_init(llm, flow_kw, hift, dtype=torch.bfloat16, device="cpu", seed=3)
     gpu = CosyVoice2TTS(llm, sd(ref.llm), flow_kw, sd(ref.flow), hift, sd(ref.hift), device="cuda")
 
-    def logits(t) -> np.ndarray:
+    def logits(t, cache_dtype=torch.bfloat16) -> np.ndarray:
         dev = t.device
         with torch.inference_mode():
             ids = torch.tensor([[0] + list(range(3, 15)) + [1]], device=dev)
             src = torch.tensor([[2] + [0] * 12 + [2]], device=dev)
-            cache = init_cache(qwen, 1, 64, device=dev)
+            cache = init_cache(qwen, 1, 64, dtype=cache_dtype, device=dev)
             out = [t.llm.decode_logits(t.llm.prefill_leftpad(src, ids, torch.tensor([14], device=dev), cache))]
             start = torch.zeros(1, dtype=torch.int32, device=dev)
             for i, tok in enumerate([5, 9, 17, 33]):
@@ -2248,6 +2352,26 @@ def v12_small_check() -> None:
         f"(limit {SMALL_REL_TOL}) {'OK' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("the v2 port on the card disagrees with its CPU path on a small model")
+    # v2 in float32: the logits on a float32 KV cache (decode attention's float32 route), the mel and the wav
+    from fangyan_tts_torch.ops import decode_attention as da
+
+    ref = CosyVoice2TTS.random_init(llm, flow_kw, hift, dtype=torch.float32, device="cpu", seed=3)
+    gpu = CosyVoice2TTS(llm, sd(ref.llm), flow_kw, sd(ref.flow), hift, sd(ref.hift), dtype=torch.float32,
+                        device="cuda")
+    f0 = da.launches_f32
+    lg_g, lg_c = logits(gpu, torch.float32), logits(ref, torch.float32)
+    launched = da.launches_f32 - f0
+    mel_g, mel_c = (t.token2mel(req["source_speech_token"], req["flow_prompt_speech_token"], req["prompt_speech_feat"],
+                                req["flow_embedding"], 0, False, True) for t in (gpu, ref))
+    wav_g, wav_c = (next(t.tts(**req))["tts_speech"] for t in (gpu, ref))
+    r = (_rel(lg_g, lg_c), _rel(mel_g, mel_c), _rel(wav_g, wav_c))
+    ok = (max(r) <= F32_REL_TOL and wav_g.shape == wav_c.shape and np.isfinite(wav_g).all()
+          and launched == qwen.num_hidden_layers * 4)
+    log(f"small v2 model card vs CPU (float32, the logits on a float32 KV cache): logits rel {r[0]:.3e}, mel rel "
+        f"{r[1]:.3e}, wav rel {r[2]:.3e} (limit {F32_REL_TOL}); decode attention's float32 route launched "
+        f"{launched} times (2 layers x 4 steps) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the float32 v2 port on the card disagrees with its CPU path on a small model")
     # v1
     llm_kw = dict(text_token_size=300, speech_token_size=50, text_encoder_input_size=64, llm_input_size=128,
                   llm_output_size=128, text_enc_blocks=2, llm_blocks=2, heads=2, ffn=256)
@@ -3664,9 +3788,725 @@ def rest_phase(results: dict, card: str, states: tuple[dict, dict], model_dir, g
         raise AssertionError("cli.train_gan launched a kernel of the port")
 
 
+# ---------------------------------------------------------------- float32 routes (phases 3, 4 and 10)
+
+
+def _launches_f32() -> dict:
+    from fangyan_tts_torch.ops import decode_attention as da
+    from fangyan_tts_torch.ops import flash_attention as fa
+    from fangyan_tts_torch.ops import int4_matmul as i4
+
+    return {"decode_attention_f32": da.launches_f32, "chunk_flash_attention_f32": fa.launches_f32,
+            "int4_matmul_f32": i4.launches_f32}
+
+
+def bound_f32(nbytes: float, flops: float) -> tuple[float, str]:
+    """bound() for the float32 routes: their products run on the CUDA cores
+    (no TF32), so the operations' peak is float32's outside the tensor cores."""
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
+
+
+def held_f32(name: str, err: float, err_f32: float, limit: float, scale: float) -> str:
+    """Check a float32 route's max error `err` against its plain version in
+    float64 on the same float32 inputs: within `limit`, which must stay
+    under F32_LIMIT_SHARE of the mean |plain f64| `scale`. `err_f32` is the
+    plain version's own float32 error (recorded)."""
+    if limit > F32_LIMIT_SHARE * scale:
+        raise AssertionError(f"{name}: limit {limit:.1e} is over {F32_LIMIT_SHARE} of the mean |output| "
+                             f"{scale:.3e}; the check would be too loose for this data")
+    msg = (f"max|kernel-plain f64|={err:.3e} (limit {limit:.1e} = {limit / scale:.2e} of mean|plain f64|="
+           f"{scale:.3e}; max|plain f32-plain f64|={err_f32:.3e})")
+    if not err <= limit:
+        raise AssertionError(f"{name} float32 route disagrees with its plain version: {msg}")
+    return msg
+
+
+def f32_batch_request() -> dict:
+    """Phase 4's float32 batch at full width: F32_B texts of F32_TEXT_TOKENS
+    tokens, no prompt, exactly F32_TEXT_TOKENS x F32_RATIO tokens a row."""
+    rng = np.random.default_rng(13)
+    return dict(texts=[rng.integers(0, 50000, F32_TEXT_TOKENS).astype(np.int32) for _ in range(F32_B)],
+                flow_embedding=rng.standard_normal(192).astype(np.float32),
+                min_token_text_ratio=F32_RATIO, max_token_text_ratio=F32_RATIO)
+
+
+def check_f32_routes(results: dict, api: dict) -> None:
+    """Each kernel's float32 route against its plain version run in float64
+    on the same float32 inputs, at the float32 paths' shapes worked out from
+    the code's own buckets: phase 4's float32 batch (infer/tts.batch_buckets:
+    decode attention at B = F32_B and its cache, int4 at its decode M = B
+    and its prefill M = B x tp, flash at its 2B rows and flow length) and
+    phase 4's float32 API request (flash at every length its decode can give,
+    from the API request's buckets; its decode runs on the bf16 KV cache
+    that both packages' models keep, the bf16 route); decode attention also
+    with a row that has no open slot and a write past S, and at S = 4096.
+    Times against the plain version in float32 and against SDPA and
+    F.linear in float32 (TF32 off), with bounds at float32's rates."""
+    import torch
+    import torch.nn.functional as F
+
+    from fangyan_tts_torch.ops import decode_attention as da
+    from fangyan_tts_torch.ops import flash_attention as fa
+    from fangyan_tts_torch.ops import int4_matmul as i4
+    from fangyan_tts_torch.ops.masks import chunk_attn_mask
+    from fangyan_tts_torch.ops.quant import quantize_int4_packed, unpack_int4
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(13)
+    bt = batch_shapes(f32_batch_request())
+    b, s, tp = bt["b"], bt["cache_len"], bt["tp"]
+    last = tp + int(F32_TEXT_TOKENS * F32_RATIO) - 1
+    starts = [int(v) for v in np.random.default_rng(9).integers(0, tp, b)]
+    nl, kv, hd, qh = 24, 2, 64, 14
+    errs = []
+    for bb, ss, idx_list, first_slots, timed in ((b, s, [last] * b, starts, True),
+                                                 (4, 256, [0, 100, 255, 300], [0, 0, 0, 256], False),
+                                                 (1, 4096, [4000], [0], False)):
+        _checked(results, "decode_attention_f32", (bb, ss))
+        q = torch.randn((bb, qh, hd), generator=gen, device=dev) * QK_SCALE
+        kn, vn = (torch.randn((bb, kv, hd), generator=gen, device=dev) for _ in range(2))
+        ck, cv = (torch.randn((nl, bb, ss, kv, hd), generator=gen, device=dev) for _ in range(2))
+        idx = torch.tensor(idx_list, dtype=torch.int32, device=dev)
+        slot = torch.arange(ss, device=dev)[None, :]
+        first = torch.tensor(first_slots, device=dev)[:, None]
+        bias = torch.where((slot >= first) & (slot <= torch.clamp(idx, max=ss - 1)[:, None]), 0.0, -1e10).float()
+        qkv = torch.cat([q.reshape(bb, -1), kn.reshape(bb, -1), vn.reshape(bb, -1)], dim=1)
+        views = (qkv[:, : qh * hd].view(bb, qh, hd), qkv[:, qh * hd: (qh + kv) * hd].view(bb, kv, hd),
+                 qkv[:, (qh + kv) * hd:].view(bb, kv, hd))
+        c1, c2, c3, c4 = ck.clone(), cv.clone(), ck.clone(), cv.clone()
+        same = torch.equal(da.decode_attention(*views, c1, c2, idx, bias, 0),
+                           da.decode_attention(q, kn, vn, c3, c4, idx, bias, 0))
+        same = same and torch.equal(c1, c3) and torch.equal(c2, c4)
+        del c1, c2, c3, c4
+        for layer in (0, nl - 1):
+            c = [t.clone() for t in (ck, cv, ck, cv, ck, cv)]
+            out_k = da.decode_attention(q, kn, vn, c[0], c[1], idx, bias, layer)
+            out_d = da.decode_attention_plain(q.double(), kn, vn, c[2], c[3], idx, bias, layer)
+            out_f = da.decode_attention_plain(q, kn, vn, c[4], c[5], idx, bias, layer)
+            torch.cuda.synchronize()
+            err = (out_k.double() - out_d).abs().max().item()
+            msg = held_f32("decode_attention_f32", err, (out_f.double() - out_d).abs().max().item(), DECODE_F32_ATOL,
+                           out_d.abs().mean().item())
+            caches = all(torch.equal(x, y) for x, y in ((c[0], c[2]), (c[1], c[3])))
+            errs.append(err)
+            log(f"decode_attention_f32 B={bb} S={ss} layer={layer} idx={idx_list[:4]} starts={first_slots[:4]}: "
+                f"{msg}; caches bit-equal={caches}, strided views equal to the contiguous call={same}")
+            if not (caches and same and torch.isfinite(out_k).all()):
+                raise AssertionError("decode_attention_f32 wrote other cache rows than its plain version, gave a "
+                                     "value that is not finite, or differs on strided views")
+            del c
+        if not timed:
+            continue
+        run_k = lambda: da.decode_attention(q, kn, vn, ck, cv, idx, bias, 0)
+        ms_k = time_ms(run_k)
+        ms_p = time_ms(lambda: da.decode_attention_plain(q, kn, vn, ck, cv, idx, bias, 0))
+        kl, vl = (t[0].permute(0, 2, 1, 3).contiguous() for t in (ck, cv))
+        mask = (bias == 0)[:, None, None, :]
+        ms_l = time_ms(lambda: F.scaled_dot_product_attention(q[:, :, None, :], kl, vl, attn_mask=mask,
+                                                              enable_gqa=True))
+        open_slots = int((bias > -1e9).sum().item())
+        nbytes = 2 * (bb * qh * hd) * 4 + 2 * (bb * kv * hd) * 4 * 2 + 2 * (open_slots * kv * hd) * 4 + bb * ss * 4 + bb * 4
+        bms, by = bound_f32(nbytes, 2 * 2 * qh * hd * open_slots)
+        results.setdefault("decode_f32_timing", []).append(
+            dict(b=bb, s=ss, ms=ms_k, plain_ms=ms_p, library_ms=ms_l, bound_ms=bms, bound_by=by))
+        log(f"decode_attention_f32 B={bb} S={ss}: kernel {ms_k * 1e3:.2f} us, plain f32 {ms_p * 1e3:.1f} us, "
+            f"sdpa f32 {ms_l * 1e3:.1f} us, bound {bms * 1e3:.3f} us ({by})")
+    results["decode_f32_err"] = max(errs)
+
+    # flash attention: the batch's 2B rows (ragged mel_len) timed, contiguous and as the DiT's strided views;
+    # the float32 API request's CFG pair at every length its decode can give, untimed
+    rag = np.random.default_rng(10)
+    runs = [((bt["l_mel"], tuple(int(v) for v in rag.integers(bt["l_mel"] * 5 // 8, bt["l_mel"] + 1, b)) * 2), lay)
+            for lay in ("contiguous", "strided")]
+    lmax = max(api["flash_l"])
+    runs.append(((lmax, (lmax - 6, lmax - 6)), "contiguous"))
+    runs += [((l, (l - 6, l - 6)), "untimed") for l in api["flash_l"] if l != lmax]
+    errs = []
+    for (l, mel), layout in runs:
+        bb, h, d = len(mel), 16, 64
+        _checked(results, "chunk_flash_attention_f32", (bb, l))
+        rnd = lambda shape, scale: torch.randn(shape, generator=gen, device=dev) * scale
+        if layout == "strided":
+            heads = lambda t: t.reshape(bb, l, h, d).transpose(1, 2)
+            qkv = rnd((bb, l, 3 * h * d), 1.0)
+            q, k, v = heads(rnd((bb, l, h * d), flash_q_scale(l))), heads(rnd((bb, l, h * d), 1.0)), heads(
+                qkv[..., 2 * h * d:])
+        else:
+            q, k, v = rnd((bb, h, l, d), flash_q_scale(l)), rnd((bb, h, l, d), 1.0), rnd((bb, h, l, d), 1.0)
+        mel_len = torch.tensor(mel, dtype=torch.int32, device=dev)
+        for chunk in (0, 50):
+            out_k = fa.chunk_flash_attention(q, k, v, mel_len, chunk)
+            out_d = fa.chunk_flash_attention_plain(q.double(), k.double(), v.double(), mel_len, chunk)
+            out_f = fa.chunk_flash_attention_plain(q, k, v, mel_len, chunk)
+            same = True
+            if layout == "strided":
+                same = torch.equal(out_k, fa.chunk_flash_attention(*(t.contiguous() for t in (q, k, v)), mel_len, chunk))
+            torch.cuda.synchronize()
+            valid = lambda t: torch.cat([t[bi, :, :mel[bi]].double().flatten() for bi in range(bb)])
+            vk, vd, vf = valid(out_k), valid(out_d), valid(out_f)
+            err = (vk - vd).abs().max().item()
+            msg = held_f32("chunk_flash_attention_f32", err, (vf - vd).abs().max().item(), FLASH_F32_ATOL,
+                           vd.abs().mean().item())
+            errs.append(err)
+            log(f"chunk_flash_attention_f32 ({bb},{h},{l},{d}) {layout} chunk={chunk} mel_len={mel[:4]}: {msg}"
+                + (f" equal to the contiguous call={same}" if layout == "strided" else ""))
+            if not (same and torch.isfinite(out_k).all()):
+                raise AssertionError("chunk_flash_attention_f32 gave a value that is not finite, or a strided call "
+                                     "that differs from the contiguous one")
+            if layout == "untimed":
+                continue
+            ms_k = time_ms(lambda: fa.chunk_flash_attention(q, k, v, mel_len, chunk), iters=10)
+            ms_p = time_ms(lambda: fa.chunk_flash_attention_plain(q, k, v, mel_len, chunk), iters=10)
+            mask = chunk_attn_mask(mel_len, l, chunk)[:, None]
+            ms_l = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), iters=10)
+            pairs = int(mask.sum().item()) * h
+            nbytes = 2 * bb * h * l * d * 4 + sum(min(m, l) for m in mel) * h * d * 2 * 4 + bb * 4
+            bms, by = bound_f32(nbytes, 4 * d * pairs)
+            results.setdefault("flash_f32_timing", []).append(
+                dict(b=bb, l=l, chunk=chunk, layout=layout, ms=ms_k, plain_ms=ms_p, library_ms=ms_l, bound_ms=bms,
+                     bound_by=by))
+            log(f"chunk_flash_attention_f32 B={bb} L={l} {layout} chunk={chunk}: kernel {ms_k * 1e3:.2f} us, plain "
+                f"f32 {ms_p * 1e3:.1f} us, sdpa f32 {ms_l * 1e3:.1f} us, bound {bms * 1e3:.2f} us ({by})")
+    results["flash_f32_err"] = max(errs)
+
+    # int4: the batch's decode M = B and prefill M = B x tp, M = 1, and 17 and 100 (no multiple of a tile)
+    errs = []
+    for name, k, n in (("gate_up_proj", 896, 9728), ("down_proj", 4864, 896)):
+        copies = [quantize_int4_packed(torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k))
+                  for _ in range(24)]
+        w, sc = copies[0]
+        lib_w = [(unpack_int4(wc).float() * scc).t().contiguous() for wc, scc in copies]
+        for m in sorted({1, b, 17, 100, bt["prefill_m"]}):
+            _checked(results, "int4_matmul_f32", (m, k, n))
+            x = torch.randn((m, k), generator=gen, device=dev)
+            out_k = i4.int4_matmul(x, w, sc)
+            out_d = i4.int4_matmul_plain(x.double(), w, sc)
+            out_f = i4.int4_matmul_plain(x, w, sc)
+            torch.cuda.synchronize()
+            err = (out_k.double() - out_d).abs().max().item()
+            msg = held_f32("int4_matmul_f32", err, (out_f.double() - out_d).abs().max().item(), INT4_F32_ATOL,
+                           out_d.abs().mean().item())
+            errs.append(err)
+            log(f"int4_matmul_f32 {name} M={m} K={k} N={n}: {msg} finite={bool(torch.isfinite(out_k).all())}")
+            if not torch.isfinite(out_k).all():
+                raise AssertionError("int4_matmul_f32 gave a value that is not finite")
+            if m not in (b, bt["prefill_m"]):
+                continue
+            ms_k = time_ms(cycling(lambda i: i4.int4_matmul(x, *copies[i]), len(copies)), iters=len(copies))
+            ms_p = time_ms(cycling(lambda i: i4.int4_matmul_plain(x, *copies[i]), len(copies)), iters=len(copies))
+            ms_l = time_ms(cycling(lambda i: F.linear(x, lib_w[i]), len(copies)), iters=len(copies))
+            bms, by = bound_f32(m * k * 4 + k * n // 2 + n * 4 + m * n * 4, 2 * m * k * n)
+            results.setdefault("int4_f32_timing", []).append(
+                dict(proj=name, m=m, k=k, n=n, ms=ms_k, plain_ms=ms_p, library_ms=ms_l, bound_ms=bms, bound_by=by))
+            log(f"int4_matmul_f32 {name} M={m}: kernel {ms_k * 1e3:.2f} us, plain f32 {ms_p * 1e3:.1f} us, F.linear "
+                f"f32 on the dequantized weight {ms_l * 1e3:.2f} us, bound {bms * 1e3:.3f} us ({by})")
+        del copies, lib_w
+    results["int4_f32_err"] = max(errs)
+
+
+@contextlib.contextmanager
+def float32_kv_cache():
+    """models/qwen2.init_cache making float32 KV caches, as the port's CPU
+    tests give both packages: the decode-attention kernel's float32 route.
+    Both packages' models decode on a bf16 cache whatever their dtype, so
+    this is the only caller of that route."""
+    import torch
+
+    from fangyan_tts_torch.models import qwen2
+
+    inner = qwen2.init_cache
+    qwen2.init_cache = lambda cfg, batch, max_len, dtype=None, device=None: inner(cfg, batch, max_len, torch.float32,
+                                                                                  device)
+    try:
+        yield
+    finally:
+        qwen2.init_cache = inner
+
+
+@contextlib.contextmanager
+def counted_lm_steps():
+    """Count CosyVoice3LM.decode_step calls of every model made inside the
+    block (a CLI builds its own): a one-element list."""
+    from fangyan_tts_torch.models.llm import CosyVoice3LM
+
+    steps = [0]
+    inner = CosyVoice3LM.decode_step
+
+    def step(self, *a, **k):
+        steps[0] += 1
+        return inner(self, *a, **k)
+
+    CosyVoice3LM.decode_step = step
+    try:
+        yield steps
+    finally:
+        CosyVoice3LM.decode_step = inner
+
+
+def small_float32_check(results: dict) -> None:
+    """The small model in float32 on the card against the same weights on
+    the CPU, greedy: (1) on the model's own path (both packages keep a bf16
+    KV cache, so decode attention runs its bf16 route): the vc route's mel
+    and wav within F32_REL_TOL, teacher-forced logits within SMALL_REL_TOL
+    (the cache's bf16 rounding); (2) on a float32 KV cache (the decode
+    route in float32 too): the LLM route's greedy tokens equal, its mel and
+    wav and the teacher-forced logits within F32_REL_TOL; (3) the same in
+    the int8 LLM + int4 MLP mode (the int4 kernel's float32 route)."""
+    import torch
+
+    from fangyan_tts_torch.infer.tts import CosyVoice3TTS
+
+    cfg = _small_config()
+    ref = CosyVoice3TTS.random_init(cfg, dtype=torch.float32, device="cpu", seed=3)
+    sd = lambda m: {k: v.clone() for k, v in m.state_dict().items()}
+    gpu = CosyVoice3TTS(cfg, sd(ref.llm), sd(ref.flow), sd(ref.hift), dtype=torch.float32, device="cuda")
+    rng = np.random.default_rng(0)
+    vc = dict(source_speech_token=rng.integers(0, 50, 37).astype(np.int32),
+              flow_prompt_speech_token=rng.integers(0, 50, 6).astype(np.int32),
+              prompt_speech_feat=(rng.standard_normal((12, 80)) * 0.5).astype(np.float32),
+              flow_embedding=rng.standard_normal(192).astype(np.float32))
+    llm_req = dict(text=rng.integers(0, 300, 10).astype(np.int32), flow_embedding=vc["flow_embedding"])
+
+    def tokens_and_wav(t):
+        made = []
+        inner = t.token2mel
+        t.token2mel = lambda tok, *a, **k: made.append(np.asarray(tok)) or inner(tok, *a, **k)
+        try:
+            wav = next(t.tts(**llm_req))["tts_speech"]
+        finally:
+            t.token2mel = inner
+        return made[0], wav
+
+    rows = {}
+    lg_g, lg_c = _small_logits(gpu, torch.bfloat16), _small_logits(ref, torch.bfloat16)
+    mel_g, mel_c = (t.token2mel(vc["source_speech_token"], vc["flow_prompt_speech_token"], vc["prompt_speech_feat"],
+                                vc["flow_embedding"]) for t in (gpu, ref))
+    wav_g, wav_c = (next(t.tts(**vc))["tts_speech"] for t in (gpu, ref))
+    rows["float32, bf16 KV cache"] = dict(logits=_rel(lg_g, lg_c), mel=_rel(mel_g, mel_c), wav=_rel(wav_g, wav_c),
+                                          tokens_equal=True, logit_tol=SMALL_REL_TOL)
+    for mode in ("float32, float32 KV cache", "float32 int8 LLM + int4 MLP, float32 KV cache"):
+        if "int4" in mode:
+            for t in (gpu, ref):
+                t.quantize_llm(int4_mlp=True)
+        f0 = _launches_f32()
+        with float32_kv_cache():
+            lg_g, lg_c = _small_logits(gpu, torch.float32), _small_logits(ref, torch.float32)
+            (tok_g, wav_g), (tok_c, wav_c) = tokens_and_wav(gpu), tokens_and_wav(ref)
+        f1 = _launches_f32()
+        launched = {k: f1[k] - f0[k] for k in f1}
+        mel_g, mel_c = (t.token2mel(tok_c, np.zeros(0, np.int32), np.zeros((0, 80), np.float32),
+                                    llm_req["flow_embedding"]) for t in (gpu, ref))
+        rows[mode] = dict(logits=_rel(lg_g, lg_c), mel=_rel(mel_g, mel_c),
+                          wav=_rel(wav_g, wav_c) if wav_g.shape == wav_c.shape else float("inf"),
+                          tokens_equal=bool(np.array_equal(tok_g, tok_c)), tokens=len(tok_c), launched=launched,
+                          logit_tol=F32_REL_TOL)
+        want_route = {"decode_attention_f32", "chunk_flash_attention_f32"} | ({"int4_matmul_f32"} if "int4" in mode
+                                                                            else set())
+        if {k for k, v in launched.items() if v} != want_route:
+            raise AssertionError(f"small float32 model ({mode}) launched float32 routes {launched}")
+    ok = True
+    for mode, r in rows.items():
+        good = (r["tokens_equal"] and r["logits"] <= r["logit_tol"] and r["mel"] <= F32_REL_TOL
+                and r["wav"] <= F32_REL_TOL)
+        ok &= good
+        log(f"small model card vs CPU ({mode}): logits rel {r['logits']:.3e} (limit {r['logit_tol']}), mel rel "
+            f"{r['mel']:.3e}, wav rel {r['wav']:.3e} (limit {F32_REL_TOL})"
+            + (f", greedy tokens equal={r['tokens_equal']} ({r['tokens']} tokens), float32 launches {r['launched']}"
+               if "launched" in r else "") + f" {'OK' if good else 'FAIL'}")
+    results["small_float32"] = rows
+    if not ok:
+        raise AssertionError("the port's float32 path on the card disagrees with its CPU path on a small model")
+
+
+def float32_api_request(results: dict, card: str, model_dir, api: dict) -> None:
+    """One full-width float32 request as a user makes it: python -m
+    fangyan_tts_torch.runtime.offline_inference --no-fp16 on phase 4's model
+    directory (its int8 LLM default), one row (the API request's sentence
+    and 5 s prompt) through inference_zero_shot. Launches: the flow's flash
+    attention on its float32 route, 220 a flow call; decode attention 24 a
+    decode step on the bf16 route (both packages' KV cache is bf16); no
+    other. Every shape held to phase 3's checks."""
+    import tempfile
+
+    import torch
+
+    from fangyan_tts_torch.config import config_from_dict
+    from fangyan_tts_torch.data.audio import read_wav
+    from fangyan_tts_torch.runtime import offline_inference
+
+    build = Path(__file__).resolve().parent / "build"
+    with tempfile.TemporaryDirectory(dir=build, prefix="f32_request_") as tmp:
+        root = Path(tmp)
+        row = {"id": "f32", "text": API_TEXT, "prompt_text": API_PROMPT_TEXT, "prompt_wav": str(model_dir / "prompt.wav")}
+        (root / "rows.jsonl").write_text(json.dumps(row, ensure_ascii=False) + "\n", encoding="utf-8")
+        _zero_launches()
+        with counted_lm_steps() as steps, kernel_shapes(results, "float32 request (offline_inference --no-fp16)"):
+            t = time.perf_counter()
+            offline_inference.main(["--model-dir", str(model_dir), "--dataset", str(root / "rows.jsonl"),
+                                    "--output-dir", str(root / "out"), "--no-fp16"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        counts = {**_launches(), **_launches_f32()}
+        _count(results, counts)
+        metrics = json.loads((root / "out" / "metrics.json").read_text())
+        wav, sr = read_wav(root / "out" / "f32.wav")
+    cfg = config_from_dict(json.loads((model_dir / "config.json").read_text()))  # the directory's model
+    want = {"decode_attention": cfg.llm.qwen.num_hidden_layers * steps[0], "chunk_flash_attention": 0,
+            "int4_matmul": 0, "decode_attention_f32": 0,
+            "chunk_flash_attention_f32": cfg.flow.dit.depth * cfg.flow.n_timesteps, "int4_matmul_f32": 0}
+    agg = metrics["aggregate"]
+    ok = (counts == want and steps[0] > 0 and sr == 24000 and len(wav) > 0 and len(wav) % 480 == 0
+          and np.isfinite(wav).all() and agg["n_utts"] == 1)
+    log(f"float32 request (offline_inference --no-fp16, int8 LLM): {steps[0]} decode steps, {len(wav) / sr:.2f} s "
+        f"audio, request RTF {agg['rtf']:.4f} (its own clock), CLI wall {wall:.2f} s with the float32 load; launches "
+        f"{counts} (derived {want}) [{card}] {'OK' if ok else 'FAIL'}")
+    results["f32_request"] = dict(steps=steps[0], audio_s=len(wav) / sr, rtf=agg["rtf"], cli_wall_s=wall,
+                                  launches=counts)
+    if not ok:
+        raise AssertionError("the float32 request failed its checks")
+
+
+def float32_batch(results: dict, card: str) -> None:
+    """The full-width float32 model in the int8 LLM + int4 MLP mode on a
+    float32 KV cache (float32_kv_cache): one batch_synthesize of
+    f32_batch_request, the three kernels on their float32 routes. Launches:
+    decode 24 a decode step, int4 2 x 24 a forward (the prefill and each
+    step), flash 220; none on a bf16 route. Every shape held to phase 3's
+    checks."""
+    import torch
+
+    from fangyan_tts_torch.config import CosyVoiceConfig
+    from fangyan_tts_torch.infer.tts import CosyVoice3TTS, suppress_silent_runs
+
+    cfg = CosyVoiceConfig()
+    t0 = time.perf_counter()
+    tts = CosyVoice3TTS.random_init(cfg, dtype=torch.float32)
+    tts.quantize_llm(int4_mlp=True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    steps = counted_steps(tts)
+    made = []
+    inner = tts._batch_tokens
+    tts._batch_tokens = lambda *a, **k: made.append(inner(*a, **k)) or made[-1]
+    req = f32_batch_request()
+    _zero_launches()
+    with float32_kv_cache(), kernel_shapes(results, "float32 batch (int4 MLP, float32 KV cache)"):
+        t = time.perf_counter()
+        wavs = tts.batch_synthesize(**req)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    counts = {**_launches(), **_launches_f32()}
+    _count(results, counts)
+    toks, n = made[-1]
+    n_tok = [len(suppress_silent_runs(toks[i, : n[i]])) for i in range(len(n))]
+    nl = cfg.llm.qwen.num_hidden_layers
+    want = {"decode_attention": 0, "chunk_flash_attention": 0, "int4_matmul": 0,
+            "decode_attention_f32": nl * steps[0], "chunk_flash_attention_f32": cfg.flow.dit.depth * cfg.flow.n_timesteps,
+            "int4_matmul_f32": 2 * nl * (1 + steps[0])}
+    audio_s = sum(len(w) for w in wavs) / cfg.sample_rate
+    ok = (counts == want and steps[0] > 0 and len(wavs) == F32_B
+          and all(np.isfinite(w).all() and len(w) == k * 2 * 480 for w, k in zip(wavs, n_tok)))
+    log(f"float32 batch at full width (int8 LLM + int4 MLP, float32 KV cache): {sum(n_tok)} tokens in {steps[0]} "
+        f"decode steps, {audio_s:.2f} s audio, wall {wall:.3f} s, batch RTF {wall / audio_s:.4f} (random_init "
+        f"and quantization {load_s:.2f} s); launches {counts} (derived {want}) [{card}] {'OK' if ok else 'FAIL'}")
+    results["f32_batch"] = dict(steps=steps[0], tokens=sum(n_tok), audio_s=audio_s, wall_s=wall, rtf=wall / audio_s,
+                                launches=counts)
+    if not ok:
+        raise AssertionError("the float32 batch failed its checks")
+    del tts
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- phase 14
+
+
+def datagen_inputs() -> tuple[list[str], list[str]]:
+    """Phase 14's input directory: DG_AISHELL_LINES transcript lines (an
+    utterance id, then DG_CHARS characters separated by spaces, as aishell's
+    transcript writes them) and DG_DIALECT_LINES lines of hunan.txt, from a
+    fixed pool of characters and a seed; every text DG_CHARS characters."""
+    rng = np.random.default_rng(14)
+    line = lambda: "".join(DG_POOL[i] for i in rng.integers(0, len(DG_POOL), DG_CHARS))
+    aishell = [f"DG{i:04d} " + " ".join(line()) for i in range(DG_AISHELL_LINES)]
+    return aishell, [line() for _ in range(DG_DIALECT_LINES)]
+
+
+def datagen_spec(api: dict) -> dict:
+    """The kernel shapes of phase 14, from the code's own buckets, through the
+    byte tokenizer (the card's model directories have no tokenizer/):
+    (a) the CLI's batches of 16 (infer/tts.batch_buckets with the hunan
+    instruct as prompt text and no LLM prompt speech, as frontend_instruct2
+    gives it): decode (16, S) at the last slot a row can write, flash at 32
+    rows and every flow length the rows can reach (the prompt's tokens plus
+    the longest row's, padded to 64); (b) compare_inference's two sentences
+    through inference_instruct2 and (c) run_eval's four through
+    inference_zero_shot: decode (1, S) and flash at the CFG pair for every
+    length its decode can give (CosyVoice3TTS.generate_tokens' buckets, as
+    api_request_spec works them out); (d) the server's stream: its window
+    (STREAM_WINDOW tokens, no prompt), which phase 3 checks with the
+    streams'."""
+    import warnings
+
+    from fangyan_tts_torch.cli.compare_inference import DIALECT_TEXTS
+    from fangyan_tts_torch.cli.generate_dialect_dataset import INSTRUCT_BY_DIALECT
+    from fangyan_tts_torch.config import CosyVoiceConfig
+    from fangyan_tts_torch.data.lm_plan import build_prompt_plan
+    from fangyan_tts_torch.infer.frontend import Frontend
+    from fangyan_tts_torch.infer.tts import batch_buckets
+    from fangyan_tts_torch.tokenizer import get_qwen_tokenizer
+
+    cfg = CosyVoiceConfig()
+    up = lambda n, m: -(-n // m) * m
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        fe = Frontend(get_qwen_tokenizer(None, True, "cosyvoice3"), cfg, device="cpu")
+    n_prompt = api["prompt_tokens"]
+    instruct = fe.extract_text_token(INSTRUCT_BY_DIALECT["hunan"])
+    aishell, hunan = datagen_inputs()
+    texts = [fe.extract_text_token("".join(t.split()[1:])) for t in aishell] + [fe.extract_text_token(t) for t in hunan]
+    assert len({len(t) for t in texts}) == 1, "every phase 14 text has the same length"
+    plans, tp, max_new, cache_len = batch_buckets(cfg.llm, texts[:16], instruct, np.zeros(0, np.int32), 20.0)
+    max_len = int(len(texts[0]) * 20.0)
+    min_len = int(len(texts[0]) * 2.0)
+    cli = dict(b=16, tp=tp, cache_len=cache_len, last=tp + max_len - 1, starts=[tp - len(p.ids) for p in plans],
+               min_len=min_len, max_len=max_len,
+               flash_l=sorted({up(n_prompt + n, 64) * cfg.token_mel_ratio for n in range(max_len + 1)}))
+    prompt_text = fe.extract_text_token(fe.text_normalize(API_PROMPT_TEXT, split=False))
+    single = []
+    for label, text, ptext, speech in (
+            [("compare " + t, t, instruct, []) for t in DIALECT_TEXTS["hunan"][:DG_COMPARE_TEXTS]]
+            + [("evaluate " + t, t, prompt_text, [0] * n_prompt) for t in DG_EVAL_TEXTS]):
+        segs = fe.text_normalize(text)
+        assert len(segs) == 1, segs
+        ids = fe.extract_text_token(segs[0])
+        plan = build_prompt_plan(cfg.llm, np.concatenate([ptext, ids]).tolist(), speech)
+        s_tp = up(len(plan.ids), 64)
+        s_max = int(len(ids) * 20.0)
+        single.append(dict(label=label, cache_len=up(s_tp + max(up(max(s_max, 1), 64), 64), 128),
+                           last=s_tp + s_max - 1, start=s_tp - len(plan.ids),
+                           flash_l=sorted({up(n_prompt + n, 32) * cfg.token_mel_ratio for n in range(s_max + 1)})))
+    return dict(cli=cli, single=single)
+
+
+def datagen_phase(results: dict, card: str, model_dir, dg: dict) -> None:
+    """Phase 14 at full width (CosyVoice3-0.5B, random weights, bf16 as the
+    CLIs load it by default) on phase 4's model directory and 5 s prompt:
+    (a) `cli.generate_dialect_dataset --backend cuda --mode hunan` on a
+    written input directory (32 utterances: 2 batches of 16); its index read
+    back against the wavs on disk; its first batch bit-equal to a direct
+    batch_synthesize on a freshly loaded model; a rerun makes no launch;
+    (c) `cli.evaluate.run_eval` of four pairs on that model with an ASR stub
+    that returns each target text (CER 0 on every row), SS in [-1, 1] and a
+    wav against itself at 1; (d) `token2wav_asr_server.serve` in this
+    process on 127.0.0.1: a RemoteToken2Wav stream of DG_STREAM_TOKENS
+    tokens against the in-process Token2WavSession on the same tokens; (b)
+    `cli.compare_inference --dialects hunan --num_texts DG_COMPARE_TEXTS`
+    with the directory's own LLM as --finetuned_llm, each fine-tuned wav
+    bit-equal to its original. Launches counted for every run (decode 24 a decode step,
+    flash 220 a flow call), every shape held to phase 3's checks; the phase
+    must take under DG_PHASE_LIMIT_S."""
+    import random
+    import shutil
+    import tempfile
+
+    import torch
+
+    from fangyan_tts_torch.api import CosyVoice3
+    from fangyan_tts_torch.cli import compare_inference, evaluate
+    from fangyan_tts_torch.cli import generate_dialect_dataset as gdd
+    from fangyan_tts_torch.config import config_from_dict
+    from fangyan_tts_torch.data.audio import load_audio, read_wav, write_wav
+    from fangyan_tts_torch.infer.stream import Token2WavSession
+    from fangyan_tts_torch.runtime import disaggregated, token2wav_asr_server
+
+    t_phase = time.perf_counter()
+    cfg = config_from_dict(json.loads((model_dir / "config.json").read_text()))  # the directory's model
+    nl, per_flow = cfg.llm.qwen.num_hidden_layers, cfg.flow.dit.depth * cfg.flow.n_timesteps
+    build = Path(__file__).resolve().parent / "build"
+    out: dict = {}
+    with tempfile.TemporaryDirectory(dir=build, prefix="datagen_") as tmp:
+        root = Path(tmp)
+        inp, prompts, ds = root / "input", root / "prompts", root / "dataset"
+        inp.mkdir()
+        prompts.mkdir()
+        aishell, hunan = datagen_inputs()
+        (inp / "aishell_transcript_v0.8.txt").write_text("\n".join(aishell) + "\n", encoding="utf-8")
+        (inp / "hunan.txt").write_text("\n".join(hunan) + "\n", encoding="utf-8")
+        shutil.copy(model_dir / "prompt.wav", prompts / "hunan.wav")
+
+        # (a) the CLI
+        random.seed(0)  # prepare_dataset samples the transcript with random.sample
+        _zero_launches()
+        with counted_lm_steps() as steps, kernel_shapes(results, "phase 14 (a) generate_dialect_dataset"):
+            t = time.perf_counter()
+            stats = gdd.main(["--mode", "hunan", "--backend", "cuda", "--input-dir", str(inp), "--output-dir", str(ds),
+                              "--model-dir", str(model_dir), "--prompt-wav-dir", str(prompts)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        counts = _launches()
+        _count(results, counts)
+        want = {"decode_attention": nl * steps[0], "chunk_flash_attention": per_flow * stats["batches"],
+                "int4_matmul": 0}
+        d = ds / "hunan"
+        read = lambda name: [line.split(maxsplit=1) for line in (d / name).read_text(encoding="utf-8").splitlines()]
+        scp, text, utt2spk = dict(read("wav.scp")), dict(read("text")), dict(read("utt2spk"))
+        spk2utt = dict(read("spk2utt"))
+        cache = json.loads((ds / "dataset_cache.json").read_text(encoding="utf-8"))["hunan"]
+        n_utt = DG_AISHELL_LINES + DG_DIALECT_LINES
+        index_ok = (len(scp) == len(text) == len(utt2spk) == len(cache) == n_utt and set(scp) == set(text)
+                    and spk2utt == {"speaker_hunan": " ".join(it["utt_id"] for it in cache)}
+                    and all(text[it["utt_id"]] == it["text"] for it in cache))
+        wav_ok, lengths = True, []
+        for utt, path in scp.items():
+            w, sr = read_wav(path)
+            lengths.append(len(w))
+            wav_ok &= sr == 24000 and len(w) > 0 and len(w) % 480 == 0 and bool(np.isfinite(w).all())
+        synth = stats["synth_s"]
+        ok = (counts == want and stats["utts"] == n_utt and stats["batches"] == 2 and index_ok and wav_ok)
+        out["cli"] = dict(wall_s=wall, load_s=stats["load_s"], synth_s=synth, utts=stats["utts"],
+                          audio_s=stats["audio_s"], utt_per_s=stats["utts"] / synth, batch_rtf=synth / stats["audio_s"],
+                          steps=steps[0], launches=counts)
+        log(f"phase 14 (a) generate_dialect_dataset --backend cuda --mode hunan: {stats['utts']} utterances in "
+            f"{stats['batches']} batches of 16, {stats['audio_s']:.2f} s audio ({min(lengths) / 24000:.2f}-"
+            f"{max(lengths) / 24000:.2f} s each); CLI wall {wall:.2f} s, load {stats['load_s']:.2f} s "
+            f"({stats['load_s'] / wall:.3f} of the wall), synthesis {synth:.2f} s: {stats['utts'] / synth:.3f} utt/s, "
+            f"batch RTF {synth / stats['audio_s']:.5f}; {steps[0]} decode steps; index read back (wav.scp, text, "
+            f"utt2spk, spk2utt against dataset_cache.json)={index_ok}, every wav 24 kHz, finite, a whole number of "
+            f"hops={wav_ok}; launches {counts} (derived {want}) [{card}] {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("phase 14 (a): the dataset CLI failed its checks")
+
+        # (a) its first batch against a direct batch_synthesize on a freshly loaded model, and a rerun
+        t = time.perf_counter()
+        model = CosyVoice3(str(model_dir))
+        torch.cuda.synchronize()
+        fresh_load = time.perf_counter() - t
+        items = sorted([gdd.TextItem(**it) for it in cache], key=lambda it: len(it.text))[:16]
+        texts = [np.asarray(model.frontend.extract_text_token(it.text), np.int32) for it in items]
+        direct = model.model.batch_synthesize(texts, **gdd.dialect_prompt(model, "hunan", str(prompts)))
+        same = 0
+        for it, wav in zip(items, direct):
+            write_wav(root / "direct.wav", wav, model.sample_rate)
+            same += (root / "direct.wav").read_bytes() == Path(scp[it.utt_id]).read_bytes()
+        _zero_launches()
+        again = gdd.synthesize_batch_cuda([gdd.TextItem(**it) for it in cache], str(ds), str(model_dir), str(prompts),
+                                          model=model)
+        rerun = _launches()
+        ok = same == len(items) and again["utts"] == 0 and not any(rerun.values())
+        out["cli"].update(first_batch_bit_equal=same, fresh_load_s=fresh_load, rerun_launches=rerun)
+        log(f"phase 14 (a) first batch against a direct batch_synthesize on a fresh load ({fresh_load:.2f} s): "
+            f"{same}/{len(items)} wav files bit-equal; a rerun synthesized {again['utts']} utterances, launches "
+            f"{rerun} {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("phase 14 (a): the CLI's batch differs from batch_synthesize, or a rerun launched")
+
+        # (c) run_eval on the loaded model, an ASR stub that returns each target
+        pairs = [{"utt": f"e{i}", "prompt_text": API_PROMPT_TEXT, "prompt_wav": str(model_dir / "prompt.wav"),
+                  "target_text": t} for i, t in enumerate(DG_EVAL_TEXTS)]
+        targets = iter(p["target_text"] for p in pairs)
+        _zero_launches()
+        with counted_lm_steps() as steps, kernel_shapes(results, "phase 14 (c) run_eval"):
+            t = time.perf_counter()
+            ev = evaluate.run_eval(str(model_dir), pairs, root / "eval", asr_fn=lambda wav, sr: next(targets),
+                                   model=model)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        counts = _launches()
+        _count(results, counts)
+        want = {"decode_attention": nl * steps[0], "chunk_flash_attention": per_flow * len(pairs), "int4_matmul": 0}
+        w16, _ = load_audio(root / "eval" / "e0.wav", target_sr=16000)
+        self_ss = evaluate.speaker_similarity(model.frontend, w16, w16)
+        ok = (counts == want and ev["n"] == len(pairs) and all(r["cer"] == 0.0 for r in ev["per_utt"])
+              and all(-1.0 <= r["ss"] <= 1.0 for r in ev["per_utt"]) and abs(self_ss - 1.0) <= 1e-5)
+        out["eval"] = dict(wall_s=wall, n=ev["n"], cer=ev["cer"], ss=[r["ss"] for r in ev["per_utt"]],
+                           self_ss=self_ss, steps=steps[0], launches=counts)
+        log(f"phase 14 (c) run_eval: {ev['n']} pairs in {wall:.2f} s, CER {[r['cer'] for r in ev['per_utt']]}, SS "
+            f"{[round(r['ss'], 4) for r in ev['per_utt']]}, a wav against itself {self_ss:.7f}; {steps[0]} decode "
+            f"steps; launches {counts} (derived {want}) [{card}] {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("phase 14 (c): run_eval failed its checks")
+
+        # (d) the token2wav server in this process against the in-process session
+        rng = np.random.default_rng(15)
+        tokens = rng.integers(0, cfg.llm.speech_token_size, DG_STREAM_TOKENS).astype(np.int32)
+        emb = rng.standard_normal(192).astype(np.float32)
+        no_prompt = (np.zeros(0, np.int32), np.zeros((0, 80), np.float32))
+        pushes = lambda: (tokens[i : i + 32] for i in range(0, len(tokens), 32))
+        _, windows = stream_plan(DG_STREAM_TOKENS, 0, cfg)
+        httpd = token2wav_asr_server.serve(model.model, token2wav_asr_server.make_asr_fn("echo"), port=0,
+                                           host="127.0.0.1")
+        try:
+            url = f"http://127.0.0.1:{httpd.server_address[1]}"
+            _zero_launches()
+            with kernel_shapes(results, "phase 14 (d) RemoteToken2Wav stream"):
+                t = time.perf_counter()
+                remote = list(disaggregated.RemoteToken2Wav(url).stream(pushes(), *no_prompt, emb))
+                wall = time.perf_counter() - t
+            counts = _launches()
+            _count(results, counts)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        _zero_launches()
+        with torch.inference_mode():
+            sess = Token2WavSession(model.model, *no_prompt, emb)
+            solo = [c for p in pushes() for c in sess.push(p)] + [sess.finish()]
+        solo_counts = _launches()
+        scale = max(float(np.abs(c).max()) for c in solo if len(c))
+        diff = max(float(np.abs(a - b).max()) for a, b in zip(remote, solo) if len(b)) if len(remote) == len(
+            solo) else float("inf")
+        audio_s = sum(len(c) for c in remote) / 24000
+        want = {"decode_attention": 0, "chunk_flash_attention": per_flow * windows, "int4_matmul": 0}
+        ok = ([len(c) for c in remote] == [len(c) for c in solo] and diff <= BATCH_REL_TOL * scale
+              and counts == want == solo_counts and windows > 0)
+        out["server"] = dict(wall_s=wall, audio_s=audio_s, rtf=wall / audio_s, chunks=len(remote), max_diff=diff,
+                             window_calls=windows, launches=counts)
+        log(f"phase 14 (d) RemoteToken2Wav stream of {DG_STREAM_TOKENS} tokens through token2wav_asr_server on "
+            f"127.0.0.1: {len(remote)} chunks, {audio_s:.2f} s audio in {wall:.2f} s (RTF {wall / audio_s:.4f}); "
+            f"max |remote - in-process| {diff:.3e} (limit {BATCH_REL_TOL} x max|solo| {scale:.3f}); launches "
+            f"{counts}, the in-process session's {solo_counts} (derived {want}: {windows} flow calls on the window) "
+            f"[{card}] {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("phase 14 (d): the remote token2wav stream failed its checks")
+        del model
+        torch.cuda.empty_cache()
+
+        # (b) compare_inference with the directory's own LLM as the fine-tuned one
+        _zero_launches()
+        with counted_lm_steps() as steps, kernel_shapes(results, "phase 14 (b) compare_inference"):
+            t = time.perf_counter()
+            compare_inference.main(["--pretrained_dir", str(model_dir), "--finetuned_llm", str(model_dir / "llm.msgpack"),
+                                    "--prompt_wav", str(model_dir / "prompt.wav"), "--output_dir", str(root / "cmp"),
+                                    "--dialects", "hunan", "--num_texts", str(DG_COMPARE_TEXTS)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        counts = _launches()
+        _count(results, counts)
+        want = {"decode_attention": nl * steps[0], "chunk_flash_attention": per_flow * 2 * DG_COMPARE_TEXTS,
+                "int4_matmul": 0}
+        pairs_equal = [(root / "cmp" / f"hunan_{i}_original.wav").read_bytes()
+                       == (root / "cmp" / f"hunan_{i}_finetuned.wav").read_bytes()
+                       for i in range(1, DG_COMPARE_TEXTS + 1)]
+        ok = counts == want and all(pairs_equal)
+        out["compare"] = dict(wall_s=wall, steps=steps[0], launches=counts, bit_equal=pairs_equal)
+        log(f"phase 14 (b) compare_inference --dialects hunan --num_texts {DG_COMPARE_TEXTS} (the directory's own LLM as the "
+            f"fine-tuned one): {wall:.2f} s with two model loads, {steps[0]} decode steps; fine-tuned wavs bit-equal "
+            f"to the originals {pairs_equal}; launches {counts} (derived {want}) [{card}] {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("phase 14 (b): compare_inference failed its checks")
+    phase_s = time.perf_counter() - t_phase
+    out["phase_s"] = phase_s
+    results["datagen"] = out
+    log(f"phase 14 took {phase_s:.1f} s (limit {DG_PHASE_LIMIT_S} s) [{card}]")
+    if phase_s > DG_PHASE_LIMIT_S:
+        raise AssertionError(f"phase 14 took {phase_s:.1f} s, over its limit of {DG_PHASE_LIMIT_S} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13", help="comma-separated phases to run (see above)")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
+                    help="comma-separated phases to run (see above)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -3698,31 +4538,41 @@ def main() -> int:
     serving = serving_spec(api)
     v12 = v12_spec(api)
     grpo = grpo_spec()
-    states = frontend_states() if phases & {4, 7, 8, 9, 10, 11, 12, 13} else None
+    dg = datagen_spec(api)
+    states = frontend_states() if phases & {4, 7, 8, 9, 10, 11, 12, 13, 14} else None
     if 3 in phases:
         batches = [batch_shapes(r) for r in batch_requests_spec()]
         log(f"batched requests' shapes (a), (b): {batches}; the API request's: {api}; the streams': {stream}; "
             f"the serving runs' decode (B, S, tp) {serving['decode']} and flow calls (rows, L): kind "
             f"{dict(sorted(serving['flash'].items()))}; phase 10's v2 decodes (label, B, S, last slot, first "
             f"slot) {v12['decode']} and scheduler (B, S, tp) {v12['sched']}; phase 13's GRPO rollouts: decode B "
-            f"{grpo['b']} S {grpo['cache_len']} (tp {grpo['tp']}, max_new {grpo['max_new']}), flash L {grpo['flash_l']}")
-        check_decode(results, batches, api, stream, serving, v12, grpo)
+            f"{grpo['b']} S {grpo['cache_len']} (tp {grpo['tp']}, max_new {grpo['max_new']}), flash L {grpo['flash_l']}; "
+            f"phase 14's CLI batches {dg['cli']} and single requests {[(r['label'], r['cache_len']) for r in dg['single']]}")
+        check_decode(results, batches, api, stream, serving, v12, grpo, dg)
         check_decode_rows(results, serving)
-        check_flash(results, batches, api, stream, serving, grpo)
+        check_flash(results, batches, api, stream, serving, grpo, dg)
         check_int4(results, batches[1])
+        t = time.perf_counter()
+        check_f32_routes(results, api)
+        log(f"the float32 routes' checks took {time.perf_counter() - t:.1f} s")
     with contextlib.ExitStack() as stack:
         if 4 in phases:
             small_reference_check()
+            small_float32_check(results)
             tts, req = full_path(results, card)
-        elif phases & {8, 9}:
+        elif phases & {8, 9, 14}:
             from fangyan_tts_torch.config import CosyVoiceConfig
             from fangyan_tts_torch.infer.tts import CosyVoice3TTS
 
             tts = CosyVoice3TTS.random_init(CosyVoiceConfig(), dtype=torch.bfloat16)
-        model_dir = stack.enter_context(api_model_dir(tts, states)) if phases & {4, 8, 9} else None
+        model_dir = stack.enter_context(api_model_dir(tts, states)) if phases & {4, 8, 9, 14} else None
         if 4 in phases:
             api_request(results, card, model_dir, api)
             batched = batched_requests(results, card)
+            t = time.perf_counter()
+            float32_api_request(results, card, model_dir, api)
+            float32_batch(results, card)
+            log(f"phase 4's float32 requests took {time.perf_counter() - t:.1f} s")
         if 8 in phases:
             # before the profiler passes of phases 5 and 7: the probes around phase 8's own
             # profiled hops show what a profiler session leaves behind in the host's launch cost
@@ -3766,6 +4616,9 @@ def main() -> int:
             rest_phase(results, card, states, model_dir, grpo)
             log(f"phase 13 took {time.perf_counter() - t:.1f} s")
             launch_probe(results, "after phase 13")
+        if 14 in phases:  # after phase 13, before the profiler passes of phases 5 and 7
+            datagen_phase(results, card, model_dir, dg)
+            launch_probe(results, "after phase 14")
         if 4 in phases and 5 in phases:
             profile_stages(tts, req, results, card)
             (tts_a, req_a), (tts_b, req_b) = batched["a"], batched["b"]
@@ -3784,6 +4637,11 @@ def main() -> int:
         # gate_up_proj at decode M = 16: every decode step of request (b) makes
         # one such launch a layer (and one of down_proj), the prefill only two
         it = next(r for r in results["int4_timing"] if r["proj"] == "gate_up_proj" and r["m"] == 16)
+        # the float32 routes: decode at phase 4's float32 batch (its only main-path caller), flash at the
+        # float32 API request's longest flow, int4 gate_up_proj at the float32 batch's decode M
+        dt32 = results["decode_f32_timing"][0]
+        ft32 = next(r for r in results["flash_f32_timing"] if r["b"] == 2 and r["chunk"] == 0)
+        it32 = next(r for r in results["int4_f32_timing"] if r["proj"] == "gate_up_proj" and r["m"] == F32_B)
         kernels = [
             dict(name="decode_attention", route="cuda", source="fangyan_tts_torch/csrc/decode_attention.cu",
                  replaces="fangyan_tts_tpu/ops/decode_attention.py:124",
@@ -3801,15 +4659,27 @@ def main() -> int:
                  ms=it["ms"], plain_ms=it["plain_ms"], bound_ms=it["bound_ms"], bound_by=it["bound_by"],
                  library_ms=it["library_ms"]),
         ]
+        for name, key, src, line, timing in (
+                ("decode_attention_f32", "decode_f32_err", "decode_attention.cu", "decode_attention.py:124", dt32),
+                ("chunk_flash_attention_f32", "flash_f32_err", "flash_attention.cu", "flash_attention.py:78", ft32),
+                ("int4_matmul_f32", "int4_f32_err", "int4_matmul.cu", "int4_matmul.py:39", it32)):
+            kernels.append(dict(name=name, route="cuda", source=f"fangyan_tts_torch/csrc/{src}",
+                                replaces=f"fangyan_tts_tpu/ops/{line}", launches=results["launches"].get(name, 0),
+                                max_abs_err=results[key], ms=timing["ms"], plain_ms=timing["plain_ms"],
+                                bound_ms=timing["bound_ms"], bound_by=timing["bound_by"],
+                                library_ms=timing["library_ms"]))
         log("detail: " + json.dumps({k: results[k] for k in ("decode_timing", "flash_timing", "int4_timing", "requests",
                                                              "api_request", "batch_requests", "profile",
                                                              "profile_batch", "frontend", "streaming",
                                                              "serving", "v12", "dataprep", "train",
                                                              "train_api_request", "decode_rows_bit_equal",
-                                                             "launch_probe_us")
+                                                             "launch_probe_us", "decode_f32_timing",
+                                                             "flash_f32_timing", "int4_f32_timing", "small_float32",
+                                                             "f32_request", "f32_batch", "datagen")
                                      if k in results}))
         log(json.dumps({"kernels": kernels}), stamp=False)
     launch_probe(results, "end")
+    log(f"chip_smoke: phases {sorted(phases)} ran in {time.perf_counter() - _START:.1f} s of script time [{card}]")
     log(card, stamp=False)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": CARDS_USED}}), flush=True)

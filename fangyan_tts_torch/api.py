@@ -117,9 +117,10 @@ def _deep_merge(base: dict, extra: dict) -> dict:
 
 
 class CosyVoice3:
-    """The CosyVoice3 family. fp16=True runs bfloat16, the only dtype on
-    CUDA (its attention kernels take bf16); fp16=False runs float32 on the
-    CPU and raises on CUDA. device None means CUDA."""
+    """The CosyVoice3 family. fp16=True runs bfloat16, fp16=False float32
+    (on CUDA through the kernels' float32 routes, as the JAX package runs
+    float32 models; the KV cache stays bfloat16 in both packages). device
+    None means CUDA."""
 
     sample_rate = 24000
 
@@ -240,7 +241,7 @@ class CosyVoice2(CosyVoice3):
     """The CosyVoice2 family: Qwen2LMV2 (the 2-row sos / task table), the
     x-vector flow (UpsampleConformerEncoder + causal U-Net CFM) and the
     non-causal 24 kHz HiFT with its mel / source / speech streaming cache.
-    fp16=True runs bfloat16, the only dtype on CUDA."""
+    fp16=True runs bfloat16, fp16=False float32 (on CUDA too)."""
 
     sample_rate = 24000
 

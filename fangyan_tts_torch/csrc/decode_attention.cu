@@ -43,9 +43,12 @@
 //     products, so P keeps about 16 bits), B = V by ldmatrix.trans.
 //   - q, k_new and v_new may have a batch stride (the fused qkv buffer's
 //     views); their last two dims are contiguous.
+// The float32 route (`fangyan_decode_attention_f32`, at the end of the file)
+// is a separate SIMT kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include <mutex>
@@ -494,4 +497,198 @@ extern "C" int fangyan_decode_attention(const void* q, const void* k_new, const 
   cfg.numAttrs = n > 1 ? 1 : 0;  // one block: no cluster, no barrier
   const cudaError_t err = cudaLaunchKernelEx(&cfg, decode_attention_kernel, tm_k, tm_v, p);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The float32 route: the same function on float32 q, k_new, v_new and caches
+// (the Pallas kernel is dtype-generic: it casts q to float32 in its body and
+// writes the output in q's dtype), with float32 scores, softmax and sums and
+// no tensor cores, so no TF32 rounding. A simple SIMT kernel: one block of
+// kF32Warps warps per (KV head, row b). The block writes the new row into the
+// cache and keeps it in shared memory, where the loops read it; lane j of a
+// warp owns one slot of each 32-slot tile the warp takes, works out its G
+// scores from its own K row (float4 loads), and the warp keeps an online
+// softmax a head (maxima and sums by shuffles) and accumulates P.V with each
+// lane owning two of the 64 output dims. The warps' partials merge in shared
+// memory in warp order, so the result does not vary from run to run.
+
+namespace {
+
+constexpr int kF32Warps = 8;
+constexpr int kF32Threads = 32 * kF32Warps;
+
+struct ParamsF32 {
+  const float* q;
+  const float* k_new;
+  const float* v_new;
+  float* cache_k;
+  float* cache_v;
+  const int32_t* idx;
+  const float* bias;
+  float* out;
+  long long q_sb, kn_sb, vn_sb;
+  int B, S, KV, G, layer;
+};
+
+__global__ void __launch_bounds__(kF32Threads) decode_attention_f32_kernel(const ParamsF32 p) {
+  __shared__ __align__(16) float qs[kMaxG][kHd];
+  __shared__ __align__(16) float knew[kHd];
+  __shared__ __align__(16) float vnew[kHd];
+  __shared__ float part_m[kF32Warps][kMaxG];
+  __shared__ float part_l[kF32Warps][kMaxG];
+  __shared__ float part_o[kF32Warps][kMaxG][kHd];
+
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int S = p.S, KV = p.KV, G = p.G;
+  const float log2e = 1.4426950408889634f;
+  const float qscale = 0.125f * log2e;  // 1 / sqrt(64), in base 2
+  int slot = p.idx[b];
+  slot = slot < 0 ? 0 : (slot > S - 1 ? S - 1 : slot);
+  const long long row0 = ((long long)p.layer * p.B + b) * S;  // this (layer, b)'s first slot
+  float* ck = p.cache_k + row0 * KV * kHd + kvh * kHd;         // slot s's row: ck + s * KV * kHd
+  float* cv = p.cache_v + row0 * KV * kHd + kvh * kHd;
+  const long long rs = (long long)KV * kHd;
+
+  if (tid < kHd) {
+    const float k = p.k_new[b * p.kn_sb + kvh * kHd + tid];
+    knew[tid] = k;
+    ck[slot * rs + tid] = k;
+  } else if (tid < 2 * kHd) {
+    const float v = p.v_new[b * p.vn_sb + kvh * kHd + tid - kHd];
+    vnew[tid - kHd] = v;
+    cv[slot * rs + tid - kHd] = v;
+  }
+  for (int e = tid; e < G * kHd; e += kF32Threads)
+    qs[e / kHd][e % kHd] = p.q[b * p.q_sb + (kvh * G + e / kHd) * kHd + e % kHd] * qscale;
+  __syncthreads();
+
+  float m[kMaxG], l[kMaxG], acc[kMaxG][2];
+#pragma unroll
+  for (int g = 0; g < kMaxG; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+    acc[g][0] = acc[g][1] = 0.f;
+  }
+  const float* brow = p.bias + (long long)b * S;
+  for (int base = warp * 32; base < S; base += kF32Threads) {
+    const int s = base + lane;
+    float sc[kMaxG];
+    if (s < S) {
+      const float4* kr = reinterpret_cast<const float4*>(s == slot ? knew : ck + s * rs);
+      float dot[kMaxG];
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g) dot[g] = 0.f;
+#pragma unroll 4
+      for (int d4 = 0; d4 < kHd / 4; ++d4) {
+        const float4 kk = kr[d4];
+#pragma unroll
+        for (int g = 0; g < kMaxG; ++g) {
+          if (g < G) {
+            const float4 qq = reinterpret_cast<const float4*>(qs[g])[d4];
+            dot[g] = fmaf(qq.x, kk.x, fmaf(qq.y, kk.y, fmaf(qq.z, kk.z, fmaf(qq.w, kk.w, dot[g]))));
+          }
+        }
+      }
+      const float bl = brow[s] * log2e;
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g) sc[g] = dot[g] + bl;
+    } else {
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g) sc[g] = -INFINITY;
+    }
+    float pr[kMaxG];
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) {
+      if (g < G) {
+        float t = sc[g];
+#pragma unroll
+        for (int o = 16; o; o >>= 1) t = fmaxf(t, __shfl_xor_sync(0xffffffffu, t, o));
+        const float mn = fmaxf(m[g], t);  // finite: lane 0's slot is valid and the bias finite
+        const float alpha = exp2f(m[g] - mn);
+        pr[g] = exp2f(sc[g] - mn);
+        float sum = pr[g];
+#pragma unroll
+        for (int o = 16; o; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        l[g] = l[g] * alpha + sum;
+        acc[g][0] *= alpha;
+        acc[g][1] *= alpha;
+        m[g] = mn;
+      } else {
+        pr[g] = 0.f;
+      }
+    }
+    const int n = S - base < 32 ? S - base : 32;
+    for (int j = 0; j < n; ++j) {
+      const int sj = base + j;
+      const float2 vv = reinterpret_cast<const float2*>(sj == slot ? vnew : cv + sj * rs)[lane];
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g) {
+        if (g < G) {
+          const float pj = __shfl_sync(0xffffffffu, pr[g], j);
+          acc[g][0] = fmaf(pj, vv.x, acc[g][0]);
+          acc[g][1] = fmaf(pj, vv.y, acc[g][1]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < kMaxG; ++g) {
+    if (g < G) {
+      part_o[warp][g][2 * lane] = acc[g][0];
+      part_o[warp][g][2 * lane + 1] = acc[g][1];
+      if (lane == 0) {
+        part_m[warp][g] = m[g];
+        part_l[warp][g] = l[g];
+      }
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < G * kHd; e += kF32Threads) {
+    const int g = e / kHd, d = e % kHd;
+    float mx = -INFINITY;
+    for (int w = 0; w < kF32Warps; ++w) mx = fmaxf(mx, part_m[w][g]);
+    float num = 0.f, den = 0.f;
+    for (int w = 0; w < kF32Warps; ++w) {
+      const float f = exp2f(part_m[w][g] - mx);  // 0 for a warp that had no slot
+      num = fmaf(f, part_o[w][g][d], num);
+      den = fmaf(f, part_l[w][g], den);
+    }
+    p.out[((long long)b * KV * G + kvh * G + g) * kHd + d] = num / den;
+  }
+}
+
+}  // namespace
+
+// The float32 route: q, k_new, v_new, the caches and out float32, idx int32,
+// bias float32; batch strides in elements (multiples of 4).
+extern "C" int fangyan_decode_attention_f32(const void* q, const void* k_new, const void* v_new, void* cache_k,
+                                            void* cache_v, const void* idx, const void* bias, void* out,
+                                            long long q_sb, long long kn_sb, long long vn_sb, int L, int B, int S,
+                                            int KV, int G, int hd, int layer, void* stream) {
+  const bool aligned = ((uintptr_t)q | (uintptr_t)k_new | (uintptr_t)v_new | (uintptr_t)cache_k |
+                        (uintptr_t)cache_v | (uintptr_t)out) % 16 == 0 &&
+                       (q_sb | kn_sb | vn_sb) % 4 == 0;
+  if (!aligned || hd != kHd || G < 1 || G > kMaxG || B < 1 || S < 1 || KV < 1 || L < 1 || B > 65535 ||
+      KV > 65535 || layer < 0 || layer >= L || (long long)L * B * S * KV * kHd >= (1ll << 40))
+    return (int)cudaErrorInvalidValue;
+  ParamsF32 p;
+  p.q = (const float*)q;
+  p.k_new = (const float*)k_new;
+  p.v_new = (const float*)v_new;
+  p.cache_k = (float*)cache_k;
+  p.cache_v = (float*)cache_v;
+  p.idx = (const int32_t*)idx;
+  p.bias = (const float*)bias;
+  p.out = (float*)out;
+  p.q_sb = q_sb;
+  p.kn_sb = kn_sb;
+  p.vn_sb = vn_sb;
+  p.B = B;
+  p.S = S;
+  p.KV = KV;
+  p.G = G;
+  p.layer = layer;
+  decode_attention_f32_kernel<<<dim3(KV, B), kF32Threads, 0, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
 }

@@ -35,6 +35,8 @@
 //     DiT's qkv projection is read in place), and the output is written by a
 //     TMA store into (B, L, H, 64) memory, which the caller views as
 //     (B, H, L, 64). A row with no valid key comes out as zeros.
+// The float32 route (`fangyan_chunk_flash_attention_f32`, at the end of the
+// file) is a separate SIMT kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -365,5 +367,189 @@ extern "C" int fangyan_chunk_flash_attention(const void* q, const void* k, const
   const int grid = (int)(items < sms ? items : sms);  // one block an SM
   chunk_flash_attention_kernel<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(
       tm_q, tm_k, tm_v, tm_o, (const int32_t*)mel_len, H, L, chunk, 0.125f * 1.4426950408889634f, (int)items);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The float32 route: the same function on float32 (B, H, L, 64) q, k and v
+// (the Pallas kernel computes in float32 and writes q's dtype), with float32
+// scores, softmax and sums on the CUDA cores, so no TF32 rounding. A simple
+// tiled SIMT flash kernel: a block of 256 threads takes 64 query rows of one
+// (b, h); each thread owns 4 rows and 4 keys (or output dims) of a 64 x 64
+// tile (keys and dims strided by 16, so the shared-memory reads do not
+// conflict). K tiles run from 0 to the block's last row's key limit; the
+// scores of keys past a row's limit are -inf; a row's max and sum go by
+// shuffles over the 16 threads that share it. The output goes to (B, L, H,
+// D) memory as on the bf16 route, and a row with no valid key comes out as
+// zeros, as there.
+
+namespace {
+
+constexpr int kF32Rows = 64;     // query rows per block
+constexpr int kF32Keys = 64;     // keys per tile
+constexpr int kF32Pad = kD + 1;  // padded row of a Q, K or P tile in shared memory (floats)
+constexpr int kF32Threads = 256;
+constexpr int kF32Smem = (3 * kF32Rows * kF32Pad + kF32Keys * kD) * 4;  // Q, K, P padded; V dense
+
+__global__ void __launch_bounds__(kF32Threads) chunk_flash_attention_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const int32_t* __restrict__ mel_len, float* __restrict__ out, int H, int L, int chunk, long long qsb,
+    long long qsh, long long qsl, long long ksb, long long ksh, long long ksl, long long vsb, long long vsh,
+    long long vsl) {
+  extern __shared__ float fsm[];
+  float* qs = fsm;                      // [64][65], pre-scaled by log2(e) / 8
+  float* ks = qs + kF32Rows * kF32Pad;  // [64][65]
+  float* ps = ks + kF32Keys * kF32Pad;  // [64][65]
+  float* vs = ps + kF32Rows * kF32Pad;  // [64][64]
+
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * kF32Rows;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int len = max(0, min(mel_len[b], L));
+  const float scale_log2 = 0.125f * 1.4426950408889634f;
+  const float* qb = q + b * qsb + h * qsh;
+  const float* kb = k + b * ksb + h * ksh;
+  const float* vb = v + b * vsb + h * vsh;
+
+  for (int e = tid; e < kF32Rows * kD / 4; e += kF32Threads) {
+    const int r = e / (kD / 4), c = e % (kD / 4) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < L) x = *reinterpret_cast<const float4*>(qb + (q0 + r) * qsl + c);
+    float* d = qs + r * kF32Pad + c;
+    d[0] = x.x * scale_log2;
+    d[1] = x.y * scale_log2;
+    d[2] = x.z * scale_log2;
+    d[3] = x.w * scale_log2;
+  }
+
+  int lim[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = min(q0 + ty * 4 + r, L - 1);
+    lim[r] = key_limit(i, len, chunk, L);
+  }
+  const int kend = key_limit(min(q0 + kF32Rows, L) - 1, len, chunk, L);  // the block's last row's limit
+
+  float m[4], l[4], o[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[r][c] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < kend; k0 += kF32Keys) {
+    __syncthreads();  // the last tile's K, P and V are read; Q written (first tile)
+    for (int e = tid; e < kF32Keys * kD / 4; e += kF32Threads) {
+      const int r = e / (kD / 4), c = e % (kD / 4) * 4;
+      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
+      if (k0 + r < L) {
+        kx = *reinterpret_cast<const float4*>(kb + (k0 + r) * ksl + c);
+        vx = *reinterpret_cast<const float4*>(vb + (k0 + r) * vsl + c);
+      }
+      float* d = ks + r * kF32Pad + c;
+      d[0] = kx.x;
+      d[1] = kx.y;
+      d[2] = kx.z;
+      d[3] = kx.w;
+      *reinterpret_cast<float4*>(vs + r * kD + c) = vx;
+    }
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < kD; ++d) {
+      float a[4], bk[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a[r] = qs[(ty * 4 + r) * kF32Pad + d];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) bk[c] = ks[(tx + 16 * c) * kF32Pad + d];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[r][c] = fmaf(a[r], bk[c], s[r][c]);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float t = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (k0 + tx + 16 * c >= lim[r]) s[r][c] = -INFINITY;
+        t = fmaxf(t, s[r][c]);
+      }
+#pragma unroll
+      for (int off = 8; off; off >>= 1) t = fmaxf(t, __shfl_xor_sync(0xffffffffu, t, off));
+      const float mn = fmaxf(m[r], t);
+      const float ref = mn == -INFINITY ? 0.f : mn;  // a row with no valid key yet
+      const float alpha = exp2f(m[r] - ref);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float pr = exp2f(s[r][c] - ref);
+        sum += pr;
+        ps[(ty * 4 + r) * kF32Pad + tx + 16 * c] = pr;
+      }
+#pragma unroll
+      for (int off = 8; off; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      l[r] = l[r] * alpha + sum;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) o[r][c] *= alpha;
+      m[r] = mn;
+    }
+    __syncthreads();
+
+#pragma unroll 8
+    for (int j = 0; j < kF32Keys; ++j) {
+      float pr[4], vv[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) pr[r] = ps[(ty * 4 + r) * kF32Pad + j];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) vv[c] = vs[j * kD + tx + 16 * c];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) o[r][c] = fmaf(pr[r], vv[c], o[r][c]);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = q0 + ty * 4 + r;
+    if (i >= L) continue;
+    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    float* orow = out + (((long long)b * L + i) * H + h) * kD;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) orow[tx + 16 * c] = o[r][c] * inv;
+  }
+}
+
+}  // namespace
+
+// The float32 route: q, k, v float32 strided (B, H, L, 64) views (strides in
+// elements, multiples of 4, pointers 16-byte aligned), out float32 (B, L, H, 64).
+extern "C" int fangyan_chunk_flash_attention_f32(const void* q, const void* k, const void* v, const void* mel_len,
+                                                 void* out, int B, int H, int L, int D, int chunk, long long qsb,
+                                                 long long qsh, long long qsl, long long ksb, long long ksh,
+                                                 long long ksl, long long vsb, long long vsh, long long vsl,
+                                                 void* stream) {
+  const long long strides[9] = {qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl};
+  if (D != kD || B < 1 || H < 1 || L < 1 || chunk < 0 || (long long)B * H > 65535 ||
+      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16)
+    return (int)cudaErrorInvalidValue;
+  for (long long s : strides)
+    if (s < 0 || s % 4) return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr = cudaFuncSetAttribute(chunk_flash_attention_f32_kernel,
+                                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kF32Smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((L + kF32Rows - 1) / kF32Rows, B * H);
+  chunk_flash_attention_f32_kernel<<<grid, kF32Threads, kF32Smem, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const int32_t*)mel_len, (float*)out, H, L, chunk, qsb, qsh,
+      qsl, ksb, ksh, ksl, vsb, vsh, vsl);
   return (int)cudaGetLastError();
 }

@@ -49,6 +49,8 @@
 //   - the packed weight (K/2, N) has only 64-128 contiguous bytes per block
 //     and packed row, so each decode block requests many small TMA rows; at
 //     decode the kernel takes about 5x its DRAM bound (see PERF.md).
+// The float32 route (`fangyan_int4_matmul_f32`, at the end of the file) is a
+// separate SIMT kernel.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -416,4 +418,129 @@ extern "C" int fangyan_int4_matmul(const void* x, const void* w, const void* sca
   else if (tile_n == 128) err = launch<128, 64, 2>(tm_x, tm_w, sc, o, M, N, steps, per, cs, s);
   else err = launch<128, 128, 2>(tm_x, tm_w, sc, o, M, N, steps, per, cs, s);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The float32 route: x (M, K) float32 against the same packed weight and
+// scale, float32 out (the Pallas kernel writes x's dtype), with float32 FMAs
+// on the CUDA cores and no TF32 rounding. A simple tiled SIMT kernel: a block
+// of 256 threads computes a 64 x 64 output tile in steps of 32 K; x's tile is
+// stored transposed and the weight's dequantized (two's complement nibbles
+// to exact float32 values) in shared memory, and each thread sums 4 tokens x
+// 4 channels (channels strided by 16, so the shared-memory reads do not
+// conflict). The scale multiplies the float32 sum, as on the bf16 route.
+// Where the output tiles leave the card idle (decode: down_proj has 14 tiles
+// at M <= 64), K is split over `splits` blocks a tile (blockIdx.z): each
+// writes its partial tile to a float32 workspace (splits, M, N), and a second
+// kernel sums the partials in split order and applies the scale, so the
+// result does not vary from run to run.
+
+namespace {
+
+constexpr int kF32Bm = 64, kF32Bn = 64, kF32Bk = 32;
+constexpr int kF32Threads = 256;
+
+__global__ void __launch_bounds__(kF32Threads) int4_matmul_f32_kernel(const float* __restrict__ x,
+                                                                      const int8_t* __restrict__ w,
+                                                                      const float* __restrict__ scale,
+                                                                      float* __restrict__ out, int M, int K, int N,
+                                                                      int k_per) {
+  __shared__ __align__(16) float xs[kF32Bk][kF32Bm + 4];  // x^T tile, rows padded to keep float4 alignment
+  __shared__ float ws[kF32Bk][kF32Bn];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int m0 = blockIdx.y * kF32Bm, n0 = blockIdx.x * kF32Bn;
+  const int k_begin = blockIdx.z * k_per, k_end = min(K, k_begin + k_per);
+  float acc[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+
+  for (int k0 = k_begin; k0 < k_end; k0 += kF32Bk) {
+    __syncthreads();  // the last step's tiles are read
+    for (int e = tid; e < kF32Bm * kF32Bk / 4; e += kF32Threads) {
+      const int r = e / (kF32Bk / 4), c = e % (kF32Bk / 4) * 4;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (m0 + r < M) v = *reinterpret_cast<const float4*>(x + (long long)(m0 + r) * K + k0 + c);
+      xs[c][r] = v.x;
+      xs[c + 1][r] = v.y;
+      xs[c + 2][r] = v.z;
+      xs[c + 3][r] = v.w;
+    }
+    {  // 16 packed rows x 64 channels: one 4-byte word a thread
+      const int pr = tid / (kF32Bn / 4), c = tid % (kF32Bn / 4) * 4;
+      const uint32_t word =
+          *reinterpret_cast<const uint32_t*>(w + (long long)(k0 / 2 + pr) * N + n0 + c);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int byte = (int)(int8_t)(word >> (8 * j));
+        ws[2 * pr][c + j] = (float)((int)((uint32_t)byte << 28) >> 28);  // low nibble: input row 2i
+        ws[2 * pr + 1][c + j] = (float)(byte >> 4);  // high nibble: input row 2i + 1
+      }
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < kF32Bk; ++kk) {
+      const float4 a = *reinterpret_cast<const float4*>(&xs[kk][ty * 4]);
+      float bw[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) bw[c] = ws[kk][tx + 16 * c];
+      const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bw[c], acc[r][c]);
+    }
+  }
+  // one split: the scaled result; several: this split's partial (no scale) at workspace slice blockIdx.z
+  float* dst = gridDim.z == 1 ? out : out + (long long)blockIdx.z * M * N;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int m = m0 + ty * 4 + r;
+    if (m >= M) continue;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int n = n0 + tx + 16 * c;
+      dst[(long long)m * N + n] = gridDim.z == 1 ? acc[r][c] * scale[n] : acc[r][c];
+    }
+  }
+}
+
+// out[m, n] = scale[n] * (sum over the splits, in order, of ws[s, m, n])
+__global__ void __launch_bounds__(256) int4_matmul_f32_reduce(const float* __restrict__ ws,
+                                                               const float* __restrict__ scale,
+                                                               float* __restrict__ out, int M, int N, int splits) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long mn = (long long)M * N;
+  if (i >= mn) return;
+  float sum = 0.f;
+  for (int z = 0; z < splits; ++z) sum += ws[z * mn + i];
+  out[i] = sum * scale[i % N];
+}
+
+}  // namespace
+
+// The float32 route: x (M, K) float32, w (K/2, N) int8, scale (N,) float32,
+// out (M, N) float32; K a multiple of 32, N of 64, pointers 16-byte aligned.
+// splits K-splits a tile (each a multiple of 32 K); with splits > 1, ws is a
+// float32 workspace of splits x M x N.
+extern "C" int fangyan_int4_matmul_f32(const void* x, const void* w, const void* scale, void* out, void* ws, int M,
+                                       int K, int N, int splits, void* stream) {
+  if (M < 1 || K < kF32Bk || K % kF32Bk || N < kF32Bn || N % kF32Bn || (M + kF32Bm - 1) / kF32Bm > 65535 ||
+      splits < 1 || splits > 65535 || (splits > 1 && ws == nullptr) ||
+      ((uintptr_t)x | (uintptr_t)w | (uintptr_t)out) % 16)
+    return (int)cudaErrorInvalidValue;
+  const int steps = K / kF32Bk;
+  const int k_per = (steps + splits - 1) / splits * kF32Bk;
+  if ((long long)(splits - 1) * k_per >= K) return (int)cudaErrorInvalidValue;  // every split has K to sum
+  const cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid(N / kF32Bn, (M + kF32Bm - 1) / kF32Bm, splits);
+  int4_matmul_f32_kernel<<<grid, kF32Threads, 0, s>>>((const float*)x, (const int8_t*)w, (const float*)scale,
+                                                        (float*)(splits > 1 ? ws : out), M, K, N, k_per);
+  if (splits > 1) {
+    const long long mn = (long long)M * N;
+    int4_matmul_f32_reduce<<<(unsigned)((mn + 255) / 256), 256, 0, s>>>((const float*)ws, (const float*)scale,
+                                                                        (float*)out, M, N, splits);
+  }
+  return (int)cudaGetLastError();
 }

@@ -213,8 +213,8 @@ class CosyVoice3TTS:
         from the JAX package's trees). device None means CUDA."""
         self.device = resolve_device(device)
         if self.device.type == "cuda":
-            if dtype != torch.bfloat16:
-                raise ValueError("fangyan_tts_torch: the CUDA path runs bfloat16 (its attention kernels take bf16)")
+            if dtype not in (torch.bfloat16, torch.float32):
+                raise ValueError("fangyan_tts_torch: the CUDA path runs bfloat16 or float32 (the kernels' two routes)")
             exact_fp32()
         self.cfg = cfg
         self.dtype = dtype

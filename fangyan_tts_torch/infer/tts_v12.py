@@ -9,8 +9,9 @@ machinery of the reference runtimes (fangyan_tts_tpu/infer/tts_v12.py).
   first hop absorbing the prompt's padding to a hop boundary; the HiFT
   mel / source / speech cache (8 mel frames) with a Hamming cross-fade of
   the speech at every join. Every decode step runs the decode-attention
-  kernel on the card (ops/decode_attention), so on CUDA it runs bfloat16
-  only; the HiFT f0 predictor stays float32.
+  kernel on the card (ops/decode_attention, on the bfloat16 KV cache of
+  both packages, whatever the model's dtype); the model runs bfloat16 or
+  float32, and the HiFT f0 predictor stays float32.
 - `CosyVoiceV1TTS`: the KV-cached TransformerLM decode
   (models/llm_v1_decode.py); streaming in growing token hops (2 s, a
   20-token overlap) with 34-frame Hamming mel fades, the z / mu flow cache
@@ -125,8 +126,8 @@ class CosyVoice2TTS(_HiFTVocoderMixin):
                  device: str | torch.device | None = None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
-            if dtype != torch.bfloat16:
-                raise ValueError("fangyan_tts_torch: the CUDA path runs bfloat16 (its attention kernels take bf16)")
+            if dtype not in (torch.bfloat16, torch.float32):
+                raise ValueError("fangyan_tts_torch: the CUDA path runs bfloat16 or float32 (the kernels' two routes)")
             exact_fp32()
         self.llm_cfg, self.hift_cfg, self.dtype = llm_cfg, hift_cfg, dtype
         self.flow_kw = dict(flow_kw)

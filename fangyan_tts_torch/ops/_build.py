@@ -27,15 +27,23 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_fns: dict = {}  # loaded C entry points by source name
+_fns: dict = {}  # loaded C entry points by entry name
 build_logs: dict[str, str] = {}  # nvcc's output (ptxas register / spill report) per built source
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
+# entry -> (source, C function, argument types); an entry named <source>_f32
+# is the source's float32 route
 _SIGNATURES = {
-    "decode_attention": ("fangyan_decode_attention", [_P] * 8 + [ctypes.c_longlong] * 3 + [_I] * 9 + [_P]),
-    "flash_attention": ("fangyan_chunk_flash_attention", [_P] * 5 + [_I] * 5 + [ctypes.c_longlong] * 9 + [_P]),
-    "int4_matmul": ("fangyan_int4_matmul", [_P] * 4 + [_I] * 7 + [_P]),
+    "decode_attention": ("decode_attention", "fangyan_decode_attention", [_P] * 8 + [_LL] * 3 + [_I] * 9 + [_P]),
+    "decode_attention_f32": ("decode_attention", "fangyan_decode_attention_f32",
+                             [_P] * 8 + [_LL] * 3 + [_I] * 7 + [_P]),
+    "flash_attention": ("flash_attention", "fangyan_chunk_flash_attention", [_P] * 5 + [_I] * 5 + [_LL] * 9 + [_P]),
+    "flash_attention_f32": ("flash_attention", "fangyan_chunk_flash_attention_f32",
+                            [_P] * 5 + [_I] * 5 + [_LL] * 9 + [_P]),
+    "int4_matmul": ("int4_matmul", "fangyan_int4_matmul", [_P] * 4 + [_I] * 7 + [_P]),
+    "int4_matmul_f32": ("int4_matmul", "fangyan_int4_matmul_f32", [_P] * 5 + [_I] * 4 + [_P]),
 }
 
 
@@ -83,23 +91,24 @@ def build_all(names: tuple[str, ...] = SOURCES) -> None:
                 _finish(n, job)
 
 
-def load(name: str):
-    """The C entry point of csrc/<name>.cu (ctypes function with its
-    argument types set), building and loading it at first use."""
-    fn = _fns.get(name)
+def load(entry: str):
+    """The C entry point `entry` of _SIGNATURES (a ctypes function with its
+    argument types set), building and loading its source at first use."""
+    fn = _fns.get(entry)
     if fn is None:
-        build_all((name,))
+        source, fname, argtypes = _SIGNATURES[entry]
+        build_all((source,))
         with _lock:
-            lib = ctypes.CDLL(str(_target(name)))
-            fname, argtypes = _SIGNATURES[name]
+            lib = ctypes.CDLL(str(_target(source)))
             fn = getattr(lib, fname)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _fns[name] = fn
+            _fns[entry] = fn
     return fn
 
 
-def check(name: str, code: int) -> None:
+def check(entry: str, code: int) -> None:
     """Raise if a C entry returned a CUDA error (its cudaGetLastError())."""
     if code != 0:
-        raise RuntimeError(f"csrc/{name}.cu launch failed with cudaError_t {code}")
+        source, fname = _SIGNATURES[entry][:2]
+        raise RuntimeError(f"csrc/{source}.cu {fname} failed with cudaError_t {code}")

@@ -12,6 +12,13 @@ shared memory, which writes the output. The new row is written by the
 block that holds its slot. See the source for the design, and
 tools/decode_attention_sweep.py for where its time goes.
 
+Float32 inputs (q, k_new, v_new and the caches) take the kernel's float32
+route, `fangyan_decode_attention_f32`: a separate SIMT kernel with float32
+scores, softmax and sums and no tensor cores (so no TF32 rounding), one
+block per (KV head, row). The Pallas kernel is dtype-generic in the same
+way. The wrapper picks the route by the inputs' dtype and counts its
+launches in `launches_f32`, apart from the bf16 route's `launches`.
+
 `decode_attention` launches the kernel for CUDA tensors and runs
 `decode_attention_plain` for CPU tensors; there is no fallback from one to
 the other. The caches are updated IN PLACE on purpose: the stacked
@@ -31,7 +38,9 @@ import torch
 from . import _build
 from .device import refuse_grad
 
-launches = 0  # kernel launches since the last reset (CPU calls do not count)
+launches = 0  # bf16-route kernel launches since the last reset (CPU calls do not count)
+launches_f32 = 0  # float32-route kernel launches since the last reset
+ROUTES = {torch.bfloat16: "decode_attention", torch.float32: "decode_attention_f32"}  # dtype -> C entry
 MAX_CLUSTER = 8  # the largest portable thread-block cluster
 GROUP = 16  # slots of one mma step: a block's slots are a multiple of this
 MIN_RUN = 64  # slots a block takes at least, where S allows (tools/decode_attention_sweep.py)
@@ -97,10 +106,10 @@ def _check(q, k_new, v_new, cache_k, cache_v, idx, bias, layer):
         raise ValueError(f"decode_attention: q is on {dev}, the current CUDA device is {torch.cuda.current_device()}")
     if any(t.device != dev for t in (k_new, v_new, cache_k, cache_v, idx, bias)):
         raise ValueError("decode_attention: every tensor must be on q's device")
-    bf = torch.bfloat16
-    if not (q.dtype == k_new.dtype == v_new.dtype == cache_k.dtype == cache_v.dtype == bf
+    if not (q.dtype == k_new.dtype == v_new.dtype == cache_k.dtype == cache_v.dtype and q.dtype in ROUTES
             and idx.dtype == torch.int32 and bias.dtype == torch.float32):
-        raise ValueError("decode_attention: q, k_new, v_new and the caches must be bfloat16, idx int32, bias float32")
+        raise ValueError("decode_attention: q, k_new, v_new and the caches must be all bfloat16 or all float32, "
+                         "idx int32, bias float32")
     if cache_k.dim() != 5 or cache_v.shape != cache_k.shape:
         raise ValueError("decode_attention: caches must be (L, B, S, KV, hd) and equal")
     nl, b, s, kv, hd = cache_k.shape
@@ -111,7 +120,7 @@ def _check(q, k_new, v_new, cache_k, cache_v, idx, bias, layer):
         raise ValueError("decode_attention: k_new / v_new must be (B, KV, hd)")
     if idx.shape != (b,) or bias.shape != (b, s):
         raise ValueError("decode_attention: idx must be (B,) and bias (B, S)")
-    for t in (q, k_new, v_new):  # a batch stride is allowed; the kernel checks it and the pointers for 16 bytes
+    for t in (q, k_new, v_new):  # a batch stride is allowed; the kernels check it and the pointers for 16 bytes
         if t.stride(2) != 1 or t.stride(1) != hd:
             raise ValueError("decode_attention: q, k_new and v_new need contiguous (heads, hd) rows")
     if not (cache_k.is_contiguous() and cache_v.is_contiguous() and idx.is_contiguous() and bias.is_contiguous()):
@@ -123,7 +132,8 @@ def _check(q, k_new, v_new, cache_k, cache_v, idx, bias, layer):
 def decode_attention(q, k_new, v_new, cache_k, cache_v, idx, bias, layer: int) -> torch.Tensor:
     """One decode step: writes the new rows into the caches in place and
     returns the attention output (B, QH, hd). CPU tensors take the plain
-    version; CUDA tensors launch csrc/decode_attention.cu (one launch) or
+    version; CUDA tensors launch csrc/decode_attention.cu (one launch: the
+    bf16 route for bfloat16 inputs, the float32 route for float32 ones) or
     raise (also when an input requires grad: the kernel has no backward)."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_new, v_new, cache_k, cache_v, idx, bias, layer)
@@ -133,15 +143,17 @@ def decode_attention(q, k_new, v_new, cache_k, cache_v, idx, bias, layer: int) -
     layer = int(layer)
     _check(q, k_new, v_new, cache_k, cache_v, idx, bias, layer)
     nl, b, s, kv, hd = cache_k.shape
-    n, per = plan(b, s, kv)
     out = torch.empty((b, q.shape[1], hd), dtype=q.dtype, device=q.device)
-    fn = _build.load("decode_attention")
-    code = fn(
-        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-        idx.data_ptr(), bias.data_ptr(), out.data_ptr(), q.stride(0), k_new.stride(0), v_new.stride(0),
-        nl, b, s, kv, q.shape[1] // kv, hd, layer, n, per, torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check("decode_attention", code)
-    global launches
-    launches += 1
+    entry = ROUTES[q.dtype]
+    args = (q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
+            idx.data_ptr(), bias.data_ptr(), out.data_ptr(), q.stride(0), k_new.stride(0), v_new.stride(0),
+            nl, b, s, kv, q.shape[1] // kv, hd, layer)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    global launches, launches_f32
+    if q.dtype == torch.float32:
+        _build.check(entry, _build.load(entry)(*args, stream))
+        launches_f32 += 1
+    else:
+        _build.check(entry, _build.load(entry)(*args, *plan(b, s, kv), stream))
+        launches += 1
     return out

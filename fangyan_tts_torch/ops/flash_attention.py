@@ -12,6 +12,14 @@ through strided (B, H, L, D) views, so the DiT hands it its projections
 without copies, and writes its output in (B, L, H, D) memory, returned as
 a (B, H, L, D) view. See the source for the design.
 
+Float32 q, k and v take the kernel's float32 route,
+`fangyan_chunk_flash_attention_f32`: a separate tiled SIMT kernel with
+float32 scores, softmax and sums and no tensor cores (so no TF32 rounding),
+with the same masks, strided views and output layout. The Pallas kernel
+computes in float32 and writes q's dtype. The wrapper picks the route by
+the inputs' dtype and counts its launches in `launches_f32`, apart from the
+bf16 route's `launches`.
+
 `chunk_flash_attention` launches the kernel for CUDA tensors and runs
 `chunk_flash_attention_plain` for CPU tensors; there is no fallback from
 one to the other. The kernel has no backward: on a CUDA input that requires
@@ -30,7 +38,9 @@ from . import _build
 from .device import refuse_grad
 from .masks import chunk_attn_mask, mask_to_bias
 
-launches = 0  # kernel launches since the last reset (CPU calls do not count)
+launches = 0  # bf16-route kernel launches since the last reset (CPU calls do not count)
+launches_f32 = 0  # float32-route kernel launches since the last reset
+ROUTES = {torch.bfloat16: "flash_attention", torch.float32: "flash_attention_f32"}  # dtype -> C entry
 
 
 def chunk_flash_attention_plain(q, k, v, mel_len, chunk: int = 0) -> torch.Tensor:
@@ -53,15 +63,16 @@ def _check(q, k, v, mel_len, chunk):
             raise ValueError(f"chunk_flash_attention: {name} is on {t.device}, q on {dev}")
         if t.data_ptr() % 16:
             raise ValueError(f"chunk_flash_attention: {name} must be 16-byte aligned")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"chunk_flash_attention: {name} must be bfloat16, got {t.dtype}")
+    if q.dtype not in ROUTES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"chunk_flash_attention: q, k and v must be all bfloat16 or all float32, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape or q.shape[-1] != 64:
         raise ValueError(f"chunk_flash_attention: q, k, v must be equal (B, H, L, 64), got {tuple(q.shape)}")
+    align = 16 // q.element_size()  # strides in elements: 16 bytes, for TMA (bf16) or float4 loads (float32)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(-1) != 1 or any(st < 0 or st % 8 for st in t.stride()[:3]):
+        if t.stride(-1) != 1 or any(st < 0 or st % align for st in t.stride()[:3]):
             raise ValueError(f"chunk_flash_attention: {name} needs a contiguous last dim and strides that are "
-                             f"multiples of 8 elements, got {t.stride()}")
+                             f"multiples of {align} elements, got {t.stride()}")
     if mel_len.dtype != torch.int32 or mel_len.shape != (q.shape[0],) or not mel_len.is_contiguous():
         raise ValueError("chunk_flash_attention: mel_len must be contiguous int32 (B,)")
     if chunk < 0:
@@ -72,9 +83,10 @@ def chunk_flash_attention(q, k, v, mel_len, chunk: int = 0) -> torch.Tensor:
     """softmax(q k^T / sqrt(D) + mask) v on (B, H, L, D), where key j is
     valid iff j < mel_len[b] and, with chunk > 0, j // chunk <= i // chunk.
     q, k and v may be strided views. CPU tensors take the plain version;
-    CUDA tensors launch csrc/flash_attention.cu or raise (also when an
-    input requires grad: the kernel has no backward), and get back a
-    (B, H, L, D) view of (B, L, H, D) memory."""
+    CUDA tensors launch csrc/flash_attention.cu (the bf16 route for
+    bfloat16 inputs, the float32 route for float32 ones) or raise (also
+    when an input requires grad: the kernel has no backward), and get back
+    a (B, H, L, D) view of (B, L, H, D) memory."""
     if q.device.type == "cpu":
         return chunk_flash_attention_plain(q, k, v, mel_len, chunk)
     if q.device.type != "cuda":
@@ -83,11 +95,14 @@ def chunk_flash_attention(q, k, v, mel_len, chunk: int = 0) -> torch.Tensor:
     _check(q, k, v, mel_len, chunk)
     b, h, l, d = q.shape
     out = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
-    fn = _build.load("flash_attention")
+    entry = ROUTES[q.dtype]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mel_len.data_ptr(), out.data_ptr(), b, h, l, d, int(chunk),
-              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], stream)
-    _build.check("flash_attention", code)
-    global launches
-    launches += 1
+    code = _build.load(entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(), mel_len.data_ptr(), out.data_ptr(), b, h, l,
+                              d, int(chunk), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], stream)
+    _build.check(entry, code)
+    global launches, launches_f32
+    if q.dtype == torch.float32:
+        launches_f32 += 1
+    else:
+        launches += 1
     return out.transpose(1, 2)

@@ -17,6 +17,14 @@ output tiles do not fill the card K is split over the blocks of a
 thread-block cluster, which sum their partials through distributed shared
 memory in rank order. See the source for the design.
 
+Float32 x takes the kernel's float32 route, `fangyan_int4_matmul_f32`: a
+separate tiled SIMT kernel (64 x 64 output tiles) with float32 FMAs and no
+tensor cores (so no TF32 rounding) and a float32 result; the Pallas kernel
+writes x's dtype. Where the tiles leave the card idle, K is split
+(`plan_f32`) and a second kernel of the same call sums the partials in
+order. The wrapper picks the route by x's dtype and counts its launches in
+`launches_f32`, apart from the bf16 route's `launches`.
+
 `int4_matmul` launches the kernel for CUDA tensors and runs
 `int4_matmul_plain` (ops/quant.int4_dot) for CPU tensors; there is no
 fallback from one to the other.
@@ -30,7 +38,9 @@ from . import _build
 from .device import refuse_grad
 from .quant import int4_dot
 
-launches = 0  # kernel launches since the last reset (CPU calls do not count)
+launches = 0  # bf16-route kernel launches since the last reset (CPU calls do not count)
+launches_f32 = 0  # float32-route kernel launches since the last reset
+ROUTES = {torch.bfloat16: "int4_matmul", torch.float32: "int4_matmul_f32"}  # x's dtype -> C entry
 BLOCK_N = 128  # N must be a multiple of this: the output channels of a prefill block
 BLOCK_K = 64  # K must be a multiple of this (kBk in the source)
 DECODE_TILE_M = 16  # tokens per block up to this M (decode)
@@ -70,6 +80,19 @@ def plan(m: int, k: int, n: int, sms: int) -> tuple[int, int, int, int]:
     return tile_m, tile_n, -(-steps // per), per
 
 
+F32_TILE = 64  # the float32 route's output tile (tokens and channels)
+F32_STEP_K = 32  # its K step
+F32_MIN_STEPS = 4  # K steps a split takes at least
+
+
+def plan_f32(m: int, k: int, n: int, sms: int) -> int:
+    """K-splits a tile of the float32 route: enough for about two blocks an
+    SM where the output tiles alone leave it idle, each split at least
+    F32_MIN_STEPS steps of K."""
+    tiles = -(-m // F32_TILE) * (n // F32_TILE)
+    return max(1, min(-(-2 * sms // tiles), k // F32_STEP_K // F32_MIN_STEPS))
+
+
 def _check(x, w_packed, scale):
     dev = x.device
     if dev.index != torch.cuda.current_device():
@@ -79,8 +102,8 @@ def _check(x, w_packed, scale):
             raise ValueError(f"int4_matmul: {name} is on {t.device}, x on {dev}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"int4_matmul: {name} must be contiguous and 16-byte aligned")
-    if x.dtype != torch.bfloat16 or w_packed.dtype != torch.int8 or scale.dtype != torch.float32:
-        raise ValueError(f"int4_matmul: takes x bfloat16, w_packed int8 and scale float32, got "
+    if x.dtype not in ROUTES or w_packed.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise ValueError(f"int4_matmul: takes x bfloat16 or float32, w_packed int8 and scale float32, got "
                          f"{x.dtype}, {w_packed.dtype}, {scale.dtype}")
     k = x.shape[-1]
     if w_packed.dim() != 2 or w_packed.shape[0] * 2 != k or scale.shape != (w_packed.shape[1],):
@@ -94,8 +117,9 @@ def _check(x, w_packed, scale):
 def int4_matmul(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """x (…, K) @ dequant(w_packed (K//2, N)) * scale (N,) -> (…, N) in x's
     dtype. CPU tensors take the plain version; CUDA tensors launch
-    csrc/int4_matmul.cu or raise (also when x requires grad: the kernel has
-    no backward)."""
+    csrc/int4_matmul.cu (the bf16 route for bfloat16 x, the float32 route
+    for float32 x) or raise (also when x requires grad: the kernel has no
+    backward)."""
     if x.device.type == "cpu":
         return int4_matmul_plain(x, w_packed, scale)
     if x.device.type != "cuda":
@@ -104,13 +128,19 @@ def int4_matmul(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor) ->
     _check(x, w_packed, scale)
     k, n = x.shape[-1], w_packed.shape[1]
     m = x.numel() // k
-    tile_m, tile_n, cs, per = plan(m, k, n, torch.cuda.get_device_properties(x.device).multi_processor_count)
     out = torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
-    fn = _build.load("int4_matmul")
+    entry = ROUTES[x.dtype]
+    args = (x.data_ptr(), w_packed.data_ptr(), scale.data_ptr(), out.data_ptr(), m, k, n)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = fn(x.data_ptr(), w_packed.data_ptr(), scale.data_ptr(), out.data_ptr(), m, k, n, tile_m, tile_n, cs, per,
-              stream)
-    _build.check("int4_matmul", code)
-    global launches
-    launches += 1
+    global launches, launches_f32
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    if x.dtype == torch.float32:
+        splits = plan_f32(m, k, n, sms)
+        ws = torch.empty((splits, m, n), dtype=torch.float32, device=x.device) if splits > 1 else None
+        _build.check(entry, _build.load(entry)(x.data_ptr(), w_packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                                               None if ws is None else ws.data_ptr(), m, k, n, splits, stream))
+        launches_f32 += 1
+    else:
+        _build.check(entry, _build.load(entry)(*args, *plan(m, k, n, sms), stream))
+        launches += 1
     return out

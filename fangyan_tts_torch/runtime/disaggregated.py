@@ -5,8 +5,11 @@ reference's Triton "Disaggregated Server", an LLM pool and a token2wav pool).
 A decode thread pushes each chunk of speech tokens (_stream_tokens) through a
 queue as host arrays; the caller's thread runs the windowed token2wav
 session on them, so the two stages overlap. On one card both stages sit on
-it (the default). The two-process split (RemoteToken2Wav, tts_stream_remote)
-needs the token2wav server, which is not ported yet.
+it (the default).
+
+The two-process split: `RemoteToken2Wav` is the client of a token2wav
+service (runtime/token2wav_asr_server.py's /stream routes), and
+`tts_stream_remote` decodes here and streams the tokens there.
 """
 
 from __future__ import annotations
@@ -87,3 +90,58 @@ class DisaggregatedTTS:
                 except queue.Empty:
                     pass
             worker.join()
+
+
+class RemoteToken2Wav:
+    """Client half of two-process disaggregation: the LLM runs in THIS
+    process, the flow+vocoder in a remote token2wav service
+    (runtime/token2wav_asr_server.py /stream routes), the equivalent of the
+    reference's Triton BLS split across GPU pools."""
+
+    def __init__(self, base_url: str):
+        self.base_url = base_url.rstrip("/")
+
+    def _post(self, path: str, payload: dict) -> dict:
+        import json
+        import urllib.request
+
+        req = urllib.request.Request(
+            self.base_url + path, data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"}, method="POST",
+        )
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())
+
+    def stream(self, token_iter, prompt_token, prompt_feat, embedding):
+        """Drive a remote streaming session: yields np.float32 audio chunks."""
+        sid = self._post(
+            "/stream/start",
+            {
+                "prompt_token": np.asarray(prompt_token, np.int32).tolist(),
+                "prompt_feat": np.asarray(prompt_feat, np.float32).tolist(),
+                "embedding": np.asarray(embedding, np.float32).tolist(),
+            },
+        )["session"]
+        for chunk in token_iter:
+            res = self._post("/stream/push", {"session": sid, "tokens": np.asarray(chunk).tolist()})
+            for a in res["chunks"]:
+                yield np.asarray(a, np.float32)
+        res = self._post("/stream/finish", {"session": sid})
+        yield np.asarray(res["chunk"], np.float32)
+
+
+def tts_stream_remote(tts, remote: RemoteToken2Wav, text, prompt_text=None, llm_prompt_speech_token=None,
+                      flow_prompt_speech_token=None, prompt_speech_feat=None, flow_embedding=None):
+    """Two-process streaming synthesis: local LLM decode, remote token2wav."""
+    prompt_text = np.zeros(0, np.int32) if prompt_text is None else prompt_text
+    llm_prompt = np.zeros(0, np.int32) if llm_prompt_speech_token is None else llm_prompt_speech_token
+    flow_prompt = np.zeros(0, np.int32) if flow_prompt_speech_token is None else flow_prompt_speech_token
+    feat = np.zeros((0, 80), np.float32) if prompt_speech_feat is None else prompt_speech_feat
+    emb = np.zeros(192, np.float32) if flow_embedding is None else flow_embedding
+
+    def tokens():
+        with torch.inference_mode():
+            yield from tts._stream_tokens(text, prompt_text, llm_prompt)
+
+    for audio in remote.stream(tokens(), flow_prompt, feat, emb):
+        yield {"tts_speech": audio}

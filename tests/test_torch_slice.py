@@ -152,6 +152,12 @@ def test_port_imports_no_jax():
         "v12 = ('models.conformer', 'models.unet_decoder', 'models.flow_xvec', 'models.llm_v1',\n"
         "       'models.llm_v1_decode', 'infer.tts_v12', 'utils.common')\n"
         "assert all('fangyan_tts_torch.' + m in sys.modules for m in v12)\n"
+        "slice13 = ('cli.generate_dialect_dataset', 'cli.generate_dialect_dataset_dashscope',\n"
+        "           'cli.generate_emotion_dataset', 'cli.generate_emotional_dataset_aliyun', 'cli.generate_esd_dataset',\n"
+        "           'cli.doubao_tts', 'cli.compare_inference', 'cli.dialect_inference_test', 'cli.evaluate',\n"
+        "           'cli.prepare_model_dir', 'runtime.token2wav_asr_server', 'runtime.disaggregated',\n"
+        "           'tokenizer.parity', 'utils.profiling', 'utils.common')\n"
+        "assert all('fangyan_tts_torch.' + m in sys.modules for m in slice13)\n"
         "print(len([m for m in sys.modules if m.startswith('fangyan_tts_torch')]))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
@@ -223,10 +229,51 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch, tmp_path):
     for entry in (api.CosyVoice3, api.AutoModel):
         with pytest.raises(RuntimeError, match="CUDA"):
             entry(str(tmp_path))  # before any checkpoint is looked for
-    # bf16 only on the card: fp16=False (float32) on CUDA is refused, not run
+    # the card runs bf16 and float32 (the kernels' two routes); any other dtype is refused, not run
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(ValueError, match="bfloat16"):
-        TorchTTS(TC, {}, {}, {}, dtype=torch.float32, device="cuda")
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        TorchTTS(TC, {}, {}, {}, dtype=torch.float16, device="cuda")
+
+
+def _cli_cases(tmp_path) -> dict:
+    """(module, argv) of each model-loading CLI with everything but a device."""
+    d = tmp_path / "model"
+    d.mkdir()
+    wav = tmp_path / "p.wav"
+    wav.write_bytes(b"RIFF")
+    (tmp_path / "in").mkdir()
+    (tmp_path / "in" / "hunan.txt").write_text("你好。\n", encoding="utf-8")
+    lst = tmp_path / "meta.lst"
+    lst.write_text(f"u|提示。|{wav}|你好。\n", encoding="utf-8")
+    return {
+        "generate_dialect_dataset": ("cli.generate_dialect_dataset", [
+            "--backend", "cuda", "--mode", "hunan", "--input-dir", str(tmp_path / "in"), "--output-dir",
+            str(tmp_path / "out"), "--model-dir", str(d)]),
+        "compare_inference": ("cli.compare_inference", ["--pretrained_dir", str(d), "--prompt_wav", str(wav),
+                                                        "--output_dir", str(tmp_path / "cmp")]),
+        "dialect_inference_test": ("cli.dialect_inference_test", ["--pretrained_dir", str(d), "--prompt_wav",
+                                                                  str(wav), "--output_dir", str(tmp_path / "dia")]),
+        "evaluate": ("cli.evaluate", ["--model_dir", str(d), "--eval_list", str(lst), "--output_dir",
+                                      str(tmp_path / "ev"), "--asr", "none"]),
+        "token2wav_asr_server": ("runtime.token2wav_asr_server", ["--model_dir", str(d), "--asr", "echo"]),
+    }
+
+
+@pytest.mark.parametrize("cli", ["generate_dialect_dataset", "compare_inference", "dialect_inference_test",
+                                 "evaluate", "token2wav_asr_server"])
+def test_new_clis_default_to_cuda(monkeypatch, tmp_path, cli):
+    """Each model-loading CLI of the dataset-generation / evaluation slice
+    runs on CUDA unless --device cpu is given: without a card it raises
+    before any model is built (as every port entry point does)."""
+    import importlib
+
+    module, argv = _cli_cases(tmp_path)[cli]
+    main = importlib.import_module(f"fangyan_tts_torch.{module}").main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device is available"):
+        main(argv)
+    with pytest.raises(SystemExit):  # --device is a flag of each of them
+        main([*argv, "--device"])
 
 
 def test_generator_text_raises():

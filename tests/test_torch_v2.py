@@ -10,7 +10,7 @@ sampling (top_k 1; tests/torch_port_util.py):
 - a bistream text generator with the v2 ids: tokens equal;
 - the v2 LLMScheduler route: each row equal to its solo decode and to the
   JAX package's, with no silent-run suppression;
-- on CUDA, any dtype but bf16 refused.
+- on CUDA, any dtype but bf16 and float32 refused.
 Both packages decode with a bfloat16 KV cache, so a greedy step whose top
 two logits are closer than about 2e-2 may fall either way; the texts and
 weights here meet no such near-tie."""
@@ -206,13 +206,12 @@ def test_v2_llm_scheduler_rows(pair):
 
 
 def test_v2_cuda_refuses_other_dtypes(monkeypatch):
-    """On CUDA the v2 family runs bf16 only (its decode runs the
-    decode-attention kernel, which takes bf16): any other dtype raises
-    before a model is built."""
+    """On CUDA the v2 family runs bf16 or float32 (the kernels' two
+    routes): any other dtype raises before a model is built."""
     from fangyan_tts_torch.infer import tts_v12
 
     monkeypatch.setattr(tts_v12, "resolve_device", lambda d: torch.device("cuda"))
     th = tcfg.HiFTConfig(**HIFT_KW)
-    for dtype in (torch.float32, torch.float16):
-        with pytest.raises(ValueError, match="bfloat16"):
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(ValueError, match="bfloat16 or float32"):
             TorchTTS(TLLM, {}, FLOW_KW, {}, th, {}, dtype=dtype)

@@ -97,7 +97,7 @@ def main() -> int:
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for variant {v}:\n{log}")
         fn = getattr(ctypes.CDLL(str(so)), "fangyan_decode_attention")
-        fn.argtypes, fn.restype = _build._SIGNATURES["decode_attention"][1], ctypes.c_int
+        fn.argtypes, fn.restype = _build._SIGNATURES["decode_attention"][2], ctypes.c_int
         fns[v] = fn
     card = card_line()
     print(f"card: {card}")

@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases 1,2,3,11,12  # data prep, then training, alone
     python3 chip_smoke.py --phases 1,2,3,13  # the rest of training (GAN, DPO, GRPO) alone
     python3 chip_smoke.py --phases 1,2,3,14  # dataset generation, evaluation and the token2wav server alone
+    python3 chip_smoke.py --phases 1,2,3,15  # export, the dialect recipe and the subsampling layers alone
 
 Phases:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -41,7 +42,10 @@ Phases:
      on the same float32 inputs at the float32 paths' shapes (phase 4's
      float32 batch and float32 API request, from infer/tts.batch_buckets
      and the API request's buckets), timed against its plain version in
-     float32 and SDPA / F.linear in float32 (TF32 off)
+     float32 and SDPA / F.linear in float32 (TF32 off); phase 15's shapes:
+     the exported flow_solve's (2 x 16 heads, L = 512, timed) and the
+     recipe model's (its 2 heads, its decode's 2 layers, 2 query heads and
+     1 KV head)
   4. a small model on the card against the same weights on the CPU
      (plain versions), bf16 and then int8 LLM + int4 MLP + int8 DiT; then
      at full CosyVoice3-0.5B width with random weights: three requests
@@ -64,9 +68,9 @@ Phases:
      decode 24 a step on the bf16 cache), and a full-width float32 batch in
      the int4 MLP mode on a float32 KV cache (all three float32 routes,
      launches counted)
-  5. each stage under torch.profiler, for the 150-token request and the
-     batched requests (a) int8 and (b) (their flow and vocoder stages):
-     device busy time, idle share, device operations, largest kernels
+  5. the flow and vocoder stages under torch.profiler, for the 150-token
+     request and the batched requests (a) int8 and (b): device busy time,
+     idle share, device operations, largest kernels
   7. the prompt frontend at full size, random weights (no kernel of its
      own): CAM++ and S3 at the 5 s and the 30 s bucket in float32 on the
      card against the same weights on the CPU, then in bf16 (what the
@@ -179,17 +183,30 @@ Phases:
      --dialects hunan --num_texts 1` with the directory's own LLM as the
      fine-tuned one (each fine-tuned wav bit-equal to its original); every
      run's launches counted and its shapes held to phase 3's checks
+  15. export, the recipe and the subsampling layers: (a) `python -m
+     fangyan_tts_torch.cli.export --check` on the full-width model directory
+     (CosyVoice3-0.5B, bf16, --n_tokens EXPORT_TOKENS), its export times,
+     sizes, launches and shapes recorded; the three .pt2 programs loaded in
+     a fresh process that imports only the port, run on the card and held
+     to eager (the loaded flow_solve launches the flash kernel n_timesteps x
+     depth times), timed against eager, peak memory; (b) the dialect recipe
+     (fangyan_tts_torch/recipes/dialect/run.sh 0 7, DEVICE=cuda) on a
+     12-utterance corpus and a small model with heads of 64, each stage's
+     artifacts, shapes and launches checked, stage 7's flow_solve run on
+     the card, then `cli.compare_inference` on its fine-tuned LLM; (c) the
+     subsampling layers float32 card against CPU; (a) runs beside (c) and
+     (b)
   6. one JSON line of per-kernel results, the float32 routes included
-     (printed after phases 7 to 14)
-Phases 8 to 14 run after phase 4's requests and before the profiler passes
+     (printed after phases 7 to 15)
+Phases 8 to 15 run after phase 4's requests and before the profiler passes
 of phases 5 and 7 (phase 8 runs S1 twice and S2, S3 and S4 once each,
 phase 9's async and HTTP rounds have no warm-up round, phase 10 runs its v2
-offline request and stream once each, and phase 5 profiles the batched
-requests (a) and (b) in their serving modes only, and only their flow
-and vocoder stages, and phase 13 runs one GRPO iteration, to leave phases
-10-14 their time);
+offline request and stream once each, phase 5 profiles the batched
+requests (a) and (b) in their serving modes only, and only the flow and
+vocoder stages of every request, and phase 13 runs one GRPO iteration, to
+leave phases 10-15 their time);
 a probe of the host's cost of one eager launch is logged at the start,
-around phases 8, 9, 10, 11, 12, 13 and 14 and at the end; the last line
+around phases 8, 9, 10, 11, 12, 13, 14 and 15 and at the end; the last line
 before the card's is the whole script's time.
 The last line is {"ok": true, "device": {...}} and the exit code is 0 only
 when every phase passed. Without a CUDA card it exits non-zero before
@@ -203,6 +220,8 @@ import contextlib
 import itertools
 import json
 import math
+import os
+import re
 import subprocess
 import sys
 import time
@@ -349,6 +368,13 @@ DG_PHASE_LIMIT_S = 150
 # 59.8 s of a 114.4 s phase 14 on an H100 80GB HBM3 at 700 W (host-bound decode steps); one keeps the phase inside
 # its limit on a host whose launches cost 1.4 x that one's
 DG_COMPARE_TEXTS = 1
+
+# Export, the recipe, the subsampling layers (phase 15): cli.export's --n_tokens (flow_solve at 2 x 256 = 512 frames);
+# the recipe's corpus and epochs (stage 6 averages 5 checkpoints); the subsampling layers float32 card against CPU
+# within SUB_REL_TOL of max |.| (cuDNN may take a Winograd or FFT algorithm for a float32 convolution).
+EXPORT_TOKENS = 256
+RECIPE_UTTS, RECIPE_EPOCHS = 12, 5
+SUB_REL_TOL = 1e-4
 
 CARDS_USED = 1  # every phase runs on card 0
 PORT_KERNELS = ("decode_attention", "flash_attention", "int4_matmul")  # kernel names the profile reports
@@ -686,7 +712,7 @@ def check_decode_rows(results: dict, serving: dict) -> None:
 
 
 def check_decode(results: dict, batches: list[dict], api: dict, stream: dict, serving: dict, v12: dict,
-                 grpo: dict, dg: dict | None = None) -> None:
+                 grpo: dict, dg: dict | None = None, ex: dict | None = None) -> None:
     import torch
     import torch.nn.functional as F
 
@@ -726,7 +752,12 @@ def check_decode(results: dict, batches: list[dict], api: dict, stream: dict, se
         for r in dg["single"]:
             if r["cache_len"] not in {sh[1] for sh in shapes if sh[0] == 1}:
                 shapes.append((1, r["cache_len"], [r["last"]], [r["start"]], "phase 14 " + r["label"]))
+    if ex is not None:  # phase 15 (b): the recipe's compare_inference on its small model (its own layers and heads)
+        for r in ex["recipe"]["single"]:
+            shapes.append((1, r["cache_len"], [r["last"]], [r["start"]], "phase 15 recipe " + r["label"],
+                           ex["recipe"]["decode_dims"]))
     for b, s, idx_list, starts, *label in shapes:
+        nl, kv, qh = label.pop() if len(label) > 1 else (24, 2, 14)  # (layers, KV heads, query heads)
         _checked(results, "decode_attention", (b, s))
         rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
         q = (torch.randn((b, qh, hd), generator=gen, device=dev) * QK_SCALE).to(torch.bfloat16)
@@ -796,7 +827,7 @@ def check_decode(results: dict, batches: list[dict], api: dict, stream: dict, se
 
 
 def check_flash(results: dict, batches: list[dict], api: dict, stream: dict, serving: dict, grpo: dict,
-                dg: dict | None = None) -> None:
+                dg: dict | None = None, ex: dict | None = None) -> None:
     import torch
     import torch.nn.functional as F
 
@@ -827,10 +858,14 @@ def check_flash(results: dict, batches: list[dict], api: dict, stream: dict, ser
     serving_timed = [(rows, l, kind) for (rows, l), kind in sorted(serving["flash"].items())
                      if rows > 2 and (kind == "window" or l == 384) and (rows, l) not in known]
     shapes += [(l, serving_mel(rows, l, kind)) for rows, l, kind in serving_timed]
+    if ex is not None:  # phase 15 (a): the exported flow_solve's CFG pair at 2 x --n_tokens frames, every frame valid
+        l = ex["export"]["flash_l"]
+        shapes.append((l, (l, l)))
     # the DiT's own layout too: q and k (B, L, H*D) projections and v a slice of the (B, L, 3*H*D) qkv
     # buffer, each viewed as (B, H, L, D) without a copy (models/dit.py); L = 1344, the larger batch, the
     # streaming windows and the serving groups' timed shapes
-    strided = {1344, max(sh["l_mel"] for sh in batches), *stream["flash_l"], *(l for _, l, _ in serving_timed)}
+    strided = {1344, max(sh["l_mel"] for sh in batches), *stream["flash_l"], *(l for _, l, _ in serving_timed),
+               *([ex["export"]["flash_l"]] if ex is not None else [])}
     runs = [(sh, "contiguous") for sh in shapes] + [(sh, "strided") for sh in shapes if sh[0] in strided]
     # the API request's CFG pair at every length its decode can give, checked and not timed (the
     # longest is its run to max_len, as the zero-shot request's)
@@ -849,8 +884,12 @@ def check_flash(results: dict, batches: list[dict], api: dict, stream: dict, ser
             known |= {(2, l) for l in r["flash_l"]}
     runs += [((l, serving_mel(rows, l, kind)), "untimed") for (rows, l), kind in sorted(serving["flash"].items())
              if (rows, l) not in known]
-    for (l, mel), layout in runs:
-        b, h, d = len(mel), 16, 64
+    if ex is not None:  # phase 15 (b): the recipe's small DiT (its own heads): stage 7's export, compare_inference's pairs
+        rec = ex["recipe"]
+        runs += [((l, (l, l)), "untimed", rec["heads"]) for l in rec["export_l"]]
+        runs += [((l, (l - 6, l - 6)), "untimed", rec["heads"]) for l in rec["flash_l"] if l not in rec["export_l"]]
+    for (l, mel), layout, *heads in runs:
+        b, h, d = len(mel), (heads[0] if heads else 16), 64
         _checked(results, "chunk_flash_attention", (b, l))
         rnd = lambda shape, scale: (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
         if layout in ("contiguous", "untimed"):
@@ -1074,13 +1113,12 @@ def _count(results: dict, counts: dict) -> None:
         tot[k] = tot.get(k, 0) + v
 
 
-@contextlib.contextmanager
-def kernel_shapes(results: dict, label: str):
-    """Record the shape of every kernel call the models make inside the
-    block (decode attention (B, S), flash attention (rows, L), int4 matmul
-    (M, K, N)), by route (a float32 input's under <kernel>_f32); after it,
-    fail if phase 3 ran and did not check one of them.
-    The hooks count nothing: the launch counters stay in the wrappers."""
+def hook_kernels() -> tuple[dict, callable]:
+    """Hook the models' kernel entry points (decode attention (B, S), flash
+    attention (rows, L), int4 matmul (M, K, N)) to record each call's shape
+    by route (a float32 input's under <kernel>_f32) into the returned dict;
+    the second value undoes the hooks. The hooks count nothing: the launch
+    counters stay in the wrappers."""
     import torch
 
     from fangyan_tts_torch.models import dit, qwen2
@@ -1099,16 +1137,34 @@ def kernel_shapes(results: dict, label: str):
             seen.setdefault(route, set()).add(tuple(int(v) for v in _key(a)))
             return _inner(*a, **k)
         setattr(mod, name, hooked)
+
+    def restore():
+        for mod, name, inner in saved:
+            setattr(mod, name, inner)
+    return seen, restore
+
+
+def hold_shapes(results: dict, label: str, seen: dict) -> None:
+    """Log the kernel shapes a run launched; fail if phase 3 ran and did not
+    check one of them."""
+    log(f"kernel shapes of {label}: " + "; ".join(f"{k} {sorted(v)}" for k, v in sorted(seen.items())))
+    if "checked" in results:
+        missing = {k: sorted(set(map(tuple, v)) - results["checked"].get(k, set())) for k, v in seen.items()}
+        if any(missing.values()):
+            raise AssertionError(f"{label} launched kernel shapes that phase 3 did not check: {missing}")
+
+
+@contextlib.contextmanager
+def kernel_shapes(results: dict, label: str):
+    """Record the shape of every kernel call the models make inside the
+    block (hook_kernels); after it, fail if phase 3 ran and did not check
+    one of them."""
+    seen, restore = hook_kernels()
     try:
         yield
     finally:
-        for mod, name, inner in saved:
-            setattr(mod, name, inner)
-    log(f"kernel shapes of {label}: " + "; ".join(f"{k} {sorted(v)}" for k, v in sorted(seen.items())))
-    if "checked" in results:
-        missing = {k: sorted(v - results["checked"].get(k, set())) for k, v in seen.items()}
-        if any(missing.values()):
-            raise AssertionError(f"{label} launched kernel shapes that phase 3 did not check: {missing}")
+        restore()
+    hold_shapes(results, label, seen)
 
 
 def full_path(results: dict, card: str):
@@ -1535,13 +1591,15 @@ def _profile(stages: dict, card: str, label: str) -> dict:
 
 
 def profile_stages(tts, req: dict, results: dict, card: str) -> None:
-    """The stages of the single 150-token request, bf16."""
+    """The flow and vocoder stages of the single 150-token request, bf16. Its
+    LLM stage is not profiled (phase 15 needs the time: reading back its
+    150,000 device events took 22-29 s); phase 10 still profiles the v2
+    LLM stage of the same workload."""
     text = req["text"]
     tokens = tts.generate_tokens(text, min_token_text_ratio=5, max_token_text_ratio=5)
     no_prompt = (np.zeros(0, np.int32), np.zeros((0, 80), np.float32))
     mel = tts.token2mel(tokens, *no_prompt, req["flow_embedding"])
     results["profile"] = _profile({
-        "llm": lambda: tts.generate_tokens(text, min_token_text_ratio=5, max_token_text_ratio=5),
         "flow": lambda: tts.token2mel(tokens, *no_prompt, req["flow_embedding"]),
         "vocoder": lambda: tts.vocode(mel),
     }, card, "150 tokens, bf16")
@@ -1557,7 +1615,7 @@ def profile_batch(tts, req: dict, card: str, label: str) -> dict:
     pf = np.asarray(req.get("prompt_speech_feat", np.zeros((0, 80), np.float32)), np.float32)
     mel, _ = tts._batch_token2mel(toks, n, fp, pf, req["flow_embedding"])
     # the LLM stage is not profiled here (25-35 s each, most of it reading back 150,000-217,000 device events;
-    # phase 14 needs the time): profile_stages profiles the 150-token request's LLM stage
+    # phases 14 and 15 need the time), nor in profile_stages
     return _profile({"flow": lambda: tts._batch_token2mel(toks, n, fp, pf, req["flow_embedding"]),
                      "vocoder": lambda: tts.vocode_batch(mel)}, card, label)
 
@@ -4251,7 +4309,6 @@ def datagen_spec(api: dict) -> dict:
     from fangyan_tts_torch.cli.compare_inference import DIALECT_TEXTS
     from fangyan_tts_torch.cli.generate_dialect_dataset import INSTRUCT_BY_DIALECT
     from fangyan_tts_torch.config import CosyVoiceConfig
-    from fangyan_tts_torch.data.lm_plan import build_prompt_plan
     from fangyan_tts_torch.infer.frontend import Frontend
     from fangyan_tts_torch.infer.tts import batch_buckets
     from fangyan_tts_torch.tokenizer import get_qwen_tokenizer
@@ -4273,10 +4330,24 @@ def datagen_spec(api: dict) -> dict:
                min_len=min_len, max_len=max_len,
                flash_l=sorted({up(n_prompt + n, 64) * cfg.token_mel_ratio for n in range(max_len + 1)}))
     prompt_text = fe.extract_text_token(fe.text_normalize(API_PROMPT_TEXT, split=False))
+    single = request_specs(cfg, fe, n_prompt, [("compare " + t, t, instruct, [])
+                                               for t in DIALECT_TEXTS["hunan"][:DG_COMPARE_TEXTS]]
+                           + [("evaluate " + t, t, prompt_text, [0] * n_prompt) for t in DG_EVAL_TEXTS])
+    return dict(cli=cli, single=single)
+
+
+def request_specs(cfg, fe, n_prompt: int, requests: list) -> list[dict]:
+    """The kernel shapes of single requests (label, text, prompt text ids,
+    LLM prompt speech tokens) of a model of `cfg` with an n_prompt-token
+    flow prompt, through the byte tokenizer: decode (1, S) at the last slot
+    its decode can write and its first valid slot, flash at the CFG pair for
+    every length its decode can give (CosyVoice3TTS.generate_tokens'
+    buckets, as api_request_spec works them out)."""
+    from fangyan_tts_torch.data.lm_plan import build_prompt_plan
+
+    up = lambda n, m: -(-n // m) * m
     single = []
-    for label, text, ptext, speech in (
-            [("compare " + t, t, instruct, []) for t in DIALECT_TEXTS["hunan"][:DG_COMPARE_TEXTS]]
-            + [("evaluate " + t, t, prompt_text, [0] * n_prompt) for t in DG_EVAL_TEXTS]):
+    for label, text, ptext, speech in requests:
         segs = fe.text_normalize(text)
         assert len(segs) == 1, segs
         ids = fe.extract_text_token(segs[0])
@@ -4286,7 +4357,7 @@ def datagen_spec(api: dict) -> dict:
         single.append(dict(label=label, cache_len=up(s_tp + max(up(max(s_max, 1), 64), 64), 128),
                            last=s_tp + s_max - 1, start=s_tp - len(plan.ids),
                            flash_l=sorted({up(n_prompt + n, 32) * cfg.token_mel_ratio for n in range(s_max + 1)})))
-    return dict(cli=cli, single=single)
+    return single
 
 
 def datagen_phase(results: dict, card: str, model_dir, dg: dict) -> None:
@@ -4503,9 +4574,428 @@ def datagen_phase(results: dict, card: str, model_dir, dg: dict) -> None:
         raise AssertionError(f"phase 14 took {phase_s:.1f} s, over its limit of {DG_PHASE_LIMIT_S} s")
 
 
+# ---------------------------------------------------------------- phase 15
+
+
+def recipe_config():
+    """Phase 15 (b)'s model: CosyVoice3's layout at widths the kernels take
+    (heads of 64): a Qwen of 2 layers at hidden 128 with 2 query heads and 1
+    KV head, a DiT of 2 blocks at dim 128 with 2 heads, a small HiFT; the
+    real speech-token vocabulary (S3 emits codes in [0, 6561)) and the byte
+    tokenizer's 300 text ids."""
+    from fangyan_tts_torch import config as c
+
+    qwen = c.QwenConfig(hidden_size=128, intermediate_size=256, num_hidden_layers=2, num_attention_heads=2,
+                        num_key_value_heads=1, head_dim=64, vocab_size=300)
+    return c.CosyVoiceConfig(
+        llm=c.LLMConfig(llm_input_size=128, llm_output_size=128, speech_token_size=6561, extra_tokens=8, qwen=qwen),
+        flow=c.FlowConfig(vocab_size=6561, dit=c.DiTConfig(dim=128, depth=2, heads=2, dim_head=64, ff_mult=2)),
+        hift=c.HiFTConfig(base_channels=64, f0_cond_channels=32))
+
+
+def export_spec(api: dict) -> dict:
+    """Phase 15's kernel shapes: (a) the exported flow_solve of the full
+    model, its CFG pair at 2 x EXPORT_TOKENS frames (cli.export's shapes),
+    n_timesteps x depth launches a call; (b) the recipe's small model
+    (recipe_config): stage 7's flow_solve at the same length with its own
+    heads, and compare_inference's instruct request (request_specs, with the
+    5 s prompt)."""
+    import warnings
+
+    from fangyan_tts_torch.cli.compare_inference import DIALECT_TEXTS
+    from fangyan_tts_torch.cli.generate_dialect_dataset import INSTRUCT_BY_DIALECT
+    from fangyan_tts_torch.infer.frontend import Frontend
+    from fangyan_tts_torch.tokenizer import get_qwen_tokenizer
+
+    cfg = recipe_config()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        fe = Frontend(get_qwen_tokenizer(None, True, "cosyvoice3"), cfg, device="cpu")
+    instruct = fe.extract_text_token(INSTRUCT_BY_DIALECT["hunan"])
+    single = request_specs(cfg, fe, api["prompt_tokens"], [("compare " + t, t, instruct, [])
+                                                            for t in DIALECT_TEXTS["hunan"][:1]])
+    l = 2 * EXPORT_TOKENS
+    q = cfg.llm.qwen
+    return dict(export=dict(flash_l=l),
+                recipe=dict(export_l=[l], flash_l=sorted({x for r in single for x in r["flash_l"]}), single=single,
+                            heads=cfg.flow.dit.heads,
+                            decode_dims=(q.num_hidden_layers, q.num_key_value_heads, q.num_attention_heads)))
+
+
+# Runs `-m <module> [args]` with hook_kernels installed and, on exit, appends
+# the module's kernel shapes, launches (both routes) and wall time to the
+# JSON-lines file $SMOKE_RECORD: phase 15 hands it to the recipe as PY.
+RECORDER = """import atexit, os, runpy, sys, time
+sys.path.insert(0, os.environ["SMOKE_ROOT"])
+import chip_smoke
+seen = chip_smoke.hook_kernels()[0]
+assert sys.argv[1] == "-m", sys.argv
+module = sys.argv[2]
+atexit.register(chip_smoke.append_record, os.environ["SMOKE_RECORD"], module, seen, time.perf_counter())
+sys.argv = [module] + sys.argv[3:]
+runpy.run_module(module, run_name="__main__", alter_sys=True)
+"""
+
+
+def append_record(path: str, module: str, seen: dict, t0: float) -> None:
+    """RECORDER's exit hook: one JSON line for one process."""
+    rec = dict(module=module, wall_s=time.perf_counter() - t0, shapes={k: sorted(v) for k, v in seen.items()},
+               launches={**_launches(), **_launches_f32()})
+    with open(path, "a", encoding="utf-8") as f:
+        f.write(json.dumps(rec) + "\n")
+
+
+def _read_records(path: Path) -> list[dict]:
+    return [json.loads(x) for x in path.read_text().splitlines()] if path.exists() else []
+
+
+# A fresh process that imports torch, numpy and fangyan_tts_torch only: it
+# loads the model eagerly, waits for a line on its stdin (the programs are
+# written), loads the three programs cli.export wrote, runs them on the card
+# in a chain (flow_prepare -> flow_solve -> vocoder) on inputs made from a
+# seed, holds each to the eager call, counts the loaded flow_solve's kernel
+# launches (set to 0 just before it); then, once a second line arrives,
+# times loaded against eager with CUDA events, in turns, and prints one
+# RESULT line.
+LOADED_CHECK = """import json, sys, time
+import numpy as np
+import torch
+from fangyan_tts_torch.api import CosyVoice3
+from fangyan_tts_torch.cli.export import max_diff, programs
+from fangyan_tts_torch.ops import flash_attention as fa
+
+export_dir, model_dir, nt = sys.argv[1], sys.argv[2], int(sys.argv[3])
+torch.cuda.reset_peak_memory_stats()
+model = CosyVoice3(model_dir, load_frontend_models=False)
+eager = {n: m for n, m, _ in programs(model.model, nt)}
+sys.stdin.readline()  # the parent's word that the three programs are written
+t = time.perf_counter()
+loaded = {n: torch.export.load(f"{export_dir}/{n}.pt2").module() for n in ("flow_prepare", "flow_solve", "vocoder")}
+load_s = time.perf_counter() - t
+cfg, dt, dev = model.model.cfg, model.model.dtype, model.model.device
+g = torch.Generator(device=dev).manual_seed(15)
+rnd = lambda *shape: torch.randn(shape, generator=g, device=dev).to(dt)
+i32 = lambda v: torch.tensor([v], dtype=torch.int32, device=dev)
+token = torch.randint(0, cfg.flow.vocab_size, (1, nt), generator=g, device=dev, dtype=torch.int32)
+out, errs, ms = {}, {}, {}
+with torch.no_grad():
+    args = {"flow_prepare": (token, i32(nt), rnd(1, 2 * nt, 80), i32(150), rnd(1, 192))}
+    out["flow_prepare"] = loaded["flow_prepare"](*args["flow_prepare"])
+    mu, spks, conds, mel_len = out["flow_prepare"]  # flow_solve takes mu, spks and conds in the model dtype
+    args["flow_solve"] = (rnd(1, 2 * nt, 80), mu.to(dt), spks.to(dt), conds.to(dt), mel_len)
+    fa.launches = fa.launches_f32 = 0
+    out["flow_solve"] = loaded["flow_solve"](*args["flow_solve"])
+    torch.cuda.synchronize()
+    launches = dict(bf16=fa.launches, f32=fa.launches_f32)
+    args["vocoder"] = (out["flow_solve"],)
+    out["vocoder"] = loaded["vocoder"](*args["vocoder"])
+    for n in loaded:
+        errs[n] = max_diff(out[n], eager[n](*args[n]))
+    torch.cuda.synchronize()
+    sys.stdin.readline()  # the parent's go: the card is no longer shared with its other work
+    for n in loaded:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        times = {"eager": [], "loaded": []}
+        for which in ("eager", "loaded", "loaded", "eager"):
+            ev[0].record()
+            (eager if which == "eager" else loaded)[n](*args[n])
+            ev[1].record()
+            torch.cuda.synchronize()
+            times[which].append(ev[0].elapsed_time(ev[1]))
+        ms[n] = {k: float(np.mean(v)) for k, v in times.items()}
+finite = all(bool(torch.isfinite(o.float()).all()) for o in (*out["flow_prepare"][:3], out["flow_solve"], out["vocoder"]))
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "fangyan_tts_tpu")]
+print("RESULT " + json.dumps(dict(load_s=load_s, errs=errs, ms=ms, launches=launches, finite=finite, bad_modules=bad,
+                                  mel_len=int(mel_len[0]), wav_samples=int(out["vocoder"].shape[-1]),
+                                  per_call=cfg.flow.n_timesteps * cfg.flow.dit.depth,
+                                  peak_gib=torch.cuda.max_memory_allocated() / 2**30)), flush=True)
+"""
+
+
+def subsampling_check(card: str) -> dict:
+    """Phase 15 (c): each subsampling module (models/subsampling.py) at the
+    wenet encoder's width (80 mel bins in, 256 out; a 300-frame batch of 2),
+    float32 on the card against the CPU on the same weights and inputs
+    (TF32 off), within SUB_REL_TOL of the CPU output's max |.|."""
+    import torch
+
+    from fangyan_tts_torch.models import subsampling as sub
+
+    gen = torch.Generator().manual_seed(15)
+    x = torch.randn((2, 300, 80), generator=gen)
+    mask = torch.ones((2, 1, 300), dtype=torch.bool)
+    mask[1, :, 250:] = False
+    ids = torch.randint(0, 6561, (2, 300), generator=gen)
+    out = {}
+    for name, kind in (("Conv2dSubsampling4", "abs"), ("Conv2dSubsampling6", "rel"), ("Conv2dSubsampling8", "abs"),
+                       ("Conv1dSubsampling2", "whisper"), ("EmbeddingNoSubsampling", "learnable")):
+        m = getattr(sub, name)(6561 if name.startswith("Embedding") else 80, 256, kind).eval()
+        with torch.no_grad():
+            for t in m.parameters():
+                t.copy_(torch.randn(t.shape, generator=gen) / math.sqrt(max(math.prod(t.shape[1:]), 1)))
+            inp = ids if name.startswith("Embedding") else x
+            want = m(inp, mask, 2)
+            got = m.cuda()(inp.cuda(), mask.cuda(), 2)
+        torch.cuda.synchronize()
+        errs = [_rel(g.detach().float().cpu().numpy(), w.detach().float().numpy()) for g, w in zip(got[:2], want[:2])]
+        same_mask = torch.equal(got[2].cpu(), want[2])
+        ok = max(errs) <= SUB_REL_TOL and same_mask and got[0].shape == want[0].shape
+        out[name] = dict(kind=kind, shape=list(got[0].shape), rel_err=max(errs), mask_equal=same_mask)
+        log(f"phase 15 (c) {name} ({kind}) float32 card against CPU: out {tuple(got[0].shape)}, max |diff| / max |cpu| "
+            f"{max(errs):.2e} (limit {SUB_REL_TOL:.0e}), masks equal {same_mask} [{card}] {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"phase 15 (c): {name} on the card differs from the CPU")
+    return out
+
+
+def recipe_run(results: dict, card: str, states: tuple[dict, dict], ex: dict, build: Path) -> dict:
+    """Phase 15 (b): `bash fangyan_tts_torch/recipes/dialect/run.sh 0 7` with
+    DEVICE=cuda on a RECIPE_UTTS-utterance corpus written here (speech-like
+    audio, two speakers, the hunan instruct) and a PRETRAIN_DIR of the small
+    recipe_config model (random weights) with phase 11's full-size CAM++ and
+    S3 states, MAX_EPOCH RECIPE_EPOCHS; each stage a process under RECORDER
+    (its shapes held to phase 3's checks, its launches counted: none, as
+    stage 7 exports without --check, as the JAX recipe does, and tracing
+    launches nothing); each stage's artifacts checked; stage 7's flow_solve
+    loaded and run on the card (n_timesteps x depth flash launches); then
+    `cli.compare_inference` in this process on the chain's fine-tuned LLM,
+    launches held to the layers x decode steps and n_timesteps x depth a
+    flow call."""
+    import tempfile
+
+    import torch
+
+    from fangyan_tts_torch.cli import compare_inference
+    from fangyan_tts_torch.data import kaldi_io
+    from fangyan_tts_torch.data.audio import write_wav
+    from fangyan_tts_torch.infer.tts import CosyVoice3TTS
+    from fangyan_tts_torch.train.checkpoint import load_params
+
+    cfg = recipe_config()
+    per_flow, nl = cfg.flow.n_timesteps * cfg.flow.dit.depth, cfg.llm.qwen.num_hidden_layers
+    small = CosyVoice3TTS.random_init(cfg, dtype=torch.float32, seed=15)
+    root_dir = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory(dir=build, prefix="recipe_") as tmp, api_model_dir(small, states) as pretrain:
+        root = Path(tmp)
+        data_dir = root / "dataset" / "combined"
+        (data_dir / "wavs").mkdir(parents=True)
+        wav_scp, text, utt2spk, instruct = {}, {}, {}, {}
+        for i in range(RECIPE_UTTS):
+            utt = f"u{i:03d}"
+            write_wav(data_dir / "wavs" / f"{utt}.wav", prompt_audio(1.5 + 0.1 * i, 24000, seed=150 + i), 24000)
+            wav_scp[utt], text[utt], utt2spk[utt] = str(data_dir / "wavs" / f"{utt}.wav"), f"今天天气真不错第{i}句。", f"s{i % 2}"
+            instruct[utt] = "请用湖南话说。<|endofprompt|>"
+        kaldi_io.write_kaldi_dir(data_dir, wav_scp, text, utt2spk, instruct)
+        (root / "recorder.py").write_text(RECORDER)
+        record = root / "record.jsonl"
+        exp_dir = root / "exp" / "llm"
+        env = dict(os.environ, DATA_DIR=str(data_dir), EXP_DIR=str(exp_dir), PRETRAIN_DIR=str(pretrain),
+                   CONFIG=str(pretrain / "config.json"), MAX_EPOCH=str(RECIPE_EPOCHS), MAX_FRAMES="400",
+                   NUM_UTTS_PER_PARQUET="5", DEVICE="cuda", PY=f"{sys.executable} {root / 'recorder.py'}",
+                   SMOKE_ROOT=str(root_dir), SMOKE_RECORD=str(record))
+        t = time.perf_counter()
+        r = subprocess.run(["bash", "fangyan_tts_torch/recipes/dialect/run.sh", "0", "7"], cwd=root_dir, env=env,
+                           capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t
+        recs = _read_records(record)
+        for rec in recs:
+            log(f"phase 15 (b) stage {rec['module']}: {rec['wall_s']:.2f} s in its process, launches "
+                f"{ {k: v for k, v in rec['launches'].items() if v} }")
+        if r.returncode != 0:
+            log(r.stdout[-3000:] + "\n" + r.stderr[-3000:])
+            raise AssertionError(f"phase 15 (b): the dialect recipe exited {r.returncode}")
+        for rec in recs:
+            hold_shapes(results, f"phase 15 (b) stage {rec['module']}", rec["shapes"])
+        export_launches = {k: v for rec in recs if rec["module"].endswith(".export") for k, v in rec["launches"].items()}
+        other = sum(v for rec in recs if not rec["module"].endswith(".export") for v in rec["launches"].values())
+        # the artifacts of each stage (tests/test_torch_recipe_chain.py checks the same on the CPU)
+        utt2emb = torch.load(data_dir / "utt2embedding.pt", weights_only=False)
+        utt2tok = torch.load(data_dir / "utt2speech_token.pt", weights_only=False)
+        toks = np.concatenate([np.asarray(v).ravel() for v in utt2tok.values()])
+        shards = (data_dir / "parquet" / "data.list").read_text().splitlines()
+        cv = (data_dir / "parquet" / "cv.data.list").read_text().splitlines()
+        ckpts = sorted(exp_dir.glob("epoch_*_whole.msgpack"))
+        cv_loss = [json.loads(Path(str(c) + ".json").read_text())["cv_loss"] for c in ckpts]
+        avg = load_params(exp_dir / "llm.msgpack")
+        exported = sorted(p.name for p in (exp_dir / "export").iterdir())
+        art = dict(utts=len(utt2emb), emb_dim=int(np.asarray(next(iter(utt2emb.values()))).shape[0]),
+                   token_range=[int(toks.min()), int(toks.max())], shards=len(shards), cv_shards=len(cv),
+                   checkpoints=len(ckpts), cv_loss=cv_loss, exported=exported)
+        ok = (len(recs) == 7 and art["utts"] == RECIPE_UTTS and art["emb_dim"] == 192 and 0 <= toks.min()
+              and toks.max() < 6561 and len(utt2tok) == RECIPE_UTTS and len(shards) == 3 and len(cv) == 1
+              and len(ckpts) == RECIPE_EPOCHS and all(np.isfinite(cv_loss))
+              and tuple(np.asarray(avg["llm_decoder"]["kernel"]).shape) == (128, 6561 + 8)
+              and {"flow_prepare.pt2", "flow_solve.pt2", "vocoder.pt2", "llm.msgpack", "flow.msgpack",
+                   "hift.msgpack"} <= set(exported)
+              and sum(export_launches.values()) == 0 and other == 0)
+        # stage 7 only traces (fake tensors: no launch); its flow_solve, loaded here, runs on the card
+        nt = EXPORT_TOKENS
+        gen = torch.Generator(device="cuda").manual_seed(16)
+        bf = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)  # the CLI loads bf16
+        solve = torch.export.load(exp_dir / "export" / "flow_solve.pt2").module()
+        _zero_launches()
+        with torch.no_grad():
+            mel = solve(bf(1, 2 * nt, 80), bf(1, 2 * nt, 80), bf(1, 80), bf(1, 2 * nt, 80),
+                        torch.tensor([2 * nt - 6], dtype=torch.int32, device="cuda"))
+        torch.cuda.synchronize()
+        loaded = _launches()
+        _count(results, loaded)
+        ok = ok and loaded == {"decode_attention": 0, "chunk_flash_attention": per_flow, "int4_matmul": 0} and bool(
+            torch.isfinite(mel.float()).all()) and tuple(mel.shape) == (1, 2 * nt, 80)
+        log(f"phase 15 (b) dialect recipe stages 0-7 (DEVICE=cuda): {wall:.2f} s, {len(recs)} stage processes; "
+            f"artifacts {art}; launches of stage 7 {export_launches} (none: it traces), of the others {other}; "
+            f"stage 7's flow_solve loaded here and run on the card: launches {loaded} (derived flash {per_flow} at "
+            f"(2, {cfg.flow.dit.heads}, {2 * nt}, 64)) [{card}] {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("phase 15 (b): the dialect recipe failed its checks")
+
+        _zero_launches()
+        with counted_lm_steps() as steps, kernel_shapes(results, "phase 15 (b) compare_inference"):
+            t = time.perf_counter()
+            compare_inference.main(["--pretrained_dir", str(pretrain), "--finetuned_llm", str(exp_dir / "llm.msgpack"),
+                                    "--prompt_wav", str(pretrain / "prompt.wav"), "--output_dir", str(root / "cmp"),
+                                    "--dialects", "hunan", "--num_texts", "1", "--device", "cuda"])
+            torch.cuda.synchronize()
+            cmp_wall = time.perf_counter() - t
+        counts = _launches()
+        _count(results, counts)
+        want = {"decode_attention": nl * steps[0], "chunk_flash_attention": 2 * per_flow, "int4_matmul": 0}
+        wavs = [root / "cmp" / f"hunan_1_{k}.wav" for k in ("original", "finetuned")]
+        ok = counts == want and steps[0] > 0 and all(w.exists() and w.stat().st_size > 44 for w in wavs)
+        log(f"phase 15 (b) compare_inference on the recipe's fine-tuned LLM: {cmp_wall:.2f} s with two loads, "
+            f"{steps[0]} decode steps; launches {counts} (derived {want}) [{card}] {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("phase 15 (b): compare_inference on the recipe's outputs failed its checks")
+    return dict(wall_s=wall, stages={rec["module"]: rec["wall_s"] for rec in recs}, artifacts=art,
+                export_launches=export_launches, compare=dict(wall_s=cmp_wall, steps=steps[0], launches=counts))
+
+
+def export_phase(results: dict, card: str, model_dir, states: tuple[dict, dict], ex: dict) -> None:
+    """Phase 15: (a) `python -m fangyan_tts_torch.cli.export --check` on the
+    full-width model directory (under RECORDER: its shapes and launches),
+    and LOADED_CHECK in a fresh process, which loads the programs once the
+    CLI has written them (against eager, bit-equal expected, limit the
+    CLI's 1e-3; the loaded flow_solve's flash launches n_timesteps x depth
+    on the bf16 route; peak memory; device times once the card is its
+    alone). Both run beside (c) subsampling_check and (b) recipe_run, which
+    leave them the host's other cores. Every process it starts has ended
+    when it returns."""
+    import tempfile
+    import threading
+
+    import torch
+
+    from fangyan_tts_torch.cli.export import CHECK_ATOL
+    from fangyan_tts_torch.config import config_from_dict
+
+    t_phase = time.perf_counter()
+    here = Path(__file__).resolve().parent
+    build = here / "build"
+    build.mkdir(exist_ok=True)
+    cfg = config_from_dict(json.loads((model_dir / "config.json").read_text()))  # the directory's model
+    per_call = cfg.flow.n_timesteps * cfg.flow.dit.depth
+    out: dict = {}
+    with tempfile.TemporaryDirectory(dir=build, prefix="export_") as tmp:
+        root = Path(tmp)
+        (root / "recorder.py").write_text(RECORDER)
+        env = dict(os.environ, SMOKE_ROOT=str(here), SMOKE_RECORD=str(root / "record.jsonl"))
+        cli_log, fresh_log = root / "export.log", root / "fresh.log"
+        procs: dict = {}
+        t = time.perf_counter()
+        with open(cli_log, "w", encoding="utf-8") as f, open(fresh_log, "w", encoding="utf-8") as g:
+            procs["cli"] = subprocess.Popen(
+                [sys.executable, str(root / "recorder.py"), "-m", "fangyan_tts_torch.cli.export", "--model_dir",
+                 str(model_dir), "--output_dir", str(root / "out"), "--check", "--n_tokens", str(EXPORT_TOKENS)],
+                stdout=f, stderr=subprocess.STDOUT, env=env, cwd=here)
+            procs["fresh"] = subprocess.Popen(
+                [sys.executable, "-c", LOADED_CHECK, str(root / "out"), str(model_dir), str(EXPORT_TOKENS)],
+                stdin=subprocess.PIPE, stdout=g, stderr=subprocess.STDOUT, text=True, cwd=here)
+
+        def written():  # tell the fresh process once the CLI has written the three programs (before its check)
+            while procs["cli"].poll() is None and "exported vocoder" not in cli_log.read_text():
+                time.sleep(1.0)
+            if "exported vocoder" in cli_log.read_text():
+                try:
+                    procs["fresh"].stdin.write("written\n")
+                    procs["fresh"].stdin.flush()
+                    procs["written_s"] = time.perf_counter() - t
+                except BrokenPipeError:  # it has ended already: its log says why
+                    pass
+
+        watcher = threading.Thread(target=written, daemon=True)
+        watcher.start()
+        try:
+            out["subsampling"] = subsampling_check(card)
+            out["recipe"] = recipe_run(results, card, states, ex, build)
+            torch.cuda.empty_cache()
+            rc = procs["cli"].wait(timeout=900)
+            cli_s = time.perf_counter() - t
+            watcher.join()
+            text = cli_log.read_text()
+            log(f"phase 15 (a) cli.export --check output:\n{text[-3000:]}", stamp=False)
+            progs = {m.group(1): dict(mb=float(m.group(2)), export_s=float(m.group(3))) for m in re.finditer(
+                r"exported (\w+) -> \S+ \(([\d.]+) MB\) in ([\d.]+) s", text)}
+            checks = [float(x) for x in re.findall(r"parity check OK \(max \|diff\| ([^)]+)\)", text)]
+            recs = _read_records(root / "record.jsonl")
+            cli_launches = recs[0]["launches"] if recs else {}
+            ok = (rc == 0 and len(recs) == 1 and set(progs) == {"flow_prepare", "flow_solve", "vocoder"}
+                  and len(checks) == 3 and max(checks) <= CHECK_ATOL and "written_s" in procs
+                  and cli_launches.get("chunk_flash_attention") == 2 * per_call
+                  and sum(cli_launches.values()) == 2 * per_call)
+            log(f"phase 15 (a) cli.export --check --n_tokens {EXPORT_TOKENS} on the full-width model directory: "
+                f"{cli_s:.1f} s in its process (beside (c) and (b)); programs {progs}; --check max |diff| {checks}; "
+                f"its launches {cli_launches} (derived flash {2 * per_call}: the eager call and the loaded program) "
+                f"[{card}] {'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("phase 15 (a): cli.export failed its checks")
+            hold_shapes(results, "phase 15 (a) cli.export", recs[0]["shapes"])
+            _count(results, {k: cli_launches.get(k, 0) for k in _launches()})
+
+            fresh = procs["fresh"]
+            try:
+                fresh.stdin.write("go\n")
+                fresh.stdin.close()
+            except BrokenPipeError:  # it has ended already: its log says why
+                pass
+            rc = fresh.wait(timeout=900)
+            fresh_s = time.perf_counter() - t
+        finally:
+            for name in ("cli", "fresh"):
+                if name == "fresh":
+                    watcher.join()
+                if procs[name].poll() is None:
+                    procs[name].kill()
+                    procs[name].wait()
+        text = fresh_log.read_text()
+        line = next((x for x in text.splitlines() if x.startswith("RESULT ")), None)
+        if rc != 0 or line is None:
+            log(text[-3000:])
+            raise AssertionError(f"phase 15 (a): the fresh process exited {rc}")
+        res = json.loads(line[len("RESULT "):])
+        ok = (res["finite"] and not res["bad_modules"] and max(res["errs"].values()) <= CHECK_ATOL
+              and res["launches"] == {"bf16": per_call, "f32": 0} and res["per_call"] == per_call
+              and res["mel_len"] == 2 * EXPORT_TOKENS and res["wav_samples"] == 2 * EXPORT_TOKENS * 480)
+        log(f"phase 15 (a) the three programs loaded in a fresh process (torch, numpy, fangyan_tts_torch only) once "
+            f"the CLI had written them ({procs['written_s']:.1f} s into the phase): load {res['load_s']:.1f} s, the "
+            f"process {fresh_s:.1f} s; max |loaded - "
+            f"eager| {res['errs']} (limit {CHECK_ATOL}); the loaded flow_solve launched the flash kernel "
+            f"{res['launches']} (derived {per_call} bf16 at (2, {cfg.flow.dit.heads}, {2 * EXPORT_TOKENS}, 64)); ms a "
+            f"call, CUDA events, with the card to itself, eager / loaded: "
+            + ", ".join(f"{n} {v['eager']:.3f} / {v['loaded']:.3f}" for n, v in res["ms"].items())
+            + f"; peak {res['peak_gib']:.2f} GiB [{card}] {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("phase 15 (a): the loaded programs failed their checks")
+        _count(results, {"chunk_flash_attention": res["launches"]["bf16"]})
+        out["export"] = dict(cli_s=cli_s, programs=progs, check_errs=checks, cli_launches=cli_launches,
+                             fresh_s=fresh_s, **res)
+    out["phase_s"] = time.perf_counter() - t_phase
+    results["export"] = out
+    log(f"phase 15 took {out['phase_s']:.1f} s [{card}]")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
                     help="comma-separated phases to run (see above)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -4539,7 +5029,8 @@ def main() -> int:
     v12 = v12_spec(api)
     grpo = grpo_spec()
     dg = datagen_spec(api)
-    states = frontend_states() if phases & {4, 7, 8, 9, 10, 11, 12, 13, 14} else None
+    ex = export_spec(api)
+    states = frontend_states() if phases & {4, 7, 8, 9, 10, 11, 12, 13, 14, 15} else None
     if 3 in phases:
         batches = [batch_shapes(r) for r in batch_requests_spec()]
         log(f"batched requests' shapes (a), (b): {batches}; the API request's: {api}; the streams': {stream}; "
@@ -4547,10 +5038,11 @@ def main() -> int:
             f"{dict(sorted(serving['flash'].items()))}; phase 10's v2 decodes (label, B, S, last slot, first "
             f"slot) {v12['decode']} and scheduler (B, S, tp) {v12['sched']}; phase 13's GRPO rollouts: decode B "
             f"{grpo['b']} S {grpo['cache_len']} (tp {grpo['tp']}, max_new {grpo['max_new']}), flash L {grpo['flash_l']}; "
-            f"phase 14's CLI batches {dg['cli']} and single requests {[(r['label'], r['cache_len']) for r in dg['single']]}")
-        check_decode(results, batches, api, stream, serving, v12, grpo, dg)
+            f"phase 14's CLI batches {dg['cli']} and single requests {[(r['label'], r['cache_len']) for r in dg['single']]}; "
+            f"phase 15's export flash L {ex['export']['flash_l']} and recipe {ex['recipe']}")
+        check_decode(results, batches, api, stream, serving, v12, grpo, dg, ex)
         check_decode_rows(results, serving)
-        check_flash(results, batches, api, stream, serving, grpo, dg)
+        check_flash(results, batches, api, stream, serving, grpo, dg, ex)
         check_int4(results, batches[1])
         t = time.perf_counter()
         check_f32_routes(results, api)
@@ -4560,12 +5052,12 @@ def main() -> int:
             small_reference_check()
             small_float32_check(results)
             tts, req = full_path(results, card)
-        elif phases & {8, 9, 14}:
+        elif phases & {8, 9, 14, 15}:
             from fangyan_tts_torch.config import CosyVoiceConfig
             from fangyan_tts_torch.infer.tts import CosyVoice3TTS
 
             tts = CosyVoice3TTS.random_init(CosyVoiceConfig(), dtype=torch.bfloat16)
-        model_dir = stack.enter_context(api_model_dir(tts, states)) if phases & {4, 8, 9, 14} else None
+        model_dir = stack.enter_context(api_model_dir(tts, states)) if phases & {4, 8, 9, 14, 15} else None
         if 4 in phases:
             api_request(results, card, model_dir, api)
             batched = batched_requests(results, card)
@@ -4619,6 +5111,9 @@ def main() -> int:
         if 14 in phases:  # after phase 13, before the profiler passes of phases 5 and 7
             datagen_phase(results, card, model_dir, dg)
             launch_probe(results, "after phase 14")
+        if 15 in phases:  # after phase 14, before the profiler passes of phases 5 and 7
+            export_phase(results, card, model_dir, states, ex)
+            launch_probe(results, "after phase 15")
         if 4 in phases and 5 in phases:
             profile_stages(tts, req, results, card)
             (tts_a, req_a), (tts_b, req_b) = batched["a"], batched["b"]

@@ -8,3 +8,7 @@ against its JAX counterpart.
 """
 
 __version__ = "0.1.0"
+
+# registers the custom op fangyan::chunk_flash_attention, which the programs
+# that cli/export.py writes call: importing the package is enough to load one
+from .ops import flash_attention as _flash_attention  # noqa: E402,F401

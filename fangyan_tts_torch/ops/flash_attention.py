@@ -20,12 +20,18 @@ computes in float32 and writes q's dtype. The wrapper picks the route by
 the inputs' dtype and counts its launches in `launches_f32`, apart from the
 bf16 route's `launches`.
 
-`chunk_flash_attention` launches the kernel for CUDA tensors and runs
-`chunk_flash_attention_plain` for CPU tensors; there is no fallback from
-one to the other. The kernel has no backward: on a CUDA input that requires
-grad (with grad enabled) the wrapper raises, and training takes the DiT's
-dense route (models/dit.DiTAttention with dense=True), as the JAX DiT trains
-on dense attention.
+The kernel is the custom op `fangyan::chunk_flash_attention`
+(torch.library, registered in Python on the ctypes binding), so that
+torch.export traces it as one node and a loaded program launches it: its
+CPU kernel is `chunk_flash_attention_plain` (in the CUDA kernel's output
+layout), its CUDA kernel the launch (with the checks that read pointers
+and the current device, and the launch counters), and its fake gives the
+CUDA kernel's output layout. There is no fallback from one device to the
+other. The op registers no autograd: the
+kernel has no backward. On a CUDA input that requires grad (with grad
+enabled) `chunk_flash_attention` raises, and training takes the DiT's dense
+route (models/dit.DiTAttention with dense=True), as the JAX DiT trains on
+dense attention.
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ def chunk_flash_attention_plain(q, k, v, mel_len, chunk: int = 0) -> torch.Tenso
 
 
 def _check(q, k, v, mel_len, chunk):
+    """The CUDA kernel's checks: device, pointers, dtypes, shapes and strides."""
     dev = q.device
     if dev.index != torch.cuda.current_device():
         raise ValueError(f"chunk_flash_attention: q is on {dev}, the current CUDA device is {torch.cuda.current_device()}")
@@ -79,22 +86,24 @@ def _check(q, k, v, mel_len, chunk):
         raise ValueError("chunk_flash_attention: chunk must be >= 0")
 
 
-def chunk_flash_attention(q, k, v, mel_len, chunk: int = 0) -> torch.Tensor:
-    """softmax(q k^T / sqrt(D) + mask) v on (B, H, L, D), where key j is
-    valid iff j < mel_len[b] and, with chunk > 0, j // chunk <= i // chunk.
-    q, k and v may be strided views. CPU tensors take the plain version;
-    CUDA tensors launch csrc/flash_attention.cu (the bf16 route for
-    bfloat16 inputs, the float32 route for float32 ones) or raise (also
-    when an input requires grad: the kernel has no backward), and get back
-    a (B, H, L, D) view of (B, L, H, D) memory."""
-    if q.device.type == "cpu":
-        return chunk_flash_attention_plain(q, k, v, mel_len, chunk)
-    if q.device.type != "cuda":
-        raise ValueError(f"chunk_flash_attention: unsupported device {q.device}")
-    refuse_grad("chunk_flash_attention", "the DiT's dense route (DiT.forward(..., dense=True))", q, k, v)
+def _bl_view(b: int, h: int, l: int, d: int, like: torch.Tensor) -> torch.Tensor:
+    """A (B, H, L, D) view of fresh (B, L, H, D) memory: the kernel's output layout."""
+    return like.new_empty((b, l, h, d)).transpose(1, 2)
+
+
+@torch.library.custom_op("fangyan::chunk_flash_attention", mutates_args=(), device_types="cpu")
+def _op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mel_len: torch.Tensor, chunk: int) -> torch.Tensor:
+    """The CPU kernel: the plain version, in the CUDA kernel's output layout."""
+    b, h, l, d = q.shape
+    return _bl_view(b, h, l, d, q).copy_(chunk_flash_attention_plain(q, k, v, mel_len, chunk))
+
+
+@_op.register_kernel("cuda")
+def _cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mel_len: torch.Tensor, chunk: int) -> torch.Tensor:
+    """The CUDA kernel: one launch of csrc/flash_attention.cu, by ROUTES."""
     _check(q, k, v, mel_len, chunk)
     b, h, l, d = q.shape
-    out = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
+    out = _bl_view(b, h, l, d, q)
     entry = ROUTES[q.dtype]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = _build.load(entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(), mel_len.data_ptr(), out.data_ptr(), b, h, l,
@@ -105,4 +114,33 @@ def chunk_flash_attention(q, k, v, mel_len, chunk: int = 0) -> torch.Tensor:
         launches_f32 += 1
     else:
         launches += 1
-    return out.transpose(1, 2)
+    return out
+
+
+@_op.register_fake
+def _fake(q, k, v, mel_len, chunk):
+    b, h, l, d = q.shape
+    return _bl_view(b, h, l, d, q)
+
+
+def chunk_flash_attention(q, k, v, mel_len, chunk: int = 0) -> torch.Tensor:
+    """softmax(q k^T / sqrt(D) + mask) v on (B, H, L, D), where key j is
+    valid iff j < mel_len[b] and, with chunk > 0, j // chunk <= i // chunk.
+    q, k and v may be strided views. CPU tensors take the plain version;
+    CUDA tensors launch csrc/flash_attention.cu (the bf16 route for
+    bfloat16 inputs, the float32 route for float32 ones) and get back a
+    (B, H, L, D) view of (B, L, H, D) memory, or raise (also when an input
+    requires grad: the kernel has no backward). Under torch.export the call
+    is the op `fangyan::chunk_flash_attention`; eager calls run the op's
+    kernel for their device directly, since the dispatcher's detour costs
+    about 50 us of host time a call on an H100's host (chip_smoke.py's
+    eager-call timing; PERF.md)."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"chunk_flash_attention: unsupported device {q.device}")
+    if q.device.type == "cuda":
+        refuse_grad("chunk_flash_attention", "the DiT's dense route (DiT.forward(..., dense=True))", q, k, v)
+    if torch.compiler.is_exporting():
+        return _op(q, k, v, mel_len, int(chunk))
+    if q.device.type == "cpu":
+        return chunk_flash_attention_plain(q, k, v, mel_len, chunk)
+    return _cuda(q, k, v, mel_len, int(chunk))

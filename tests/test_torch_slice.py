@@ -158,6 +158,8 @@ def test_port_imports_no_jax():
         "           'cli.prepare_model_dir', 'runtime.token2wav_asr_server', 'runtime.disaggregated',\n"
         "           'tokenizer.parity', 'utils.profiling', 'utils.common')\n"
         "assert all('fangyan_tts_torch.' + m in sys.modules for m in slice13)\n"
+        "slice14 = ('cli.export', 'models.subsampling', 'example', 'webui')\n"
+        "assert all('fangyan_tts_torch.' + m in sys.modules for m in slice14)\n"
         "print(len([m for m in sys.modules if m.startswith('fangyan_tts_torch')]))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)

@@ -41,8 +41,11 @@ Phases:
      then each kernel's float32 route against its plain version in float64
      on the same float32 inputs at the float32 paths' shapes (phase 4's
      float32 batch and float32 API request, from infer/tts.batch_buckets
-     and the API request's buckets), timed against its plain version in
-     float32 and SDPA / F.linear in float32 (TF32 off); phase 15's shapes:
+     and the API request's buckets; int4 also at M = 1, 8 and 16, the
+     decode tile's buckets and edge, and 17 and 100 on the prefill tile,
+     each call bit-equal to a second one; flash also at L = 129 with a row
+     of mel_len 0), timed against its plain version in float32 and SDPA /
+     F.linear in float32 (TF32 off); phase 15's shapes:
      the exported flow_solve's (2 x 16 heads, L = 512, timed) and the
      recipe model's (its 2 heads, its decode's 2 layers, 2 query heads and
      1 KV head)
@@ -3898,7 +3901,10 @@ def check_f32_routes(results: dict, api: dict) -> None:
     phase 4's float32 API request (flash at every length its decode can give,
     from the API request's buckets; its decode runs on the bf16 KV cache
     that both packages' models keep, the bf16 route); decode attention also
-    with a row that has no open slot and a write past S, and at S = 4096.
+    with a row that has no open slot and a write past S, and at S = 4096;
+    int4 also at M = 1, 8, 16, 17 and 100 (the edges of its decode and
+    prefill tiles; M = 16 timed), each call bit-equal to a second one; flash
+    also one row past its 128-row block with a row of mel_len 0 (zeros).
     Times against the plain version in float32 and against SDPA and
     F.linear in float32 (TF32 off), with bounds at float32's rates."""
     import torch
@@ -3980,6 +3986,7 @@ def check_f32_routes(results: dict, api: dict) -> None:
     lmax = max(api["flash_l"])
     runs.append(((lmax, (lmax - 6, lmax - 6)), "contiguous"))
     runs += [((l, (l - 6, l - 6)), "untimed") for l in api["flash_l"] if l != lmax]
+    runs.append(((129, (129, 0, 77)), "untimed"))  # one row past the route's 128-row block; a row with no key
     errs = []
     for (l, mel), layout in runs:
         bb, h, d = len(mel), 16, 64
@@ -4007,11 +4014,13 @@ def check_f32_routes(results: dict, api: dict) -> None:
             msg = held_f32("chunk_flash_attention_f32", err, (vf - vd).abs().max().item(), FLASH_F32_ATOL,
                            vd.abs().mean().item())
             errs.append(err)
+            empty = all(bool((out_k[bi] == 0).all()) for bi in range(bb) if mel[bi] == 0)  # no valid key: zeros
             log(f"chunk_flash_attention_f32 ({bb},{h},{l},{d}) {layout} chunk={chunk} mel_len={mel[:4]}: {msg}"
-                + (f" equal to the contiguous call={same}" if layout == "strided" else ""))
-            if not (same and torch.isfinite(out_k).all()):
-                raise AssertionError("chunk_flash_attention_f32 gave a value that is not finite, or a strided call "
-                                     "that differs from the contiguous one")
+                + (f" equal to the contiguous call={same}" if layout == "strided" else "")
+                + (f" rows of mel_len 0 all zeros={empty}" if 0 in mel else ""))
+            if not (same and empty and torch.isfinite(out_k).all()):
+                raise AssertionError("chunk_flash_attention_f32 gave a value that is not finite, a strided call "
+                                     "that differs from the contiguous one, or a row without keys that is not 0")
             if layout == "untimed":
                 continue
             ms_k = time_ms(lambda: fa.chunk_flash_attention(q, k, v, mel_len, chunk), iters=10)
@@ -4028,17 +4037,21 @@ def check_f32_routes(results: dict, api: dict) -> None:
                 f"f32 {ms_p * 1e3:.1f} us, sdpa f32 {ms_l * 1e3:.1f} us, bound {bms * 1e3:.2f} us ({by})")
     results["flash_f32_err"] = max(errs)
 
-    # int4: the batch's decode M = B and prefill M = B x tp, M = 1, and 17 and 100 (no multiple of a tile)
+    # int4: the batch's decode M = B and prefill M = B x tp, M = 1, 8 and 16 (the decode tile's buckets; 16 its
+    # edge, timed), and 17 (the prefill tile's edge) and 100 (no multiple of a tile); every call one launch and
+    # bit-equal to a second call on the same inputs
     errs = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name, k, n in (("gate_up_proj", 896, 9728), ("down_proj", 4864, 896)):
         copies = [quantize_int4_packed(torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k))
                   for _ in range(24)]
         w, sc = copies[0]
         lib_w = [(unpack_int4(wc).float() * scc).t().contiguous() for wc, scc in copies]
-        for m in sorted({1, b, 17, 100, bt["prefill_m"]}):
+        for m in sorted({1, b, 8, 16, 17, 100, bt["prefill_m"]}):
             _checked(results, "int4_matmul_f32", (m, k, n))
             x = torch.randn((m, k), generator=gen, device=dev)
             out_k = i4.int4_matmul(x, w, sc)
+            again = i4.int4_matmul(x, w, sc)
             out_d = i4.int4_matmul_plain(x.double(), w, sc)
             out_f = i4.int4_matmul_plain(x, w, sc)
             torch.cuda.synchronize()
@@ -4046,10 +4059,12 @@ def check_f32_routes(results: dict, api: dict) -> None:
             msg = held_f32("int4_matmul_f32", err, (out_f.double() - out_d).abs().max().item(), INT4_F32_ATOL,
                            out_d.abs().mean().item())
             errs.append(err)
-            log(f"int4_matmul_f32 {name} M={m} K={k} N={n}: {msg} finite={bool(torch.isfinite(out_k).all())}")
-            if not torch.isfinite(out_k).all():
-                raise AssertionError("int4_matmul_f32 gave a value that is not finite")
-            if m not in (b, bt["prefill_m"]):
+            same = torch.equal(out_k, again)
+            log(f"int4_matmul_f32 {name} M={m} K={k} N={n} plan {i4.plan_f32(m, k, n, sms)}: {msg} "
+                f"finite={bool(torch.isfinite(out_k).all())} bit-equal to a second call={same}")
+            if not (same and torch.isfinite(out_k).all()):
+                raise AssertionError("int4_matmul_f32 gave a value that is not finite, or differs from run to run")
+            if m not in (b, 16, bt["prefill_m"]):
                 continue
             ms_k = time_ms(cycling(lambda i: i4.int4_matmul(x, *copies[i]), len(copies)), iters=len(copies))
             ms_p = time_ms(cycling(lambda i: i4.int4_matmul_plain(x, *copies[i]), len(copies)), iters=len(copies))
@@ -4230,8 +4245,8 @@ def float32_batch(results: dict, card: str) -> None:
     float32 KV cache (float32_kv_cache): one batch_synthesize of
     f32_batch_request, the three kernels on their float32 routes. Launches:
     decode 24 a decode step, int4 2 x 24 a forward (the prefill and each
-    step), flash 220; none on a bf16 route. Every shape held to phase 3's
-    checks."""
+    step; one kernel launch a call on every path), flash 220; none on a
+    bf16 route. Every shape held to phase 3's checks."""
     import torch
 
     from fangyan_tts_torch.config import CosyVoiceConfig

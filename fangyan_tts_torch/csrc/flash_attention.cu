@@ -36,7 +36,7 @@
 //     TMA store into (B, L, H, 64) memory, which the caller views as
 //     (B, H, L, 64). A row with no valid key comes out as zeros.
 // The float32 route (`fangyan_chunk_flash_attention_f32`, at the end of the
-// file) is a separate SIMT kernel.
+// file) is a SIMT kernel of its own.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -373,159 +373,269 @@ extern "C" int fangyan_chunk_flash_attention(const void* q, const void* k, const
 // ---------------------------------------------------------------------------
 // The float32 route: the same function on float32 (B, H, L, 64) q, k and v
 // (the Pallas kernel computes in float32 and writes q's dtype), with float32
-// scores, softmax and sums on the CUDA cores, so no TF32 rounding. A simple
-// tiled SIMT flash kernel: a block of 256 threads takes 64 query rows of one
-// (b, h); each thread owns 4 rows and 4 keys (or output dims) of a 64 x 64
-// tile (keys and dims strided by 16, so the shared-memory reads do not
-// conflict). K tiles run from 0 to the block's last row's key limit; the
-// scores of keys past a row's limit are -inf; a row's max and sum go by
-// shuffles over the 16 threads that share it. The output goes to (B, L, H,
-// D) memory as on the bf16 route, and a row with no valid key comes out as
-// zeros, as there.
+// scores, softmax and sums on the CUDA cores, so no TF32 rounding. Bound by
+// operations: 4*64 FMA-operations a valid (query, key) pair against float32's
+// 67 TFLOP/s outside the tensor cores. Shared memory hands the SM's lanes 32
+// floats a clock against 128 FMAs, so a product that reads one operand float
+// per 4 FMAs (an 8 x 8 register tile) already keeps it as busy as the FMA
+// pipes; the design keeps to that ratio and spends no shared-memory traffic
+// elsewhere. Design:
+//   - a block of 256 threads takes 128 query rows of one (b, h), as two
+//     groups of 128 threads that split its key tiles (group g takes tiles g,
+//     g + 2, ...) and merge their running max, sum and output at the end;
+//     within a group a thread owns 8 rows x 8 keys of each 64-key tile of
+//     S = Q.K^T and the same 8 rows x 8 dims of O, with the running max and
+//     sum of its rows in registers. Both products read their operands as
+//     float4 from shared memory: 16 loads of 16 bytes per 256 FMAs (rows
+//     4ty + c + 64h, keys and dims 4tx + c + 32h);
+//   - Q (once a block) and the K tiles sit in shared memory as rows of 16
+//     16-byte units, unit u of row r stored at u ^ ((r >> 2) & 7), so the 8
+//     keys or 4 rows a warp reads at one time fall in distinct banks; V is
+//     read along its rows (dims), which the warp's lanes split;
+//   - P goes to the P.V product through a 16 KB shared tile per group, 128
+//     rows x 32 keys, half a key tile at a time, written and read as float4
+//     (the same swizzle) by the 8 threads that share its rows, all in one
+//     warp: a __syncwarp, no block barrier. The row max and sum go by
+//     shuffles among those 8 threads;
+//   - K and V tiles come by cp.async into a ring of four stages (two tiles
+//     computed, the next two in flight, one block barrier a round); rows
+//     past L are zero-filled;
+//   - key tiles past the block's last row's limit are not loaded, and the
+//     per-element limit test runs only on tiles that reach past the block's
+//     first row's limit;
+//   - 192 KB of shared memory (Q 32 KB, the ring 128 KB, P 32 KB) and up to
+//     255 registers a thread: one block, 8 warps, an SM. The grid takes the
+//     (b*h, 128-row) items heaviest first (the last query tiles need the most
+//     keys under the chunk mask), so the blocks that start late are the
+//     light ones; splitting each item's keys over two groups gives the grid
+//     three times as many rounds of items as a block of 128 threads at two
+//     an SM would, so its last round leaves less of the card idle (L = 1472,
+//     B*H = 32: 384 items for 132 SMs).
+// The output goes to (B, L, H, D) memory as on the bf16 route, and a row with
+// no valid key comes out as zeros, as there.
 
 namespace {
 
-constexpr int kF32Rows = 64;     // query rows per block
-constexpr int kF32Keys = 64;     // keys per tile
-constexpr int kF32Pad = kD + 1;  // padded row of a Q, K or P tile in shared memory (floats)
-constexpr int kF32Threads = 256;
-constexpr int kF32Smem = (3 * kF32Rows * kF32Pad + kF32Keys * kD) * 4;  // Q, K, P padded; V dense
+using namespace hopper;
 
-__global__ void __launch_bounds__(kF32Threads) chunk_flash_attention_f32_kernel(
+constexpr int kF32Rows = 128;                  // query rows a block
+constexpr int kF32Keys = 64;                   // keys a tile
+constexpr int kF32Group = 128;                 // threads of a group: 16 x 8
+constexpr int kF32Threads = 2 * kF32Group;
+constexpr int kF32Stages = 4;
+constexpr int kF32QFloats = kF32Rows * kD;     // 32 KB
+constexpr int kF32KvFloats = kF32Keys * kD;    // 16 KB a K or V tile
+constexpr int kF32PFloats = kF32Rows * 32;     // 16 KB: half a key tile's P, a group
+constexpr int kF32Smem = (kF32QFloats + 2 * kF32Stages * kF32KvFloats + 2 * kF32PFloats) * 4;
+
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+
+__global__ void __launch_bounds__(kF32Threads, 1) chunk_flash_attention_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const int32_t* __restrict__ mel_len, float* __restrict__ out, int H, int L, int chunk, long long qsb,
     long long qsh, long long qsl, long long ksb, long long ksh, long long ksl, long long vsb, long long vsh,
-    long long vsl) {
-  extern __shared__ float fsm[];
-  float* qs = fsm;                      // [64][65], pre-scaled by log2(e) / 8
-  float* ks = qs + kF32Rows * kF32Pad;  // [64][65]
-  float* ps = ks + kF32Keys * kF32Pad;  // [64][65]
-  float* vs = ps + kF32Rows * kF32Pad;  // [64][64]
+    long long vsl, int bh_count) {
+  extern __shared__ __align__(16) float fsm[];
+  float* qs = fsm;                                  // [128][64] swizzled
+  float* ks = qs + kF32QFloats;                     // [stage][64][64] swizzled
+  float* vs = ks + kF32Stages * kF32KvFloats;       // [stage][64][64]
+  const int tid = threadIdx.x, grp = tid / kF32Group, gt = tid % kF32Group;
+  float* ps = vs + kF32Stages * kF32KvFloats + grp * kF32PFloats;  // [128][32] swizzled, this group's
 
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * kF32Rows;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int nq = (L + kF32Rows - 1) / kF32Rows;
+  const int it = blockIdx.x;
+  const int q0 = (nq - 1 - it / bh_count) * kF32Rows;  // heaviest query tiles first
+  const int bh = it % bh_count, b = bh / H, h = bh % H;
+  const int tx = gt % 8, ty = gt / 8, sw = ty & 7;
   const int len = max(0, min(mel_len[b], L));
   const float scale_log2 = 0.125f * 1.4426950408889634f;
   const float* qb = q + b * qsb + h * qsh;
   const float* kb = k + b * ksb + h * ksh;
   const float* vb = v + b * vsb + h * vsh;
+  const int kend = key_limit(min(q0 + kF32Rows, L) - 1, len, chunk, L);  // keys the block's last row needs
+  const int kfree = key_limit(q0, len, chunk, L);                         // keys valid for every row
+  const int ntiles = (kend + kF32Keys - 1) / kF32Keys;
 
-  for (int e = tid; e < kF32Rows * kD / 4; e += kF32Threads) {
-    const int r = e / (kD / 4), c = e % (kD / 4) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < L) x = *reinterpret_cast<const float4*>(qb + (q0 + r) * qsl + c);
-    float* d = qs + r * kF32Pad + c;
-    d[0] = x.x * scale_log2;
-    d[1] = x.y * scale_log2;
-    d[2] = x.z * scale_log2;
-    d[3] = x.w * scale_log2;
-  }
+  auto row = [&](int r) { return 4 * ty + (r & 3) + 64 * (r >> 2); };  // the thread's rows (block-local)
 
-  int lim[4];
+  auto load_tile = [&](int t) {  // keys t * 64 .. into stage t % 4: 2 x 64 rows x 16 units over 256 threads
+    if (t >= ntiles) return;
+    float* kd = ks + t % kF32Stages * kF32KvFloats;
+    float* vd = vs + t % kF32Stages * kF32KvFloats;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = min(q0 + ty * 4 + r, L - 1);
-    lim[r] = key_limit(i, len, chunk, L);
-  }
-  const int kend = key_limit(min(q0 + kF32Rows, L) - 1, len, chunk, L);  // the block's last row's limit
+    for (int i = 0; i < 4; ++i) {
+      const int e = tid + i * kF32Threads, j = e / 16, u = e % 16, key = t * kF32Keys + j;
+      const bool ok = key < L;
+      cp_async16(kd + j * kD + 4 * (u ^ ((j >> 2) & 7)), kb + (ok ? key * ksl + 4 * u : 0), ok);
+      cp_async16(vd + j * kD + 4 * u, vb + (ok ? key * vsl + 4 * u : 0), ok);
+    }
+  };
 
-  float m[4], l[4], o[4][4];
+  float o[8][8], m[8], l[8];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
+  for (int r = 0; r < 8; ++r) {
     m[r] = -INFINITY;
     l[r] = 0.f;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) o[r][c] = 0.f;
+    for (int c = 0; c < 8; ++c) o[r][c] = 0.f;
   }
 
-  for (int k0 = 0; k0 < kend; k0 += kF32Keys) {
-    __syncthreads();  // the last tile's K, P and V are read; Q written (first tile)
-    for (int e = tid; e < kF32Keys * kD / 4; e += kF32Threads) {
-      const int r = e / (kD / 4), c = e % (kD / 4) * 4;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
-      if (k0 + r < L) {
-        kx = *reinterpret_cast<const float4*>(kb + (k0 + r) * ksl + c);
-        vx = *reinterpret_cast<const float4*>(vb + (k0 + r) * vsl + c);
-      }
-      float* d = ks + r * kF32Pad + c;
-      d[0] = kx.x;
-      d[1] = kx.y;
-      d[2] = kx.z;
-      d[3] = kx.w;
-      *reinterpret_cast<float4*>(vs + r * kD + c) = vx;
+  if (ntiles > 0) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {  // Q: 128 rows x 16 units
+      const int e = tid + i * kF32Threads, r = e / 16, u = e % 16;
+      const bool ok = q0 + r < L;
+      cp_async16(qs + r * kD + 4 * (u ^ ((r >> 2) & 7)), qb + (ok ? (q0 + r) * qsl + 4 * u : 0), ok);
     }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < kD; ++d) {
-      float a[4], bk[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = qs[(ty * 4 + r) * kF32Pad + d];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) bk[c] = ks[(tx + 16 * c) * kF32Pad + d];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[r][c] = fmaf(a[r], bk[c], s[r][c]);
+    load_tile(0);
+    load_tile(1);
+    cp_async_commit();
+  }
+  for (int t0 = 0; t0 < ntiles; t0 += 2) {  // a round: tile t0 for group 0, t0 + 1 for group 1
+    cp_async_wait<0>();
+    __syncthreads();  // this round's tiles (and Q) landed for every thread, and the last round is computed
+    if (t0 + 2 < ntiles) {
+      load_tile(t0 + 2);  // into the stages that the last round left
+      load_tile(t0 + 3);
+      cp_async_commit();
     }
+    const int t = t0 + grp;
+    if (t < ntiles) {
+      const float* kt = ks + t % kF32Stages * kF32KvFloats;
+      const float* vt = vs + t % kF32Stages * kF32KvFloats;
 
+      // S = Q.K^T: s[r][4h + c] is row row(r), key t * 64 + 4tx + c + 32h
+      float s[8][8];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      float t = -INFINITY;
+      for (int r = 0; r < 8; ++r)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        if (k0 + tx + 16 * c >= lim[r]) s[r][c] = -INFINITY;
-        t = fmaxf(t, s[r][c]);
+        for (int c = 0; c < 8; ++c) s[r][c] = 0.f;
+#pragma unroll 1
+      for (int u = 0; u < kD / 4; ++u) {
+        float4 kf[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) kf[j] = ld4(kt + (4 * tx + (j & 3) + 32 * (j >> 2)) * kD + 4 * (u ^ tx));
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const float4 qf = ld4(qs + row(r) * kD + 4 * (u ^ sw));
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            float a = s[r][j];
+            a = fmaf(qf.x, kf[j].x, a);
+            a = fmaf(qf.y, kf[j].y, a);
+            a = fmaf(qf.z, kf[j].z, a);
+            s[r][j] = fmaf(qf.w, kf[j].w, a);
+          }
+        }
+      }
+
+      // masks, online softmax in base 2; the factor O takes
+      const int k0 = t * kF32Keys;
+      if (k0 + kF32Keys > kfree) {  // some row's limit falls inside this tile
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const int lim = key_limit(min(q0 + row(r), L - 1), len, chunk, L);
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if (k0 + 4 * tx + (j & 3) + 32 * (j >> 2) >= lim) s[r][j] = -INFINITY;
+        }
       }
 #pragma unroll
-      for (int off = 8; off; off >>= 1) t = fmaxf(t, __shfl_xor_sync(0xffffffffu, t, off));
-      const float mn = fmaxf(m[r], t);
-      const float ref = mn == -INFINITY ? 0.f : mn;  // a row with no valid key yet
-      const float alpha = exp2f(m[r] - ref);
-      float sum = 0.f;
+      for (int r = 0; r < 8; ++r) {
+        float mx = s[r][0];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float pr = exp2f(s[r][c] - ref);
-        sum += pr;
-        ps[(ty * 4 + r) * kF32Pad + tx + 16 * c] = pr;
+        for (int j = 1; j < 8; ++j) mx = fmaxf(mx, s[r][j]);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        const float m_new = fmaxf(m[r], mx);
+        const float base = m_new == -INFINITY ? 0.f : m_new * scale_log2;  // a row with no valid key yet stays at 0
+        const float corr = exp2f(m[r] * scale_log2 - base);
+        float rs = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          s[r][j] = exp2f(fmaf(s[r][j], scale_log2, -base));
+          rs += s[r][j];
+        }
+        rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+        rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+        rs += __shfl_xor_sync(0xffffffffu, rs, 4);
+        l[r] = l[r] * corr + rs;
+        m[r] = m_new;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) o[r][c] *= corr;
       }
-#pragma unroll
-      for (int off = 8; off; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[r] = l[r] * alpha + sum;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) o[r][c] *= alpha;
-      m[r] = mn;
-    }
-    __syncthreads();
 
-#pragma unroll 8
-    for (int j = 0; j < kF32Keys; ++j) {
-      float pr[4], vv[4];
+      // O += P.V, half a key tile at a time: the warp writes its rows' P, then reads them back as float4
 #pragma unroll
-      for (int r = 0; r < 4; ++r) pr[r] = ps[(ty * 4 + r) * kF32Pad + j];
+      for (int hh = 0; hh < 2; ++hh) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) vv[c] = vs[j * kD + tx + 16 * c];
+        for (int r = 0; r < 8; ++r)
+          *reinterpret_cast<float4*>(ps + row(r) * 32 + 4 * (tx ^ sw)) =
+              make_float4(s[r][4 * hh], s[r][4 * hh + 1], s[r][4 * hh + 2], s[r][4 * hh + 3]);
+        __syncwarp();
+#pragma unroll 1
+        for (int kq = 0; kq < 8; ++kq) {  // keys 32hh + 4kq ..
+          float4 pf[8];
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+          for (int r = 0; r < 8; ++r) pf[r] = ld4(ps + row(r) * 32 + 4 * (kq ^ sw));
 #pragma unroll
-        for (int c = 0; c < 4; ++c) o[r][c] = fmaf(pr[r], vv[c], o[r][c]);
+          for (int cc = 0; cc < 4; ++cc) {
+            const float* vr = vt + (32 * hh + 4 * kq + cc) * kD + 4 * tx;
+            const float4 v0 = ld4(vr), v1 = ld4(vr + 32);
+#pragma unroll
+            for (int r = 0; r < 8; ++r) {
+              const float p = cc == 0 ? pf[r].x : cc == 1 ? pf[r].y : cc == 2 ? pf[r].z : pf[r].w;
+              o[r][0] = fmaf(p, v0.x, o[r][0]);
+              o[r][1] = fmaf(p, v0.y, o[r][1]);
+              o[r][2] = fmaf(p, v0.z, o[r][2]);
+              o[r][3] = fmaf(p, v0.w, o[r][3]);
+              o[r][4] = fmaf(p, v1.x, o[r][4]);
+              o[r][5] = fmaf(p, v1.y, o[r][5]);
+              o[r][6] = fmaf(p, v1.z, o[r][6]);
+              o[r][7] = fmaf(p, v1.w, o[r][7]);
+            }
+          }
+        }
+        __syncwarp();  // P is read before the next half overwrites it
+      }
     }
   }
 
+  // merge the groups: group 1 leaves its max, sum and output in the (idle) ring, thread by thread;
+  // group 0 takes them into its own in a fixed order and writes the rows
+  float4* mo = reinterpret_cast<float4*>(ks);  // [16][128] float4: the group's O
+  float* mm = ks + 16 * 4 * kF32Group;         // [8][128] max, then [8][128] sum
+  __syncthreads();  // the ring is read
+  if (grp == 1) {
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = q0 + ty * 4 + r;
+    for (int r = 0; r < 8; ++r) {
+      mo[(2 * r) * kF32Group + gt] = make_float4(o[r][0], o[r][1], o[r][2], o[r][3]);
+      mo[(2 * r + 1) * kF32Group + gt] = make_float4(o[r][4], o[r][5], o[r][6], o[r][7]);
+      mm[r * kF32Group + gt] = m[r];
+      mm[(8 + r) * kF32Group + gt] = l[r];
+    }
+  }
+  __syncthreads();
+  if (grp == 1) return;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const float m1 = mm[r * kF32Group + gt], l1 = mm[(8 + r) * kF32Group + gt];
+    const float mt = fmaxf(m[r], m1);
+    const float f0 = mt == -INFINITY ? 0.f : exp2f((m[r] - mt) * scale_log2);
+    const float f1 = mt == -INFINITY ? 0.f : exp2f((m1 - mt) * scale_log2);
+    const float lt = l[r] * f0 + l1 * f1;
+    const float inv = lt > 0.f ? 1.f / lt : 0.f;
+    const float4 a = mo[(2 * r) * kF32Group + gt], c = mo[(2 * r + 1) * kF32Group + gt];
+    const int i = q0 + row(r);
     if (i >= L) continue;
-    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
-    float* orow = out + (((long long)b * L + i) * H + h) * kD;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) orow[tx + 16 * c] = o[r][c] * inv;
+    float* orow = out + (((long long)b * L + i) * H + h) * kD + 4 * tx;
+    *reinterpret_cast<float4*>(orow) =
+        make_float4((o[r][0] * f0 + a.x * f1) * inv, (o[r][1] * f0 + a.y * f1) * inv,
+                    (o[r][2] * f0 + a.z * f1) * inv, (o[r][3] * f0 + a.w * f1) * inv);
+    *reinterpret_cast<float4*>(orow + 32) =
+        make_float4((o[r][4] * f0 + c.x * f1) * inv, (o[r][5] * f0 + c.y * f1) * inv,
+                    (o[r][6] * f0 + c.z * f1) * inv, (o[r][7] * f0 + c.w * f1) * inv);
   }
 }
 
@@ -539,17 +649,24 @@ extern "C" int fangyan_chunk_flash_attention_f32(const void* q, const void* k, c
                                                  long long ksl, long long vsb, long long vsh, long long vsl,
                                                  void* stream) {
   const long long strides[9] = {qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl};
-  if (D != kD || B < 1 || H < 1 || L < 1 || chunk < 0 || (long long)B * H > 65535 ||
+  const long long items = (long long)B * H * ((L + kF32Rows - 1) / kF32Rows);
+  if (D != kD || B < 1 || H < 1 || L < 1 || chunk < 0 || items > 0x7fffffff ||
       ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16)
     return (int)cudaErrorInvalidValue;
   for (long long s : strides)
     if (s < 0 || s % 4) return (int)cudaErrorInvalidValue;
-  static const cudaError_t attr = cudaFuncSetAttribute(chunk_flash_attention_f32_kernel,
-                                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kF32Smem);
+  static const cudaError_t attr = [] {
+    cudaError_t e = cudaFuncSetAttribute(chunk_flash_attention_f32_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kF32Smem);
+    // all of the SM's unified memory as shared memory
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(chunk_flash_attention_f32_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    return e;
+  }();
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((L + kF32Rows - 1) / kF32Rows, B * H);
-  chunk_flash_attention_f32_kernel<<<grid, kF32Threads, kF32Smem, (cudaStream_t)stream>>>(
+  chunk_flash_attention_f32_kernel<<<(unsigned)items, kF32Threads, kF32Smem, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const int32_t*)mel_len, (float*)out, H, L, chunk, qsb, qsh,
-      qsl, ksb, ksh, ksl, vsb, vsh, vsl);
+      qsl, ksb, ksh, ksl, vsb, vsh, vsl, B * H);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
-// TMA loads and stores (cp.async.bulk.tensor), the thread-block cluster
-// barrier and distributed shared-memory stores (st.async), the wgmma
-// shared-memory descriptor and instructions with their fence / commit / wait,
-// setmaxnreg, and the host-side tensor-map encoder.
+// TMA loads and stores (cp.async.bulk.tensor), 4- and 16-byte cp.async copies
+// (the float32 routes), the thread-block cluster barrier and distributed
+// shared-memory stores (st.async), the wgmma shared-memory descriptor and
+// instructions with their fence / commit / wait, setmaxnreg, and the
+// host-side tensor-map encoder.
 //
 // Conventions:
 //   - every shared-memory tile that TMA writes or wgmma reads is laid out
@@ -115,6 +116,30 @@ __device__ __forceinline__ void tma_store_wait_read() {
 
 // order this thread's generic-proxy shared-memory writes before later async-proxy reads (TMA store, wgmma)
 __device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// ---------------------------------------------------------------- cp.async (the float32 routes)
+
+// 16 bytes global -> shared, bypassing L1; with `valid` false nothing is read
+// and the 16 bytes are zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global -> shared (through L1), zero-filled where `valid` is false
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// wait until all but the newest kPending committed groups have landed (this thread's copies)
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
 
 // ---------------------------------------------------------------- clusters
 

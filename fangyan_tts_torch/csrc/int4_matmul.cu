@@ -49,8 +49,8 @@
 //   - the packed weight (K/2, N) has only 64-128 contiguous bytes per block
 //     and packed row, so each decode block requests many small TMA rows; at
 //     decode the kernel takes about 5x its DRAM bound (see PERF.md).
-// The float32 route (`fangyan_int4_matmul_f32`, at the end of the file) is a
-// separate SIMT kernel.
+// The float32 route (`fangyan_int4_matmul_f32`, at the end of the file) has
+// SIMT kernels of its own.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -420,127 +420,553 @@ extern "C" int fangyan_int4_matmul(const void* x, const void* w, const void* sca
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
+
 // ---------------------------------------------------------------------------
 // The float32 route: x (M, K) float32 against the same packed weight and
 // scale, float32 out (the Pallas kernel writes x's dtype), with float32 FMAs
-// on the CUDA cores and no TF32 rounding. A simple tiled SIMT kernel: a block
-// of 256 threads computes a 64 x 64 output tile in steps of 32 K; x's tile is
-// stored transposed and the weight's dequantized (two's complement nibbles
-// to exact float32 values) in shared memory, and each thread sums 4 tokens x
-// 4 channels (channels strided by 16, so the shared-memory reads do not
-// conflict). The scale multiplies the float32 sum, as on the bf16 route.
-// Where the output tiles leave the card idle (decode: down_proj has 14 tiles
-// at M <= 64), K is split over `splits` blocks a tile (blockIdx.z): each
-// writes its partial tile to a float32 workspace (splits, M, N), and a second
-// kernel sums the partials in split order and applies the scale, so the
-// result does not vary from run to run.
+// on the CUDA cores and no TF32 rounding. One launch a call, of one of two
+// tiles (`ops/int4_matmul.plan_f32`). Both split K over a thread-block
+// cluster where the output tiles leave SMs idle; each block of the cluster
+// sums a range of K into a float32 partial, and each block finishes a slice
+// of the tile by adding the ranks' partials in rank order through
+// distributed shared memory: no atomics, no device-memory workspace, no
+// second kernel, the same result from run to run.
+//
+// Decode tile (M <= 16; the float32 batch decodes at M = 4): bound by the
+// packed weight's bytes (K*N/2, read once for M tokens) at M <= 8 and near
+// the balance at 16 (2*M*K*N operations against float32's 67 TFLOP/s).
+//   - every row is a real token: M rounds up to a bucket of 4, 8 or 16 rows
+//     (`MB`), and a thread holds MB x 64/MB accumulators (16, 8 or 4
+//     channels), so the register count is the same in every bucket;
+//   - the weight streams from device memory into registers: each packed
+//     byte is read once, by one thread, neighbouring threads on neighbouring
+//     addresses, 16, 8 or 4 bytes a load, 128 bytes in flight a thread; it
+//     is dequantized in registers and never staged in shared memory. A
+//     nibble becomes an exact float32 in two operations: one lop3 puts it
+//     (sign bit flipped) into the mantissa of 2^23, one add or FMA takes
+//     2^23 + 8 away. The bytes at odd positions of a 32-bit word come out
+//     times 256, which their channel's scale takes back (exact: a power of
+//     two);
+//   - the block's K-range of x (MB rows, zeros past M) is staged once in
+//     shared memory by 4-byte cp.async, transposed, while the first weight
+//     loads fly, so the M values of one K come as float4 broadcasts: at most
+//     one 16-byte shared load per 16 FMAs;
+//   - a block of 256 threads covers 64 or 128 channels; its threads split
+//     the K-range (thread rows klane, klane + KL, ...) and sum their
+//     partials through shared memory in klane order. The sums go by st.async
+//     straight into the shared memory of the block that finishes them, which
+//     waits on its own mbarrier (`ClusterSum`): the launch, one DRAM latency
+//     and these sums are most of a call's time at M = 4, not its bytes.
+// Prefill tile (M > 16; M = 128 on the float32 batch): bound by operations.
+//   - a register-blocked SIMT GEMM: a group of 128 threads covers 128 tokens
+//     x 64 or 128 channels, 8 tokens x 8 or 16 channels a thread, read from
+//     shared memory as float4 (16 loads of 16 bytes per 256 FMAs, or 24 per
+//     512); x's rows are swizzled by 16-byte unit so that a warp's rows hit
+//     distinct banks. Shared memory hands the SM's lanes 32 floats a clock
+//     against 128 FMAs, so these tiles keep it about as busy as the FMA
+//     pipes, and the tile runs near half of float32's peak;
+//   - steps of 32 K in a two-stage ring filled by cp.async (x's tile and
+//     the packed weight's bytes), so the next step's loads are in flight
+//     while one is computed; the weight's step is dequantized into shared
+//     memory once per group (exact sign-extended nibbles), not once per
+//     thread;
+//   - the planner gives gate_up_proj at M = 128 (76 tiles of 128 channels
+//     for 132 SMs) a cluster of 3 and down_proj (14 tiles of 64) one of 8;
+//     where the blocks still do not outnumber the SMs a block has two groups,
+//     which take alternate steps of its K range and add their sums in order,
+//     so each SM runs 8 warps. The partial tile (32-64 KB) stays in the
+//     block's ring and the cluster reads it after a cluster barrier: a
+//     receive area of its own would cost the ring's second block an SM.
 
 namespace {
 
-constexpr int kF32Bm = 64, kF32Bn = 64, kF32Bk = 32;
-constexpr int kF32Threads = 256;
+using namespace hopper;
 
-__global__ void __launch_bounds__(kF32Threads) int4_matmul_f32_kernel(const float* __restrict__ x,
-                                                                      const int8_t* __restrict__ w,
-                                                                      const float* __restrict__ scale,
-                                                                      float* __restrict__ out, int M, int K, int N,
-                                                                      int k_per) {
-  __shared__ __align__(16) float xs[kF32Bk][kF32Bm + 4];  // x^T tile, rows padded to keep float4 alignment
-  __shared__ float ws[kF32Bk][kF32Bn];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * kF32Bm, n0 = blockIdx.x * kF32Bn;
-  const int k_begin = blockIdx.z * k_per, k_end = min(K, k_begin + k_per);
-  float acc[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+constexpr int kF32Threads = 256;  // a decode block
+constexpr int kF32DecodeStepK = 64;
+constexpr int kF32Bm = 128;       // tokens of a prefill block
+constexpr int kF32Bk = 32;        // K of a prefill step
+constexpr int kF32Stages = 2;
 
-  for (int k0 = k_begin; k0 < k_end; k0 += kF32Bk) {
-    __syncthreads();  // the last step's tiles are read
-    for (int e = tid; e < kF32Bm * kF32Bk / 4; e += kF32Threads) {
-      const int r = e / (kF32Bk / 4), c = e % (kF32Bk / 4) * 4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (m0 + r < M) v = *reinterpret_cast<const float4*>(x + (long long)(m0 + r) * K + k0 + c);
-      xs[c][r] = v.x;
-      xs[c + 1][r] = v.y;
-      xs[c + 2][r] = v.z;
-      xs[c + 3][r] = v.w;
-    }
-    {  // 16 packed rows x 64 channels: one 4-byte word a thread
-      const int pr = tid / (kF32Bn / 4), c = tid % (kF32Bn / 4) * 4;
-      const uint32_t word =
-          *reinterpret_cast<const uint32_t*>(w + (long long)(k0 / 2 + pr) * N + n0 + c);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int byte = (int)(int8_t)(word >> (8 * j));
-        ws[2 * pr][c + j] = (float)((int)((uint32_t)byte << 28) >> 28);  // low nibble: input row 2i
-        ws[2 * pr + 1][c + j] = (float)(byte >> 4);  // high nibble: input row 2i + 1
-      }
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kF32Bk; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&xs[kk][ty * 4]);
-      float bw[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) bw[c] = ws[kk][tx + 16 * c];
-      const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bw[c], acc[r][c]);
-    }
-  }
-  // one split: the scaled result; several: this split's partial (no scale) at workspace slice blockIdx.z
-  float* dst = gridDim.z == 1 ? out : out + (long long)blockIdx.z * M * N;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int m = m0 + ty * 4 + r;
-    if (m >= M) continue;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int n = n0 + tx + 16 * c;
-      dst[(long long)m * N + n] = gridDim.z == 1 ? acc[r][c] * scale[n] : acc[r][c];
-    }
+template <int MB, int BN>
+struct F32Decode {
+  static constexpr int kCpt = 64 / MB;                // channels a thread: MB x kCpt = 64 accumulators
+  static constexpr int kWords = kCpt / 4;             // 32-bit words of a packed row a thread loads
+  static constexpr int kCl = BN / kCpt;               // threads across the channels
+  static constexpr int kKl = kF32Threads / kCl;       // threads across K
+  static constexpr int kU = 32 / kWords;              // packed rows a thread has in flight: 128 bytes
+  static constexpr int kXk = 8192 / MB;               // K of x staged at once (32 KB)
+  static constexpr int kGroups = MB * BN / 4;         // float4 groups of the block's output tile
+  static constexpr int kRedFloats = kF32Threads * 64; // the threads' partials (aliases x)
+  static constexpr int kSplit = kGroups < kF32Threads ? kF32Threads / kGroups : 1;  // threads summing a group
+  static constexpr int kSmem = kRedFloats * 4 + (kGroups + kMaxCluster) * kSplit * 16;  // + the cluster's sums
+};
+
+template <int TN, int G>
+struct F32Prefill {
+  static constexpr int kBn = 8 * TN;                  // channels a block: 8 threads x TN
+  static constexpr int kThreads = 128 * G;            // G groups of 16 x 8 threads, 8 tokens x TN channels each
+  static constexpr int kMinBlocks = G == 2 ? 1 : TN == 8 ? 3 : 2;  // blocks an SM holds
+  static constexpr int kXFloats = kF32Bm * kF32Bk;    // a stage of x: 128 rows x 32 K
+  static constexpr int kWBytes = kF32Bk / 2 * kBn;    // a stage of the packed weight: 16 rows x kBn bytes
+  static constexpr int kWOff = kF32Stages * kXFloats * 4;
+  static constexpr int kFOff = kWOff + kF32Stages * kWBytes;
+  static constexpr int kGroupSmem = kFOff + kF32Bk * kBn * 4;  // + the dequantized step, 32 x kBn floats
+  static constexpr int kPart = kF32Bm * kBn * 4;      // a partial tile: group 1's, after group 0's memory
+  static constexpr int kSmem = G * kGroupSmem > (G - 1) * kGroupSmem + kPart ? G * kGroupSmem
+                                                                            : (G - 1) * kGroupSmem + kPart;
+};
+
+// the two nibbles of byte J of v (channel J of the word) as exact floats,
+// times 2^(8 (J & 1)); v16 = v >> 16
+template <int J>
+__device__ __forceinline__ void nibbles(uint32_t v, uint32_t v16, float& lo, float& hi) {
+  constexpr int kB = 8 * (J & 1);
+  const uint32_t src = J < 2 ? v : v16;
+  // the nibble with its sign bit flipped (n + 8 in [0, 15]) in the mantissa of 2^23
+  const uint32_t lo_bits = (src & (0xFu << kB)) ^ ((0x8u << kB) | 0x4B000000u);
+  const uint32_t hi_bits = (src & (0xF0u << kB)) ^ ((0x80u << kB) | 0x4B000000u);
+  lo = __uint_as_float(lo_bits) - (8388608.f + 8.f * (1 << kB));
+  hi = fmaf(__uint_as_float(hi_bits), 0.0625f, -(524288.f + 8.f * (1 << kB)));
+}
+
+template <int W>
+__device__ __forceinline__ void load_words(uint32_t (&w)[W], const int8_t* p) {
+  if constexpr (W == 4) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+    w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+  } else if constexpr (W == 2) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    w[0] = v.x, w[1] = v.y;
+  } else {
+    w[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
   }
 }
 
-// out[m, n] = scale[n] * (sum over the splits, in order, of ws[s, m, n])
-__global__ void __launch_bounds__(256) int4_matmul_f32_reduce(const float* __restrict__ ws,
-                                                               const float* __restrict__ scale,
-                                                               float* __restrict__ out, int M, int N, int splits) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long mn = (long long)M * N;
-  if (i >= mn) return;
-  float sum = 0.f;
-  for (int z = 0; z < splits; ++z) sum += ws[z * mn + i];
-  out[i] = sum * scale[i % N];
+// out[m, n..n+3] = sum * scale[n..n+3]; the sums of odd channels carry 256
+__device__ __forceinline__ void store_scaled(float* out, const float* scale, int n, float4 s) {
+  const float4 sc = *reinterpret_cast<const float4*>(scale + n);
+  *reinterpret_cast<float4*>(out) =
+      make_float4(s.x * sc.x, s.y * (sc.y * 0.00390625f), s.z * sc.z, s.w * (sc.w * 0.00390625f));
+}
+
+__device__ __forceinline__ void add4(float4& a, const float4 b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+// The sum of a cluster's partials in rank order, through distributed shared
+// memory: block r finishes the float4 groups [r slot, (r + 1) slot) of its
+// tile, and every block pushes `srcs` contributions to each group (sums over
+// disjoint parts of its K range) into the finishing block's `recv`
+// [cs][srcs][slot] by st.async, which counts their bytes on that block's
+// mbarrier; the finishing block adds them in (rank, src) order.
+struct ClusterSum {
+  float4* recv;
+  uint64_t* bar;
+  int cs, rank, slot, srcs, owned;
+
+  __device__ ClusterSum(float4* recv_, uint64_t* bar_, int groups, int cs_, int rank_, int srcs_)
+      : recv(recv_), bar(bar_), cs(cs_), rank(rank_), slot((groups + cs_ - 1) / cs_), srcs(srcs_) {
+    owned = max(0, min(groups, (rank + 1) * slot) - rank * slot);
+  }
+  // at the kernel's start: the barrier expects the other blocks' bytes; the
+  // cluster barrier's phase 0, waited on by ready(), says it is initialised
+  __device__ void start() {
+    if (cs == 1) return;
+    if (threadIdx.x == 0) {
+      mbar_init(bar, 1);
+      fence_barrier_init();
+      mbar_arrive_expect_tx(bar, (cs - 1) * srcs * owned * 16);
+    }
+    cluster_arrive_relaxed();
+  }
+  __device__ void ready() {
+    if (cs > 1) cluster_wait();
+  }
+  __device__ void push(int g, int src, float4 v) {
+    const int r = g / slot, i = (rank * srcs + src) * slot + g - r * slot;
+    if (r == rank) recv[i] = v;
+    else st_async(cluster_map(recv + i, r), v, cluster_map(bar, r));
+  }
+  // after this block's pushes: f(group, sum) for each group it finishes
+  template <typename F>
+  __device__ void finish(int nthreads, F f) {
+    __syncthreads();  // this block's own contributions
+    if (cs > 1) mbar_wait(bar, 0);
+    for (int i = threadIdx.x; i < owned; i += nthreads) {
+      float4 s = recv[i];
+      for (int j = 1; j < cs * srcs; ++j) add4(s, recv[j * slot + i]);
+      f(rank * slot + i, s);
+    }
+  }
+};
+
+// Grid (N / BN, cs) in clusters of (1, cs, 1): block (x, r) covers channels
+// BN x .. and packed rows [r * per * 32, min(K/2, (r + 1) * per * 32)).
+template <int MB, int BN>
+__global__ void __launch_bounds__(kF32Threads, 2) int4_matmul_f32_decode(
+    const float* __restrict__ x, const int8_t* __restrict__ w, const float* __restrict__ scale,
+    float* __restrict__ out, int M, int K, int N, int per, int cs) {
+  using T = F32Decode<MB, BN>;
+  constexpr int kCpt = T::kCpt, kW = T::kWords, kKl = T::kKl, kU = T::kU;
+  extern __shared__ __align__(16) float f32_smem[];
+  float* xs = f32_smem;  // [K of the chunk][MB]: x^T, zeros past M; then the threads' partials
+  __shared__ uint64_t bar;
+  const int tid = threadIdx.x, cl = tid % T::kCl, kl = tid / T::kCl;
+  const int n0 = blockIdx.x * BN;
+  const int rank = blockIdx.y;
+  ClusterSum sum(reinterpret_cast<float4*>(f32_smem + T::kRedFloats), &bar, T::kGroups, cs, rank, T::kSplit);
+  sum.start();
+  const int r_begin = rank * per * (kF32DecodeStepK / 2), r_end = min(K / 2, r_begin + per * (kF32DecodeStepK / 2));
+  const int8_t* wp = w + n0 + cl * kCpt;
+
+  float acc[MB][kCpt];
+#pragma unroll
+  for (int m = 0; m < MB; ++m)
+#pragma unroll
+    for (int c = 0; c < kCpt; ++c) acc[m][c] = 0.f;
+
+  uint32_t wv[kU][kW];
+  // packed rows r, r + kKl, ... r + (kU - 1) kKl below c1: all kU loads at once, in flight together
+  auto load_batch = [&](int r, int c1) {
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int rr = r + u * kKl;
+      if (rr < c1) {
+        load_words<kW>(wv[u], wp + (long long)rr * N);
+      } else {
+#pragma unroll
+        for (int q = 0; q < kW; ++q) wv[u][q] = 0u;
+      }
+    }
+  };
+  for (int c0 = r_begin; c0 < r_end; c0 += T::kXk / 2) {  // chunks of packed rows
+    const int c1 = min(r_end, c0 + T::kXk / 2), nk4 = (c1 - c0) / 2;  // K / 4 of the chunk
+    load_batch(c0 + kl, c1);  // the first weight loads fly while x is staged
+    __syncthreads();          // the last chunk's x is read
+    for (int e = tid; e < MB * 4 * nk4; e += kF32Threads) {  // xs[k][m] = xs[e]: m = e % MB
+      const int m = e % MB, k = e / MB;
+      cp_async4(xs + e, x + (m < M ? (long long)m * K + 2 * c0 + k : 0), m < M);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int r = c0 + kl; r < c1; r += kKl * kU) {
+      if (r != c0 + kl) load_batch(r, c1);
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int rr = r + u * kKl;
+        if (rr >= c1) continue;
+        const float* xe = xs + 2 * (rr - c0) * MB;  // K = 2rr: MB floats, then K = 2rr + 1
+#pragma unroll
+        for (int q = 0; q < kW; ++q) {
+          float lo[4], hi[4];
+          const uint32_t v = wv[u][q], v16 = v >> 16;
+          nibbles<0>(v, v16, lo[0], hi[0]);
+          nibbles<1>(v, v16, lo[1], hi[1]);
+          nibbles<2>(v, v16, lo[2], hi[2]);
+          nibbles<3>(v, v16, lo[3], hi[3]);
+#pragma unroll
+          for (int mq = 0; mq < MB / 4; ++mq) {
+            const float4 a = *reinterpret_cast<const float4*>(xe + 4 * mq);
+            const float4 b = *reinterpret_cast<const float4*>(xe + MB + 4 * mq);
+            const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                acc[4 * mq + i][4 * q + j] = fmaf(bv[i], hi[j], fmaf(av[i], lo[j], acc[4 * mq + i][4 * q + j]));
+          }
+        }
+      }
+    }
+  }
+
+  // the threads' partials, summed over the klanes in order: red[klane][m][q][cl] (16-byte units, so the
+  // lanes of a store hit distinct banks); kSplit threads share a group's klanes, and their sums go to the
+  // cluster's sum as contributions of their own
+  __syncthreads();  // x is read: its memory takes the partials
+  float4* red = reinterpret_cast<float4*>(f32_smem);
+#pragma unroll
+  for (int m = 0; m < MB; ++m)
+#pragma unroll
+    for (int q = 0; q < kW; ++q)
+      red[kl * T::kGroups + m * (BN / 4) + q * T::kCl + cl] =
+          make_float4(acc[m][4 * q], acc[m][4 * q + 1], acc[m][4 * q + 2], acc[m][4 * q + 3]);
+  __syncthreads();
+  constexpr int kPer = kKl / T::kSplit;
+  sum.ready();
+  for (int e = tid; e < T::kGroups * T::kSplit; e += kF32Threads) {
+    const int g = e % T::kGroups, sp = e / T::kGroups;
+    float4 s = red[sp * kPer * T::kGroups + g];
+    for (int i = sp * kPer + 1; i < (sp + 1) * kPer; ++i) add4(s, red[i * T::kGroups + g]);
+    sum.push(g, sp, s);
+  }
+  // group g: token g / (BN / 4), channels 4 (cl kW + q) .. of the block with q kCl + cl = g % (BN / 4)
+  sum.finish(kF32Threads, [&](int g, float4 s) {
+    const int m = g / (BN / 4), n = n0 + 4 * (g % T::kCl * kW + g % (BN / 4) / T::kCl);
+    if (m < M) store_scaled(out + (long long)m * N + n, scale, n, s);
+  });
+}
+
+// Grid (N / (8 TN), ceil(M / 128) * cs) in clusters of (1, cs, 1): block
+// (x, y) covers tokens 128 (y / cs) .., channels 8 TN x .. and K steps
+// [r * per, min(steps, (r + 1) * per)) with r = y % cs; its group g of G
+// takes the steps g, g + G, ... of that range.
+template <int TN, int G>
+__global__ void __launch_bounds__(F32Prefill<TN, G>::kThreads, F32Prefill<TN, G>::kMinBlocks) int4_matmul_f32_prefill(
+    const float* __restrict__ x, const int8_t* __restrict__ w, const float* __restrict__ scale,
+    float* __restrict__ out, int M, int K, int N, int per, int cs) {
+  using T = F32Prefill<TN, G>;
+  constexpr int BN = T::kBn, kJ = TN / 4;  // a thread's channels: 4tx + 32j + c, j < kJ
+  extern __shared__ __align__(16) uint8_t f32p_smem[];
+  const int tid = threadIdx.x, grp = tid / 128, gt = tid % 128, tx = gt % 8, ty = gt / 8, sw = ty & 7;
+  uint8_t* gsm = f32p_smem + grp * T::kGroupSmem;
+  float* xs = reinterpret_cast<float*>(gsm);               // [stage][128][32], unit u of row m at u ^ ((m >> 2) & 7)
+  uint8_t* ws = gsm + T::kWOff;                            // [stage][16][BN] packed bytes
+  float* wf = reinterpret_cast<float*>(gsm + T::kFOff);    // [32][BN] the dequantized step
+  const int n0 = blockIdx.x * BN;
+  const int rank = blockIdx.y % cs, m0 = blockIdx.y / cs * kF32Bm;
+  const int steps = K / kF32Bk, s0 = rank * per, nsteps = max(0, min(per, steps - s0));
+  const int ng = nsteps > grp ? (nsteps - grp + G - 1) / G : 0;  // this group's steps: s0 + grp + G t
+
+  auto issue = [&](int t) {  // the group's step t: x and the packed weight into stage t % kF32Stages
+    if (t < ng) {
+      const int st = t % kF32Stages, k0 = (s0 + grp + G * t) * kF32Bk;
+      float* xd = xs + st * T::kXFloats;
+#pragma unroll
+      for (int i = 0; i < kF32Bm * kF32Bk / 4 / 128; ++i) {
+        const int e = gt + 128 * i, m = e / (kF32Bk / 4), u = e % (kF32Bk / 4);
+        const bool ok = m0 + m < M;
+        cp_async16(xd + m * kF32Bk + 4 * (u ^ ((m >> 2) & 7)), x + (ok ? (long long)(m0 + m) * K + k0 + 4 * u : 0),
+                   ok);
+      }
+      for (int e = gt; e < T::kWBytes / 16; e += 128) {
+        const int pr = e / (BN / 16), c = e % (BN / 16) * 16;
+        cp_async16(ws + st * T::kWBytes + pr * BN + c, w + (long long)(k0 / 2 + pr) * N + n0 + c, true);
+      }
+    }
+    cp_async_commit();  // an empty group past the last step keeps the count of groups simple
+  };
+
+  float acc[8][TN];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  for (int t = 0; t < kF32Stages - 1; ++t) issue(t);
+  for (int t = 0; t < ng; ++t) {
+    cp_async_wait<kF32Stages - 2>();  // step t has landed (this thread's copies) ...
+    named_barrier(1 + grp, 128);      // ... the group's; and step t - 1 is computed: its stage and wf are free
+    issue(t + kF32Stages - 1);
+    {  // dequantize the step once for the group: packed row pr -> K rows 2pr (low nibbles), 2pr + 1
+      const uint8_t* wst = ws + (t % kF32Stages) * T::kWBytes;
+#pragma unroll
+      for (int i = 0; i < T::kWBytes / 4 / 128; ++i) {
+        const int e = gt + 128 * i, pr = e / (BN / 4), c = e % (BN / 4) * 4;
+        const uint32_t v = *reinterpret_cast<const uint32_t*>(wst + pr * BN + c);
+        float lo[4], hi[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          lo[j] = (float)((int)(v << (28 - 8 * j)) >> 28);
+          hi[j] = (float)((int)(v << (24 - 8 * j)) >> 28);
+        }
+        *reinterpret_cast<float4*>(wf + 2 * pr * BN + c) = make_float4(lo[0], lo[1], lo[2], lo[3]);
+        *reinterpret_cast<float4*>(wf + (2 * pr + 1) * BN + c) = make_float4(hi[0], hi[1], hi[2], hi[3]);
+      }
+    }
+    named_barrier(1 + grp, 128);
+    const float* xst = xs + (t % kF32Stages) * T::kXFloats;
+#pragma unroll
+    for (int kq = 0; kq < kF32Bk / 4; ++kq) {  // 4 K at a time
+      float4 a[8];  // token 4ty + (i & 3) + 64 (i >> 2), K 4kq ..
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        a[i] = *reinterpret_cast<const float4*>(xst + (4 * ty + (i & 3) + 64 * (i >> 2)) * kF32Bk + 4 * (kq ^ sw));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float4 b[kJ];  // channels 4tx + 32j .. at K 4kq + kk
+#pragma unroll
+        for (int j = 0; j < kJ; ++j) b[j] = *reinterpret_cast<const float4*>(wf + (4 * kq + kk) * BN + 4 * tx + 32 * j);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float av = kk == 0 ? a[i].x : kk == 1 ? a[i].y : kk == 2 ? a[i].z : a[i].w;
+#pragma unroll
+          for (int j = 0; j < kJ; ++j) {
+            acc[i][4 * j] = fmaf(av, b[j].x, acc[i][4 * j]);
+            acc[i][4 * j + 1] = fmaf(av, b[j].y, acc[i][4 * j + 1]);
+            acc[i][4 * j + 2] = fmaf(av, b[j].z, acc[i][4 * j + 2]);
+            acc[i][4 * j + 3] = fmaf(av, b[j].w, acc[i][4 * j + 3]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // a thread's outputs as float4 units of a 128 x BN tile: (row of i, tx + 8j)
+  auto unit = [&](int i, int j) { return (4 * ty + (i & 3) + 64 * (i >> 2)) * (BN / 4) + tx + 8 * j; };
+  if constexpr (G == 2) {  // group 1 hands its sums to group 0, which adds them after its own
+    __syncthreads();       // both rings are read
+    float4* mrg = reinterpret_cast<float4*>(f32p_smem + T::kGroupSmem);
+    if (grp == 1) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < kJ; ++j)
+          mrg[unit(i, j)] = make_float4(acc[i][4 * j], acc[i][4 * j + 1], acc[i][4 * j + 2], acc[i][4 * j + 3]);
+    }
+    __syncthreads();
+    if (grp == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < kJ; ++j) {
+          const float4 p = mrg[unit(i, j)];
+          acc[i][4 * j] += p.x;
+          acc[i][4 * j + 1] += p.y;
+          acc[i][4 * j + 2] += p.z;
+          acc[i][4 * j + 3] += p.w;
+        }
+    }
+  }
+  if (cs == 1) {
+    if (grp != 0) return;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = m0 + 4 * ty + (i & 3) + 64 * (i >> 2);
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) {
+        const int n = n0 + 4 * tx + 32 * j;
+        const float4 sc = *reinterpret_cast<const float4*>(scale + n);
+        *reinterpret_cast<float4*>(out + (long long)m * N + n) =
+            make_float4(acc[i][4 * j] * sc.x, acc[i][4 * j + 1] * sc.y, acc[i][4 * j + 2] * sc.z,
+                        acc[i][4 * j + 3] * sc.w);
+      }
+    }
+    return;
+  }
+  // the cluster: each block's partial, 128 x BN, in its shared memory; block `rank` finishes the
+  // groups [rank * slot, (rank + 1) * slot), summing the ranks in order
+  __syncthreads();  // the ring is read
+  float4* part = reinterpret_cast<float4*>(f32p_smem);
+  if (grp == 0) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < kJ; ++j)
+        part[unit(i, j)] = make_float4(acc[i][4 * j], acc[i][4 * j + 1], acc[i][4 * j + 2], acc[i][4 * j + 3]);
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  constexpr int kGroups = kF32Bm * BN / 4;
+  const int slot = (kGroups + cs - 1) / cs;
+  for (int g = rank * slot + tid; g < min(kGroups, (rank + 1) * slot); g += T::kThreads) {
+    const int m = m0 + g / (BN / 4), n = n0 + g % (BN / 4) * 4;
+    if (m >= M) continue;
+    float4 s = cluster.map_shared_rank(part, 0)[g];
+    for (int q = 1; q < cs; ++q) add4(s, cluster.map_shared_rank(part, q)[g]);
+    const float4 sc = *reinterpret_cast<const float4*>(scale + n);
+    *reinterpret_cast<float4*>(out + (long long)m * N + n) = make_float4(s.x * sc.x, s.y * sc.y, s.z * sc.z, s.w * sc.w);
+  }
+  cluster.sync();  // no block leaves while another reads its partial
+}
+
+// one launch of `kernel` (its dynamic shared memory already allowed), in clusters of (1, cs, 1) where cs > 1
+template <typename Kernel>
+cudaError_t launch_f32(Kernel kernel, int smem, dim3 grid, int threads, int cs, cudaStream_t stream, const float* x,
+                       const int8_t* w, const float* scale, float* out, int M, int K, int N, int per) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute la[1];
+  la[0].id = cudaLaunchAttributeClusterDimension;
+  la[0].val.clusterDim.x = 1;
+  la[0].val.clusterDim.y = cs;
+  la[0].val.clusterDim.z = 1;
+  cfg.attrs = la;
+  cfg.numAttrs = cs > 1 ? 1 : 0;  // without a split, no cluster
+  return cudaLaunchKernelEx(&cfg, kernel, x, w, scale, out, M, K, N, per, cs);
+}
+
+template <int MB, int BN>
+cudaError_t launch_f32_decode(const float* x, const int8_t* w, const float* scale, float* out, int M, int K, int N,
+                              int cs, int per, cudaStream_t s) {
+  auto* kernel = int4_matmul_f32_decode<MB, BN>;
+  constexpr int kSmem = F32Decode<MB, BN>::kSmem;
+  static const cudaError_t attr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr != cudaSuccess) return attr;
+  return launch_f32(kernel, kSmem, dim3(N / BN, cs), kF32Threads, cs, s, x, w, scale, out, M, K, N, per);
+}
+
+template <int TN, int G>
+cudaError_t launch_f32_prefill(const float* x, const int8_t* w, const float* scale, float* out, int M, int K, int N,
+                               int cs, int per, cudaStream_t s) {
+  using T = F32Prefill<TN, G>;
+  auto* kernel = int4_matmul_f32_prefill<TN, G>;
+  static const cudaError_t attr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (attr != cudaSuccess) return attr;
+  return launch_f32(kernel, T::kSmem, dim3(N / T::kBn, (M + kF32Bm - 1) / kF32Bm * cs), T::kThreads, cs, s, x, w,
+                    scale, out, M, K, N, per);
 }
 
 }  // namespace
 
 // The float32 route: x (M, K) float32, w (K/2, N) int8, scale (N,) float32,
-// out (M, N) float32; K a multiple of 32, N of 64, pointers 16-byte aligned.
-// splits K-splits a tile (each a multiple of 32 K); with splits > 1, ws is a
-// float32 workspace of splits x M x N.
-extern "C" int fangyan_int4_matmul_f32(const void* x, const void* w, const void* scale, void* out, void* ws, int M,
-                                       int K, int N, int splits, void* stream) {
-  if (M < 1 || K < kF32Bk || K % kF32Bk || N < kF32Bn || N % kF32Bn || (M + kF32Bm - 1) / kF32Bm > 65535 ||
-      splits < 1 || splits > 65535 || (splits > 1 && ws == nullptr) ||
-      ((uintptr_t)x | (uintptr_t)w | (uintptr_t)out) % 16)
+// out (M, N) float32, pointers 16-byte aligned; K a multiple of 64, N of
+// tile_n. tile_m 4, 8 or 16 is the decode tile (M <= tile_m, steps of 64 K),
+// 128 the prefill tile (steps of 32 K); tile_n 64 or 128 channels a block;
+// K split over clusters of cs blocks (1-8), `per` steps each.
+extern "C" int fangyan_int4_matmul_f32(const void* x, const void* w, const void* scale, void* out, int M, int K, int N,
+                                       int tile_m, int tile_n, int cs, int per, void* stream) {
+  const bool decode = tile_m == 4 || tile_m == 8 || tile_m == 16;
+  const int step_k = decode ? kF32DecodeStepK : kF32Bk;
+  const int steps = K / step_k;
+  if (!(decode || tile_m == kF32Bm) || (decode && M > tile_m) || (tile_n != 64 && tile_n != 128) ||
+      M < 1 ||
+      K < 64 || K % 64 || N < tile_n || N % tile_n || cs < 1 || cs > kMaxCluster || per < 1 ||
+      (long long)(cs - 1) * per >= steps || (long long)cs * per < steps ||
+      (long long)(M + kF32Bm - 1) / kF32Bm * cs > 65535 ||
+      ((uintptr_t)x | (uintptr_t)w | (uintptr_t)scale | (uintptr_t)out) % 16)
     return (int)cudaErrorInvalidValue;
-  const int steps = K / kF32Bk;
-  const int k_per = (steps + splits - 1) / splits * kF32Bk;
-  if ((long long)(splits - 1) * k_per >= K) return (int)cudaErrorInvalidValue;  // every split has K to sum
+  const float* xf = (const float*)x;
+  const int8_t* wp = (const int8_t*)w;
+  const float* sc = (const float*)scale;
+  float* o = (float*)out;
   const cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid(N / kF32Bn, (M + kF32Bm - 1) / kF32Bm, splits);
-  int4_matmul_f32_kernel<<<grid, kF32Threads, 0, s>>>((const float*)x, (const int8_t*)w, (const float*)scale,
-                                                        (float*)(splits > 1 ? ws : out), M, K, N, k_per);
-  if (splits > 1) {
-    const long long mn = (long long)M * N;
-    int4_matmul_f32_reduce<<<(unsigned)((mn + 255) / 256), 256, 0, s>>>((const float*)ws, (const float*)scale,
-                                                                        (float*)out, M, N, splits);
+  cudaError_t err;
+  if (tile_m == 4) {
+    err = tile_n == 64 ? launch_f32_decode<4, 64>(xf, wp, sc, o, M, K, N, cs, per, s)
+                       : launch_f32_decode<4, 128>(xf, wp, sc, o, M, K, N, cs, per, s);
+  } else if (tile_m == 8) {
+    err = tile_n == 64 ? launch_f32_decode<8, 64>(xf, wp, sc, o, M, K, N, cs, per, s)
+                       : launch_f32_decode<8, 128>(xf, wp, sc, o, M, K, N, cs, per, s);
+  } else if (tile_m == 16) {
+    err = tile_n == 64 ? launch_f32_decode<16, 64>(xf, wp, sc, o, M, K, N, cs, per, s)
+                       : launch_f32_decode<16, 128>(xf, wp, sc, o, M, K, N, cs, per, s);
+  } else {
+    // two groups a block, splitting its K steps, where the blocks do not outnumber the SMs
+    static int sms = 0;
+    if (sms == 0) {
+      int dev = 0;
+      err = cudaGetDevice(&dev);
+      if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (err != cudaSuccess) return (int)err;
+    }
+    const long long blocks = (long long)N / tile_n * ((M + kF32Bm - 1) / kF32Bm) * cs;
+    if (tile_n == 64)
+      err = blocks <= sms ? launch_f32_prefill<8, 2>(xf, wp, sc, o, M, K, N, cs, per, s)
+                          : launch_f32_prefill<8, 1>(xf, wp, sc, o, M, K, N, cs, per, s);
+    else
+      err = blocks <= sms ? launch_f32_prefill<16, 2>(xf, wp, sc, o, M, K, N, cs, per, s)
+                          : launch_f32_prefill<16, 1>(xf, wp, sc, o, M, K, N, cs, per, s);
   }
-  return (int)cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }

@@ -43,7 +43,7 @@ _SIGNATURES = {
     "flash_attention_f32": ("flash_attention", "fangyan_chunk_flash_attention_f32",
                             [_P] * 5 + [_I] * 5 + [_LL] * 9 + [_P]),
     "int4_matmul": ("int4_matmul", "fangyan_int4_matmul", [_P] * 4 + [_I] * 7 + [_P]),
-    "int4_matmul_f32": ("int4_matmul", "fangyan_int4_matmul_f32", [_P] * 5 + [_I] * 4 + [_P]),
+    "int4_matmul_f32": ("int4_matmul", "fangyan_int4_matmul_f32", [_P] * 4 + [_I] * 7 + [_P]),
 }
 
 

@@ -13,12 +13,14 @@ without copies, and writes its output in (B, L, H, D) memory, returned as
 a (B, H, L, D) view. See the source for the design.
 
 Float32 q, k and v take the kernel's float32 route,
-`fangyan_chunk_flash_attention_f32`: a separate tiled SIMT kernel with
-float32 scores, softmax and sums and no tensor cores (so no TF32 rounding),
-with the same masks, strided views and output layout. The Pallas kernel
-computes in float32 and writes q's dtype. The wrapper picks the route by
-the inputs' dtype and counts its launches in `launches_f32`, apart from the
-bf16 route's `launches`.
+`fangyan_chunk_flash_attention_f32`: a SIMT kernel with float32 scores,
+softmax and sums and no tensor cores (so no TF32 rounding), with the same
+masks, strided views and output layout. A block of 128 query rows runs two
+groups of threads over alternate key tiles (8 x 8 register tiles, float4
+operands from shared memory, a cp.async ring) and merges them at the end.
+The Pallas kernel computes in float32 and writes q's dtype. The wrapper
+picks the route by the inputs' dtype and counts its launches in
+`launches_f32`, apart from the bf16 route's `launches`.
 
 The kernel is the custom op `fangyan::chunk_flash_attention`
 (torch.library, registered in Python on the ctypes binding), so that

@@ -17,13 +17,18 @@ output tiles do not fill the card K is split over the blocks of a
 thread-block cluster, which sum their partials through distributed shared
 memory in rank order. See the source for the design.
 
-Float32 x takes the kernel's float32 route, `fangyan_int4_matmul_f32`: a
-separate tiled SIMT kernel (64 x 64 output tiles) with float32 FMAs and no
-tensor cores (so no TF32 rounding) and a float32 result; the Pallas kernel
-writes x's dtype. Where the tiles leave the card idle, K is split
-(`plan_f32`) and a second kernel of the same call sums the partials in
-order. The wrapper picks the route by x's dtype and counts its launches in
-`launches_f32`, apart from the bf16 route's `launches`.
+Float32 x takes the kernel's float32 route, `fangyan_int4_matmul_f32`:
+SIMT kernels with float32 FMAs and no tensor cores (so no TF32 rounding)
+and a float32 result; the Pallas kernel writes x's dtype. One launch a
+call (`plan_f32`), of one of two tiles: up to M = 16 a decode tile that
+streams the packed weight through registers (each byte read once,
+dequantized in registers) against x staged in shared memory, above it a
+register-blocked GEMM tile (8 x 8 or 8 x 16 outputs a thread) on a
+cp.async ring. Both split K over a thread-block cluster where the output
+tiles leave SMs idle and sum the partials in rank order through
+distributed shared memory, in the same launch. The wrapper picks the
+route by x's dtype and counts its launches in `launches_f32`, apart from
+the bf16 route's `launches`.
 
 `int4_matmul` launches the kernel for CUDA tensors and runs
 `int4_matmul_plain` (ops/quant.int4_dot) for CPU tensors; there is no
@@ -80,17 +85,45 @@ def plan(m: int, k: int, n: int, sms: int) -> tuple[int, int, int, int]:
     return tile_m, tile_n, -(-steps // per), per
 
 
-F32_TILE = 64  # the float32 route's output tile (tokens and channels)
-F32_STEP_K = 32  # its K step
-F32_MIN_STEPS = 4  # K steps a split takes at least
+F32_DECODE_M = (4, 8, 16)  # the float32 decode tile's token buckets: M up to 16 takes the smallest that holds it
+F32_PREFILL_M = 128  # the float32 prefill tile's tokens a block, above 16
+F32_STEP_K = {4: 64, 8: 64, 16: 64, F32_PREFILL_M: 32}  # K a step, by tile_m
+F32_TILE_N = (128, 64)  # output channels a float32 block covers
+F32_BLOCKS_PER_SM = 2  # blocks of the decode tile an SM holds
+F32_STEP_COST = 2  # a prefill block's fixed cost (ring fill, partial sum, store) in steps
 
 
-def plan_f32(m: int, k: int, n: int, sms: int) -> int:
-    """K-splits a tile of the float32 route: enough for about two blocks an
-    SM where the output tiles alone leave it idle, each split at least
-    F32_MIN_STEPS steps of K."""
-    tiles = -(-m // F32_TILE) * (n // F32_TILE)
-    return max(1, min(-(-2 * sms // tiles), k // F32_STEP_K // F32_MIN_STEPS))
+def plan_f32(m: int, k: int, n: int, sms: int) -> tuple[int, int, int, int]:
+    """(tile_m, channels a block covers, cluster size, K steps a cluster
+    block sums) of the float32 route for an (m, k, n) product on a card of
+    `sms` streaming multiprocessors, in one launch, in the shape of `plan`.
+
+    Up to m = 16 the decode tile, tile_m the smallest of F32_DECODE_M that
+    holds m; above, the prefill tile of F32_PREFILL_M tokens. A block
+    covers 128 channels, or 64 where blocks of 128 split over whole
+    clusters would still leave SMs idle (down_proj's N = 896). K is split
+    over a cluster of up to MAX_CLUSTER blocks where the output tiles leave
+    SMs idle: at decode as many as keep every block resident at once
+    (F32_BLOCKS_PER_SM an SM); at prefill the cluster size that finishes
+    soonest when each SM works through ceil(blocks / sms) blocks of `per` +
+    F32_STEP_COST steps, so a split wins only where the output tiles leave
+    SMs idle in their last round. (Where the prefill blocks do not
+    outnumber the SMs, the kernel gives each block two groups of threads
+    that share its steps.) K goes in steps of F32_STEP_K[tile_m]."""
+    tile_m = next(b for b in F32_DECODE_M if m <= b) if m <= F32_DECODE_M[-1] else F32_PREFILL_M
+    steps = k // F32_STEP_K[tile_m]
+    token_tiles = -(-m // tile_m)
+    resident = F32_BLOCKS_PER_SM * sms
+    wide, narrow = F32_TILE_N
+    tile_n = wide if n % wide == 0 and n // wide * token_tiles * min(MAX_CLUSTER, steps) >= resident else narrow
+    tiles = n // tile_n * token_tiles
+    if tile_m != F32_PREFILL_M:
+        cs = max(1, min(MAX_CLUSTER, steps, resident // tiles))
+    else:
+        cs = min(range(1, min(MAX_CLUSTER, steps) + 1),
+                 key=lambda c: (-(-tiles * c // sms) * (-(-steps // c) + F32_STEP_COST), c))
+    per = -(-steps // cs)
+    return tile_m, tile_n, -(-steps // per), per
 
 
 def _check(x, w_packed, scale):
@@ -135,10 +168,7 @@ def int4_matmul(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor) ->
     global launches, launches_f32
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     if x.dtype == torch.float32:
-        splits = plan_f32(m, k, n, sms)
-        ws = torch.empty((splits, m, n), dtype=torch.float32, device=x.device) if splits > 1 else None
-        _build.check(entry, _build.load(entry)(x.data_ptr(), w_packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                                               None if ws is None else ws.data_ptr(), m, k, n, splits, stream))
+        _build.check(entry, _build.load(entry)(*args, *plan_f32(m, k, n, sms), stream))
         launches_f32 += 1
     else:
         _build.check(entry, _build.load(entry)(*args, *plan(m, k, n, sms), stream))

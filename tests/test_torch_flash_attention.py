@@ -60,6 +60,30 @@ def test_strided_views_equal_contiguous(chunk, l, mel):
     np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
+@pytest.mark.parametrize("chunk", [0, 50])
+@pytest.mark.parametrize("l,mel", [(129, (129, 0, 77)), (300, (300, 0, 173))])
+def test_plain_matches_pallas_at_f32_tile_edges(l, mel, chunk):
+    """The function the CUDA float32 route is held to on the card
+    (chunk_flash_attention_plain in float32) against the Pallas kernel in
+    interpret mode, float32, at lengths that cross the route's 128-row query
+    block (L = 129: one row past it; L = 300: a 50-frame chunk boundary,
+    row 150, inside the second block) with ragged mel_len including 0. The
+    file's contract: atol 2e-5, rtol 1e-4 on the valid rows; every value
+    finite."""
+    rng = np.random.default_rng(l + chunk)
+    b, h, d = len(mel), 2, 64
+    q, k, v = [(rng.standard_normal((b, h, l, d)) * 0.5).astype(np.float32) for _ in range(3)]
+    mel_len = np.asarray(mel, np.int32)
+    got = tfa.chunk_flash_attention_plain(*(torch.from_numpy(a) for a in (q, k, v)), torch.from_numpy(mel_len),
+                                          chunk).numpy()
+    jq, jk, jv, jm = (jnp.asarray(a) for a in (q, k, v, mel_len))
+    pallas = np.asarray(chunk_flash_attention(jq, jk, jv, jm, chunk=chunk, block_q=64, block_k=64, interpret=True))
+    for bi in range(b):
+        n = mel[bi]
+        np.testing.assert_allclose(got[bi, :, :n], pallas[bi, :, :n], atol=2e-5, rtol=1e-4)
+    assert got.dtype == np.float32 and np.isfinite(got).all()
+
+
 def test_cpu_calls_do_not_count_as_launches():
     x = torch.zeros((1, 1, 8, 64))
     before = tfa.launches

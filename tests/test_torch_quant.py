@@ -147,6 +147,58 @@ def test_int4_plan_routes(m, tile_m):
             assert (cs == 1) if n == 9728 else (cs >= 7)
 
 
+F32_SHAPES = [(896, 9728), (4864, 896)]  # gate_up_proj, down_proj
+
+
+def _f32_kernel_accepts(m, k, n, tile_m, tile_n, cs, per) -> bool:
+    """csrc/int4_matmul.cu fangyan_int4_matmul_f32's own argument checks."""
+    decode = tile_m in ti4.F32_DECODE_M
+    steps = k // ti4.F32_STEP_K[tile_m]
+    return ((decode or tile_m == ti4.F32_PREFILL_M) and not (decode and m > tile_m) and tile_n in (64, 128)
+            and m >= 1 and k >= 64 and k % 64 == 0 and n >= tile_n and n % tile_n == 0
+            and 1 <= cs <= ti4.MAX_CLUSTER and per >= 1 and (cs - 1) * per < steps <= cs * per
+            and -(-m // ti4.F32_PREFILL_M) * cs <= 65535)
+
+
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 100, 128])
+@pytest.mark.parametrize("k, n", F32_SHAPES)
+def test_int4_plan_f32_covers_k(m, k, n):
+    """The float32 route's plan, at the shapes phase 3 of chip_smoke.py
+    checks, on a card of 8 and of 132 SMs: it meets the kernel's argument
+    checks in one launch; the cluster's K ranges cover every step exactly
+    once, none empty, with at most MAX_CLUSTER blocks; K is split only where
+    the output tiles leave SMs idle (the decode tile: fewer tiles than
+    resident blocks; the prefill tile: a last round of tiles that does not
+    fill every SM)."""
+    for sms in (8, 132):
+        tile_m, tile_n, cs, per = ti4.plan_f32(m, k, n, sms)
+        assert _f32_kernel_accepts(m, k, n, tile_m, tile_n, cs, per)
+        steps = k // ti4.F32_STEP_K[tile_m]
+        ranges = [range(r * per, min((r + 1) * per, steps)) for r in range(cs)]
+        assert all(len(r) > 0 for r in ranges)  # no block of the cluster idles
+        assert [s for r in ranges for s in r] == list(range(steps))
+        tiles = n // tile_n * -(-m // tile_m)
+        if cs > 1 and tile_m in ti4.F32_DECODE_M:
+            assert tiles < ti4.F32_BLOCKS_PER_SM * sms
+        elif cs > 1:
+            assert -(-tiles // sms) * sms > tiles
+
+
+@pytest.mark.parametrize("m, tile_m", [(1, 4), (4, 4), (5, 8), (8, 8), (9, 16), (16, 16), (17, 128), (100, 128),
+                                       (128, 128), (2048, 128)])
+def test_int4_plan_f32_routes(m, tile_m):
+    """M up to 16 takes the decode tile in the smallest bucket that holds
+    it (every row a real token), above it the 128-token prefill tile; at the
+    float32 batch's shapes on 132 SMs the decode tile covers 128 channels of
+    gate_up_proj (76 tiles, K split over 3) and 64 of down_proj (14 tiles, K
+    split over 8)."""
+    for k, n in F32_SHAPES:
+        got, tile_n, cs, per = ti4.plan_f32(m, k, n, 132)
+        assert got == tile_m
+        if m <= 16:
+            assert (tile_n, cs) == ((128, 3) if n == 9728 else (64, 8))
+
+
 def test_quantize_dit_state_equals_jax():
     t = jnp.zeros((1, 8), jnp.int32)
     p = np_params(CausalMaskedDiffWithDiT(JC.flow), 1, t, jnp.asarray([8]), jnp.zeros((1, 16, 80)),

@@ -51,8 +51,9 @@ Phases:
      1 KV head)
   4. a small model on the card against the same weights on the CPU
      (plain versions), bf16 and then int8 LLM + int4 MLP + int8 DiT; then
-     at full CosyVoice3-0.5B width with random weights: three requests
-     through CosyVoice3TTS.tts (bf16), and two batched requests of 16
+     at CosyVoice3-0.5B's full width (full_config's depth) with random
+     weights: three requests through CosyVoice3TTS.tts (bf16), and two
+     batched requests of 16
      through batch_synthesize, (a) in the int8 LLM mode and (b) in the
      int8 + int4 MLP + int8 DiT mode; the kernel launch counts are set to
      0 before each run and read after it, and each run fails if it
@@ -67,8 +68,8 @@ Phases:
      cache and in the int4 MLP mode: tokens equal, mel, wav and logits
      within F32_REL_TOL), one full-width float32 request through
      `python -m fangyan_tts_torch.runtime.offline_inference --no-fp16` on
-     the model directory (flash on its float32 route, 220 a flow call;
-     decode 24 a step on the bf16 cache), and a full-width float32 batch in
+     the model directory (flash on its float32 route, n_timesteps x depth
+     a flow call; decode one a layer and step on the bf16 cache), and a full-width float32 batch in
      the int4 MLP mode on a float32 KV cache (all three float32 routes,
      launches counted)
   5. the flow and vocoder stages under torch.profiler, for the 150-token
@@ -104,20 +105,22 @@ Phases:
      this process on 127.0.0.1 with phase 4's model directory and
      --batched_streams 4, four concurrent /inference_zero_shot clients
      through runtime/http_client (well-formed int16 PCM each); every run's
-     decode launches 24 a scheduler step, its flash launches 220 a flow
-     call, its hops those its token counts imply, and every shape held to
+     decode launches one a layer and scheduler step, its flash launches
+     n_timesteps x depth a flow call, its hops those its token counts imply, and every shape held to
      phase 3's checks
   10. the CosyVoice2 and CosyVoice1 families with random weights: small v2
      (bf16, then float32 with its logits on a float32 KV cache) and v1
      (float32) models on the card against the CPU; then
-     CosyVoice2-0.5B in bf16: the 150-token bench request through
+     CosyVoice2-0.5B's widths (its LM at FULL_LLM_LAYERS layers) in bf16:
+     the 150-token bench request through
      CosyVoice2TTS.tts (one run, then its stages under torch.profiler), a
      200-token stream, a v2 model directory written by
      the port through AutoModel(dir).inference_zero_shot with phase 4's 5 s
      prompt, and four greedy decodes through a width-4 LLMScheduler against
      their solo decodes; then CosyVoice-300M in float32: one offline request
      of 300 speech tokens and one stream, through the byte tokenizer. Every
-     v2 run's decode launches are 24 a decode step and its shapes held to
+     v2 run's decode launches are one a layer and decode step and its
+     shapes held to
      phase 3's checks (phase 3 works the v2 caches out from
      infer/tts_v12.v2_decode_buckets); every v1 run launches no kernel
   11. data prep stages 0-4 at bench.py's full width (bench_data_prep: 128
@@ -139,8 +142,9 @@ Phases:
   12. training: one LM train step on the card in bf16 against the same step
      on the CPU in float32 (small model, same weights and batch), and one
      flow step in float32 on both with the same draws: loss and grad_norm;
-     bench.py's bench_train at full width: the CosyVoice3-0.5B LM (remat
-     "full", bf16 compute, float32 parameters and Adam, accum 2 x (8 x 256)),
+     bench.py's bench_train at full width: the CosyVoice3-0.5B LM at
+     full_config's depth (remat "full", bf16 compute, float32 parameters
+     and Adam, accum 2 x (8 x 256)),
      a warm-up and four timed steps (ms a step, tokens/s, peak memory, each
      step's loss), one step under torch.profiler, the same at accum 2 x
      (64 x 256) (bench.py's max-throughput point), one step with remat off
@@ -155,23 +159,24 @@ Phases:
      inference_zero_shot; the training launches no kernel of the port
   13. the rest of training: small models card against CPU (each GAN turn
      in float32, a DPO step and a GRPO update in bf16 against float32 on the
-     CPU); at full width the vocoder's GAN turns (CosyVoiceConfig().hift and
+     CPU); at full width the vocoder's GAN turns (full_config().hift and
      the full MultipleDiscriminator, float32, on one batch of 38 crops of
      24,960 samples as the recipe's pipeline gives it: ms a turn, peak
      memory, one turn of each under torch.profiler) and a DPO step of the
-     CosyVoice3-0.5B LM with a frozen copy (8 pairs x 256 tokens: ms,
-     tokens/s, peak); these steps launch no kernel; then
+     CosyVoice3-0.5B LM (full_config) with a frozen copy (8 pairs x 256
+     tokens: ms, tokens/s, peak); these steps launch no kernel; then
      `python -m fangyan_tts_torch.cli.grpo_train` at its defaults (4
      prompts x 8 rollouts, echo reward) for one iteration on phase 4's
      model directory (a fresh one without phase 4), each iteration's wall
      split into rollouts, token2wav and update, its decode launches held to
-     24 a decode step and the steps to what the rollouts' lengths imply,
-     its flash launches to 220 a token2mel call, none in the update, every
+     one a layer and decode step and the steps to what the rollouts'
+     lengths imply, its flash launches to n_timesteps x depth a token2mel
+     call, none in the update, every
      shape held to phase 3's checks; and `python -m
      fangyan_tts_torch.cli.train_gan` for one epoch on phase 11's corpus,
      its generator checkpoint loaded as AutoModel loads a vocoder and run on
      one mel
-  14. dataset generation and evaluation at full width (CosyVoice3-0.5B,
+  14. dataset generation and evaluation at full width (full_config,
      random weights, bf16 as the CLIs load it) on phase 4's model directory
      and 5 s prompt, within DG_PHASE_LIMIT_S: `cli.generate_dialect_dataset
      --backend cuda --mode hunan` on a 24-line transcript and an 8-line
@@ -188,7 +193,7 @@ Phases:
      run's launches counted and its shapes held to phase 3's checks
   15. export, the recipe and the subsampling layers: (a) `python -m
      fangyan_tts_torch.cli.export --check` on the full-width model directory
-     (CosyVoice3-0.5B, bf16, --n_tokens EXPORT_TOKENS), its export times,
+     (full_config, bf16, --n_tokens EXPORT_TOKENS), its export times,
      sizes, launches and shapes recorded; the three .pt2 programs loaded in
      a fresh process that imports only the port, run on the card and held
      to eager (the loaded flow_solve launches the flash kernel n_timesteps x
@@ -317,9 +322,10 @@ DP_BATCH, DP_SHARD = 64, 64
 DP_CHECK_SECONDS = (5, 10, 20, 30)
 DP_ROUTE_ATOL = 1e-5
 
-# Training (phase 12). bench.py's bench_train (bench.py:323-378): CosyVoice3-0.5B's LM with remat "full", bf16
-# compute, float32 parameters and Adam, accum 2 microbatches of 8 x 256 tokens, a warm-up step and TRAIN_STEPS
-# timed ones; the DiT flow (1024 x 22, float32) on 4 x 200 mel frames, a warm-up and FLOW_STEPS timed steps. The
+# Training (phase 12). bench.py's bench_train (bench.py:323-378): CosyVoice3-0.5B's LM (full_config) with remat
+# "full", bf16 compute, float32 parameters and Adam, accum 2 microbatches of 8 x 256 tokens, a warm-up step and
+# TRAIN_STEPS timed ones; the DiT flow (dim 1024 at full_config's depth, float32) on 4 x 200 mel frames, a warm-up
+# and FLOW_STEPS timed steps. The
 # small models' train steps on the card against the CPU: the LM in bf16 against float32 within SMALL_REL_TOL,
 # the flow float32 on both within FLOW_TRAIN_REL_TOL (TF32 off). The CLIs train one epoch each on phase 11's
 # corpus (shard 0 the train list, shard 1 the CV list) with a step checkpoint every TRAIN_SAVE_PER_STEP steps.
@@ -379,6 +385,13 @@ EXPORT_TOKENS = 256
 RECIPE_UTTS, RECIPE_EPOCHS = 12, 5
 SUB_REL_TOL = 1e-4
 
+# The full-width models (CosyVoice3-0.5B, and CosyVoice2-0.5B's LM in phase 10) run at every published width and a
+# cut depth (full_config): FULL_LLM_LAYERS of the Qwen LM's 24 layers and FULL_DIT_DEPTH of the DiT's 22 blocks.
+# Most phases are host-bound (a decode step's launches, the export's trace), and at full depth the whole script took
+# 1,087.5 s on an H100 80GB HBM3 at 700 W, phase 14 116.7 s of it, and phase 14 158.7 s on a host whose decode
+# steps took 1.3-1.4 x as long.
+FULL_LLM_LAYERS, FULL_DIT_DEPTH = 6, 6
+
 CARDS_USED = 1  # every phase runs on card 0
 PORT_KERNELS = ("decode_attention", "flash_attention", "int4_matmul")  # kernel names the profile reports
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -386,6 +399,18 @@ BF16_FLOP_PER_S = 989e12
 
 
 _START = time.perf_counter()
+
+
+def full_config():
+    """CosyVoiceConfig() with FULL_LLM_LAYERS Qwen layers and FULL_DIT_DEPTH
+    DiT blocks; every width, vocabulary and head count as published."""
+    from dataclasses import replace
+
+    from fangyan_tts_torch.config import CosyVoiceConfig
+
+    cfg = CosyVoiceConfig()
+    return replace(cfg, llm=replace(cfg.llm, qwen=replace(cfg.llm.qwen, num_hidden_layers=FULL_LLM_LAYERS)),
+                   flow=replace(cfg.flow, dit=replace(cfg.flow.dit, depth=FULL_DIT_DEPTH)))
 
 
 def log(msg: str, stamp: bool = True) -> None:
@@ -509,10 +534,9 @@ def batch_shapes(req: dict) -> dict:
     own buckets (infer/tts.batch_buckets): B rows, a prefill of B x tp rows,
     the cache length, and the flow length of the longest row (the requests'
     min and max ratios are equal, so every row stops at its max length)."""
-    from fangyan_tts_torch.config import CosyVoiceConfig
     from fangyan_tts_torch.infer.tts import batch_buckets
 
-    cfg = CosyVoiceConfig()
+    cfg = full_config()
     texts, ratio = req["texts"], req["max_token_text_ratio"]
     _, tp, _, cache_len = batch_buckets(cfg.llm, texts, req.get("prompt_text", np.zeros(0, np.int32)),
                                         req.get("llm_prompt_speech_token", np.zeros(0, np.int32)), ratio)
@@ -532,12 +556,11 @@ def api_request_spec() -> dict:
     times 2 mel frames a token."""
     import warnings
 
-    from fangyan_tts_torch.config import CosyVoiceConfig
     from fangyan_tts_torch.data.lm_plan import build_prompt_plan
     from fangyan_tts_torch.infer.frontend import Frontend
     from fangyan_tts_torch.tokenizer import get_qwen_tokenizer
 
-    cfg = CosyVoiceConfig()
+    cfg = full_config()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         fe = Frontend(get_qwen_tokenizer(None, True, "cosyvoice3"), cfg, device="cpu")
@@ -587,10 +610,9 @@ def stream_shapes(api: dict) -> dict:
     valid slot, and the bistream cache; the flash window lengths (P + W) * 2
     for the prompt lengths the streams take (none, S3's 60, the API's),
     each the CFG pair with every frame valid."""
-    from fangyan_tts_torch.config import CosyVoiceConfig
     from fangyan_tts_torch.infer.tts import stream_buckets
 
-    cfg = CosyVoiceConfig()
+    cfg = full_config()
     decode = []
     reqs, _ = stream_requests_spec()
     zeros = np.zeros(0, np.int32)
@@ -617,13 +639,12 @@ def serving_spec(api: dict) -> dict:
     from the byte tokenizer and text_normalize, as the API request's do."""
     import warnings
 
-    from fangyan_tts_torch.config import CosyVoiceConfig
     from fangyan_tts_torch.infer.batch_stream import flow_shapes
     from fangyan_tts_torch.infer.frontend import Frontend
     from fangyan_tts_torch.infer.tts import stream_buckets
     from fangyan_tts_torch.tokenizer import get_qwen_tokenizer
 
-    cfg = CosyVoiceConfig()
+    cfg = full_config()
     zeros = np.zeros(0, np.int32)
     decode = set()
     for width in SERVE_WIDTHS:
@@ -683,7 +704,7 @@ def check_decode_rows(results: dict, serving: dict) -> None:
 
     from fangyan_tts_torch.ops import decode_attention as da
 
-    nl, kv, hd, qh = 24, 2, 64, 14
+    nl, kv, hd, qh = FULL_LLM_LAYERS, 2, 64, 14
     gen = torch.Generator(device="cuda").manual_seed(3)
     for b, s, tp in serving["decode"]:
         idx_list, starts = serving_decode_rows(b, s, tp, kv)
@@ -721,7 +742,7 @@ def check_decode(results: dict, batches: list[dict], api: dict, stream: dict, se
 
     from fangyan_tts_torch.ops import decode_attention as da
 
-    nl, kv, hd, qh = 24, 2, 64, 14
+    nl, kv, hd, qh = FULL_LLM_LAYERS, 2, 64, 14
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
@@ -760,7 +781,7 @@ def check_decode(results: dict, batches: list[dict], api: dict, stream: dict, se
             shapes.append((1, r["cache_len"], [r["last"]], [r["start"]], "phase 15 recipe " + r["label"],
                            ex["recipe"]["decode_dims"]))
     for b, s, idx_list, starts, *label in shapes:
-        nl, kv, qh = label.pop() if len(label) > 1 else (24, 2, 14)  # (layers, KV heads, query heads)
+        nl, kv, qh = label.pop() if len(label) > 1 else (FULL_LLM_LAYERS, 2, 14)  # (layers, KV heads, query heads)
         _checked(results, "decode_attention", (b, s))
         rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
         q = (torch.randn((b, qh, hd), generator=gen, device=dev) * QK_SCALE).to(torch.bfloat16)
@@ -1174,12 +1195,11 @@ def full_path(results: dict, card: str):
     """The three single offline requests through CosyVoice3TTS.tts, bf16."""
     import torch
 
-    from fangyan_tts_torch.config import CosyVoiceConfig
     from fangyan_tts_torch.infer.tts import CosyVoice3TTS
     from fangyan_tts_torch.ops import decode_attention as da
     from fangyan_tts_torch.ops import flash_attention as fa
 
-    cfg = CosyVoiceConfig()
+    cfg = full_config()
     t0 = time.perf_counter()
     tts = CosyVoice3TTS.random_init(cfg, dtype=torch.bfloat16)
     torch.cuda.synchronize()
@@ -1333,11 +1353,10 @@ def api_request(results: dict, card: str, d, api: dict, key: str = "api_request"
     import torch
 
     from fangyan_tts_torch.api import AutoModel
-    from fangyan_tts_torch.config import CosyVoiceConfig
     from fangyan_tts_torch.ops import decode_attention as da
     from fangyan_tts_torch.ops import flash_attention as fa
 
-    cfg = CosyVoiceConfig()
+    cfg = full_config()
     t0 = time.perf_counter()
     model = AutoModel(str(d))
     torch.cuda.synchronize()
@@ -1401,7 +1420,6 @@ def frontend_phase(results: dict, card: str, states: tuple[dict, dict]) -> None:
 
     import torch
 
-    from fangyan_tts_torch.config import CosyVoiceConfig
     from fangyan_tts_torch.data.audio import resample_poly
     from fangyan_tts_torch.infer.frontend import Frontend, _pad_bucket, make_campplus_fn, make_s3_fn
     from fangyan_tts_torch.infer.tts import _load
@@ -1419,7 +1437,7 @@ def frontend_phase(results: dict, card: str, states: tuple[dict, dict]) -> None:
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         tok = get_qwen_tokenizer(None, True, "cosyvoice3")
-    fe = Frontend(tok, CosyVoiceConfig(), make_campplus_fn(to_jax_tree(camp_sd, skels[0])),
+    fe = Frontend(tok, full_config(), make_campplus_fn(to_jax_tree(camp_sd, skels[0])),
                   make_s3_fn(to_jax_tree(s3_sd, skels[1])))  # bf16 on the card, as the API builds them
     audio = prompt_audio(30.0, 16000, seed=3)
     rows = []
@@ -1489,13 +1507,12 @@ def batched_requests(results: dict, card: str) -> dict:
     first-use costs at these shapes); launches are counted on each run."""
     import torch
 
-    from fangyan_tts_torch.config import CosyVoiceConfig
     from fangyan_tts_torch.infer.tts import CosyVoice3TTS, suppress_silent_runs
     from fangyan_tts_torch.ops import decode_attention as da
     from fangyan_tts_torch.ops import flash_attention as fa
     from fangyan_tts_torch.ops import int4_matmul as i4
 
-    cfg = CosyVoiceConfig()
+    cfg = full_config()
     nl, depth, nt = cfg.llm.qwen.num_hidden_layers, cfg.flow.dit.depth, cfg.flow.n_timesteps
     req_a, req_b = batch_requests_spec()
     out = {}
@@ -1883,8 +1900,9 @@ def _group_counts(sched) -> tuple[int, int]:
 def serving_counted(results: dict, label: str, cfg, lsched, sched, run):
     """`run()` with the kernel launch counts set to 0 just before it and read
     just after, its kernel shapes held to phase 3's checks. The decode
-    launches must be 24 a step of the LLMScheduler's chunks, the flash
-    launches 22 x 10 a flow call of the StreamScheduler's groups. Returns
+    launches must be one a layer and step of the LLMScheduler's chunks,
+    the flash launches depth x n_timesteps a flow call of the
+    StreamScheduler's groups. Returns
     (run's result, the run's counts)."""
     from fangyan_tts_torch.ops import decode_attention as da
     from fangyan_tts_torch.ops import flash_attention as fa
@@ -2271,11 +2289,10 @@ def serving_phase(results: dict, card: str, model_dir, api: dict, serving: dict)
     each of SERVE_WIDTHS, (c) batched against solo, (b) the HTTP server."""
     import torch
 
-    from fangyan_tts_torch.config import CosyVoiceConfig
     from fangyan_tts_torch.infer.tts import CosyVoice3TTS
 
     t0 = time.perf_counter()
-    tts = CosyVoice3TTS.random_init(CosyVoiceConfig(), dtype=torch.bfloat16, seed=9)
+    tts = CosyVoice3TTS.random_init(full_config(), dtype=torch.bfloat16, seed=9)
     log(f"phase 9 model: random_init in {time.perf_counter() - t0:.2f} s")
     out = results.setdefault("serving", {})
     for c in SERVE_WIDTHS:
@@ -2467,8 +2484,8 @@ def v12_small_check() -> None:
 def v2_offline(results: dict, card: str, tts) -> dict:
     """The bench workload through CosyVoice2TTS.tts(stream=False): 30 text
     tokens, exactly 150 speech tokens (min = max ratio 5), no prompt; a
-    warm-up run, then the timed one. Launches held to 24 a decode step, no
-    other kernel."""
+    warm-up run, then the timed one. Launches held to one a layer and decode
+    step, no other kernel."""
     rng = np.random.default_rng(10)
     req = dict(text=rng.integers(0, 50000, V2_TEXT_TOKENS).astype(np.int32),
                flow_embedding=rng.standard_normal(192).astype(np.float32),
@@ -2493,7 +2510,8 @@ def v2_offline(results: dict, card: str, tts) -> dict:
         audio_s = len(wav) / 24000
         ok = (np.isfinite(wav).all() and np.abs(wav).max() <= 0.99 and len(wav) == mel_frames[-1] * 480
               and n_tokens[-1] == int(V2_TEXT_TOKENS * V2_RATIO) and steps[0] > 0
-              and counts == {"decode_attention": 24 * steps[0], "chunk_flash_attention": 0, "int4_matmul": 0})
+              and counts == {"decode_attention": FULL_LLM_LAYERS * steps[0], "chunk_flash_attention": 0,
+                              "int4_matmul": 0})
         out = dict(tokens=n_tokens[-1], steps=steps[0], mel_frames=mel_frames[-1], audio_s=audio_s,
                    llm_s=stage["llm"], ms_per_step=stage["llm"] / steps[0] * 1e3, flow_s=stage["flow"],
                    vocoder_s=stage["vocoder"], wall_s=wall, rtf=wall / audio_s, launches=counts)
@@ -2552,7 +2570,8 @@ def v2_stream(results: dict, card: str, tts) -> dict:
         _count(results, counts)
         audio_s = n / 24000
         ok = (finite and chunks == want_chunks and n == n_tok * 2 * 480 and steps[0] > 0
-              and counts == {"decode_attention": 24 * steps[0], "chunk_flash_attention": 0, "int4_matmul": 0})
+              and counts == {"decode_attention": FULL_LLM_LAYERS * steps[0], "chunk_flash_attention": 0,
+                              "int4_matmul": 0})
         rest = wall - stage["flow"] - stage["vocoder"]
         out = dict(tokens=n_tok, chunks=chunks, steps=steps[0], first_ms=first * 1e3, wall_s=wall,
                    audio_s=audio_s, rtf=wall / audio_s, flow_s=stage["flow"], vocoder_s=stage["vocoder"],
@@ -2593,7 +2612,8 @@ def v2_api_request(results: dict, card: str, d, api: dict) -> dict:
     audio_s = len(wav) / 24000
     ok = (isinstance(model, CosyVoice2) and model.model.dtype == torch.bfloat16 and len(outs) == 1
           and np.isfinite(wav).all() and np.abs(wav).max() <= 0.99 and len(wav) % 960 == 0 and steps[0] > 0
-          and counts == {"decode_attention": 24 * steps[0], "chunk_flash_attention": 0, "int4_matmul": 0})
+          and counts == {"decode_attention": FULL_LLM_LAYERS * steps[0], "chunk_flash_attention": 0,
+                          "int4_matmul": 0})
     log(f"v2 API request: AutoModel load {load_s:.2f} s ({type(model).__name__}, {model.model.dtype}); "
         f"inference_zero_shot: {steps[0]} decode steps, {audio_s:.2f} s audio, wall {wall:.3f} s, "
         f"RTF {wall / audio_s:.4f}; launches {counts} [{card}] {'OK' if ok else 'FAIL'}")
@@ -2668,8 +2688,9 @@ def v1_runs(results: dict, card: str) -> dict:
 
 def v12_phase(results: dict, card: str, states: tuple[dict, dict], api: dict) -> None:
     """Phase 10 at full width, random weights: the small-model checks, then
-    CosyVoice2-0.5B in bf16 (offline, streamed, through the API, through a
-    width-4 LLMScheduler) and CosyVoice-300M in float32 (offline, streamed)."""
+    CosyVoice2-0.5B's widths, its LM at FULL_LLM_LAYERS layers, in bf16
+    (offline, streamed, through the API, through a width-4 LLMScheduler)
+    and CosyVoice-300M in float32 (offline, streamed)."""
     from dataclasses import replace
 
     import torch
@@ -2680,8 +2701,9 @@ def v12_phase(results: dict, card: str, states: tuple[dict, dict], api: dict) ->
     v12_small_check()
     out = results.setdefault("v12", {})
     cfg = cosyvoice2_config()
+    cfg = replace(cfg, llm=replace(cfg.llm, qwen=replace(cfg.llm.qwen, num_hidden_layers=FULL_LLM_LAYERS)))
     t0 = time.perf_counter()
-    tts = CosyVoice2TTS.random_init(v2_llm_config(), {}, cfg.hift, dtype=torch.bfloat16, seed=11)
+    tts = CosyVoice2TTS.random_init(v2_llm_config(cfg.llm.qwen), {}, cfg.hift, dtype=torch.bfloat16, seed=11)
     torch.cuda.synchronize()
     log(f"v2 random_init at full width (bf16, cuda): {time.perf_counter() - t0:.2f} s")
     out["v2_offline"] = v2_offline(results, card, tts)
@@ -2764,10 +2786,9 @@ class _Bytes:
 def dp_stage4(list_path) -> int:
     """Stage 4: the training pipeline (data/dataset.build_pipeline, llm mode)
     yields a collated LLM batch from the shards; returns its rows."""
-    from fangyan_tts_torch.config import CosyVoiceConfig
     from fangyan_tts_torch.data.dataset import build_pipeline
 
-    it = build_pipeline(str(list_path), _Bytes(), None, mode="llm", llm_cfg=CosyVoiceConfig().llm,
+    it = build_pipeline(str(list_path), _Bytes(), None, mode="llm", llm_cfg=full_config().llm,
                         shuffle_size=64, sort_size=32)
     batch = next(iter(it))
     ids = batch["ids"]
@@ -3059,7 +3080,7 @@ def _train_cfgs():
     llm = LLMConfig(llm_input_size=128, llm_output_size=128, speech_token_size=50, extra_tokens=8, qwen=qwen)
     dit = DiTConfig(dim=128, depth=2, heads=2, dim_head=64, static_chunk_size=10)
     return CosyVoiceConfig(llm=llm, flow=FlowConfig(vocab_size=50, dit=dit, pre_lookahead_channels=64)), \
-        CosyVoiceConfig()
+        full_config()
 
 
 def llm_train_batch(rng, cfg, b: int, t: int, accum: int) -> dict:
@@ -3142,8 +3163,9 @@ def _timed_steps(step, state, batch, rng, n: int) -> tuple:
 
 
 def train_full_width(card: str) -> dict:
-    """bench.py's bench_train at full width: the CosyVoice3-0.5B LM (remat
-    "full", bf16 compute, float32 parameters and Adam, accum 2 x (8 x 256)),
+    """bench.py's bench_train at full width: the CosyVoice3-0.5B LM at
+    full_config's depth (remat "full", bf16 compute, float32 parameters and
+    Adam, accum 2 x (8 x 256)),
     one step of it under the profiler, the same at accum 2 x (64 x 256),
     then one step without remat for its peak memory; the DiT flow (float32)
     on 4 x 200 mel frames, one step under the profiler."""
@@ -3200,8 +3222,9 @@ def train_full_width(card: str) -> dict:
     off_ms, off_loss = (time.perf_counter() - t0) * 1e3, float(m["loss"])
     off_peak = torch.cuda.max_memory_allocated() / 2**30 - resident
     ok = all(np.isfinite(losses + max_losses + [off_loss]))
-    log(f"LM train step at full width (CosyVoice3-0.5B, {n_params / 1e6:.1f}M params, remat full, bf16 compute, "
-        f"float32 params and Adam, accum {TRAIN_ACCUM} x {TRAIN_B} x {TRAIN_T}): {ms:.2f} ms a step, {tok_s:.0f} "
+    log(f"LM train step at full width (CosyVoice3-0.5B, {FULL_LLM_LAYERS} layers, {n_params / 1e6:.1f}M params, remat "
+        f"full, bf16 compute, float32 params and Adam, accum {TRAIN_ACCUM} x {TRAIN_B} x {TRAIN_T}): {ms:.2f} ms a "
+        f"step, {tok_s:.0f} "
         f"tokens/s (llm_train_tokens_per_s_per_chip), 6*N*tokens/s {mfu:.3f} of {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s; "
         f"peak {peak:.2f} GiB above the resident {resident:.2f}; losses {', '.join(f'{x:.4f}' for x in losses)} "
         f"(warm-up first); at accum "
@@ -3289,8 +3312,8 @@ def train_guard(card: str) -> dict:
 def train_clis(results: dict, card: str, states: tuple[dict, dict], model_dir, api: dict) -> dict:
     """The entry points at full width: phase 11's corpus through
     prepare_corpus (shard 0 the train list, shard 1 the CV list), then
-    `python -m fangyan_tts_torch.cli.train` for the LM and the flow, one
-    epoch each (the JAX executor's checkpoints and sidecars checked), then
+    `python -m fangyan_tts_torch.cli.train --config` (full_config) for the
+    LM and the flow, one epoch each (the JAX executor's checkpoints and sidecars checked), then
     cli.average_model --val_best --num 2 on the LM, loaded into a copy of
     phase 4's model directory (or a fresh one) for one zero-shot request."""
     import contextlib
@@ -3300,7 +3323,7 @@ def train_clis(results: dict, card: str, states: tuple[dict, dict], model_dir, a
     import torch
 
     from fangyan_tts_torch.cli import average_model, train
-    from fangyan_tts_torch.config import CosyVoiceConfig
+    from fangyan_tts_torch.config import config_to_json
     from fangyan_tts_torch.data.extract import prepare_corpus
     from fangyan_tts_torch.infer.tts import CosyVoice3TTS
     from fangyan_tts_torch.train.checkpoint import load_meta
@@ -3321,12 +3344,13 @@ def train_clis(results: dict, card: str, states: tuple[dict, dict], model_dir, a
             f"{time.perf_counter() - t:.2f} s, {len(shards)} shards")
         (root / "train.list").write_text(shards[0] + "\n")
         (root / "cv.list").write_text(shards[1] + "\n")
+        (root / "config.json").write_text(config_to_json(full_config()))
         for model in ("llm", "flow"):
             exp = root / model
             t = time.perf_counter()
             train.main(["--model", model, "--train_data", str(root / "train.list"), "--cv_data",
-                        str(root / "cv.list"), "--model_dir", str(exp), "--max_epoch", "1", "--save_per_step",
-                        str(TRAIN_SAVE_PER_STEP), "--log_interval", "4"])
+                        str(root / "cv.list"), "--model_dir", str(exp), "--config", str(root / "config.json"),
+                        "--max_epoch", "1", "--save_per_step", str(TRAIN_SAVE_PER_STEP), "--log_interval", "4"])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
             metas = {f.name: load_meta(f) for f in sorted(exp.glob("*.msgpack"))}
@@ -3367,7 +3391,7 @@ def train_clis(results: dict, card: str, states: tuple[dict, dict], model_dir, a
         if any(launches.values()):
             raise AssertionError("training launched a kernel of the port")
         if model_dir is None:  # phase 4 did not run: a full-width directory of random weights
-            tts = CosyVoice3TTS.random_init(CosyVoiceConfig(), dtype=torch.bfloat16, seed=11)
+            tts = CosyVoice3TTS.random_init(full_config(), dtype=torch.bfloat16, seed=11)
             model_dir = stack.enter_context(api_model_dir(tts, states))
             del tts
         d2 = root / "api_model"
@@ -3497,7 +3521,7 @@ def rest_small_checks(card: str) -> dict:
 
 
 def gan_full_width(card: str) -> dict:
-    """The vocoder's GAN turns at full width: CosyVoiceConfig().hift and the
+    """The vocoder's GAN turns at full width: full_config().hift and the
     full MultipleDiscriminator in float32 (TF32 off) on one batch as the
     recipe's pipeline gives it (collate_hifigan: GAN_ROWS crops of 24,960
     samples, max_frames_in_batch 2000, their matcha mels on the card and
@@ -3506,14 +3530,13 @@ def gan_full_width(card: str) -> dict:
     torch.profiler."""
     import torch
 
-    from fangyan_tts_torch.config import CosyVoiceConfig
     from fangyan_tts_torch.data.dataset import collate_hifigan, make_mel_fn
     from fangyan_tts_torch.models.discriminators import MultipleDiscriminator
     from fangyan_tts_torch.models.hift import CausalHiFT
     from fangyan_tts_torch.train import gan, trainer
     from fangyan_tts_torch.train.scheduler import plain_adam
 
-    cfg = CosyVoiceConfig()
+    cfg = full_config()
     torch.cuda.empty_cache()
     resident = torch.cuda.memory_allocated() / 2**30
     rng = np.random.default_rng(15)
@@ -3566,20 +3589,20 @@ def gan_full_width(card: str) -> dict:
 
 
 def dpo_full_width(card: str) -> dict:
-    """A DPO step at full width: the CosyVoice3-0.5B LM (remat "full", bf16
-    compute, float32 parameters and Adam as phase 12's LM step), its frozen
+    """A DPO step at full width: the CosyVoice3-0.5B LM (full_config,
+    remat "full", bf16 compute, float32 parameters and Adam as phase 12's
+    LM step), its frozen
     copy as the reference, DPO_PAIRS chosen / rejected pairs of DPO_T tokens:
     a warm-up and DPO_STEPS timed steps, tokens/s (policy tokens), peak."""
     import dataclasses
 
     import torch
 
-    from fangyan_tts_torch.config import CosyVoiceConfig
     from fangyan_tts_torch.models.llm import CosyVoice3LM
     from fangyan_tts_torch.train import dpo, trainer
     from fangyan_tts_torch.train.scheduler import build_optimizer
 
-    cfg = CosyVoiceConfig()
+    cfg = full_config()
     torch.cuda.empty_cache()
     resident = torch.cuda.memory_allocated() / 2**30
     lcfg = dataclasses.replace(cfg.llm, qwen=dataclasses.replace(cfg.llm.qwen, remat="full"))
@@ -3595,8 +3618,9 @@ def dpo_full_width(card: str) -> dict:
     peak -= resident
     tokens = 2 * DPO_PAIRS * DPO_T
     ok = all(np.isfinite(losses))
-    log(f"DPO step at full width (CosyVoice3-0.5B, remat full, bf16 compute, float32 params and Adam, a frozen "
-        f"copy as the reference; {DPO_PAIRS} pairs x {DPO_T} tokens): {ms:.2f} ms a step, {tokens / (ms / 1e3):.0f} "
+    log(f"DPO step at full width (CosyVoice3-0.5B, {FULL_LLM_LAYERS} layers, remat full, bf16 compute, float32 params "
+        f"and Adam, a frozen copy as the reference; {DPO_PAIRS} pairs x {DPO_T} tokens): {ms:.2f} ms a step, "
+        f"{tokens / (ms / 1e3):.0f} "
         f"tokens/s; peak {peak:.2f} GiB above the resident {resident:.2f}; losses "
         f"{', '.join(f'{x:.4f}' for x in losses)} (warm-up first) [{card}] {'OK' if ok else 'FAIL'}")
     if not ok:
@@ -3617,13 +3641,12 @@ def grpo_spec() -> dict:
     (token2mel pads the tokens to a multiple of 32, 2 mel frames a token)."""
     import warnings
 
-    from fangyan_tts_torch.config import CosyVoiceConfig
     from fangyan_tts_torch.data.lm_plan import build_prompt_plan
     from fangyan_tts_torch.infer.frontend import Frontend
     from fangyan_tts_torch.tokenizer import get_qwen_tokenizer
     from fangyan_tts_torch.train.grpo import rollout_buckets
 
-    cfg = CosyVoiceConfig()
+    cfg = full_config()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         fe = Frontend(get_qwen_tokenizer(None, True, "cosyvoice3"), cfg, device="cpu")
@@ -3650,9 +3673,9 @@ def grpo_cli(results: dict, card: str, model_dir, spec: dict) -> dict:
     prompts x 8 rollouts, echo reward, clip 1.0 + adamw) for GRPO_ITERS steps
     on `model_dir`: each iteration's wall split into the rollouts, token2wav
     (token2mel + vocode) and the update (make_rollout_batch's old_logps and
-    the step); decode launches held to 24 a decode step and the steps to
-    what the rollouts' lengths imply, flash launches to 220 a token2mel
-    call, none in the update, every shape held to phase 3's checks
+    the step); decode launches held to the LM's layers a decode step and
+    the steps to what the rollouts' lengths imply, flash launches to
+    n_timesteps x depth a token2mel call, none in the update, every shape held to phase 3's checks
     (grpo_spec); metrics.jsonl and the checkpoint read back."""
     import shutil
     import tempfile
@@ -3660,7 +3683,6 @@ def grpo_cli(results: dict, card: str, model_dir, spec: dict) -> dict:
     import torch
 
     from fangyan_tts_torch.cli import grpo_train
-    from fangyan_tts_torch.config import CosyVoiceConfig
     from fangyan_tts_torch.infer.tts import CosyVoice3TTS
     from fangyan_tts_torch.models.from_jax import llm_from_jax
     from fangyan_tts_torch.models.llm import CosyVoice3LM
@@ -3730,17 +3752,19 @@ def grpo_cli(results: dict, card: str, model_dir, spec: dict) -> dict:
         records = [json.loads(x) for x in (root / "out" / "metrics.jsonl").read_text().splitlines()]
         ckpt = root / "out" / f"llm_grpo_step{GRPO_ITERS}.msgpack"
         t = time.perf_counter()
-        n_leaves = len(llm_from_jax(load_params(ckpt), CosyVoiceConfig().llm))
+        n_leaves = len(llm_from_jax(load_params(ckpt), full_config().llm))
         read_s = time.perf_counter() - t
         ckpt_gib = ckpt.stat().st_size / 2**30
         shutil.rmtree(root / "out")
     steps = sum(it["steps"] for it in iters)
     calls = sum(it["token2mel_calls"] for it in iters)
     b = spec["b"]
+    cfg = full_config()
+    nl, per_call = cfg.llm.qwen.num_hidden_layers, cfg.flow.dit.depth * cfg.flow.n_timesteps
     derived = [_decode_iterations(it["lens"], it["max_lens"], it["max_new"]) for it in iters]
     ok = (len(iters) == len(records) == GRPO_ITERS and all(len(it["lens"]) == b for it in iters)
           and [it["steps"] for it in iters] == derived and calls == b * GRPO_ITERS
-          and counts == {"decode_attention": 24 * steps, "chunk_flash_attention": 220 * calls, "int4_matmul": 0}
+          and counts == {"decode_attention": nl * steps, "chunk_flash_attention": per_call * calls, "int4_matmul": 0}
           and all(it.get("update_launches") == 0 for it in iters)
           and all(np.isfinite(r["loss"]) and r["reward_mean"] == -1.0 for r in records))
     for i, (it, r) in enumerate(zip(iters, records)):
@@ -3751,7 +3775,7 @@ def grpo_cli(results: dict, card: str, model_dir, spec: dict) -> dict:
             f"{it['update_launches']} kernel launches); wall_s {r['wall_s']}; loss {r['loss']:.6f}, kl {r['kl']:.3e}, "
             f"reward_mean {r['reward_mean']}")
     log(f"cli.grpo_train: {GRPO_ITERS} iterations in {wall:.2f} s (model load and the checkpoint included); "
-        f"launches {counts} (24 x {steps} decode steps, 220 x {calls} token2mel calls); checkpoint "
+        f"launches {counts} ({nl} x {steps} decode steps, {per_call} x {calls} token2mel calls); checkpoint "
         f"{ckpt_gib:.2f} GiB, {n_leaves} tensors, read back in {read_s:.2f} s [{card}] {'OK' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("cli.grpo_train failed its checks")
@@ -3769,14 +3793,13 @@ def gan_cli(card: str, states: tuple[dict, dict]) -> dict:
     import torch
 
     from fangyan_tts_torch.cli import train_gan
-    from fangyan_tts_torch.config import CosyVoiceConfig
     from fangyan_tts_torch.data.extract import prepare_corpus
     from fangyan_tts_torch.infer.tts import _cast_state, _load
     from fangyan_tts_torch.models.from_jax import discriminator_from_jax, hift_from_jax
     from fangyan_tts_torch.models.hift import CausalHiFT
     from fangyan_tts_torch.train.checkpoint import load_meta, load_params
 
-    cfg = CosyVoiceConfig()
+    cfg = full_config()
     emb, tok = dp_models(states)
     build = Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
@@ -3836,10 +3859,9 @@ def rest_phase(results: dict, card: str, states: tuple[dict, dict], model_dir, g
         raise AssertionError("a GAN, DPO or GRPO-update step launched a kernel of the port")
     with contextlib.ExitStack() as stack:
         if model_dir is None:  # phase 4 did not run: a full-width directory of random weights
-            from fangyan_tts_torch.config import CosyVoiceConfig
             from fangyan_tts_torch.infer.tts import CosyVoice3TTS
 
-            tts = CosyVoice3TTS.random_init(CosyVoiceConfig(), dtype=torch.bfloat16, seed=11)
+            tts = CosyVoice3TTS.random_init(full_config(), dtype=torch.bfloat16, seed=11)
             model_dir = stack.enter_context(api_model_dir(tts, states))
             del tts
         out["grpo_cli"] = grpo_cli(results, card, model_dir, grpo)
@@ -3922,7 +3944,7 @@ def check_f32_routes(results: dict, api: dict) -> None:
     b, s, tp = bt["b"], bt["cache_len"], bt["tp"]
     last = tp + int(F32_TEXT_TOKENS * F32_RATIO) - 1
     starts = [int(v) for v in np.random.default_rng(9).integers(0, tp, b)]
-    nl, kv, hd, qh = 24, 2, 64, 14
+    nl, kv, hd, qh = FULL_LLM_LAYERS, 2, 64, 14
     errs = []
     for bb, ss, idx_list, first_slots, timed in ((b, s, [last] * b, starts, True),
                                                  (4, 256, [0, 100, 255, 300], [0, 0, 0, 256], False),
@@ -4197,8 +4219,8 @@ def float32_api_request(results: dict, card: str, model_dir, api: dict) -> None:
     fangyan_tts_torch.runtime.offline_inference --no-fp16 on phase 4's model
     directory (its int8 LLM default), one row (the API request's sentence
     and 5 s prompt) through inference_zero_shot. Launches: the flow's flash
-    attention on its float32 route, 220 a flow call; decode attention 24 a
-    decode step on the bf16 route (both packages' KV cache is bf16); no
+    attention on its float32 route, n_timesteps x depth a flow call;
+    decode attention one a layer and decode step on the bf16 route (both packages' KV cache is bf16); no
     other. Every shape held to phase 3's checks."""
     import tempfile
 
@@ -4244,15 +4266,15 @@ def float32_batch(results: dict, card: str) -> None:
     """The full-width float32 model in the int8 LLM + int4 MLP mode on a
     float32 KV cache (float32_kv_cache): one batch_synthesize of
     f32_batch_request, the three kernels on their float32 routes. Launches:
-    decode 24 a decode step, int4 2 x 24 a forward (the prefill and each
-    step; one kernel launch a call on every path), flash 220; none on a
+    decode one a layer and decode step, int4 2 a layer and forward (the
+    prefill and each step; one kernel launch a call on every path), flash
+    n_timesteps x depth; none on a
     bf16 route. Every shape held to phase 3's checks."""
     import torch
 
-    from fangyan_tts_torch.config import CosyVoiceConfig
     from fangyan_tts_torch.infer.tts import CosyVoice3TTS, suppress_silent_runs
 
-    cfg = CosyVoiceConfig()
+    cfg = full_config()
     t0 = time.perf_counter()
     tts = CosyVoice3TTS.random_init(cfg, dtype=torch.float32)
     tts.quantize_llm(int4_mlp=True)
@@ -4323,12 +4345,11 @@ def datagen_spec(api: dict) -> dict:
 
     from fangyan_tts_torch.cli.compare_inference import DIALECT_TEXTS
     from fangyan_tts_torch.cli.generate_dialect_dataset import INSTRUCT_BY_DIALECT
-    from fangyan_tts_torch.config import CosyVoiceConfig
     from fangyan_tts_torch.infer.frontend import Frontend
     from fangyan_tts_torch.infer.tts import batch_buckets
     from fangyan_tts_torch.tokenizer import get_qwen_tokenizer
 
-    cfg = CosyVoiceConfig()
+    cfg = full_config()
     up = lambda n, m: -(-n // m) * m
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
@@ -4376,7 +4397,7 @@ def request_specs(cfg, fe, n_prompt: int, requests: list) -> list[dict]:
 
 
 def datagen_phase(results: dict, card: str, model_dir, dg: dict) -> None:
-    """Phase 14 at full width (CosyVoice3-0.5B, random weights, bf16 as the
+    """Phase 14 at full width (full_config, random weights, bf16 as the
     CLIs load it by default) on phase 4's model directory and 5 s prompt:
     (a) `cli.generate_dialect_dataset --backend cuda --mode hunan` on a
     written input directory (32 utterances: 2 batches of 16); its index read
@@ -4389,8 +4410,8 @@ def datagen_phase(results: dict, card: str, model_dir, dg: dict) -> None:
     tokens against the in-process Token2WavSession on the same tokens; (b)
     `cli.compare_inference --dialects hunan --num_texts DG_COMPARE_TEXTS`
     with the directory's own LLM as --finetuned_llm, each fine-tuned wav
-    bit-equal to its original. Launches counted for every run (decode 24 a decode step,
-    flash 220 a flow call), every shape held to phase 3's checks; the phase
+    bit-equal to its original. Launches counted for every run (decode one a layer and
+    decode step, flash n_timesteps x depth a flow call), every shape held to phase 3's checks; the phase
     must take under DG_PHASE_LIMIT_S."""
     import random
     import shutil
@@ -5068,10 +5089,9 @@ def main() -> int:
             small_float32_check(results)
             tts, req = full_path(results, card)
         elif phases & {8, 9, 14, 15}:
-            from fangyan_tts_torch.config import CosyVoiceConfig
             from fangyan_tts_torch.infer.tts import CosyVoice3TTS
 
-            tts = CosyVoice3TTS.random_init(CosyVoiceConfig(), dtype=torch.bfloat16)
+            tts = CosyVoice3TTS.random_init(full_config(), dtype=torch.bfloat16)
         model_dir = stack.enter_context(api_model_dir(tts, states)) if phases & {4, 8, 9, 14, 15} else None
         if 4 in phases:
             api_request(results, card, model_dir, api)
@@ -5084,12 +5104,11 @@ def main() -> int:
             # before the profiler passes of phases 5 and 7: the probes around phase 8's own
             # profiled hops show what a profiler session leaves behind in the host's launch cost
             from fangyan_tts_torch.api import AutoModel
-            from fangyan_tts_torch.config import CosyVoiceConfig
             from fangyan_tts_torch.infer.tts import CosyVoice3TTS
 
             small_stream_check()
             t = time.perf_counter()
-            stream_tts = CosyVoice3TTS.random_init(CosyVoiceConfig(), dtype=torch.bfloat16)  # fresh: no clocks
+            stream_tts = CosyVoice3TTS.random_init(full_config(), dtype=torch.bfloat16)  # fresh: no clocks
             api_model = AutoModel(str(model_dir))
             torch.cuda.synchronize()
             log(f"phase 8 models: random_init and AutoModel load in {time.perf_counter() - t:.2f} s")

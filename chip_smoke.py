@@ -43,8 +43,11 @@ Phases:
      float32 batch and float32 API request, from infer/tts.batch_buckets
      and the API request's buckets; int4 also at M = 1, 8 and 16, the
      decode tile's buckets and edge, and 17 and 100 on the prefill tile,
-     each call bit-equal to a second one; flash also at L = 129 with a row
-     of mel_len 0), timed against its plain version in float32 and SDPA /
+     each call bit-equal to a second one; decode attention also at B = 4,
+     S = 256 with a row that has no open slot, S = 4096 and the GRPO
+     rollout bucket's B = 32, S = 384, each call bit-equal to a second
+     one, all four shapes timed; flash also at L = 129 with a row of
+     mel_len 0), timed against its plain version in float32 and SDPA /
      F.linear in float32 (TF32 off); phase 15's shapes:
      the exported flow_solve's (2 x 16 heads, L = 512, timed) and the
      recipe model's (its 2 heads, its decode's 2 layers, 2 query heads and
@@ -3914,6 +3917,39 @@ def f32_batch_request() -> dict:
                 min_token_text_ratio=F32_RATIO, max_token_text_ratio=F32_RATIO)
 
 
+def f32_decode_cases() -> list[tuple[int, int, list[int], list[int]]]:
+    """The float32 decode route's checked and timed shapes, as (B, S, write
+    slots, first open slots): phase 4's float32 batch (infer/tts.batch_buckets:
+    B = F32_B rows at their last step, windows from random starts in the
+    prompt bucket), B = 4, S = 256 with a row that has no open slot and a
+    write past S, B = 1, S = 4096, and the GRPO rollout bucket's shape in
+    float32 (B = 32, S = 384: every row open from slot 0 to its write slot
+    at S - 1 or clamped there from past S, so the whole cache layer is read)."""
+    bt = batch_shapes(f32_batch_request())
+    b, s, tp = bt["b"], bt["cache_len"], bt["tp"]
+    last = tp + int(F32_TEXT_TOKENS * F32_RATIO) - 1
+    starts = [int(v) for v in np.random.default_rng(9).integers(0, tp, b)]
+    return [(b, s, [last] * b, starts), (4, 256, [0, 100, 255, 300], [0, 0, 0, 256]), (1, 4096, [4000], [0]),
+            (32, 384, [383 + 5 * (i % 2) for i in range(32)], [0] * 32)]
+
+
+def f32_decode_inputs(gen, nl: int, b: int, s: int, idx_list: list, first_slots: list) -> tuple:
+    """Float32 inputs of one f32_decode_cases() case on the card: q, k_new,
+    v_new, caches of nl layers, idx, and a bias of 0 on [first, clamped write
+    slot] and -1e10 elsewhere."""
+    import torch
+
+    dev, kv, hd, qh = "cuda", 2, 64, 14
+    q = torch.randn((b, qh, hd), generator=gen, device=dev) * QK_SCALE
+    kn, vn = (torch.randn((b, kv, hd), generator=gen, device=dev) for _ in range(2))
+    ck, cv = (torch.randn((nl, b, s, kv, hd), generator=gen, device=dev) for _ in range(2))
+    idx = torch.tensor(idx_list, dtype=torch.int32, device=dev)
+    slot = torch.arange(s, device=dev)[None, :]
+    first = torch.tensor(first_slots, device=dev)[:, None]
+    bias = torch.where((slot >= first) & (slot <= torch.clamp(idx, max=s - 1)[:, None]), 0.0, -1e10).float()
+    return q, kn, vn, ck, cv, idx, bias
+
+
 def check_f32_routes(results: dict, api: dict) -> None:
     """Each kernel's float32 route against its plain version run in float64
     on the same float32 inputs, at the float32 paths' shapes worked out from
@@ -3923,10 +3959,12 @@ def check_f32_routes(results: dict, api: dict) -> None:
     phase 4's float32 API request (flash at every length its decode can give,
     from the API request's buckets; its decode runs on the bf16 KV cache
     that both packages' models keep, the bf16 route); decode attention also
-    with a row that has no open slot and a write past S, and at S = 4096;
-    int4 also at M = 1, 8, 16, 17 and 100 (the edges of its decode and
-    prefill tiles; M = 16 timed), each call bit-equal to a second one; flash
-    also one row past its 128-row block with a row of mel_len 0 (zeros).
+    with a row that has no open slot and a write past S, at S = 4096 and at
+    B = 32, S = 384 (f32_decode_cases; each shape timed, each call
+    bit-equal to a second one); int4 also at M = 1, 8, 16, 17 and 100 (the
+    edges of its decode and prefill tiles; M = 16 timed), each call
+    bit-equal to a second one; flash also one row past its 128-row block
+    with a row of mel_len 0 (zeros).
     Times against the plain version in float32 and against SDPA and
     F.linear in float32 (TF32 off), with bounds at float32's rates."""
     import torch
@@ -3941,29 +3979,21 @@ def check_f32_routes(results: dict, api: dict) -> None:
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(13)
     bt = batch_shapes(f32_batch_request())
-    b, s, tp = bt["b"], bt["cache_len"], bt["tp"]
-    last = tp + int(F32_TEXT_TOKENS * F32_RATIO) - 1
-    starts = [int(v) for v in np.random.default_rng(9).integers(0, tp, b)]
+    b = bt["b"]
     nl, kv, hd, qh = FULL_LLM_LAYERS, 2, 64, 14
     errs = []
-    for bb, ss, idx_list, first_slots, timed in ((b, s, [last] * b, starts, True),
-                                                 (4, 256, [0, 100, 255, 300], [0, 0, 0, 256], False),
-                                                 (1, 4096, [4000], [0], False)):
+    for bb, ss, idx_list, first_slots in f32_decode_cases():
         _checked(results, "decode_attention_f32", (bb, ss))
-        q = torch.randn((bb, qh, hd), generator=gen, device=dev) * QK_SCALE
-        kn, vn = (torch.randn((bb, kv, hd), generator=gen, device=dev) for _ in range(2))
-        ck, cv = (torch.randn((nl, bb, ss, kv, hd), generator=gen, device=dev) for _ in range(2))
-        idx = torch.tensor(idx_list, dtype=torch.int32, device=dev)
-        slot = torch.arange(ss, device=dev)[None, :]
-        first = torch.tensor(first_slots, device=dev)[:, None]
-        bias = torch.where((slot >= first) & (slot <= torch.clamp(idx, max=ss - 1)[:, None]), 0.0, -1e10).float()
+        q, kn, vn, ck, cv, idx, bias = f32_decode_inputs(gen, nl, bb, ss, idx_list, first_slots)
         qkv = torch.cat([q.reshape(bb, -1), kn.reshape(bb, -1), vn.reshape(bb, -1)], dim=1)
         views = (qkv[:, : qh * hd].view(bb, qh, hd), qkv[:, qh * hd: (qh + kv) * hd].view(bb, kv, hd),
                  qkv[:, (qh + kv) * hd:].view(bb, kv, hd))
         c1, c2, c3, c4 = ck.clone(), cv.clone(), ck.clone(), cv.clone()
-        same = torch.equal(da.decode_attention(*views, c1, c2, idx, bias, 0),
-                           da.decode_attention(q, kn, vn, c3, c4, idx, bias, 0))
-        same = same and torch.equal(c1, c3) and torch.equal(c2, c4)
+        out_v = da.decode_attention(*views, c1, c2, idx, bias, 0)
+        out_c = da.decode_attention(q, kn, vn, c3, c4, idx, bias, 0)
+        same = torch.equal(out_v, out_c) and torch.equal(c1, c3) and torch.equal(c2, c4)
+        # call to call: the same inputs (the new row already in the caches) give the same bits
+        again = torch.equal(out_c, da.decode_attention(q, kn, vn, c3, c4, idx, bias, 0))
         del c1, c2, c3, c4
         for layer in (0, nl - 1):
             c = [t.clone() for t in (ck, cv, ck, cv, ck, cv)]
@@ -3976,14 +4006,13 @@ def check_f32_routes(results: dict, api: dict) -> None:
                            out_d.abs().mean().item())
             caches = all(torch.equal(x, y) for x, y in ((c[0], c[2]), (c[1], c[3])))
             errs.append(err)
-            log(f"decode_attention_f32 B={bb} S={ss} layer={layer} idx={idx_list[:4]} starts={first_slots[:4]}: "
-                f"{msg}; caches bit-equal={caches}, strided views equal to the contiguous call={same}")
-            if not (caches and same and torch.isfinite(out_k).all()):
+            log(f"decode_attention_f32 B={bb} S={ss} plan {da.plan_f32(bb, ss, kv)} layer={layer} "
+                f"idx={idx_list[:4]} starts={first_slots[:4]}: {msg}; caches bit-equal={caches}, strided views "
+                f"equal to the contiguous call={same}, bit-equal to a second call={again}")
+            if not (caches and same and again and torch.isfinite(out_k).all()):
                 raise AssertionError("decode_attention_f32 wrote other cache rows than its plain version, gave a "
-                                     "value that is not finite, or differs on strided views")
+                                     "value that is not finite, differs on strided views or from call to call")
             del c
-        if not timed:
-            continue
         run_k = lambda: da.decode_attention(q, kn, vn, ck, cv, idx, bias, 0)
         ms_k = time_ms(run_k)
         ms_p = time_ms(lambda: da.decode_attention_plain(q, kn, vn, ck, cv, idx, bias, 0))
@@ -3991,6 +4020,7 @@ def check_f32_routes(results: dict, api: dict) -> None:
         mask = (bias == 0)[:, None, None, :]
         ms_l = time_ms(lambda: F.scaled_dot_product_attention(q[:, :, None, :], kl, vl, attn_mask=mask,
                                                               enable_gqa=True))
+        del kl, vl
         open_slots = int((bias > -1e9).sum().item())
         nbytes = 2 * (bb * qh * hd) * 4 + 2 * (bb * kv * hd) * 4 * 2 + 2 * (open_slots * kv * hd) * 4 + bb * ss * 4 + bb * 4
         bms, by = bound_f32(nbytes, 2 * 2 * qh * hd * open_slots)

@@ -38,7 +38,7 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "decode_attention": ("decode_attention", "fangyan_decode_attention", [_P] * 8 + [_LL] * 3 + [_I] * 9 + [_P]),
     "decode_attention_f32": ("decode_attention", "fangyan_decode_attention_f32",
-                             [_P] * 8 + [_LL] * 3 + [_I] * 7 + [_P]),
+                             [_P] * 8 + [_LL] * 3 + [_I] * 9 + [_P]),
     "flash_attention": ("flash_attention", "fangyan_chunk_flash_attention", [_P] * 5 + [_I] * 5 + [_LL] * 9 + [_P]),
     "flash_attention_f32": ("flash_attention", "fangyan_chunk_flash_attention_f32",
                             [_P] * 5 + [_I] * 5 + [_LL] * 9 + [_P]),

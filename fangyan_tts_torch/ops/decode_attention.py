@@ -14,10 +14,19 @@ tools/decode_attention_sweep.py for where its time goes.
 
 Float32 inputs (q, k_new, v_new and the caches) take the kernel's float32
 route, `fangyan_decode_attention_f32`: a separate SIMT kernel with float32
-scores, softmax and sums and no tensor cores (so no TF32 rounding), one
-block per (KV head, row). The Pallas kernel is dtype-generic in the same
-way. The wrapper picks the route by the inputs' dtype and counts its
-launches in `launches_f32`, apart from the bf16 route's `launches`.
+scores, softmax and sums in FMAs and no tensor cores (so no TF32 rounding),
+of the bf16 route's shape. A cluster of up to MAX_CLUSTER_F32 blocks per
+(row, KV head) splits S (`plan_f32`, runs of a multiple of 32 slots: a
+float32 slot row is twice a bf16 one), every block starts its K/V tiles by
+TMA before it waits, all its warps work on its slots (scores from K in
+shared memory, P.V with each thread owning a float4 of the outputs), and
+rank 0 merges the partials. At phase 4's float32 batch (B = 4, S = 128)
+the bound is latency, which the runs of 32 slots spread over 32 blocks; at
+B = 32, S = 384 it is the bytes and each SM's issue rate, which one block
+an SM with every byte asked for at entry answers. The Pallas kernel is
+dtype-generic in the same way. The wrapper picks the route by the inputs'
+dtype and counts its launches in `launches_f32`, apart from the bf16
+route's `launches`.
 
 `decode_attention` launches the kernel for CUDA tensors and runs
 `decode_attention_plain` for CPU tensors; there is no fallback from one to
@@ -51,6 +60,13 @@ MAX_WARPS = 8
 FULL_GRID = 4 * 132
 SMEM_LIMIT = 232448  # dynamic shared memory a block may use on the H100
 _ROW = 128  # bytes of one KV head's slot row (hd bf16)
+# the float32 route (kF32* in the source)
+MAX_CLUSTER_F32 = 16  # blocks a cluster: past 8 a non-portable cluster, which the H100 places (the sweep at S = 4096)
+GROUP_F32 = 32  # a block's slots are a multiple of this
+MIN_RUN_F32 = 32  # slots a block takes at least, where S allows (tools/decode_attention_sweep.py --f32)
+FULL_GRID_F32 = 132  # blocks past which a cluster takes fewer, longer runs: one a SM (the sweep at B = 32)
+CHUNK_F32 = 128  # slots of one shared-memory buffer at most
+MAX_BUF_F32 = 3
 
 
 def decode_attention_plain(q, k_new, v_new, cache_k, cache_v, idx, bias, layer: int) -> torch.Tensor:
@@ -100,6 +116,53 @@ def smem_bytes(n: int, per: int, g: int) -> int:
     return -(-(recv + n * part) // 8) * 8 + (nbuf + 1) * 8 + 1024
 
 
+@functools.lru_cache(maxsize=256)
+def plan_f32(b: int, s: int, kv: int = 2) -> tuple[int, int]:
+    """`plan` for the float32 route: n <= MAX_CLUSTER_F32 blocks a cluster,
+    runs of a multiple of GROUP_F32 slots, at least MIN_RUN_F32 where S
+    allows, as many blocks as that allows unless the B * KV clusters would
+    then pass FULL_GRID_F32 blocks (a float32 block's work is bound by its
+    SM's issue rate, so past one block an SM shorter runs only add waves
+    and partials)."""
+    n = max(1, min(MAX_CLUSTER_F32, -(-s // MIN_RUN_F32), FULL_GRID_F32 // (b * kv)))
+    per = -(-(-(-s // n)) // GROUP_F32) * GROUP_F32
+    return -(-s // per), per
+
+
+def chunk_f32(per: int) -> int:
+    """Slots of one shared-memory chunk of a float32 block of `per` slots:
+    the run in as few chunks of at most CHUNK_F32 as it needs, each a
+    multiple of GROUP_F32 (the source's `chunk_f32`)."""
+    k = -(-per // CHUNK_F32)
+    return -(-(-(-per // k)) // GROUP_F32) * GROUP_F32
+
+
+def smem_bytes_f32(n: int, per: int, g: int) -> int:
+    """Dynamic shared memory of one float32 block (the source's
+    `layout_f32`): nbuf buffers of K and V tiles (as many as fit, up to
+    MAX_BUF_F32 and the block's chunks), bias rows, the chunk's
+    probabilities, the warps' maxima, q, the partials rank 0 receives, the
+    mbarriers, and the 1024 bytes that align the tiles."""
+    chunk = chunk_f32(per)
+    nbuf = min(MAX_BUF_F32, -(-per // chunk))
+    while True:
+        fixed = nbuf * chunk * (4 * _ROW + 4) + chunk * 8 * 4 + 8 * 8 * 4 + 8 * 64 * 4
+        total = fixed + n * g * (64 + 2) * 4 + (nbuf + 1) * 8 + 1024
+        if total <= SMEM_LIMIT or nbuf == 1:
+            return total
+        nbuf -= 1
+
+
+def launch_args(q, k_new, v_new, cache_k, cache_v, idx, bias, out, layer: int) -> tuple:
+    """The C entry's arguments for this call but the stream: pointers,
+    batch strides, shapes, the layer and the route's launch plan."""
+    nl, b, s, kv, hd = cache_k.shape
+    plan_of = plan_f32 if q.dtype == torch.float32 else plan
+    return (q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
+            idx.data_ptr(), bias.data_ptr(), out.data_ptr(), q.stride(0), k_new.stride(0), v_new.stride(0),
+            nl, b, s, kv, q.shape[1] // kv, hd, layer, *plan_of(b, s, kv))
+
+
 def _check(q, k_new, v_new, cache_k, cache_v, idx, bias, layer):
     dev = q.device
     if dev.index != torch.cuda.current_device():
@@ -142,18 +205,14 @@ def decode_attention(q, k_new, v_new, cache_k, cache_v, idx, bias, layer: int) -
     refuse_grad("decode_attention", "the cache-free forward (Qwen2Model with cache=None)", q, k_new, v_new)
     layer = int(layer)
     _check(q, k_new, v_new, cache_k, cache_v, idx, bias, layer)
-    nl, b, s, kv, hd = cache_k.shape
-    out = torch.empty((b, q.shape[1], hd), dtype=q.dtype, device=q.device)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     entry = ROUTES[q.dtype]
-    args = (q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-            idx.data_ptr(), bias.data_ptr(), out.data_ptr(), q.stride(0), k_new.stride(0), v_new.stride(0),
-            nl, b, s, kv, q.shape[1] // kv, hd, layer)
+    args = launch_args(q, k_new, v_new, cache_k, cache_v, idx, bias, out, layer)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    _build.check(entry, _build.load(entry)(*args, stream))
     global launches, launches_f32
     if q.dtype == torch.float32:
-        _build.check(entry, _build.load(entry)(*args, stream))
         launches_f32 += 1
     else:
-        _build.check(entry, _build.load(entry)(*args, *plan(b, s, kv), stream))
         launches += 1
     return out

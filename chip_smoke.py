@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases 1,2,3,13  # the rest of training (GAN, DPO, GRPO) alone
     python3 chip_smoke.py --phases 1,2,3,14  # dataset generation, evaluation and the token2wav server alone
     python3 chip_smoke.py --phases 1,2,3,15  # export, the dialect recipe and the subsampling layers alone
+    python3 chip_smoke.py --phases 1,2,3,16  # two processes on the card: TP decode, TP token2wav, dp training
 
 Phases:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -51,7 +52,8 @@ Phases:
      F.linear in float32 (TF32 off); phase 15's shapes:
      the exported flow_solve's (2 x 16 heads, L = 512, timed) and the
      recipe model's (its 2 heads, its decode's 2 layers, 2 query heads and
-     1 KV head)
+     1 KV head); phase 16's (mp_spec: each rank's half of the heads, decode
+     attention at 1 KV head and 7 query heads, flash at 8 heads, timed)
   4. a small model on the card against the same weights on the CPU
      (plain versions), bf16 and then int8 LLM + int4 MLP + int8 DiT; then
      at CosyVoice3-0.5B's full width (full_config's depth) with random
@@ -207,9 +209,28 @@ Phases:
      the card, then `cli.compare_inference` on its fine-tuned LLM; (c) the
      subsampling layers float32 card against CPU; (a) runs beside (c) and
      (b)
+  16. two processes on the card over gloo (parallel/launch.spawn; nccl
+     refuses two ranks on one device) at full_config's widths, within
+     MP_PHASE_LIMIT_S: (a) the 150-token request's greedy decode through a
+     TP=2 LM (float32 weights, the bf16 cache: decode attention with one KV
+     head and 7 query heads a rank), tokens equal to one process up to the
+     first near-tie (the step and both margins printed where one flips),
+     then the same decode teacher-forced on the one process's picks, every
+     logits row within MP_LOGIT_TOL; (a') the same request teacher-forced
+     through a TP=2 LM with request (b)'s int8 LLM and int4 MLP (bf16: the
+     int4 kernel on each rank's half of the MLP), every logits row within
+     MP_LOGIT_TOL; (b) two hops of a TP=2 shard_token2wav stream, bf16
+     (hop 2 a window hop: flash attention with 8 heads a rank), mel within
+     MP_MEL_TOL of one process; (c) a dp=2 LM train step within
+     SMALL_REL_TOL of the one-process step on the same global batch;
+     process 0 runs each unsharded first; each sharded run's launches
+     (counts set to 0 before it) held to its steps and flow call, its
+     kernel shapes to phase 3's checks (phase 3 checks and times every new
+     shape, from mp_spec); the times printed (two processes on one card,
+     gloo through the host: no multi-GPU speed)
   6. one JSON line of per-kernel results, the float32 routes included
-     (printed after phases 7 to 15)
-Phases 8 to 15 run after phase 4's requests and before the profiler passes
+     (printed after phases 7 to 16)
+Phases 8 to 16 run after phase 4's requests and before the profiler passes
 of phases 5 and 7 (phase 8 runs S1 twice and S2, S3 and S4 once each,
 phase 9's async and HTTP rounds have no warm-up round, phase 10 runs its v2
 offline request and stream once each, phase 5 profiles the batched
@@ -217,7 +238,7 @@ requests (a) and (b) in their serving modes only, and only the flow and
 vocoder stages of every request, and phase 13 runs one GRPO iteration, to
 leave phases 10-15 their time);
 a probe of the host's cost of one eager launch is logged at the start,
-around phases 8, 9, 10, 11, 12, 13, 14 and 15 and at the end; the last line
+around phases 8, 9, 10, 11, 12, 13, 14, 15 and 16 and at the end; the last line
 before the card's is the whole script's time.
 The last line is {"ok": true, "device": {...}} and the exit code is 0 only
 when every phase passed. Without a CUDA card it exits non-zero before
@@ -394,6 +415,22 @@ SUB_REL_TOL = 1e-4
 # 1,087.5 s on an H100 80GB HBM3 at 700 W, phase 14 116.7 s of it, and phase 14 158.7 s on a host whose decode
 # steps took 1.3-1.4 x as long.
 FULL_LLM_LAYERS, FULL_DIT_DEPTH = 6, 6
+
+# Multi-process on one card (phase 16): MP_RANKS processes on card 0 over gloo (nccl refuses two ranks on one
+# device) run full_config() sharded: (a) the 150-token request (MP_TEXT_TOKENS text tokens, min = max ratio MP_RATIO)
+# through a TP=2 LM, greedy, float32 weights from MP_SEED: tokens equal to one process up to the first near-tie
+# (GREEDY_TIE); then teacher-forced on the one process's picks, every logits row within MP_LOGIT_TOL of max |.|
+# (the decode runs in the bf16 cache); (a') teacher-forced as well through a TP=2 LM with the int8 LLM and int4
+# MLP, bf16; (b) a TP=2 shard_token2wav, bf16, two hops of a stream of MP_STREAM_TOKENS tokens with a window of
+# MP_WINDOW tokens (hop 1 the KV-cached estimator, hop 2 a window hop: the flash kernel), mel within MP_MEL_TOL of
+# max |.|; (c) a dp=2 LM train step on one global batch of MP_TRAIN_B x MP_TRAIN_T tokens (bf16 compute) within
+# SMALL_REL_TOL of the one-process step. The phase within MP_PHASE_LIMIT_S seconds.
+MP_RANKS, MP_SEED = 2, 0
+MP_TEXT_TOKENS, MP_RATIO = 30, 5.0
+MP_WINDOW, MP_STREAM_TOKENS = 50, 80
+MP_TRAIN_B, MP_TRAIN_T = 8, 256
+MP_LOGIT_TOL = MP_MEL_TOL = 5e-2
+MP_PHASE_LIMIT_S = 90
 
 CARDS_USED = 1  # every phase runs on card 0
 PORT_KERNELS = ("decode_attention", "flash_attention", "int4_matmul")  # kernel names the profile reports
@@ -729,7 +766,7 @@ def check_decode_rows(results: dict, serving: dict) -> None:
                 same &= (torch.equal(out_b[r : r + 1], out_r) and torch.equal(ckb[:, r : r + 1], ckr)
                          and torch.equal(cvb[:, r : r + 1], cvr))
         torch.cuda.synchronize()
-        _checked(results, "decode_attention", (1, s))
+        _checked(results, "decode_attention", (1, s, kv, qh))
         log(f"decode_attention B={b} S={s} (continuous batch, plan {da.plan(b, s, kv)}; B=1 plan "
             f"{da.plan(1, s, kv)}): slots {idx_list}, windows from {starts}: every row bit-equal to a B=1 call "
             f"on it alone (output and cache writes, layers 0 and {nl - 1})={same}")
@@ -739,7 +776,7 @@ def check_decode_rows(results: dict, serving: dict) -> None:
 
 
 def check_decode(results: dict, batches: list[dict], api: dict, stream: dict, serving: dict, v12: dict,
-                 grpo: dict, dg: dict | None = None, ex: dict | None = None) -> None:
+                 grpo: dict, dg: dict | None = None, ex: dict | None = None, mp: dict | None = None) -> None:
     import torch
     import torch.nn.functional as F
 
@@ -783,9 +820,12 @@ def check_decode(results: dict, batches: list[dict], api: dict, stream: dict, se
         for r in ex["recipe"]["single"]:
             shapes.append((1, r["cache_len"], [r["last"]], [r["start"]], "phase 15 recipe " + r["label"],
                            ex["recipe"]["decode_dims"]))
+    if mp is not None:  # phase 16: the TP=2 decode of the 150-token request, each rank's half of the heads
+        shapes.append((1, mp["cache_len"], [mp["last"]], [mp["start"]], "phase 16 TP=2",
+                       (FULL_LLM_LAYERS, mp["kv"], mp["qh"])))
     for b, s, idx_list, starts, *label in shapes:
         nl, kv, qh = label.pop() if len(label) > 1 else (FULL_LLM_LAYERS, 2, 14)  # (layers, KV heads, query heads)
-        _checked(results, "decode_attention", (b, s))
+        _checked(results, "decode_attention", (b, s, kv, qh))
         rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
         q = (torch.randn((b, qh, hd), generator=gen, device=dev) * QK_SCALE).to(torch.bfloat16)
         kn, vn = rnd(b, kv, hd), rnd(b, kv, hd)
@@ -845,7 +885,7 @@ def check_decode(results: dict, batches: list[dict], api: dict, stream: dict, se
         flops = 2 * 2 * qh * hd * open_slots
         bms, by = bound(nbytes, flops)
         results.setdefault("decode_timing", []).append(
-            dict(b=b, s=s, ms=ms_k, eager_ms=ms_e, plain_ms=ms_p, library_ms=ms_l, bound_ms=bms, bound_by=by,
+            dict(b=b, s=s, kv=kv, qh=qh, ms=ms_k, eager_ms=ms_e, plain_ms=ms_p, library_ms=ms_l, bound_ms=bms, bound_by=by,
                  label=label[0] if label else ""))
         log(f"decode_attention B={b} S={s}{' (' + label[0] + ')' if label else ''}: kernel {ms_k * 1e3:.2f} us (eager call {ms_e * 1e3:.1f} us), "
             f"plain {ms_p * 1e3:.1f} us, "
@@ -854,7 +894,7 @@ def check_decode(results: dict, batches: list[dict], api: dict, stream: dict, se
 
 
 def check_flash(results: dict, batches: list[dict], api: dict, stream: dict, serving: dict, grpo: dict,
-                dg: dict | None = None, ex: dict | None = None) -> None:
+                dg: dict | None = None, ex: dict | None = None, mp: dict | None = None) -> None:
     import torch
     import torch.nn.functional as F
 
@@ -915,9 +955,11 @@ def check_flash(results: dict, batches: list[dict], api: dict, stream: dict, ser
         rec = ex["recipe"]
         runs += [((l, (l, l)), "untimed", rec["heads"]) for l in rec["export_l"]]
         runs += [((l, (l - 6, l - 6)), "untimed", rec["heads"]) for l in rec["flash_l"] if l not in rec["export_l"]]
+    if mp is not None:  # phase 16: the TP=2 window hop's CFG pair, each rank's half of the heads, timed; the DiT's views
+        runs += [((mp["flash_l"], (mp["flash_l"],) * 2), layout, mp["heads"]) for layout in ("contiguous", "strided")]
     for (l, mel), layout, *heads in runs:
         b, h, d = len(mel), (heads[0] if heads else 16), 64
-        _checked(results, "chunk_flash_attention", (b, l))
+        _checked(results, "chunk_flash_attention", (b, l, h))
         rnd = lambda shape, scale: (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
         if layout in ("contiguous", "untimed"):
             q, k, v = rnd((b, h, l, d), flash_q_scale(l)), rnd((b, h, l, d), 1.0), rnd((b, h, l, d), 1.0)
@@ -958,7 +1000,7 @@ def check_flash(results: dict, batches: list[dict], api: dict, stream: dict, ser
             nbytes = 2 * b * h * l * d * 2 + sum(min(m, l) for m in mel) * h * d * 2 * 2 + b * 4
             bms, by = bound(nbytes, 4 * d * pairs)
             results.setdefault("flash_timing", []).append(
-                dict(b=b, l=l, chunk=chunk, layout=layout, ms=ms_k, eager_ms=ms_e, plain_ms=ms_p, library_ms=ms_l,
+                dict(b=b, l=l, h=h, chunk=chunk, layout=layout, ms=ms_k, eager_ms=ms_e, plain_ms=ms_p, library_ms=ms_l,
                      bound_ms=bms, bound_by=by, dense_bound_ms=4 * b * h * l * l * d / BF16_FLOP_PER_S * 1e3))
             log(f"chunk_flash_attention B={b} L={l} {layout} chunk={chunk}: kernel {ms_k * 1e3:.2f} us (eager call "
                 f"{ms_e * 1e3:.1f} us), plain {ms_p * 1e3:.1f} us, "
@@ -966,14 +1008,16 @@ def check_flash(results: dict, batches: list[dict], api: dict, stream: dict, ser
     results["flash_err"] = max(errs)
 
 
-def check_int4(results: dict, batch_b: dict) -> None:
+def check_int4(results: dict, batch_b: dict, mp: dict | None = None) -> None:
     """int4_matmul at the LLM's MLP shapes: M = 1 and 512, and the two that
     request (b) runs, its decode (M = B = 16) and its prefill (M = B x tp);
     and one M on each side of the launch plan's route boundary (16 | 17,
     between the 16-token decode blocks and the 128-token blocks) and
     M = 100, which is no multiple of a tile. The block's channels (64, 128 or
     256) and the cluster split follow from M and N; gate_up_proj and
-    down_proj at these M take each of them.
+    down_proj at these M take each of them. With `mp`, also phase 16's
+    TP=2 int4 decode: each rank's half of the MLP (gate_up_proj's columns,
+    down_proj's rows) at its prefill M and its decode M = 1.
     The weights are N(0, 1/K) quantized by the port, x is N(0, 1), so
     outputs are of order one. Times cycle over 24 weight copies (the 24
     layers), so the packed weight is read from device memory and not from
@@ -987,14 +1031,18 @@ def check_int4(results: dict, batch_b: dict) -> None:
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(2)
     errs = []
-    for name, k, n in (("gate_up_proj", 896, 9728), ("down_proj", 4864, 896)):
+    edges = {i4.DECODE_TILE_M, i4.DECODE_TILE_M + 1, 100}
+    ms = sorted({1, 512, batch_b["b"], batch_b["prefill_m"]} | edges)
+    cases = [("gate_up_proj", 896, 9728, ms), ("down_proj", 4864, 896, ms)]
+    if mp is not None:
+        cases += [(f"{name} TP=2", k, n, sorted(mp["int4_m"])) for name, k, n in mp["int4"]]
+    for name, k, n, m_list in cases:
         copies = [quantize_int4_packed(torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k))
                   for _ in range(24)]
         w, s = copies[0]
         # the library call's weight: dequantized, scale folded in, torch's (N, K)
         lib_w = [(unpack_int4(wc).float() * sc).t().contiguous().to(torch.bfloat16) for wc, sc in copies]
-        edges = {i4.DECODE_TILE_M, i4.DECODE_TILE_M + 1, 100}
-        for m in sorted({1, 512, batch_b["b"], batch_b["prefill_m"]} | edges):
+        for m in m_list:
             _checked(results, "int4_matmul", (m, k, n))
             x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
             out_k = i4.int4_matmul(x, w, s).float()
@@ -1141,8 +1189,9 @@ def _count(results: dict, counts: dict) -> None:
 
 
 def hook_kernels() -> tuple[dict, callable]:
-    """Hook the models' kernel entry points (decode attention (B, S), flash
-    attention (rows, L), int4 matmul (M, K, N)) to record each call's shape
+    """Hook the models' kernel entry points (decode attention (B, S, KV
+    heads, query heads), flash attention (rows, L, heads), int4 matmul (M,
+    K, N)) to record each call's shape
     by route (a float32 input's under <kernel>_f32) into the returned dict;
     the second value undoes the hooks. The hooks count nothing: the launch
     counters stay in the wrappers."""
@@ -1150,8 +1199,8 @@ def hook_kernels() -> tuple[dict, callable]:
 
     from fangyan_tts_torch.models import dit, qwen2
 
-    hooks = ((qwen2, "decode_attention", lambda a: (a[3].shape[1], a[3].shape[2])),
-             (dit, "chunk_flash_attention", lambda a: (a[0].shape[0], a[0].shape[2])),
+    hooks = ((qwen2, "decode_attention", lambda a: (a[3].shape[1], a[3].shape[2], a[3].shape[3], a[0].shape[1])),
+             (dit, "chunk_flash_attention", lambda a: (a[0].shape[0], a[0].shape[2], a[0].shape[1])),
              (qwen2, "int4_matmul", lambda a: (a[0].numel() // a[0].shape[-1], a[0].shape[-1], a[1].shape[1])))
     seen: dict = {}
     saved = []
@@ -3983,7 +4032,7 @@ def check_f32_routes(results: dict, api: dict) -> None:
     nl, kv, hd, qh = FULL_LLM_LAYERS, 2, 64, 14
     errs = []
     for bb, ss, idx_list, first_slots in f32_decode_cases():
-        _checked(results, "decode_attention_f32", (bb, ss))
+        _checked(results, "decode_attention_f32", (bb, ss, kv, qh))
         q, kn, vn, ck, cv, idx, bias = f32_decode_inputs(gen, nl, bb, ss, idx_list, first_slots)
         qkv = torch.cat([q.reshape(bb, -1), kn.reshape(bb, -1), vn.reshape(bb, -1)], dim=1)
         views = (qkv[:, : qh * hd].view(bb, qh, hd), qkv[:, qh * hd: (qh + kv) * hd].view(bb, kv, hd),
@@ -4042,7 +4091,7 @@ def check_f32_routes(results: dict, api: dict) -> None:
     errs = []
     for (l, mel), layout in runs:
         bb, h, d = len(mel), 16, 64
-        _checked(results, "chunk_flash_attention_f32", (bb, l))
+        _checked(results, "chunk_flash_attention_f32", (bb, l, h))
         rnd = lambda shape, scale: torch.randn(shape, generator=gen, device=dev) * scale
         if layout == "strided":
             heads = lambda t: t.reshape(bb, l, h, d).transpose(1, 2)
@@ -5059,9 +5108,268 @@ def export_phase(results: dict, card: str, model_dir, states: tuple[dict, dict],
     log(f"phase 15 took {out['phase_s']:.1f} s [{card}]")
 
 
+# ---------------------------------------------------------------- phase 16
+
+
+def mp_spec() -> dict:
+    """Phase 16's kernel shapes, fixed before any model runs: the TP=2
+    decode of the 150-token request (CosyVoice3TTS.generate_tokens's
+    buckets: B = 1, its cache, KV and query heads halved, its last write
+    slot and first valid slot; with the int4 MLP each rank's gate_up_proj
+    columns and down_proj rows halved, at the prefill's M (the prompt
+    bucket) and the steps' M = 1) and the sharded flow's window hop (the
+    CFG pair at (P + MP_WINDOW) x 2 frames, P = 0, heads halved)."""
+    from fangyan_tts_torch.data.lm_plan import build_prompt_plan
+
+    cfg = full_config()
+    up = lambda n, m: -(-n // m) * m
+    plan = build_prompt_plan(cfg.llm, list(range(1, MP_TEXT_TOKENS + 1)), [])
+    tp = up(len(plan.ids), 64)
+    max_len = int(MP_TEXT_TOKENS * MP_RATIO)
+    cache_len = up(tp + max(up(max_len, 64), 64), 128)
+    q = cfg.llm.qwen
+    hidden = q.intermediate_size // MP_RANKS
+    return dict(cache_len=cache_len, last=tp + max_len - 1, start=tp - len(plan.ids), max_len=max_len,
+                kv=q.num_key_value_heads // MP_RANKS, qh=q.num_attention_heads // MP_RANKS,
+                int4=[("gate_up_proj", q.hidden_size, 2 * hidden), ("down_proj", hidden, q.hidden_size)],
+                int4_m={1, tp},
+                flash_l=MP_WINDOW * cfg.token_mel_ratio, heads=cfg.flow.dit.heads // MP_RANKS)
+
+
+def _mp_decode(tts, text: np.ndarray, force: np.ndarray | None = None) -> dict:
+    """Greedy generate_tokens of the 150-token request, with every logits
+    row the model gave (the prefill's, then each decode step's). `force`:
+    teacher forcing, the sampler's pick at row i made force[i] (the row is
+    recorded as the model gave it)."""
+    import torch
+
+    rows = []
+    inner = tts.llm.decode_logits
+
+    def logits(h):
+        out = inner(h)
+        rows.append(out.float())
+        if force is not None:
+            out = out.clone()
+            out[:, int(force[len(rows) - 1])] = out.max() + 1e3
+        return out
+
+    tts.llm.decode_logits = logits
+    try:
+        tokens = tts.generate_tokens(text, min_token_text_ratio=MP_RATIO, max_token_text_ratio=MP_RATIO)
+    finally:
+        del tts.llm.decode_logits
+    torch.cuda.synchronize()
+    return {"tokens": tokens, "logits": torch.cat(rows).cpu().numpy()}
+
+
+def mp_rank(rank: int, world: int) -> dict:
+    """One of phase 16's two processes on card 0 (gloo): (a) the 150-token
+    request's greedy decode through a TP=2 LM, float32 weights (decode in
+    the bf16 cache), free and then teacher-forced on process 0's
+    one-process picks; (a') the same request teacher-forced through a TP=2
+    LM with request (b)'s int8 LLM and int4 MLP, bf16; (b) two streaming
+    hops of a TP=2 sharded token2wav, bf16, (c) a dp=2 LM train step on one
+    global batch; process 0 also runs each one unsharded first. Returns its
+    results, its kernel shapes and its launches (counts set to 0 before
+    each sharded run)."""
+    from dataclasses import replace
+
+    import torch
+    import torch.distributed as dist
+
+    from fangyan_tts_torch.infer.stream import FlowStream
+    from fangyan_tts_torch.infer.tts import CosyVoice3TTS
+    from fangyan_tts_torch.models.llm import CosyVoice3LM
+    from fangyan_tts_torch.ops.device import exact_fp32
+    from fangyan_tts_torch.parallel import make_mesh, shard_module
+    from fangyan_tts_torch.train import trainer
+    from fangyan_tts_torch.train.scheduler import build_optimizer
+
+    torch.cuda.set_device(0)
+    exact_fp32()
+    base = full_config()
+    cfg = replace(base, llm=replace(base.llm, top_k=1, tau_r=1.1))  # greedy: the nucleus is the argmax
+    n_speech = cfg.llm.speech_token_size
+    out: dict = {"times": {}, "launches": {}, "seen": {}, "steps": {}}
+    text = np.random.default_rng(0).integers(0, 50000, MP_TEXT_TOKENS).astype(np.int32)
+    tp_mesh = make_mesh(tp=MP_RANKS, device="cuda", backend="gloo")
+
+    def sharded(label: str, fn):
+        """fn() with the counts set to 0 before and read after, its kernel shapes recorded, timed."""
+        _zero_launches()
+        seen, restore = hook_kernels()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t = time.perf_counter()
+        try:
+            res = fn()
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        out["times"][label] = time.perf_counter() - t
+        out["launches"][label] = {**_launches(), **_launches_f32()}
+        out["seen"][label] = {k: sorted(v) for k, v in seen.items()}
+        return res
+
+    def one_process(key: str, tts) -> np.ndarray:
+        """Process 0's unsharded decode (kept under `key`); its greedy picks on every process: the argmax over
+        the speech tokens of each row (stop ids are masked until min_len = max_len)."""
+        picks = [None]
+        if rank == 0:
+            t = time.perf_counter()
+            out[key] = _mp_decode(tts, text)
+            out["times"][f"{key} one process"] = time.perf_counter() - t
+            picks = [out[key]["logits"][:, :n_speech].argmax(-1)]
+        dist.broadcast_object_list(picks, src=0)
+        return picks[0]
+
+    def decode(label: str, tts, force=None) -> dict:
+        steps = counted_steps(tts)
+        res = sharded(label, lambda: _mp_decode(tts, text, force))
+        out["steps"][label] = steps[0]
+        return res
+
+    # (a) TP=2 decode, float32 weights: free, then teacher-forced
+    t = time.perf_counter()
+    tts = CosyVoice3TTS.random_init(cfg, dtype=torch.float32, seed=MP_SEED)
+    out["times"]["init float32"] = time.perf_counter() - t
+    picks = one_process("decode_ref", tts)
+    shard_module(tts.llm, tp_mesh)
+    out["decode"] = decode("decode", tts)
+    out["forced"] = decode("decode forced", tts, picks)
+    del tts
+
+    # (a') TP=2 decode with the int4 MLP (int8 LLM, bf16), teacher-forced; then
+    # (b) TP=2 shard_token2wav on the same model, bf16, two hops (hop 2 a window hop: the flash kernel)
+    tts = CosyVoice3TTS.random_init(cfg, dtype=torch.bfloat16, seed=MP_SEED)
+    tts.quantize_llm(int4_mlp=True)
+    picks = one_process("int4_ref", tts)
+    shard_module(tts.llm, tp_mesh)
+    out["int4"] = decode("int4 forced", tts, picks)
+    tts.stream_window_tokens = MP_WINDOW
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, 6561, MP_STREAM_TOKENS).astype(np.int32)
+    emb = rng.standard_normal(192).astype(np.float32)
+
+    def hops():
+        fs = FlowStream(tts, np.zeros(0, np.int32), np.zeros((0, 80), np.float32), emb, prompt_pad=0)
+        return [fs.step(tokens).float().cpu().numpy() for _ in range(2)]
+
+    if rank == 0:
+        t = time.perf_counter()
+        out["hops_ref"] = hops()
+        out["times"]["hops one process"] = time.perf_counter() - t
+    tts.shard_token2wav(tp_mesh)
+    out["hops"] = sharded("hops", hops)
+    del tts
+    torch.cuda.empty_cache()
+
+    # (c) dp=2 LM train step on one global batch (bf16 compute, float32 parameters and Adam, remat "full")
+    dp_mesh = make_mesh(dp=MP_RANKS, device="cuda", backend="gloo")
+    lcfg = replace(cfg.llm, qwen=replace(cfg.llm.qwen, remat="full"))
+    batch = {k: v[0] for k, v in llm_train_batch(np.random.default_rng(16), lcfg, MP_TRAIN_B, MP_TRAIN_T, 1).items()}
+
+    def step(mesh):
+        model = trainer.random_module(lambda: CosyVoice3LM(lcfg, dtype=torch.bfloat16), MP_SEED, "cuda")
+        tx = build_optimizer(lr=1e-4)
+        state = trainer.init_state(model, tx)
+        if mesh is not None:
+            state = trainer.shard_state(state, mesh, tx)
+        _, m = trainer.make_llm_train_step(model, tx, mesh)(state, batch)
+        return {k: float(v) for k, v in m.items()}
+
+    if rank == 0:
+        t = time.perf_counter()
+        out["train_ref"] = step(None)
+        out["times"]["train step one process"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+    out["train"] = sharded("train", lambda: step(dp_mesh))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def mp_phase(results: dict, card: str, mp: dict) -> None:
+    """Phase 16: two processes on card 0 over gloo (parallel/launch.spawn)
+    run the tensor- and data-parallel paths at full_config's widths
+    (mp_rank); every sharded run's launches and kernel shapes are held
+    here, the shapes to phase 3's checks."""
+    from fangyan_tts_torch.parallel.launch import spawn
+
+    t0 = time.perf_counter()
+    res = spawn(mp_rank, MP_RANKS, backend="gloo", timeout=3 * MP_PHASE_LIMIT_S, threads=2)
+    cfg = full_config()
+    layers = cfg.llm.qwen.num_hidden_layers
+    ref = res[0]
+    kernels = ("decode_attention", "chunk_flash_attention", "int4_matmul")
+    for r, got in enumerate(res):
+        for label, seen in got["seen"].items():
+            hold_shapes(results, f"phase 16 rank {r} {label}", seen)
+        cnt, steps = got["launches"], got["steps"]
+        # a decode: one decode launch a layer and step, with the int4 MLP two int4 launches a layer and forward
+        # (the prefill's and each step's); the hops: one window hop's flow call; no float32 route, none in training
+        ok_launch = (all(cnt[lab]["decode_attention"] == layers * steps[lab] > 0 for lab in steps)
+                     and cnt["int4 forced"]["int4_matmul"] == 2 * layers * (steps["int4 forced"] + 1)
+                     and cnt["decode"]["int4_matmul"] == cnt["decode forced"]["int4_matmul"] == 0
+                     and cnt["hops"]["chunk_flash_attention"] == cfg.flow.dit.depth * cfg.flow.n_timesteps
+                     and not any(cnt["train"][k] for k in kernels)
+                     and not any(c for lab in cnt.values() for k, c in lab.items() if k.endswith("_f32")))
+        _count(results, {k: sum(cnt[lab][k] for lab in ("decode", "decode forced", "int4 forced", "hops"))
+                         for k in kernels})
+        # (a) the free greedy picks equal the one process's, or part at a near-tie (both margins printed)
+        want, have = ref["decode_ref"], got["decode"]
+        v = cfg.llm.speech_token_size
+        pick_w, pick_h = (x["logits"][:-1, :v].argmax(-1) for x in (want, have))
+        n = min(len(pick_w), len(pick_h))
+        n_same = next((i for i in range(n) if pick_w[i] != pick_h[i]), n)
+        equal = n_same == len(pick_w) == len(pick_h) and np.array_equal(want["tokens"], have["tokens"])
+        top2 = lambda row: float(np.diff(np.sort(row[:v])[-2:])[0])
+        tie, near_tie = "", False
+        if n_same < n:
+            mw, mh = top2(want["logits"][n_same]), top2(have["logits"][n_same])
+            tie = f"; step {n_same} differs: margins {mw:.4f} one process / {mh:.4f} TP (near-tie limit {GREEDY_TIE})"
+            near_tie = min(mw, mh) <= GREEDY_TIE
+        # (a), (a') teacher-forced on the one process's picks: the same tokens, and every logits row (the
+        # prefill's and each step's, the same inputs) within the limit
+        forced = {}
+        for key, label, ref_key in (("forced", "float32", "decode_ref"), ("int4", "int8 + int4 MLP", "int4_ref")):
+            w, h = ref[ref_key], got[key]
+            same = w["logits"].shape == h["logits"].shape and np.array_equal(w["tokens"], h["tokens"])
+            rel = _rel(h["logits"], w["logits"]) if same else float("inf")
+            forced[label] = dict(rows=len(h["logits"]), tokens_equal=same, logits_rel=rel)
+        mrel = max(_rel(a, b) for a, b in zip(got["hops"], ref["hops_ref"]))
+        train_rel = {m: abs(got["train"][m] - ref["train_ref"][m]) / abs(ref["train_ref"][m]) for m in ("loss", "grad_norm")}
+        ok = (ok_launch and (equal or near_tie) and mrel <= MP_MEL_TOL
+              and all(f["tokens_equal"] and f["logits_rel"] <= MP_LOGIT_TOL for f in forced.values())
+              and max(train_rel.values()) <= SMALL_REL_TOL
+              and all(np.isfinite(h).all() for h in got["hops"]))
+        log(f"phase 16 rank {r}: (a) TP=2 greedy decode {len(have['tokens'])} tokens in {steps['decode']} steps, "
+            f"equal to one process={equal} (first {n_same} equal{tie}); teacher-forced on the one process's picks "
+            + "; ".join(f"{label}: {f['rows']} logits rows rel {f['logits_rel']:.3e}, tokens equal {f['tokens_equal']}"
+                        for label, f in forced.items())
+            + f" (limit {MP_LOGIT_TOL}); (b) shard_token2wav 2 hops bf16 mel rel {mrel:.3e} (limit {MP_MEL_TOL}); "
+            f"(c) dp=2 train step loss {got['train']['loss']:.6f} / {ref['train_ref']['loss']:.6f}, grad_norm "
+            f"{got['train']['grad_norm']:.6f} / {ref['train_ref']['grad_norm']:.6f} (rel {train_rel['loss']:.2e}, "
+            f"{train_rel['grad_norm']:.2e}, limit {SMALL_REL_TOL}); launches {cnt}; peak {got['peak_gib']:.2f} GiB "
+            f"[{card}] {'OK' if ok else 'FAIL'}")
+        results.setdefault("mp", {})[f"rank {r}"] = dict(
+            tokens=len(have["tokens"]), equal=equal, first_equal=n_same, forced=forced, mel_rel=mrel,
+            train=got["train"], train_rel=train_rel, launches=cnt, times=got["times"], peak_gib=got["peak_gib"])
+        if not ok:
+            raise AssertionError(f"phase 16 rank {r} failed its checks")
+    took = time.perf_counter() - t0
+    log(f"phase 16 times (rank 0, s): {json.dumps({k: round(v, 3) for k, v in ref['times'].items()})}; rank 1: "
+        f"{json.dumps({k: round(v, 3) for k, v in res[1]['times'].items()})}. Two processes share one card and gloo "
+        f"goes through the host: these times do not measure multi-GPU speed [{card}]")
+    log(f"phase 16 took {took:.1f} s (limit {MP_PHASE_LIMIT_S} s) [{card}]")
+    results["mp"]["phase_s"] = took
+    if took > MP_PHASE_LIMIT_S:
+        raise AssertionError(f"phase 16 took {took:.1f} s, over its limit of {MP_PHASE_LIMIT_S} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
                     help="comma-separated phases to run (see above)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -5096,6 +5404,7 @@ def main() -> int:
     grpo = grpo_spec()
     dg = datagen_spec(api)
     ex = export_spec(api)
+    mp = mp_spec()
     states = frontend_states() if phases & {4, 7, 8, 9, 10, 11, 12, 13, 14, 15} else None
     if 3 in phases:
         batches = [batch_shapes(r) for r in batch_requests_spec()]
@@ -5105,11 +5414,12 @@ def main() -> int:
             f"slot) {v12['decode']} and scheduler (B, S, tp) {v12['sched']}; phase 13's GRPO rollouts: decode B "
             f"{grpo['b']} S {grpo['cache_len']} (tp {grpo['tp']}, max_new {grpo['max_new']}), flash L {grpo['flash_l']}; "
             f"phase 14's CLI batches {dg['cli']} and single requests {[(r['label'], r['cache_len']) for r in dg['single']]}; "
-            f"phase 15's export flash L {ex['export']['flash_l']} and recipe {ex['recipe']}")
-        check_decode(results, batches, api, stream, serving, v12, grpo, dg, ex)
+            f"phase 15's export flash L {ex['export']['flash_l']} and recipe {ex['recipe']}; phase 16's TP=2 decode and "
+            f"window hop {mp}")
+        check_decode(results, batches, api, stream, serving, v12, grpo, dg, ex, mp)
         check_decode_rows(results, serving)
-        check_flash(results, batches, api, stream, serving, grpo, dg, ex)
-        check_int4(results, batches[1])
+        check_flash(results, batches, api, stream, serving, grpo, dg, ex, mp)
+        check_int4(results, batches[1], mp)
         t = time.perf_counter()
         check_f32_routes(results, api)
         log(f"the float32 routes' checks took {time.perf_counter() - t:.1f} s")
@@ -5178,6 +5488,11 @@ def main() -> int:
         if 15 in phases:  # after phase 14, before the profiler passes of phases 5 and 7
             export_phase(results, card, model_dir, states, ex)
             launch_probe(results, "after phase 15")
+        if 16 in phases:  # after phase 15, before the profiler passes of phases 5 and 7
+            if 2 not in phases:
+                _build.build_all()  # built once here: two processes must not build at once
+            mp_phase(results, card, mp)
+            launch_probe(results, "after phase 16")
         if 4 in phases and 5 in phases:
             profile_stages(tts, req, results, card)
             (tts_a, req_a), (tts_b, req_b) = batched["a"], batched["b"]
@@ -5234,7 +5549,7 @@ def main() -> int:
                                                              "train_api_request", "decode_rows_bit_equal",
                                                              "launch_probe_us", "decode_f32_timing",
                                                              "flash_f32_timing", "int4_f32_timing", "small_float32",
-                                                             "f32_request", "f32_batch", "datagen")
+                                                             "f32_request", "f32_batch", "datagen", "mp")
                                      if k in results}))
         log(json.dumps({"kernels": kernels}), stamp=False)
     launch_probe(results, "end")

@@ -6,8 +6,11 @@ python -m fangyan_tts_torch.cli.train \
     --model_dir exp/llm [--config conf.json] [--checkpoint init.msgpack] \
     [--tokenizer_path <hf-dir>] [--max_epoch 200] [--device cuda|cpu] ...
 
+    torchrun --nproc_per_node 8 -m fangyan_tts_torch.cli.train \
+        --mesh dp=2,fsdp=2,tp=2 --model llm ...
+
 Trains CosyVoice3LM (float32 parameters, bf16 compute) or the DiT flow
-(float32) on one device, CUDA unless --device cpu, from the parquet shards
+(float32), CUDA unless --device cpu, from the parquet shards
 that data prep writes (data/dataset.build_pipeline, stacked into --accum_grad
 microbatches that each step accumulates before one optimizer apply). Weights
 start from the JAX package's fast-init rules with --seed, or from
@@ -19,11 +22,19 @@ their sidecars and metrics.jsonl, in the JAX package's layout.
 against its discriminators (as the JAX CLI does). DPO is the library
 train/dpo.py (make_dpo_train_step), as in the JAX package.
 
-Departures from the JAX CLI: --mesh other than dp=1 raises (one device
-here), --dpo raises (the JAX CLI parses it and never reads it: nothing in
-either package wires DPO into this CLI), and the CV pipeline is built anew
-for every checkpoint, so that a step_N checkpoint does not leave the
-epoch's own checkpoint an empty CV set.
+--mesh dp=..,fsdp=..,tp=.. trains on a dp x fsdp x tp mesh of processes
+(parallel/mesh.make_mesh) started by torchrun, one a mesh position (nccl,
+one GPU each, card LOCAL_RANK; gloo with --device cpu); every process
+reads the same batches and takes its rows (train/trainer.py), the weights
+are made (or loaded) whole on every process and sharded by the rules of
+parallel/sharding.py, checkpoints are gathered and written by process 0,
+and only process 0 prints and logs. Without torchrun a mesh past one
+process raises.
+
+Departures from the JAX CLI: --dpo raises (the JAX CLI parses it and never
+reads it: nothing in either package wires DPO into this CLI), and the CV
+pipeline is built anew for every checkpoint, so that a step_N checkpoint
+does not leave the epoch's own checkpoint an empty CV set.
 """
 
 from __future__ import annotations
@@ -62,7 +73,7 @@ def main(argv=None) -> None:
     p.add_argument("--checkpoint", default=None)
     p.add_argument("--qwen_pretrain_path", default="")
     p.add_argument("--tokenizer_path", default=None)
-    p.add_argument("--mesh", default="dp=1", help="one device: dp=1 only")
+    p.add_argument("--mesh", default="dp=1", help="dp=..,fsdp=..,tp=.. (under torchrun: their product processes)")
     p.add_argument("--max_epoch", type=int, default=200)
     p.add_argument("--lr", type=float, default=1e-5)
     p.add_argument("--scheduler", default="constantlr")
@@ -79,30 +90,34 @@ def main(argv=None) -> None:
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
-    if any(n != 1 for n in parse_mesh(args.mesh).values()):
-        raise NotImplementedError(f"--mesh {args.mesh}: fangyan_tts_torch trains on one device; multi-device "
-                                  "training (the JAX package's parallel/ mesh) is not ported yet")
     if args.dpo:
         raise NotImplementedError("--dpo: the JAX CLI parses this flag and never reads it; DPO is the library "
                                   "fangyan_tts_torch.train.dpo (make_dpo_train_step)")
     if args.model == "hifigan":
         raise SystemExit("hifigan training: use fangyan_tts_torch.cli.train_gan")
 
+    import numpy as np
     import torch
 
     from ..config import CosyVoiceConfig, config_from_dict
-    from ..data.dataset import build_pipeline, make_mel_fn, stack_microbatches
+    from ..data.dataset import build_pipeline, make_mel_fn, rank_rows, stack_microbatches
     from ..models.flow import CausalMaskedDiffWithDiT, flow_train_draws
-    from ..models.from_jax import convert, to_jax_tree
+    from ..models.from_jax import convert
     from ..models.llm import CosyVoice3LM
     from ..ops.device import resolve_device
+    from ..parallel import comm
+    from ..parallel.mesh import make_mesh
+    from ..parallel.sharding import fsdp_gathered
     from ..tokenizer import get_qwen_tokenizer
     from ..train import trainer
-    from ..train.checkpoint import load_meta, load_params, save_params
+    from ..train.checkpoint import load_meta, load_params, save_module
     from ..train.executor import Executor
     from ..train.scheduler import build_optimizer
 
     dev = resolve_device(args.device)
+    mesh = make_mesh(**parse_mesh(args.mesh), device=dev)
+    main_rank = mesh.size == 1 or torch.distributed.get_rank() == 0
+    say = print if main_rank else (lambda *a, **k: None)
     cfg = CosyVoiceConfig()
     if args.config:
         cfg = config_from_dict(json.loads(Path(args.config).read_text()))
@@ -117,10 +132,8 @@ def main(argv=None) -> None:
     )
     if args.model == "llm":
         model = trainer.random_module(lambda: CosyVoice3LM(cfg.llm, dtype=torch.bfloat16), args.seed, dev)
-        step_fn = trainer.make_llm_train_step(model, tx, accum=args.accum_grad)
     else:
         model = trainer.random_module(lambda: CausalMaskedDiffWithDiT(cfg.flow), args.seed, dev)
-        step_fn = trainer.make_flow_train_step(model, tx, accum=args.accum_grad)
 
     start_epoch, start_step = 0, 0
     if args.checkpoint:
@@ -128,15 +141,19 @@ def main(argv=None) -> None:
         meta = load_meta(args.checkpoint) or {}
         start_epoch = int(meta.get("epoch", -1)) + 1
         start_step = int(meta.get("step", 0))
-        print(f"resumed from {args.checkpoint} (epoch {start_epoch}, step {start_step})")
+        say(f"resumed from {args.checkpoint} (epoch {start_epoch}, step {start_step})")
 
+    save_init = Path(args.model_dir) / "init.msgpack"
+    if main_rank and not save_init.exists():  # before sharding: the whole module
+        save_module(save_init, model, meta={"epoch": -1, "step": 0})
     state = trainer.init_state(model, tx)
     state.step = start_step
-    save_init = Path(args.model_dir) / "init.msgpack"
-    if not save_init.exists():
-        save_params(save_init, to_jax_tree(model.state_dict(), model), meta={"epoch": -1, "step": 0})
+    if mesh.size > 1:
+        state = trainer.shard_state(state, mesh, tx)
+    make_step = trainer.make_llm_train_step if args.model == "llm" else trainer.make_flow_train_step
+    step_fn = make_step(model, tx, mesh if mesh.size > 1 else None, accum=args.accum_grad)
 
-    executor = Executor(step_fn, args.model_dir, args.log_interval, args.save_per_step)
+    executor = Executor(step_fn, args.model_dir, args.log_interval, args.save_per_step, main=main_rank)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
 
     def make_data(epoch: int, path: str, stack: bool = True):
@@ -149,20 +166,27 @@ def main(argv=None) -> None:
             it = stack_microbatches(it, args.accum_grad)
         return it
 
+    sharded = mesh if mesh.size > 1 else None
+    total, group = trainer.data_total(sharded), sharded and sharded.group("data")
+
     def cv_fn(m, batch):
-        if args.model == "llm":
-            loss, acc = m(*(torch.as_tensor(batch[k], device=dev) for k in trainer.LLM_KEYS))
-            return {"loss": loss, "acc": acc}
-        inputs = [torch.as_tensor(batch[k], device=dev) for k in trainer.FLOW_KEYS]
-        feat = inputs[2]  # every CV batch draws from seed 0, as the JAX CLI's PRNGKey(0)
-        draws = flow_train_draws(feat.shape[0], feat.shape, dev, torch.Generator(device=dev).manual_seed(0))
-        loss, _ = m(*inputs, draws)
-        return {"loss": loss}
+        batch, rows = rank_rows(batch, sharded)
+        with fsdp_gathered(m):
+            if args.model == "llm":
+                loss, acc = m(*trainer.micro_tensors(batch, trainer.LLM_KEYS, dev, None, rows), total=total)
+                return {"loss": comm.total(loss, group), "acc": comm.total(acc, group)}
+            inputs = trainer.micro_tensors(batch, trainer.FLOW_KEYS, dev, None, rows)
+            shape = np.shape(batch["feat"])  # every CV batch draws from seed 0, as the JAX CLI's PRNGKey(0)
+            draws = flow_train_draws(shape[0], shape, dev, torch.Generator(device=dev).manual_seed(0))
+            loss, _ = m(*inputs, {k: v[rows] for k, v in draws.items()}, total=total)
+            return {"loss": comm.total(loss, group)}
 
     cv = _Reiterable(lambda: make_data(0, args.cv_data, stack=False)) if args.cv_data else None
     for epoch in range(start_epoch, args.max_epoch):
         state, gen = executor.train_one_epoch(state, make_data(epoch, args.train_data), epoch, gen, cv, cv_fn)
-        print(f"epoch {epoch} done, step {int(state.step)}")
+        say(f"epoch {epoch} done, step {int(state.step)}")
+    if mesh.size > 1:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

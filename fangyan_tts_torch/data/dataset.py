@@ -220,6 +220,42 @@ def _round_up(n: int, m: int) -> int:
 _STACK_PAD = {"targets": -1, "lengths": 0, "token_len": 0, "feat_len": 0}
 
 
+def pad_rows(batch: dict, multiple: int, axis: int = 0) -> dict:
+    """The batch (numpy arrays or tensors) with its row `axis` padded to a
+    multiple of `multiple` by rows that weigh nothing in the losses (as
+    stack_microbatches pads: lengths 0, targets IGNORE_ID, data 0), so that
+    it splits over the data ranks of a mesh."""
+    n = np.shape(next(iter(batch.values())))[axis]
+    extra = -n % multiple
+    if not extra:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        shape = list(np.shape(v))
+        shape[axis] = extra
+        fill = _STACK_PAD.get(k, 0)
+        if isinstance(v, torch.Tensor):
+            out[k] = torch.cat([v, torch.full(shape, fill, dtype=v.dtype, device=v.device)], dim=axis)
+        else:
+            v = np.asarray(v)
+            out[k] = np.concatenate([v, np.full(shape, fill, v.dtype)], axis=axis)
+    return out
+
+
+def rank_rows(batch: dict, mesh, axis: int = 0) -> tuple[dict, slice]:
+    """This process's rows of a global batch under a mesh
+    (parallel/mesh.py): (the batch padded by pad_rows to a multiple of dp x
+    fsdp rows along `axis`, the slice of it the rank takes,
+    parallel/sharding.batch_pspec). Processes that differ only in tp take
+    the same rows; without a mesh, the whole batch."""
+    if mesh is None:
+        return batch, slice(None)
+    from ..parallel.sharding import batch_pspec
+
+    batch = pad_rows(batch, mesh.data_size, axis)
+    return batch, batch_pspec(mesh, np.shape(next(iter(batch.values())))[axis])
+
+
 def stack_microbatches(batches: Iterator[dict], accum: int) -> Iterator[dict]:
     """Group `accum` consecutive collated batches into ONE stacked batch
     with a leading (accum,) microbatch dim, padding each to the group's max

@@ -272,9 +272,26 @@ class CosyVoice3TTS:
         the model dtype). Returns at once when the DiT is already int8."""
         if self.cfg.flow.dit.quant_int8:
             return
+        if getattr(self.flow, "_sharded", None) is not None:
+            raise ValueError("quantize_flow: quantize before shard_token2wav")
         sd = quantize_dit_state(self.flow.state_dict())
         self.cfg = replace(self.cfg, flow=replace(self.cfg.flow, dit=replace(self.cfg.flow.dit, quant_int8=True)))
         self.flow = _load(lambda: CausalMaskedDiffWithDiT(self.cfg.flow), sd, self.device)
+
+    def shard_token2wav(self, mesh) -> None:
+        """Multi-device token2wav: the flow tensor-parallel over `mesh`'s tp
+        axis (the Megatron pattern on the DiT: to_qkv and ff_0 column, to_out
+        and ff_2 row, one all-reduce each a block; parallel/sharding.py),
+        the vocoder replicated (a mesh without fsdp). Every process of the mesh runs
+        the same calls and hops (SPMD) and gets the same mel and audio;
+        process 0 hands them out. Quantize first (quantize_flow)."""
+        from ..parallel.sharding import shard_module
+
+        if mesh.fsdp > 1:  # an fsdp weight would need gathering at every call
+            raise ValueError("shard_token2wav: a mesh without fsdp (make_mesh(tp=N))")
+        self.flow.__dict__.pop("estimator_chunk", None)  # rebuilt on the sharded tensors at first use
+        shard_module(self.flow, mesh)
+        self.cfg = replace(self.cfg, flow=self.flow.cfg)  # the per-rank head count (streaming KV caches)
 
     def next_generator(self) -> torch.Generator:
         """A generator for one request's own random stream (the JAX package's

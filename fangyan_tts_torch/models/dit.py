@@ -26,6 +26,7 @@ the first `dim_head` channels (head 0) are rotated, with interleaved pairs.
 from __future__ import annotations
 
 import math
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -147,6 +148,12 @@ class DiTAttention(nn.Module):
         inner = cfg.heads * cfg.dim_head
         self.to_qkv = _block_dense(cfg, cfg.dim, 3 * inner)
         self.to_out = _block_dense(cfg, inner, cfg.dim)
+        self.rotary = True  # head 0 is rotated; under tensor parallelism only its rank holds it
+
+    def rotate(self, q, k, cos, sin):
+        if not self.rotary:
+            return q, k
+        return _apply_rotary_pre_split(q, cos, sin), _apply_rotary_pre_split(k, cos, sin)
 
     def forward(self, x, mel_len, chunk: int, cos, sin, dense: bool = False):
         """dense: the JAX DiT's dense attention in plain PyTorch (the
@@ -154,8 +161,7 @@ class DiTAttention(nn.Module):
         c = self.cfg
         b, l, _ = x.shape
         q, k, v = qdense(x, self.to_qkv).chunk(3, dim=-1)
-        q = _apply_rotary_pre_split(q, cos, sin)
-        k = _apply_rotary_pre_split(k, cos, sin)
+        q, k = self.rotate(q, k, cos, sin)
 
         def heads(t):  # (B, L, inner) -> (B, H, L, D) view, no copy (v stays inside the qkv buffer)
             return t.reshape(b, l, c.heads, c.dim_head).transpose(1, 2)
@@ -263,8 +269,7 @@ class DiTAttentionChunk(DiTAttention):
         c = self.cfg
         b, lq, _ = x.shape
         q, k, v = qdense(x, self.to_qkv).chunk(3, dim=-1)
-        q = _apply_rotary_pre_split(q, cos, sin)
-        k = _apply_rotary_pre_split(k, cos, sin)
+        q, k = self.rotate(q, k, cos, sin)
         heads = lambda t: t.reshape(b, lq, c.heads, c.dim_head).transpose(1, 2)
         qh, kh, vh = heads(q), heads(k), heads(v)
         scale = math.sqrt(c.dim_head)
@@ -308,9 +313,15 @@ class DiTChunk(DiT):
 
     @classmethod
     def of(cls, dit: DiT) -> "DiTChunk":
-        """A DiTChunk on `dit`'s own tensors (shared, not copied)."""
+        """A DiTChunk on `dit`'s own tensors (shared, not copied); on a
+        sharded DiT's parts, sharded as it is (parallel/sharding.py)."""
+        mesh = getattr(dit, "tp_mesh", None)
         with torch.device("meta"):
-            out = cls(dit.cfg)
+            out = cls(dit.cfg if mesh is None else replace(dit.cfg, heads=dit.cfg.heads * mesh.tp))
+        if mesh is not None:
+            from ..parallel.sharding import shard_module
+
+            shard_module(out, mesh)
         out.load_state_dict(dit.state_dict(), strict=True, assign=True)
         return out.requires_grad_(False).eval()
 

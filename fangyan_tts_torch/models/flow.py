@@ -151,7 +151,7 @@ class CausalMaskedDiffWithDiT(nn.Module):
         return upsample_nearest(h, c.token_mel_ratio)
 
     def forward(self, token, token_len, feat, feat_len, embedding, draws: dict,
-                streaming: bool = False) -> tuple[torch.Tensor, dict]:
+                streaming: bool = False, total=None) -> tuple[torch.Tensor, dict]:
         """Training loss: token (B, Lt), token_len (B,), feat (B, L_mel, mel)
         target mel, feat_len (B,), embedding (B, 192), draws from
         flow_train_draws. Half the rows (draws["use_cond"]) keep a random
@@ -161,7 +161,9 @@ class CausalMaskedDiffWithDiT(nn.Module):
         and the condition. The DiT runs on its dense route, full attention
         over the valid frames or, with `streaming`, the static chunk mask.
         Returns (loss, {"loss_cfm": loss}): the squared error over the valid
-        frames, divided by their count times the mel dim."""
+        frames, divided by their count times the mel dim (`total`, a
+        data-parallel step's, sums that count over the data ranks:
+        models/llm.label_smoothed_ce)."""
         c = self.cfg
         emb = embedding / torch.linalg.vector_norm(embedding, dim=1, keepdim=True).clamp_min(1e-12)
         spks = flax_dense(emb, self.spk_embed_affine_layer)
@@ -186,7 +188,8 @@ class CausalMaskedDiffWithDiT(nn.Module):
 
         chunk = c.dit.static_chunk_size if streaming else 0
         pred = self.estimator(y, mu, t[:, 0, 0], spks, conds, feat_len.to(torch.int32), chunk, dense=True)
-        loss = (((pred - u) * mask) ** 2).sum() / (mask.sum() * d)
+        frames = mask.sum() if total is None else total(mask.sum())
+        loss = (((pred - u) * mask) ** 2).sum() / (frames * d)
         return loss, {"loss_cfm": loss}
 
     @functools.cached_property

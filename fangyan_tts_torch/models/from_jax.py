@@ -208,30 +208,35 @@ def _jax_leaf(t: torch.Tensor) -> np.ndarray | torch.Tensor:
     return t if t.dtype == torch.bfloat16 else t.numpy()
 
 
+def jax_key(key: str, ndim: int, owners: Mapping[str, nn.Module]) -> tuple[tuple[str, ...], tuple[int, ...] | None]:
+    """The JAX tree path of the port's state_dict `key` (a tensor of `ndim`
+    dimensions; `owners` is the module's named_modules()), with the layer
+    index still in it, and the axis permutation torch -> JAX (None where the
+    layout is the same)."""
+    mod_path, _, leaf = key.rpartition(".")
+    owner = owners[mod_path]
+    parts = mod_path.split(".") if mod_path else []
+    if isinstance(owner, nn.Embedding):
+        return tuple(parts + ["embedding"]), None
+    if isinstance(owner, AffineParams):
+        return tuple(parts[:-1] + [f"{parts[-1]}_{leaf}"]), None
+    if isinstance(owner, WNConv2d) and leaf == "scale":  # Conv_i's scale lives in WeightNorm_i
+        return tuple(parts[:-1] + [f"WeightNorm_{parts[-1].split('_')[-1]}", f"{parts[-1]}/kernel/scale"]), None
+    if type(owner) in (ConvParams, nn.Module) and leaf in ("weight", "bias"):
+        path = parts[:-1] + [f"{parts[-1]}_{'kernel' if leaf == 'weight' else 'bias'}"]
+        return tuple(path), _TO_JAX[ndim] if leaf == "weight" else None
+    if leaf == "weight" and ndim >= 2:
+        return tuple(parts + ["kernel"]), _TO_JAX[ndim]
+    return tuple(parts + [leaf]), None
+
+
 def to_jax_tree(state_dict: Mapping[str, torch.Tensor], module: nn.Module) -> dict:
     """The port's state_dict of `module` -> the JAX package's nested tree."""
     owners = dict(module.named_modules())
     flat: dict[tuple[str, ...], torch.Tensor] = {}
     for key, t in state_dict.items():
-        mod_path, _, leaf = key.rpartition(".")
-        owner = owners[mod_path]
-        parts = mod_path.split(".") if mod_path else []
-        if isinstance(owner, nn.Embedding):
-            path = parts + ["embedding"]
-        elif isinstance(owner, AffineParams):
-            path = parts[:-1] + [f"{parts[-1]}_{leaf}"]
-        elif isinstance(owner, WNConv2d) and leaf == "scale":  # Conv_i's scale lives in WeightNorm_i
-            path = parts[:-1] + [f"WeightNorm_{parts[-1].split('_')[-1]}", f"{parts[-1]}/kernel/scale"]
-        elif type(owner) in (ConvParams, nn.Module) and leaf in ("weight", "bias"):
-            path = parts[:-1] + [f"{parts[-1]}_{'kernel' if leaf == 'weight' else 'bias'}"]
-            if leaf == "weight":
-                t = t.permute(*_TO_JAX[t.dim()])
-        elif leaf == "weight" and t.dim() >= 2:
-            path = parts + ["kernel"]
-            t = t.permute(*_TO_JAX[t.dim()])
-        else:
-            path = parts + [leaf]
-        flat[tuple(path)] = t
+        path, perm = jax_key(key, t.dim(), owners)
+        flat[path] = t if perm is None else t.permute(*perm)
     stacks: dict[tuple[str, ...], dict[int, torch.Tensor]] = {}
     tree: dict = {}
     for path, t in flat.items():

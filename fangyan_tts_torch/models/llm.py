@@ -50,17 +50,18 @@ class CosyVoice3LM(nn.Module):
         """The bias-free head, with flax Dense's dtype promotion."""
         return q.flax_dense(h, self.llm_decoder)
 
-    def forward(self, src, ids, lengths, targets) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, src, ids, lengths, targets, total=None) -> tuple[torch.Tensor, torch.Tensor]:
         """Training forward on right-padded plans (B, L) (data/lm_plan
         pad_plans_right): the cache-free Qwen2 pass under a causal + padding
         bias, then label-smoothed CE over the targets that are not
-        IGNORE_ID. Returns (loss, acc), float32 scalars."""
+        IGNORE_ID. Returns (loss, acc), float32 scalars. `total`: see
+        label_smoothed_ce."""
         c = self.cfg
         x = self.embed_plan(src, ids)
         b, t, _ = x.shape
         positions = torch.arange(t, dtype=torch.int32, device=x.device).expand(b, t)
         h = self.llm(x, positions, q.prefill_attn_bias(t, lengths))
-        return label_smoothed_ce(self.decode_logits(h), targets, c.lsm_weight, c.length_normalized_loss)
+        return label_smoothed_ce(self.decode_logits(h), targets, c.lsm_weight, c.length_normalized_loss, total)
 
     def prefill_leftpad(self, src, ids, lengths, cache: dict) -> torch.Tensor:
         """Left-padded prompt prefill into a fresh cache. Row b's tokens
@@ -137,10 +138,13 @@ def bistream_append(model: CosyVoice3LM, cache: dict | None, seq_pos: int, src: 
 
 
 def label_smoothed_ce(logits: torch.Tensor, targets: torch.Tensor, smoothing: float,
-                      normalize_length: bool) -> tuple[torch.Tensor, torch.Tensor]:
+                      normalize_length: bool, total=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Label-smoothed NLL summed over the targets that are not IGNORE_ID, a
     float32 log-softmax, divided by their count (normalize_length) or by the
-    batch size. Returns (loss, acc), acc the argmax hits over those targets."""
+    batch size. Returns (loss, acc), acc the argmax hits over those targets.
+    `total` (a data-parallel step's): sums a count over the data ranks, so
+    that each rank's loss and acc are its share of the global batch's
+    (their sum over the ranks)."""
     v = logits.shape[-1]
     mask = targets != IGNORE_ID
     tgt = torch.where(mask, targets, 0).long()
@@ -150,8 +154,11 @@ def label_smoothed_ce(logits: torch.Tensor, targets: torch.Tensor, smoothing: fl
     if smoothing > 0.0:
         nll = nll - smoothing / (v - 1) * (logp.sum(dim=-1) - picked)
     nll = torch.where(mask, nll, 0.0)
-    n_valid = mask.sum().clamp(min=1)
-    loss = nll.sum() / (n_valid if normalize_length else logits.shape[0])
+    n_valid, rows = mask.sum(), logits.shape[0]
+    if total is not None:
+        n_valid, rows = total(n_valid), total(torch.tensor(rows, device=logits.device))
+    n_valid = n_valid.clamp(min=1)
+    loss = nll.sum() / (n_valid if normalize_length else rows)
     acc = ((logits.argmax(dim=-1) == targets) & mask).sum() / n_valid
     return loss, acc
 

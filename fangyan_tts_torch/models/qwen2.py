@@ -69,9 +69,20 @@ def dense(d_in: int, d_out: int, bias: bool, bits: int = 0) -> nn.Module:
     return QLinear(d_in, d_out, bias, bits) if bits else nn.Linear(d_in, d_out, bias=bias)
 
 
+class TPDense:
+    """A tensor-parallel Linear or QLinear (parallel/sharding.py swaps a
+    sharded layer's class to one): qdense and flax_dense leave it to its
+    own `tp_dense`, which takes the layer's collectives around its part."""
+
+    def tp_dense(self, x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+        raise NotImplementedError
+
+
 def qdense(x: torch.Tensor, lin: nn.Module) -> torch.Tensor:
     """The JAX QDense: x @ W in x's dtype (int8: ops/quant.int8_dot; int4:
     the ops/int4_matmul kernel), then the bias in the result's."""
+    if isinstance(lin, TPDense):
+        return lin.tp_dense(x)
     if isinstance(lin, QLinear):
         y = int4_matmul(x, lin.kernel_q4, lin.scale) if lin.bits == 4 else int8_dot(x, lin.kernel_q, lin.scale)
     else:
@@ -88,6 +99,8 @@ def flax_dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype | None = None
         dtype = torch.promote_types(x.dtype, lin.weight.dtype)
         if lin.bias is not None:
             dtype = torch.promote_types(dtype, lin.bias.dtype)
+    if isinstance(lin, TPDense):
+        return lin.tp_dense(x, dtype)
     y = F.linear(x.to(dtype), lin.weight.to(dtype))
     if lin.bias is not None:
         y = y + lin.bias.to(dtype)

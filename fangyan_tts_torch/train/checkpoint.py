@@ -291,6 +291,24 @@ def save_params(path: str | Path, params: Any, meta: dict | None = None) -> None
             json.dump(meta, f, ensure_ascii=False, indent=2)
 
 
+def save_module(path: str | Path, module: torch.nn.Module, meta: dict | None = None) -> None:
+    """save_params of a module in the JAX package's layout
+    (models/from_jax.to_jax_tree). A module sharded on a mesh
+    (parallel/sharding.py) is gathered to its single-device state_dict
+    first, so the checkpoint does not depend on the mesh, as in the JAX
+    package: every process of the mesh calls this (the gather is a
+    collective), and process 0 writes."""
+    import torch.distributed as dist
+
+    from ..models.from_jax import to_jax_tree
+    from ..parallel.sharding import gather_module
+
+    sd = gather_module(module)
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return
+    save_params(path, to_jax_tree(sd, module), meta=meta)
+
+
 def load_params(path: str | Path) -> Any:
     with open(path, "rb") as f:
         return msgpack_restore(f.read())

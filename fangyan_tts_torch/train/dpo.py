@@ -13,9 +13,15 @@ accumulation.
 The reference policy is a module of its own (train/trainer.frozen_copy):
 the JAX package's ref_params are an immutable tree, while an in-place step
 on a module shared with the policy would move the reference too and hold
-the preference loss at log 2. Its forward runs under no_grad. One device:
-a `mesh` raises. The training forward runs the LM's dense attention (no
-kernel of the port).
+the preference loss at log 2. Its forward runs under no_grad. The training
+forward runs the LM's dense attention (no kernel of the port).
+
+Under a mesh (train/trainer.py's module docstring): the policy is sharded
+by trainer.shard_state, the reference on the same mesh here if it is not
+yet; each process takes its rows of the chosen half and the same rows of
+the rejected half (every pair stays on one rank; B must split over dp x
+fsdp), and the means over pairs and tokens divide by counts summed over
+the data ranks.
 """
 
 from __future__ import annotations
@@ -29,12 +35,16 @@ import torch.nn.functional as F
 from ..models import qwen2 as q
 from ..models.llm import IGNORE_ID, CosyVoice3LM, label_smoothed_ce
 from .scheduler import Optimizer
-from .trainer import LLM_KEYS, TrainState, check_mesh, grads_of, micro_tensors, optimizer_apply
+from ..parallel import comm
+from ..parallel.sharding import batch_pspec, fsdp_gathered, shard_module, sync_grads
+from .trainer import LLM_KEYS, TrainState, data_total, grads_of, mesh_of, micro_tensors, optimizer_apply
 
 
 def dpo_loss(policy_chosen_logps, policy_rejected_logps, ref_chosen_logps, ref_rejected_logps, beta: float = 0.01,
-             label_smoothing: float = 0.0, ipo: bool = False):
-    """Returns (mean loss, chosen rewards (B,), rejected rewards (B,))."""
+             label_smoothing: float = 0.0, ipo: bool = False, total=None):
+    """Returns (mean loss, chosen rewards (B,), rejected rewards (B,)).
+    `total`: as in models/llm.label_smoothed_ce (the mean over the pairs of
+    every data rank)."""
     logits = (policy_chosen_logps - policy_rejected_logps) - (ref_chosen_logps - ref_rejected_logps)
     if ipo:
         losses = (logits - 1.0 / (2.0 * beta)) ** 2
@@ -43,10 +53,17 @@ def dpo_loss(policy_chosen_logps, policy_rejected_logps, ref_chosen_logps, ref_r
                   - F.logsigmoid(-beta * logits) * label_smoothing)
     chosen_rewards = beta * (policy_chosen_logps - ref_chosen_logps)
     rejected_rewards = beta * (policy_rejected_logps - ref_rejected_logps)
-    return losses.mean(), chosen_rewards, rejected_rewards
+    return _mean(losses, total), chosen_rewards, rejected_rewards
 
 
-def _seq_logps(model: CosyVoice3LM, src, ids, lengths, targets) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def _mean(x: torch.Tensor, total=None) -> torch.Tensor:
+    if total is None:
+        return x.mean()
+    return x.sum() / total(torch.tensor(x.shape[0], device=x.device))
+
+
+def _seq_logps(model: CosyVoice3LM, src, ids, lengths, targets,
+               total=None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(CE loss and acc of the chosen half, per-sequence mean logp (2B,))
     of a stacked batch."""
     x = model.embed_plan(src, ids)
@@ -59,7 +76,7 @@ def _seq_logps(model: CosyVoice3LM, src, ids, lengths, targets) -> tuple[torch.T
     seq_logps = (picked * mask).sum(dim=-1) / mask.sum(dim=-1).clamp(min=1)
     half = b // 2
     c = model.cfg
-    ce_loss, acc = label_smoothed_ce(logits[:half], targets[:half], c.lsm_weight, c.length_normalized_loss)
+    ce_loss, acc = label_smoothed_ce(logits[:half], targets[:half], c.lsm_weight, c.length_normalized_loss, total)
     return ce_loss, acc, seq_logps
 
 
@@ -70,25 +87,37 @@ def make_dpo_train_step(model: CosyVoice3LM, ref_model: nn.Module, tx: Optimizer
     numpy or tensors. `ref_model` is the frozen reference
     (trainer.frozen_copy(model) before the first step); it must not share
     parameters with `model`."""
-    check_mesh(mesh)
+    mesh = mesh_of(model, mesh)
     shared = {id(p) for p in model.parameters()} & {id(p) for p in ref_model.parameters()}
     if shared:
         raise ValueError("make_dpo_train_step: ref_model shares parameters with the policy; pass "
                          "trainer.frozen_copy(model)")
+    if mesh is not None and getattr(ref_model, "_sharded", None) is None:
+        shard_module(ref_model, mesh)
     dev = next(model.parameters()).device
+    total = data_total(mesh)
 
     def step(state: TrainState, batch: dict, rng=None):
         args = micro_tensors(batch, LLM_KEYS, dev, None)
         half = args[1].shape[0] // 2
-        ce_loss, acc, logps = _seq_logps(model, *args)
-        with torch.no_grad():
-            _, _, ref_logps = _seq_logps(ref_model, *args)
-        pref_loss, cr, rr = dpo_loss(logps[:half], logps[half:], ref_logps[:half], ref_logps[half:], beta=beta,
-                                     label_smoothing=label_smoothing, ipo=ipo)
-        loss = pref_loss + ce_loss
-        opt_state = optimizer_apply(model, tx, grads_of(model, loss), state.opt_state)
+        if mesh is not None:  # this rank's pairs: its rows of the chosen half and the same of the rejected
+            rows = batch_pspec(mesh, half)
+            args = [torch.cat([a[:half][rows], a[half:][rows]]) for a in args]
+            half = args[1].shape[0] // 2
+        with fsdp_gathered(model):
+            ce_loss, acc, logps = _seq_logps(model, *args, total=total)
+            with torch.no_grad(), fsdp_gathered(ref_model):
+                _, _, ref_logps = _seq_logps(ref_model, *args)
+            pref_loss, cr, rr = dpo_loss(logps[:half], logps[half:], ref_logps[:half], ref_logps[half:], beta=beta,
+                                         label_smoothing=label_smoothing, ipo=ipo, total=total)
+            loss = pref_loss + ce_loss
+            grads = grads_of(model, loss)
+        sync_grads(model, grads)
+        opt_state = optimizer_apply(model, tx, grads, state.opt_state)
         metrics = {"loss": loss, "sft_loss": ce_loss, "dpo_loss": pref_loss, "acc": acc,
-                   "dpo_acc": (cr > rr).float().mean(), "chosen_reward": cr.mean(), "reject_reward": rr.mean()}
-        return TrainState(state.step + 1, state.params, opt_state), {k: v.detach() for k, v in metrics.items()}
+                   "dpo_acc": _mean((cr > rr).float(), total), "chosen_reward": _mean(cr, total),
+                   "reject_reward": _mean(rr, total)}
+        group = mesh and mesh.group("data")
+        return TrainState(state.step + 1, state.params, opt_state), {k: comm.total(v, group) for k, v in metrics.items()}
 
     return step

@@ -12,6 +12,10 @@ JAX package and the port's model directory read them.
 
 The train step owns the device work; the loop reads its metrics back once
 per logged step and once per checkpoint.
+
+Under a mesh every process runs the loop on the same batches (a sharded
+step takes its own rows); `main` is False on every process but one, which
+alone prints, logs and writes (a checkpoint's gather runs on all).
 """
 
 from __future__ import annotations
@@ -24,8 +28,7 @@ from typing import Callable, Iterable
 import numpy as np
 import torch
 
-from ..models.from_jax import to_jax_tree
-from .checkpoint import save_params
+from .checkpoint import save_module
 
 
 class MetricsLogger:
@@ -55,13 +58,16 @@ class Executor:
         log_interval: int = 100,
         save_per_step: int = -1,
         metrics_path: str | Path | None = None,
+        main: bool = True,
     ):
         self.train_step = train_step
         self.model_dir = Path(model_dir)
-        self.model_dir.mkdir(parents=True, exist_ok=True)
+        self.main = main
+        if main:
+            self.model_dir.mkdir(parents=True, exist_ok=True)
         self.log_interval = log_interval
         self.save_per_step = save_per_step
-        self.metrics = MetricsLogger(metrics_path or self.model_dir / "metrics.jsonl")
+        self.metrics = MetricsLogger((metrics_path or self.model_dir / "metrics.jsonl") if main else None)
 
     def train_one_epoch(self, state, data: Iterable[dict], epoch: int, rng: torch.Generator | None = None,
                         cv_data=None, cv_fn=None):
@@ -76,7 +82,7 @@ class Executor:
             state, metrics = self.train_step(state, batch, rng)
             n += 1
             step = int(state.step)
-            if batch_idx % self.log_interval == 0:
+            if batch_idx % self.log_interval == 0 and self.main:
                 m = {k: float(v) for k, v in metrics.items()}
                 rate = n / (time.time() - t0)
                 print(f"epoch {epoch} step {step} " + " ".join(f"{k}={v:.4f}" for k, v in m.items())
@@ -100,7 +106,8 @@ class Executor:
                 for k, v in metrics.items():
                     totals[k] = totals.get(k, 0.0) + float(v) * bsz
         if total_utts == 0:
-            print("⚠️ empty CV set — skipping validation")
+            if self.main:
+                print("⚠️ empty CV set — skipping validation")
             return {}
         return {k: v / total_utts for k, v in totals.items()}
 
@@ -112,6 +119,6 @@ class Executor:
             if "loss" in cv:
                 meta["cv_loss"] = cv["loss"]
             self.metrics.log("cv", step, cv)
-            print(f"CV @ step {step}: " + " ".join(f"{k}={v:.4f}" for k, v in cv.items()), flush=True)
-        model = state.params
-        save_params(self.model_dir / f"{suffix}.msgpack", to_jax_tree(model.state_dict(), model), meta=meta)
+            if self.main:
+                print(f"CV @ step {step}: " + " ".join(f"{k}={v:.4f}" for k, v in cv.items()), flush=True)
+        save_module(self.model_dir / f"{suffix}.msgpack", state.params, meta=meta)

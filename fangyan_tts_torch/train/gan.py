@@ -10,7 +10,16 @@ The state's `gen_params` / `disc_params` are the modules themselves: each
 turn updates its own module's parameters in place and leaves the other's
 untouched. The discriminator's turn runs the generator under no_grad (the
 JAX step's stop_gradient). Both optimizers are the JAX CLI's optax.adam
-(train/scheduler.plain_adam). One device: a `mesh` raises.
+(train/scheduler.plain_adam).
+
+Under a mesh, data parallel with replicated parameters (`shard_gan_state`,
+the JAX package's): each process takes its rows of the batch (over dp x
+fsdp; rows past the last multiple of that are left out, the rest of an
+epoch's last batch); the discriminator outputs, feature maps,
+signals and f0 are gathered over the data ranks before the losses, so that
+every process computes the global batch's losses (the TPR loss's median
+is one over the whole batch) and the gradients, each rank's share, are
+summed over the data ranks.
 """
 
 from __future__ import annotations
@@ -25,7 +34,9 @@ from ..models.discriminators import MultipleDiscriminator
 from ..models.hift import CausalHiFT
 from ..ops.mel import matcha_mel
 from .scheduler import Optimizer
-from .trainer import check_mesh, grads_of, optimizer_apply
+from ..parallel import comm
+from ..parallel.sharding import batch_pspec, replicate_module, sync_grads
+from .trainer import grads_of, mesh_of, optimizer_apply
 
 GAN_KEYS = ("speech", "speech_feat", "pitch_feat")
 
@@ -89,6 +100,14 @@ def init_gan_state(gen: nn.Module, disc: nn.Module, gen_tx: Optimizer, disc_tx: 
     return GANState(0, gen, disc, gen_tx.init(list(gen.parameters())), disc_tx.init(list(disc.parameters())))
 
 
+def shard_gan_state(state: GANState, mesh) -> GANState:
+    """Replicate the generator, the discriminator and their optimizer states
+    over `mesh` (pure data parallelism; the models are small)."""
+    replicate_module(state.gen_params, mesh)
+    replicate_module(state.disc_params, mesh)
+    return state
+
+
 def make_hifigan_steps(
     hift: CausalHiFT,
     disc: MultipleDiscriminator,
@@ -102,12 +121,31 @@ def make_hifigan_steps(
 ) -> tuple[Callable, Callable]:
     """Returns (generator_step, discriminator_step), each step(state, batch)
     -> (state, metrics). batch: speech (B, T), speech_feat (B, L, 80),
-    pitch_feat (B, L), numpy or tensors (moved to the generator's device)."""
-    check_mesh(mesh)
+    pitch_feat (B, L), numpy or tensors (moved to the generator's device).
+    Under a mesh, shard_gan_state first (see the module docstring)."""
+    mesh = mesh_of(hift, mesh)
+    if mesh is not None and getattr(disc, "_sharded", None) is None:
+        raise ValueError("make_hifigan_steps: the discriminator is not on the mesh; call shard_gan_state")
     dev = next(hift.parameters()).device
+    group = mesh and mesh.group("data")
 
     def inputs(batch):
-        return [torch.as_tensor(batch[k], device=dev) for k in GAN_KEYS]
+        out = [torch.as_tensor(batch[k], device=dev) for k in GAN_KEYS]
+        if mesh is None:
+            return out
+        # the losses are means and a median over the whole batch, which rows that weigh nothing would move: the
+        # rows past the last multiple of dp x fsdp are left out (an epoch's last batch)
+        n = out[0].shape[0] // mesh.data_size * mesh.data_size
+        if n == 0:
+            raise ValueError(f"a GAN batch of {out[0].shape[0]} rows has none for some of the "
+                             f"{mesh.data_size} data ranks")
+        return [t[:n][batch_pspec(mesh, n)] for t in out]
+
+    def every(x):
+        """x (a tensor, or nested lists of them) with every data rank's rows."""
+        if isinstance(x, (list, tuple)):
+            return [every(t) for t in x]
+        return comm.gather(x, 0, group)
 
     def cut(real, gen_audio):
         n = min(real.shape[1], gen_audio.shape[1])
@@ -117,14 +155,17 @@ def make_hifigan_steps(
         speech, feat, pitch = inputs(batch)
         gen_audio, gen_f0 = state.gen_params.forward_train(feat)
         real, gen_audio = cut(speech, gen_audio)
-        y_d_rs, y_d_gs, fmap_rs, fmap_gs = state.disc_params(real, gen_audio)
+        y_d_rs, y_d_gs, fmap_rs, fmap_gs = every(state.disc_params(real, gen_audio))
+        real, gen_audio, gen_f0, pitch = every([real, gen_audio, gen_f0, pitch])
         l_gen = generator_adv_loss(y_d_gs)
         l_fm = feature_match_loss(fmap_rs, fmap_gs)
         l_mel = mel_l1_loss(real, gen_audio)
         l_tpr = tpr_loss(y_d_gs, y_d_rs, tpr_tau) if tpr_weight != 0 else 0.0
         l_f0 = torch.mean(torch.abs(gen_f0 - pitch))
         loss = l_gen + fm_weight * l_fm + mel_weight * l_mel + tpr_weight * l_tpr + l_f0
-        gen_opt = optimizer_apply(state.gen_params, gen_tx, grads_of(state.gen_params, loss), state.gen_opt)
+        grads = grads_of(state.gen_params, loss)
+        sync_grads(state.gen_params, grads)
+        gen_opt = optimizer_apply(state.gen_params, gen_tx, grads, state.gen_opt)
         metrics = {"loss": loss, "loss_gen": l_gen, "loss_fm": l_fm, "loss_mel": l_mel, "loss_f0": l_f0}
         new = GANState(state.step + 1, state.gen_params, state.disc_params, gen_opt, state.disc_opt)
         return new, {k: v.detach() for k, v in metrics.items()}
@@ -134,11 +175,13 @@ def make_hifigan_steps(
         with torch.no_grad():
             gen_audio, _ = state.gen_params.forward_train(feat)
         real, gen_audio = cut(speech, gen_audio)
-        y_d_rs, y_d_gs, _, _ = state.disc_params(real, gen_audio)
+        y_d_rs, y_d_gs = every(state.disc_params(real, gen_audio)[:2])
         l_disc = discriminator_adv_loss(y_d_rs, y_d_gs)
         l_tpr = tpr_loss(y_d_rs, y_d_gs, tpr_tau) if tpr_weight != 0 else 0.0
         loss = l_disc + tpr_weight * l_tpr
-        disc_opt = optimizer_apply(state.disc_params, disc_tx, grads_of(state.disc_params, loss), state.disc_opt)
+        grads = grads_of(state.disc_params, loss)
+        sync_grads(state.disc_params, grads)
+        disc_opt = optimizer_apply(state.disc_params, disc_tx, grads, state.disc_opt)
         new = GANState(state.step, state.gen_params, state.disc_params, state.gen_opt, disc_opt)
         return new, {"loss": loss.detach(), "loss_disc": l_disc.detach()}
 

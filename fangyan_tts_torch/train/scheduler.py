@@ -168,15 +168,35 @@ B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults, which the JAX package k
 MAX_CONSECUTIVE_ERRORS = 100  # the JAX package's apply_if_finite
 
 
-def global_norm(tensors: Tensors) -> torch.Tensor:
-    """optax.global_norm: sqrt of the sum of every element's square, float32."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)).float())
+def global_norm(tensors: Tensors, layout=None) -> torch.Tensor:
+    """optax.global_norm: sqrt of the sum of every element's square, float32.
+    With the `layout` of a sharded module (parallel/sharding.Sharded; the
+    tensors in its parameters' order), the squares of tp- and fsdp-sharded
+    tensors are summed over their axis, and a replicated tensor counts once."""
+    norms = torch.stack(torch._foreach_norm(tensors)).float()
+    if layout is None or layout.mesh.size == 1:
+        return torch.linalg.vector_norm(norms)
+    from ..parallel import comm
+
+    sq = norms * norms
+    out = 0.0
+    for axis in (None, "tp", "fsdp"):
+        part = sq[[i for i, a in enumerate(layout.param_axes) if a == axis]].sum()
+        out = out + (part if axis is None else comm.total(part, layout.mesh.group(axis)))
+    return torch.sqrt(out)
 
 
-def all_finite(tensors: Tensors) -> torch.Tensor:
+def all_finite(tensors: Tensors, layout=None) -> torch.Tensor:
     """A device bool: every element of every tensor is finite (0 * x is 0
-    for a finite x and NaN for an infinite or NaN one)."""
-    return torch.stack(torch._foreach_norm(torch._foreach_mul(tensors, 0.0), 1)).sum() == 0
+    for a finite x and NaN for an infinite or NaN one); with a sharded
+    module's `layout`, on every process (one shard's inf skips the step on
+    all)."""
+    bad = torch.stack(torch._foreach_norm(torch._foreach_mul(tensors, 0.0), 1)).sum()
+    if layout is not None and layout.mesh.size > 1:
+        from ..parallel import comm
+
+        bad = comm.total(torch.nan_to_num(bad, nan=1.0, posinf=1.0), layout.mesh.group("world"))
+    return bad == 0
 
 
 @dataclass
@@ -227,19 +247,21 @@ class Optimizer:
             return MultiStepsState(0, 0, [torch.zeros_like(p) for p in params], state)
         return state
 
-    def update(self, grads: Tensors, state, params: Tensors):
+    def update(self, grads: Tensors, state, params: Tensors, layout=None):
+        """`layout`: a sharded module's (parallel/sharding.Sharded), for the
+        norm of the clip and the finite check across its processes."""
         if not self.skip_nonfinite:
-            return self._adam(self._clip(grads), state, params)
+            return self._adam(self._clip(grads, layout), state, params)
         if self.accum_grad > 1:
-            return self._multi_steps(grads, state, params)
-        return self._if_finite(grads, state, params)
+            return self._multi_steps(grads, state, params, layout)
+        return self._if_finite(grads, state, params, layout)
 
     # optax.MultiSteps (use_grad_mean): every call runs the inner update on
     # the running mean; its result and state are kept on the k-th call only
-    def _multi_steps(self, grads: Tensors, st: MultiStepsState, params: Tensors):
+    def _multi_steps(self, grads: Tensors, st: MultiStepsState, params: Tensors, layout=None):
         k = self.accum_grad
         acc = [a + (g - a) / (st.mini_step + 1) for g, a in zip(grads, st.acc_grads)]
-        updates, inner = self._if_finite(acc, st.inner, params)
+        updates, inner = self._if_finite(acc, st.inner, params, layout)
         emit = st.mini_step == k - 1
         new = MultiStepsState((st.mini_step + 1) % k, st.gradient_step + emit, acc, st.inner)
         if emit:  # optax multiplies by (1 - emit) and emit, so a NaN survives both
@@ -249,19 +271,19 @@ class Optimizer:
             updates = torch._foreach_mul(updates, 0.0)
         return updates, new
 
-    def _if_finite(self, grads: Tensors, st: FiniteState, params: Tensors):
-        finite = bool(all_finite(grads))
+    def _if_finite(self, grads: Tensors, st: FiniteState, params: Tensors, layout=None):
+        finite = bool(all_finite(grads, layout))
         notfinite = 0 if finite else st.notfinite_count + 1
         if finite or notfinite > MAX_CONSECUTIVE_ERRORS:
-            updates, inner = self._adam(self._clip(grads), st.inner, params)
+            updates, inner = self._adam(self._clip(grads, layout), st.inner, params)
         else:
             updates, inner = [torch.zeros_like(g) for g in grads], st.inner
         return updates, FiniteState(notfinite, finite, st.total_notfinite + (not finite), inner)
 
-    def _clip(self, grads: Tensors) -> Tensors:
+    def _clip(self, grads: Tensors, layout=None) -> Tensors:
         if self.grad_clip is None:
             return grads
-        g_norm = global_norm(grads)
+        g_norm = global_norm(grads, layout)
         if bool(g_norm < self.grad_clip):
             return grads
         clipped = torch._foreach_div(grads, g_norm)

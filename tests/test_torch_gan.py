@@ -300,10 +300,12 @@ def test_train_gan_cli(gan_corpus, tmp_path, monkeypatch):
     assert np.isfinite(got.numpy()).all() and np.abs(got.numpy()).max() > 0
 
 
-@pytest.mark.parametrize("flag, err", [(["--mesh", "dp=2"], NotImplementedError), (["--device", "cuda"], RuntimeError)])
+@pytest.mark.parametrize("flag, err", [(["--mesh", "dp=2", "--device", "cpu"], ValueError),
+                                       (["--device", "cuda"], RuntimeError)])
 def test_train_gan_cli_refusals(tmp_path, flag, err, monkeypatch):
-    """--mesh past one device raises; the CLI runs on CUDA unless --device
-    cpu, and raises without a card."""
+    """--mesh past one process outside torchrun (WORLD_SIZE unset) raises;
+    the CLI runs on CUDA unless --device cpu, and raises without a card."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     (tmp_path / "x.list").write_text("")
     with pytest.raises(err):

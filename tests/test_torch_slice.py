@@ -160,6 +160,9 @@ def test_port_imports_no_jax():
         "assert all('fangyan_tts_torch.' + m in sys.modules for m in slice13)\n"
         "slice14 = ('cli.export', 'models.subsampling', 'example', 'webui')\n"
         "assert all('fangyan_tts_torch.' + m in sys.modules for m in slice14)\n"
+        "slice17 = ('parallel', 'parallel.mesh', 'parallel.sharding', 'parallel.comm', 'parallel.launch',\n"
+        "           'parallel.dryrun')\n"
+        "assert all('fangyan_tts_torch.' + m in sys.modules for m in slice17)\n"
         "print(len([m for m in sys.modules if m.startswith('fangyan_tts_torch')]))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)

@@ -180,9 +180,15 @@ def test_in_step_accum_matches_multisteps():
 
 
 def test_mesh_raises():
+    """A mesh that is not the port's, or one the module was not sharded on,
+    raises (tests/test_torch_parallel.py runs the sharded steps)."""
+    from fangyan_tts_torch.parallel.mesh import Mesh
+
     _, _, tm = llm_models(JC.llm, TC.llm)
-    with pytest.raises(NotImplementedError, match="one device"):
+    with pytest.raises(TypeError, match="parallel"):
         ttrainer.make_llm_train_step(tm, tsched.build_optimizer(), mesh=object())
+    with pytest.raises(ValueError, match="not sharded on this mesh"):
+        ttrainer.make_llm_train_step(tm, tsched.build_optimizer(), mesh=Mesh(dp=2))
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])
@@ -316,6 +322,32 @@ def test_train_cli_llm(corpus_lists, tmp_path):
     assert tckpt.load_meta(avg) == {"averaged_from": best}
 
 
+def test_train_cli_mesh_matches_one_process(corpus_lists, tmp_path):
+    """`cli.train --mesh dp=2` in two gloo processes (as torchrun starts
+    them) writes what the one-process run writes: the same files, every
+    checkpoint within 2e-5 of its one-process twin, the same CV losses
+    (process 0 alone writes, and the batches' odd rows are padded with rows
+    that weigh nothing)."""
+    import torch_parallel_ranks
+    from fangyan_tts_torch.parallel.launch import spawn
+
+    one, two = tmp_path / "one", tmp_path / "two"
+    _train(corpus_lists, "llm", one)
+    argv = ["--model", "llm", "--train_data", str(corpus_lists / "train.list"), "--cv_data",
+            str(corpus_lists / "cv.list"), "--model_dir", str(two), "--config", str(corpus_lists / "conf.json"),
+            "--device", "cpu", "--max_epoch", "1", "--lr", "1e-3", "--max_frames_in_batch", "100",
+            "--save_per_step", "1", "--log_interval", "1", "--mesh", "dp=2"]
+    spawn(torch_parallel_ranks.cli_rank, 2, args=("fangyan_tts_torch.cli.train", argv), timeout=180)
+    _assert_run(two)
+    for n in ("init", "step_1", "step_2", "epoch_0_whole"):
+        want, got = tckpt.load_params(one / f"{n}.msgpack"), tckpt.load_params(two / f"{n}.msgpack")
+        jax.tree.map(lambda a, b: np.testing.assert_allclose(np.asarray(a, np.float32), np.asarray(b, np.float32),
+                                                             rtol=2e-5, atol=2e-5), got, want)
+        if n != "init":
+            np.testing.assert_allclose(tckpt.load_meta(two / f"{n}.msgpack")["cv_loss"],
+                                       tckpt.load_meta(one / f"{n}.msgpack")["cv_loss"], rtol=1e-5)
+
+
 def test_train_cli_flow_and_resume(corpus_lists, tmp_path):
     out = tmp_path / "flow"
     _train(corpus_lists, "flow", out, "--accum_grad", "1", "--max_frames_in_batch", "2000")
@@ -337,11 +369,13 @@ def test_train_cli_flow_and_resume(corpus_lists, tmp_path):
     assert meta["epoch"] == 1 and meta["step"] > tckpt.load_meta(out / "epoch_0_whole.msgpack")["step"]
 
 
-@pytest.mark.parametrize("flag, err", [(["--mesh", "dp=2"], NotImplementedError), (["--dpo"], NotImplementedError),
-                                       (["--device", "cuda"], RuntimeError)])
+@pytest.mark.parametrize("flag, err", [(["--mesh", "dp=2", "--device", "cpu"], ValueError),
+                                       (["--dpo"], NotImplementedError), (["--device", "cuda"], RuntimeError)])
 def test_train_cli_refusals(tmp_path, flag, err, monkeypatch):
-    """--mesh past one device and --dpo raise; the CLI runs on CUDA unless
-    --device cpu, and raises without a card."""
+    """--mesh past one process outside torchrun (WORLD_SIZE unset) and --dpo
+    raise; the CLI runs on CUDA unless --device cpu, and raises without a
+    card."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     (tmp_path / "x.list").write_text("")
     with pytest.raises(err):

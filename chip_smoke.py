@@ -92,7 +92,7 @@ Phases:
      directory, S5 a bistream text generator (stopped after 100 tokens); S1
      and S3 again with the speculative first hop and the token prefetch
      thread off, held to the runs with both on; first-chunk ms, RTF and the
-     per-hop budget (stream_stats); launches counted per run and every
+     per-hop budget (the tracer's stream.* spans); launches counted per run and every
      shape held to phase 3's checks as in phase 4; one young KV hop and one
      window hop of S2 under torch.profiler; and a small model's vc stream
      across the window boundary on the card against the CPU
@@ -1715,31 +1715,39 @@ def stream_plan(n_tokens: int, n_prompt: int, cfg) -> tuple[int, int]:
 
 def stream_run(tts, run, keep: bool = False) -> dict:
     """One stream: `run()` returns the chunk generator. Wall time, time to
-    the first chunk, chunks, samples, and the stream_stats budget; with
-    `keep`, the chunks themselves under "wav"."""
-    tts.stream_stats = {}
-    t0 = time.perf_counter()
+    the first chunk, chunks, samples, and the per-hop budget from the
+    tracer's `stream.*` spans (ms); with `keep`, the chunks themselves
+    under "wav"."""
+    from fangyan_tts_torch.utils import profiling
+
+    profiling.reset()
     first = None
     chunks, n, ok, kept = 0, 0, True, []
-    for out in run():
-        if first is None:
-            first = time.perf_counter() - t0
-        wav = out["tts_speech"]
-        ok &= bool(np.isfinite(wav).all()) and (len(wav) == 0 or float(np.abs(wav).max()) <= 0.99)
-        chunks += 1
-        n += len(wav)
-        if keep:
-            kept.append(wav)
-    wall = time.perf_counter() - t0
-    stats, tts.stream_stats = tts.stream_stats, None
-    budget = {k: (float(np.mean(v)), float(np.max(v))) for k, v in stats.items() if v}
+    with profiling.recording():
+        t0 = time.perf_counter()
+        for out in run():
+            if first is None:
+                first = time.perf_counter() - t0
+            wav = out["tts_speech"]
+            ok &= bool(np.isfinite(wav).all()) and (len(wav) == 0 or float(np.abs(wav).max()) <= 0.99)
+            chunks += 1
+            n += len(wav)
+            if keep:
+                kept.append(wav)
+        wall = time.perf_counter() - t0
+    stats: dict[str, list[float]] = {}
+    for s in profiling.spans():
+        if s["name"].startswith("stream.") and s["t1_ns"] is not None:
+            stats.setdefault(s["name"][len("stream."):], []).append((s["t1_ns"] - s["t0_ns"]) / 1e6)
+    profiling.reset()
+    budget = {k: (float(np.mean(v)), float(np.max(v))) for k, v in stats.items()}
     r = dict(wall_s=wall, first_ms=first * 1e3, chunks=chunks, samples=n, audio_s=n / 24000, rtf=wall / (n / 24000),
-             finite=ok, budget=budget, pushes=len(stats.get("t2w_dispatch_ms", [])))
+             finite=ok, budget=budget, pushes=len(stats.get("t2w_dispatch", [])))
     return dict(r, wav=kept) if keep else r
 
 
 def _budget(b: dict) -> str:
-    return ", ".join(f"{k[:-3]} {m:.2f} / {x:.2f}" for k, (m, x) in sorted(b.items())) + " ms (mean / max)"
+    return ", ".join(f"{k} {m:.2f} / {x:.2f}" for k, (m, x) in sorted(b.items())) + " ms (mean / max)"
 
 
 def streaming_phase(results: dict, card: str, tts, api_model, prompt_wav: str, api: dict) -> None:

@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import queue
 import threading
-import time
 from dataclasses import replace
 from typing import Any, Generator
 
@@ -40,6 +39,7 @@ from ..models.hift import CausalHiFT
 from ..models.llm import CosyVoice3LM, decode_chunk, decode_prefill, generate_speech_tokens
 from ..ops.device import exact_fp32, resolve_device
 from ..ops.quant import quantize_dit_state, quantize_qwen_state
+from ..utils.profiling import count, span
 from .bistream import inference_bistream
 from .stream import Token2WavSession, cfm_noise
 
@@ -231,7 +231,6 @@ class CosyVoice3TTS:
         self.flow_kv_stream = True  # the young hops KV-cached (False: the full-prefix solve)
         self.stream_no_speculation = False
         self.stream_no_prefetch = False
-        self.stream_stats: dict | None = None  # a dict here collects the per-hop budget (ms lists)
         self.llm_scheduler = None  # enable_batched_llm: streaming decodes share a continuous batch
         self.stream_scheduler = None  # enable_batched_streaming: streams share batched token2wav
 
@@ -435,40 +434,45 @@ class CosyVoice3TTS:
         plans left-padded to a multiple of 32, the decode bucket a multiple of
         64 and the cache a multiple of 64; flow tokens padded to a multiple of
         64; the vocoder takes the whole padded mel."""
-        fp = np.asarray(flow_prompt_speech_token, np.int32)
-        pf = np.asarray(prompt_speech_feat, np.float32)
-        all_tokens, counts = self._batch_tokens(texts, prompt_text, llm_prompt_speech_token,
-                                                min_token_text_ratio, max_token_text_ratio)
-        mel, token_len = self._batch_token2mel(all_tokens, counts, fp, pf, flow_embedding)
-        audio = self.vocode_batch(mel)  # the device mel chains in; one audio fetch
-        ratio = self.cfg.token_mel_ratio
-        hop = self.cfg.hift.total_upsample
-        # the output mel's prompt region is len(fp) * ratio frames, and the
-        # conditioning layout needs prompt_feat to be exactly that long
-        assert pf.shape[0] == len(fp) * ratio, (
-            f"prompt_speech_feat has {pf.shape[0]} frames; expected "
-            f"{len(fp) * ratio} (= {len(fp)} prompt tokens x ratio {ratio})"
-        )
-        start = len(fp) * ratio * hop
-        return [audio[i, start : start + (token_len[i] - len(fp)) * ratio * hop] for i in range(len(texts))]
+        with span("tts.batch", rows=len(texts)):
+            fp = np.asarray(flow_prompt_speech_token, np.int32)
+            pf = np.asarray(prompt_speech_feat, np.float32)
+            all_tokens, counts = self._batch_tokens(texts, prompt_text, llm_prompt_speech_token,
+                                                    min_token_text_ratio, max_token_text_ratio)
+            mel, token_len = self._batch_token2mel(all_tokens, counts, fp, pf, flow_embedding)
+            audio = self.vocode_batch(mel)  # the device mel chains in; one audio fetch
+            ratio = self.cfg.token_mel_ratio
+            hop = self.cfg.hift.total_upsample
+            # the output mel's prompt region is len(fp) * ratio frames, and the
+            # conditioning layout needs prompt_feat to be exactly that long
+            assert pf.shape[0] == len(fp) * ratio, (
+                f"prompt_speech_feat has {pf.shape[0]} frames; expected "
+                f"{len(fp) * ratio} (= {len(fp)} prompt tokens x ratio {ratio})"
+            )
+            start = len(fp) * ratio * hop
+            return [audio[i, start : start + (token_len[i] - len(fp)) * ratio * hop] for i in range(len(texts))]
 
     @torch.inference_mode()
     def _batch_tokens(self, texts, prompt_text, llm_prompt_speech_token, min_token_text_ratio,
                       max_token_text_ratio) -> tuple[np.ndarray, np.ndarray]:
         """Stage 1 of batch_synthesize: (B, max_new) tokens and (B,) counts."""
-        plans, tp, max_new, cache_len = batch_buckets(self.cfg.llm, texts, prompt_text, llm_prompt_speech_token,
-                                                      max_token_text_ratio)
-        batch = pad_plans_left(plans, length=tp)
-        min_lens = np.asarray([int(len(t) * min_token_text_ratio) for t in texts], np.int32)
-        max_lens = np.asarray([int(len(t) * max_token_text_ratio) for t in texts], np.int32)
-        dev = self.device
-        res = generate_speech_tokens(
-            self.llm,
-            torch.from_numpy(batch["src"]).to(dev), torch.from_numpy(batch["ids"]).to(dev),
-            torch.from_numpy(batch["lengths"]).to(dev), torch.from_numpy(min_lens), torch.from_numpy(max_lens),
-            self.generator, max_new_tokens=max_new, cache_len=cache_len,
-        )
-        return res.tokens.cpu().numpy(), res.num_tokens.cpu().numpy()
+        with span("llm"):
+            with span("llm.plan"):  # the prompt plans, built on the host and copied in
+                plans, tp, max_new, cache_len = batch_buckets(self.cfg.llm, texts, prompt_text,
+                                                              llm_prompt_speech_token, max_token_text_ratio)
+                batch = pad_plans_left(plans, length=tp)
+                min_lens = np.asarray([int(len(t) * min_token_text_ratio) for t in texts], np.int32)
+                max_lens = np.asarray([int(len(t) * max_token_text_ratio) for t in texts], np.int32)
+                dev = self.device
+                args = (torch.from_numpy(batch["src"]).to(dev), torch.from_numpy(batch["ids"]).to(dev),
+                        torch.from_numpy(batch["lengths"]).to(dev), torch.from_numpy(min_lens),
+                        torch.from_numpy(max_lens))
+            res = generate_speech_tokens(self.llm, *args, self.generator, max_new_tokens=max_new,
+                                         cache_len=cache_len)
+            with span("llm.fetch"):
+                tokens, counts = res.tokens.cpu().numpy(), res.num_tokens.cpu().numpy()
+            count("llm.tokens", int(counts.sum()))
+        return tokens, counts
 
     @torch.inference_mode()
     def _batch_token2mel(self, all_tokens: np.ndarray, counts: np.ndarray, fp: np.ndarray, pf: np.ndarray,
@@ -477,36 +481,39 @@ class CosyVoice3TTS:
         suppressed) after the flow prompt tokens, padded to a common bucket,
         through one batched flow solve. Returns the device mel (B, L, 80)
         and the rows' token lengths, prompt included."""
-        b = len(counts)
-        lt_max = _round_up(int(counts.max()) + len(fp), 64)
-        token = np.zeros((b, lt_max), np.int32)
-        token_len = np.zeros((b,), np.int32)
-        for i in range(b):
-            row = np.concatenate([fp, suppress_silent_runs(all_tokens[i, : counts[i]])])
-            token[i, : len(row)] = row
-            token_len[i] = len(row)
-        emb = np.asarray(flow_embedding, np.float32)
-        if emb.ndim == 1:
-            emb = np.broadcast_to(emb, (b, 192))
-        pf_b = np.broadcast_to(pf[None], (b, *pf.shape)) if pf.ndim == 2 else pf
-
-        dev, dt = self.device, self.dtype
-        mu, spks, conds, mel_len = self.flow.prepare_inference(
-            torch.from_numpy(token).to(dev), torch.from_numpy(token_len).to(dev),
-            torch.tensor(pf_b, device=dev).to(dt),
-            torch.full((b,), pf.shape[0], dtype=torch.int32, device=dev),
-            torch.tensor(emb, device=dev).to(dt),
-        )
-        l_mel = mu.shape[1]
-        z = cfm_noise(self)[:, :l_mel, :].expand(b, l_mel, self.cfg.flow.output_size).to(mu.dtype)
-        return cfm_solve(self.cfg.flow, self.flow.estimator, z, mu, spks, conds, mel_len), token_len
+        with span("flow"):
+            with span("flow.pack"):
+                b = len(counts)
+                lt_max = _round_up(int(counts.max()) + len(fp), 64)
+                token = np.zeros((b, lt_max), np.int32)
+                token_len = np.zeros((b,), np.int32)
+                for i in range(b):
+                    row = np.concatenate([fp, suppress_silent_runs(all_tokens[i, : counts[i]])])
+                    token[i, : len(row)] = row
+                    token_len[i] = len(row)
+                emb = np.asarray(flow_embedding, np.float32)
+                if emb.ndim == 1:
+                    emb = np.broadcast_to(emb, (b, 192))
+                pf_b = np.broadcast_to(pf[None], (b, *pf.shape)) if pf.ndim == 2 else pf
+                dev, dt = self.device, self.dtype
+                args = (torch.from_numpy(token).to(dev), torch.from_numpy(token_len).to(dev),
+                        torch.tensor(pf_b, device=dev).to(dt),
+                        torch.full((b,), pf.shape[0], dtype=torch.int32, device=dev),
+                        torch.tensor(emb, device=dev).to(dt))
+            mu, spks, conds, mel_len = self.flow.prepare_inference(*args)
+            l_mel = mu.shape[1]
+            z = cfm_noise(self)[:, :l_mel, :].expand(b, l_mel, self.cfg.flow.output_size).to(mu.dtype)
+            return cfm_solve(self.cfg.flow, self.flow.estimator, z, mu, spks, conds, mel_len), token_len
 
     @torch.inference_mode()
     def vocode_batch(self, mel) -> np.ndarray:
         """Causal vocoding of a (B, L, 80) mel as it is (no padding): (B,
         L * 480) float32."""
-        mel = torch.as_tensor(mel, device=self.device).to(self.dtype)
-        return self.hift(mel)[0].float().cpu().numpy()
+        with span("vocoder"):
+            with span("vocoder.run"):
+                audio = self.hift(torch.as_tensor(mel, device=self.device).to(self.dtype))[0]
+            with span("vocoder.fetch"):
+                return audio.float().cpu().numpy()
 
     # ---- public generator API -----------------------------------------------
 
@@ -608,54 +615,50 @@ class CosyVoice3TTS:
     def _solo_stream(self, sess, token_iter, prefetch):
         # One-hop audio pipeline: hop k's audio is fetched only after hop k+1
         # is dispatched, so its copy rides under device work; the first chunk
-        # is fetched at once. stream_stats (a dict, opt-in) collects the
-        # per-hop budget: decode wait, token2wav dispatch, fetch, finalize.
-        stats = self.stream_stats
-        clock = time.perf_counter
-        note = (lambda k, t0: stats.setdefault(k, []).append((clock() - t0) * 1e3)) if stats is not None else None
+        # is fetched at once. The spans are the per-hop budget: the wait for
+        # decoded tokens, the token2wav dispatch, each audio fetch, and the
+        # finalize's dispatch.
         pending = None
         emitted = 0
         it = iter(token_iter)
         while True:
-            t0 = clock()
-            try:
-                tok_chunk = next(it)
-            except StopIteration:
+            with span("stream.decode_wait"):
+                tok_chunk = next(it, None)
+            if tok_chunk is None:
                 break
-            if note:
-                note("decode_wait_ms", t0)
-            t0 = clock()
-            if isinstance(tok_chunk, _SpecFirstChunk):
-                if tok_chunk.spec_audio is not None:  # the speculation held
-                    devs = [tok_chunk.spec_audio] + sess.commit_first(tok_chunk.tokens)
-                else:  # suppression (or an early stop) changed the first window: replay
-                    sess.reset()
-                    devs = sess.push_dev(tok_chunk.tokens)
-            else:
-                devs = sess.push_dev(tok_chunk)
-            if note:
-                note("t2w_dispatch_ms", t0)
+            with span("stream.t2w_dispatch"):
+                if isinstance(tok_chunk, _SpecFirstChunk):
+                    if tok_chunk.spec_audio is not None:  # the speculation held
+                        devs = [tok_chunk.spec_audio] + sess.commit_first(tok_chunk.tokens)
+                    else:  # suppression (or an early stop) changed the first window: replay
+                        sess.reset()
+                        devs = sess.push_dev(tok_chunk.tokens)
+                else:
+                    devs = sess.push_dev(tok_chunk)
             for dev in devs:
-                t0 = clock()
                 if emitted == 0:
                     if prefetch is not None:
                         prefetch.release()  # first audio in hand
-                    yield {"tts_speech": dev.numpy()}
+                    with span("stream.fetch"):
+                        wav = dev.numpy()
+                    yield {"tts_speech": wav}
                 else:
                     if pending is not None:
-                        yield {"tts_speech": pending.numpy()}
+                        with span("stream.fetch"):
+                            wav = pending.numpy()
+                        yield {"tts_speech": wav}
                     pending = dev
-                if note:
-                    note("fetch_ms", t0)
                 emitted += 1
-        t0 = clock()
         # the finalize is dispatched before the last pending fetch, so it runs under it
-        fin = sess.finish_dev()
+        with span("stream.finalize"):
+            fin = sess.finish_dev()
         if pending is not None:
-            yield {"tts_speech": pending.numpy()}
-        yield {"tts_speech": fin()}
-        if note:
-            note("finalize_ms", t0)
+            with span("stream.fetch"):
+                wav = pending.numpy()
+            yield {"tts_speech": wav}
+        with span("stream.fetch"):
+            wav = fin()
+        yield {"tts_speech": wav}
 
     @torch.inference_mode()
     def _bistream_tokens(self, text, prompt_text, llm_prompt_speech_token):

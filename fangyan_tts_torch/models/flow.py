@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from ..config import FlowConfig
 from ..ops.convs import conv1d, upsample_nearest
 from ..ops.masks import chunk_split_bias
+from ..utils.profiling import span
 from .dit import DiT, DiTChunk, ConvParams, precompute_mods
 from .qwen2 import flax_dense
 
@@ -104,35 +105,38 @@ class CausalMaskedDiffWithDiT(nn.Module):
         lengths share one batched call (infer/batch_stream.py young hops).
         Returns (mu (B, L, mel), spks (B, mel), conds (B, L, mel), mel_len
         (B,) int32)."""
-        c = self.cfg
-        emb = embedding / torch.linalg.vector_norm(embedding, dim=1, keepdim=True).clamp_min(1e-12)
-        spks = flax_dense(emb, self.spk_embed_affine_layer)
+        with span("flow.prepare"):
+            c = self.cfg
+            emb = embedding / torch.linalg.vector_norm(embedding, dim=1, keepdim=True).clamp_min(1e-12)
+            spks = flax_dense(emb, self.spk_embed_affine_layer)
 
-        l = token.shape[1]
-        valid = torch.arange(l, device=token.device)[None, :] < token_len[:, None]
-        token_emb = self.input_embedding(token.clamp(0, c.vocab_size - 1))
-        token_emb = token_emb * valid[..., None].to(token_emb.dtype)
-        if finalize:
-            h = self.pre_lookahead_layer(token_emb)
-        elif padded_streaming:
-            h = self.pre_lookahead_layer(token_emb)
-            valid = valid & (torch.arange(l, device=token.device)[None, :] < (token_len - c.pre_lookahead_len)[:, None])
-        else:
-            la = c.pre_lookahead_len
-            h = self.pre_lookahead_layer(token_emb[:, :-la], token_emb[:, -la:])
-            valid = valid[:, :-la]
-        h = upsample_nearest(h, c.token_mel_ratio)
+            l = token.shape[1]
+            valid = torch.arange(l, device=token.device)[None, :] < token_len[:, None]
+            token_emb = self.input_embedding(token.clamp(0, c.vocab_size - 1))
+            token_emb = token_emb * valid[..., None].to(token_emb.dtype)
+            if finalize:
+                h = self.pre_lookahead_layer(token_emb)
+            elif padded_streaming:
+                h = self.pre_lookahead_layer(token_emb)
+                valid = valid & (torch.arange(l, device=token.device)[None, :]
+                                 < (token_len - c.pre_lookahead_len)[:, None])
+            else:
+                la = c.pre_lookahead_len
+                h = self.pre_lookahead_layer(token_emb[:, :-la], token_emb[:, -la:])
+                valid = valid[:, :-la]
+            h = upsample_nearest(h, c.token_mel_ratio)
 
-        l_mel = h.shape[1]
-        mel_len = valid.to(torch.int32).sum(dim=1, dtype=torch.int32) * c.token_mel_ratio
-        pf = prompt_feat.to(h.dtype)
-        if pf.shape[1] < l_mel:
-            pf = F.pad(pf, (0, 0, 0, l_mel - pf.shape[1]))
-        else:
-            pf = pf[:, :l_mel]
-        pos = torch.arange(l_mel, device=h.device)[None, :, None]
-        conds = torch.where(pos < prompt_feat_len[:, None, None], pf, torch.zeros((), dtype=pf.dtype, device=pf.device))
-        return h, spks, conds, mel_len
+            l_mel = h.shape[1]
+            mel_len = valid.to(torch.int32).sum(dim=1, dtype=torch.int32) * c.token_mel_ratio
+            pf = prompt_feat.to(h.dtype)
+            if pf.shape[1] < l_mel:
+                pf = F.pad(pf, (0, 0, 0, l_mel - pf.shape[1]))
+            else:
+                pf = pf[:, :l_mel]
+            pos = torch.arange(l_mel, device=h.device)[None, :, None]
+            conds = torch.where(pos < prompt_feat_len[:, None, None], pf,
+                                torch.zeros((), dtype=pf.dtype, device=pf.device))
+            return h, spks, conds, mel_len
 
     def prepare_chunk(self, token_ctx: torch.Tensor, finalize: bool = False,
                       n_valid: torch.Tensor | None = None) -> torch.Tensor:
@@ -229,11 +233,12 @@ def cfm_solve(cfg: FlowConfig, dit: DiT, z, mu, spks, conds, mel_len, streaming:
 
     x = z
     for i in range(cfg.n_timesteps):
-        x2 = torch.cat([x, x], dim=0)
-        t2 = ts[i].expand(2 * b)
-        v = dit(x2, mu2, t2, spks2, cond2, mel_len2, cfg.dit.static_chunk_size if streaming else 0, all_mods[i])
-        dphi = (1.0 + rate) * v[:b] - rate * v[b:]
-        x = x + dts[i] * dphi
+        with span("flow.euler"):
+            x2 = torch.cat([x, x], dim=0)
+            t2 = ts[i].expand(2 * b)
+            v = dit(x2, mu2, t2, spks2, cond2, mel_len2, cfg.dit.static_chunk_size if streaming else 0, all_mods[i])
+            dphi = (1.0 + rate) * v[:b] - rate * v[b:]
+            x = x + dts[i] * dphi
     return x
 
 

@@ -25,6 +25,7 @@ import torch.nn as nn
 
 from ..config import LLMConfig
 from ..ops.sampling import ras_sample
+from ..utils.profiling import count, span
 from . import qwen2 as q
 
 IGNORE_ID = -1
@@ -190,33 +191,41 @@ def generate_speech_tokens(
     min_lens = min_lens.to(dev, torch.int32)
     max_lens = max_lens.to(dev, torch.int32)
 
-    cache = q.init_cache(c.qwen, b, cache_len, dtype=torch.bfloat16, device=dev)
-    logits = model.decode_logits(model.prefill_leftpad(src, ids, prompt_lens, cache))
+    with span("llm.prefill"):
+        cache = q.init_cache(c.qwen, b, cache_len, dtype=torch.bfloat16, device=dev)
+        logits = model.decode_logits(model.prefill_leftpad(src, ids, prompt_lens, cache))
 
-    stop_start = c.speech_token_size
-    non_stop = torch.arange(c.head_size, device=dev)[None, :] < stop_start
-    start_slots = (tp - prompt_lens).to(torch.int32)
-    recent = torch.full((b, c.win_size), -1, dtype=torch.int32, device=dev)
-    done = torch.zeros((b,), dtype=torch.bool, device=dev)
-    counts = torch.zeros((b,), dtype=torch.int32, device=dev)
-    out = torch.zeros((b, max_new_tokens), dtype=torch.int32, device=dev)
+        stop_start = c.speech_token_size
+        non_stop = torch.arange(c.head_size, device=dev)[None, :] < stop_start
+        start_slots = (tp - prompt_lens).to(torch.int32)
+        recent = torch.full((b, c.win_size), -1, dtype=torch.int32, device=dev)
+        done = torch.zeros((b,), dtype=torch.bool, device=dev)
+        counts = torch.zeros((b,), dtype=torch.int32, device=dev)
+        out = torch.zeros((b, max_new_tokens), dtype=torch.int32, device=dev)
 
+    steps = 0
     for i in range(max_new_tokens):
-        if bool(done.all()):
+        with span("llm.stop_check"):  # the one device-to-host read of a step
+            finished = bool(done.all())
+        if finished:
             break
-        logp = torch.log_softmax(logits.float(), dim=-1)
-        allowed = non_stop | ~(i < min_lens)[:, None]
-        tok = ras_sample(logp, recent, recent >= 0, allowed, generator,
-                         top_p=c.top_p, top_k=c.top_k, win_size=c.win_size, tau_r=c.tau_r)
-        is_stop = tok >= stop_start
-        emit = ~done & ~is_stop & (i < max_lens)
-        tok_clean = torch.where(emit, tok, torch.zeros_like(tok))
-        counts += emit.to(torch.int32)
-        recent = torch.where(emit[:, None], torch.cat([recent[:, 1:], tok_clean[:, None]], dim=1), recent)
-        done = done | is_stop | (i + 1 >= max_lens)
-        out[:, i] = tok_clean
-        positions = (prompt_lens + i)[:, None]
-        logits = model.decode_step(tok_clean, positions, start_slots, tp + i + 1, cache)
+        with span("llm.step"):
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            allowed = non_stop | ~(i < min_lens)[:, None]
+            tok = ras_sample(logp, recent, recent >= 0, allowed, generator,
+                             top_p=c.top_p, top_k=c.top_k, win_size=c.win_size, tau_r=c.tau_r)
+            is_stop = tok >= stop_start
+            emit = ~done & ~is_stop & (i < max_lens)
+            tok_clean = torch.where(emit, tok, torch.zeros_like(tok))
+            counts += emit.to(torch.int32)
+            recent = torch.where(emit[:, None], torch.cat([recent[:, 1:], tok_clean[:, None]], dim=1), recent)
+            done = done | is_stop | (i + 1 >= max_lens)
+            out[:, i] = tok_clean
+            positions = (prompt_lens + i)[:, None]
+            logits = model.decode_step(tok_clean, positions, start_slots, tp + i + 1, cache)
+        steps += 1
+    count("llm.decode_steps", steps)
+    count("llm.row_steps", b * steps)
     return DecodeResult(tokens=out, num_tokens=counts)
 
 

@@ -15,7 +15,7 @@ package's, on the CPU:
   with no reference tree: the JAX package's result;
 - `make_asr_fn` raising as the JAX package's does without funasr /
   transformers;
-- `StageTimer`, `trace` and `annotate`.
+- `trace` and `span` (the tracer).
 
 Both packages decode with a bf16 KV cache (tests/test_torch_api.py's
 docstring), so run_eval's texts are ones whose greedy decodes meet no
@@ -299,25 +299,25 @@ def test_tokenizer_self_check(tok_dir, version, monkeypatch):
 # ---------------------------------------------------------------- profiling
 
 def test_stage_timer_and_trace(tmp_path):
+    """`trace()` profiles a block and the tracer afresh: a span opened
+    inside it is in the Chrome trace (its record_function range) and in
+    `spans()`, and the block's spans and counters are written beside it."""
     from fangyan_tts_torch.utils import profiling as tprof
-    from fangyan_tts_tpu.utils import profiling as jprof
 
-    sums = []
-    for mod, sink in ((tprof, tmp_path / "port.jsonl"), (jprof, tmp_path / "jax.jsonl")):
-        t = mod.StageTimer(sink)
-        for name in ("llm", "flow", "llm"):
-            with t.stage(name):
-                pass
-        t.add_audio(2.0)
-        s = t.summary()
-        sums.append(({k: v["count"] for k, v in s["stages"].items()}, s["audio_seconds"], sorted(s)))
-        assert [json.loads(line)["stage"] for line in sink.read_text().splitlines()] == ["llm", "flow", "llm"]
-        assert t.rtf == pytest.approx(sum(t.totals.values()) / 2.0)
-    assert sums[0] == sums[1] == ({"llm": 2, "flow": 1}, 2.0, ["audio_seconds", "rtf", "stages"])
+    with tprof.span("before"):  # no profiler, no recording
+        pass
     with tprof.trace(str(tmp_path / "trace")):
-        with tprof.annotate("span"):
+        with tprof.span("span", rows=4):
             torch.ones(4).sum()
+        tprof.count("things", 3)
     assert "span" in (tmp_path / "trace" / "trace.json").read_text()
+    got = tprof.spans()
+    assert [s["name"] for s in got] == ["span"] and got[0]["attrs"] == {"rows": 4}
+    assert got[0]["t1_ns"] >= got[0]["t0_ns"] and tprof.counters() == {"things": 3}
+    program = json.loads((tmp_path / "trace" / "program.json").read_text())
+    assert [s["name"] for s in program["spans"]] == ["span"]
+    assert program["counters"] == {"things": 3} and program["dropped"] == 0
+    tprof.reset()
 
 
 def test_set_all_random_seed():

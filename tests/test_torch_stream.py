@@ -40,6 +40,7 @@ from fangyan_tts_torch.infer.tts import _TokenPrefetcher, stream_buckets
 from fangyan_tts_torch.models import llm as tllm
 from fangyan_tts_torch.models import qwen2 as tq
 from fangyan_tts_torch.models.from_jax import flow_from_jax, hift_from_jax, llm_from_jax
+from fangyan_tts_torch.utils import profiling
 from fangyan_tts_tpu.data.lm_plan import pad_plans_left
 from fangyan_tts_tpu.infer import bistream as jbi
 from fangyan_tts_tpu.infer.tts import CosyVoice3TTS as JaxTTS
@@ -217,21 +218,24 @@ def test_tts_stream_llm(pair, name):
 def test_speculation_and_prefetch_change_nothing(pair, monkeypatch):
     """The plain request (its first hop fits in the first decode chunk, so it
     is speculated, and the speculation holds): speculation off, prefetch off
-    and both off give the same bits; a stream_stats dict collects the
-    per-hop budget."""
+    and both off give the same bits; the tracer's stream.* spans, recorded
+    inside `recording()`, hold the per-hop budget."""
     _, ttts = pair
     req = _llm_request("plain")
     commits = []
     commit = Token2WavSession.commit_first
     monkeypatch.setattr(Token2WavSession, "commit_first", lambda self, toks: commits.append(1) or commit(self, toks))
-    ttts.stream_stats = {}
+    profiling.reset()
     try:
-        ref = _chunks(ttts, **req)
-        stats = ttts.stream_stats
+        with profiling.recording():
+            ref = _chunks(ttts, **req)
+        names = [s["name"] for s in profiling.spans() if s["name"].startswith("stream.")]
     finally:
-        ttts.stream_stats = None
+        profiling.reset()
     assert commits == [1]
-    assert len(ref) >= 3 and set(stats) == {"decode_wait_ms", "t2w_dispatch_ms", "fetch_ms", "finalize_ms"}
+    assert len(ref) >= 3 and set(names) == {"stream.decode_wait", "stream.t2w_dispatch", "stream.fetch",
+                                            "stream.finalize"}
+    assert names.count("stream.fetch") == len(ref) and names.count("stream.finalize") == 1
     for spec_off, prefetch_off in ((True, False), (False, True), (True, True)):
         ttts.stream_no_speculation, ttts.stream_no_prefetch = spec_off, prefetch_off
         try:

@@ -76,7 +76,10 @@ Phases:
      the model directory (flash on its float32 route, n_timesteps x depth
      a flow call; decode one a layer and step on the bf16 cache), and a full-width float32 batch in
      the int4 MLP mode on a float32 KV cache (all three float32 routes,
-     launches counted)
+     launches counted); then the batched decode's CUDA graphs
+     (models/decode_graphs) against the same loop run eagerly
+     (graph_check). A decode step counts where it runs: an eager
+     decode_step call (the one a capture records runs nothing) or a replay
   5. the flow and vocoder stages under torch.profiler, for the 150-token
      request and the batched requests (a) int8 and (b): device busy time,
      idle share, device operations, largest kernels
@@ -286,6 +289,14 @@ SMALL_REL_TOL = 5e-2  # small model, bf16 on the card vs bf16 plain on the CPU
 # equal and at least this share of the valid frames' codes equal.
 XVEC_ATOL, XVEC_RTOL = 2e-4, 2e-3
 S3_CODES_EQUAL = 0.995
+
+# The batched decode's CUDA graphs (phase 4, graph_check), on the full-width bf16 LM: B = 16 greedy rows of
+# text lengths within each of GRAPH_GREEDY_LENS at GRAPH_RATIO speech tokens a text token (min = max, so three
+# buckets: max_new 64, 128 and 256); B = 4 sampled rows (top_k 25, one seeded generator) of GRAPH_SAMPLED_LENS; and
+# under the profiler a bucket of its own (GRAPH_TRACED_LENS, max_new 320), captured there.
+GRAPH_RATIO = 6.0
+GRAPH_GREEDY_LENS = ((6, 10), (11, 20), (21, 40))
+GRAPH_SAMPLED_LENS, GRAPH_TRACED_LENS = (8, 16), (41, 50)
 
 # The API request (phase 4): a zh sentence and prompt text through the byte
 # tokenizer (3 ids a character), and a 5 s prompt wav at 24 kHz.
@@ -1168,13 +1179,54 @@ def clocked(stage: dict, name: str, fn, note=None):
     return inner
 
 
-def counted_steps(tts) -> list:
-    """Count the LLM's decode steps: a one-element list the wrapper bumps."""
-    steps = [0]
+class StepCount:
+    """Decode steps run since the last reset(), as `value`: the eager
+    decode_step calls `bump` counts (a CUDA graph's capture calls
+    decode_step and runs nothing: not counted), and the steps the batched
+    decode replayed from its graphs (models/decode_graphs.replays; a run's
+    replays are all its own, as the runs here do not overlap). Printed, it
+    says how many steps were replayed: their kernel launches are the tallies
+    the graphs' captures recorded (ops/device.captured_launches), checked
+    against the device trace once a bucket in graph_check."""
+
+    def __init__(self):
+        self.eager = 0
+        self.base = self._replays()
+
+    @staticmethod
+    def _replays() -> int:
+        from fangyan_tts_torch.models import decode_graphs
+
+        return decode_graphs.replays
+
+    def bump(self) -> None:
+        import torch
+
+        if not (torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()):
+            self.eager += 1
+
+    def reset(self) -> None:
+        self.eager, self.base = 0, self._replays()
+
+    @property
+    def replayed(self) -> int:
+        return self._replays() - self.base
+
+    @property
+    def value(self) -> int:
+        return self.eager + self.replayed
+
+    def __str__(self) -> str:
+        return f"{self.value} ({self.replayed} replayed from CUDA graphs)" if self.replayed else str(self.value)
+
+
+def counted_steps(tts) -> StepCount:
+    """Count the LLM's decode steps (a StepCount)."""
+    steps = StepCount()
     inner_step = tts.llm.decode_step
 
     def step(*a, **k):
-        steps[0] += 1
+        steps.bump()
         return inner_step(*a, **k)
 
     tts.llm.decode_step = step
@@ -1279,7 +1331,7 @@ def full_path(results: dict, card: str):
 
     for name, req in requests:
         stage.clear()
-        steps[0] = 0
+        steps.reset()
         da.launches = fa.launches = 0
         with kernel_shapes(results, f"request '{name}'"):
             t = time.perf_counter()
@@ -1290,16 +1342,16 @@ def full_path(results: dict, card: str):
         frames = mel_frames[-1]
         audio_s = len(wav) / cfg.sample_rate
         ok = (np.isfinite(wav).all() and np.abs(wav).max() <= 0.99 and len(wav) == frames * 480
-              and n_dec == cfg.llm.qwen.num_hidden_layers * steps[0] and steps[0] > 0
+              and n_dec == cfg.llm.qwen.num_hidden_layers * steps.value and steps.value > 0
               and n_flash == cfg.flow.dit.depth * cfg.flow.n_timesteps)
         tok_s = n_tokens[-1] / stage["llm"]
-        log(f"request '{name}': {n_tokens[-1]} tokens in {steps[0]} decode steps, {frames} mel frames, "
+        log(f"request '{name}': {n_tokens[-1]} tokens in {steps} decode steps, {frames} mel frames, "
             f"{audio_s:.2f} s audio; decode {stage['llm']:.3f} s ({tok_s:.1f} tok/s, "
-            f"{stage['llm'] / steps[0] * 1e3:.2f} ms/step), flow {stage['flow']:.3f} s, "
+            f"{stage['llm'] / steps.value * 1e3:.2f} ms/step), flow {stage['flow']:.3f} s, "
             f"vocoder {stage['vocoder']:.3f} s, wall {wall:.3f} s, RTF {wall / audio_s:.4f}; "
             f"launches decode {n_dec} flash {n_flash} [{card}] {'OK' if ok else 'FAIL'}")
         results.setdefault("requests", []).append(dict(
-            name=name, tokens=n_tokens[-1], steps=steps[0], mel_frames=frames, tok_s=tok_s, audio_s=audio_s, llm_s=stage["llm"],
+            name=name, tokens=n_tokens[-1], steps=steps.value, mel_frames=frames, tok_s=tok_s, audio_s=audio_s, llm_s=stage["llm"],
             flow_s=stage["flow"], vocoder_s=stage["vocoder"], wall_s=wall, rtf=wall / audio_s,
             decode_launches=n_dec, flash_launches=n_flash))
         if not ok:
@@ -1439,19 +1491,19 @@ def api_request(results: dict, card: str, d, api: dict, key: str = "api_request"
     want_lengths = (api["text_ids"], api["prompt_text_ids"], api["prompt_tokens"], 2 * api["prompt_tokens"])
     audio_s = len(wav) / cfg.sample_rate
     ok = (len(outs) == 1 and np.isfinite(wav).all() and np.abs(wav).max() <= 0.99 and len(wav) == mel_frames[0] * 480
-          and steps[0] > 0 and n_dec == cfg.llm.qwen.num_hidden_layers * steps[0]
+          and steps.value > 0 and n_dec == cfg.llm.qwen.num_hidden_layers * steps.value
           and n_flash == cfg.flow.dit.depth * cfg.flow.n_timesteps and lengths == want_lengths
           and np.isfinite(mi["llm_embedding"]).all() and mi["llm_embedding"].shape == (192,))
     log(f"{key}: AutoModel load {load_s:.2f} s; inference_zero_shot: text/prompt-text ids, prompt tokens, "
         f"prompt mel frames {lengths} (derived {want_lengths}); frontend {stage['frontend']:.3f} s (first call; "
         f"{warm_ms:.1f} ms warm), "
-        f"{steps[0]} decode steps in {stage['llm']:.3f} s ({stage['llm'] / steps[0] * 1e3:.2f} ms/step), flow "
+        f"{steps} decode steps in {stage['llm']:.3f} s ({stage['llm'] / steps.value * 1e3:.2f} ms/step), flow "
         f"{stage['flow']:.3f} s, vocoder {stage['vocoder']:.3f} s, {mel_frames[0]} mel frames, {audio_s:.2f} s "
         f"audio, wall {wall:.3f} s, RTF {wall / audio_s:.4f}; launches decode {n_dec} flash {n_flash} [{card}] "
         f"{'OK' if ok else 'FAIL'}")
     results[key] = dict(load_s=load_s, frontend_s=stage["frontend"], frontend_warm_ms=warm_ms,
                                   llm_s=stage["llm"],
-                                  flow_s=stage["flow"], vocoder_s=stage["vocoder"], steps=steps[0],
+                                  flow_s=stage["flow"], vocoder_s=stage["vocoder"], steps=steps.value,
                                   mel_frames=mel_frames[0], audio_s=audio_s, wall_s=wall, rtf=wall / audio_s,
                                   decode_launches=n_dec, flash_launches=n_flash)
     if not ok:
@@ -1588,7 +1640,7 @@ def batched_requests(results: dict, card: str) -> dict:
         tts.vocode_batch = clocked(stage, "vocoder", tts.vocode_batch)
         for run in (1, 2):
             stage.clear()
-            steps[0] = 0
+            steps.reset()
             da.launches = fa.launches = i4.launches = 0
             with kernel_shapes(results, f"request {name}, run {run}"):
                 t = time.perf_counter()
@@ -1599,25 +1651,195 @@ def batched_requests(results: dict, card: str) -> dict:
             _count(results, counts)
             toks, n = made[-1]
             n_tok = [len(suppress_silent_runs(toks[i, : n[i]])) for i in range(len(n))]
-            want = {"decode_attention": nl * steps[0], "chunk_flash_attention": depth * nt,
-                    "int4_matmul": 2 * nl * (1 + steps[0]) if int4 else 0}
+            want = {"decode_attention": nl * steps.value, "chunk_flash_attention": depth * nt,
+                    "int4_matmul": 2 * nl * (1 + steps.value) if int4 else 0}
             audio_s = sum(len(w) for w in wavs) / cfg.sample_rate
-            ok = (len(wavs) == 16 and steps[0] > 0 and counts == want
+            ok = (len(wavs) == 16 and steps.value > 0 and counts == want
                   and all(np.isfinite(w).all() and np.abs(w).max() <= 0.99 and len(w) == k * 2 * 480
                           for w, k in zip(wavs, n_tok)))
-            log(f"request {name}, run {run}: {sum(n_tok)} tokens ({min(n_tok)}-{max(n_tok)} a row) in {steps[0]} "
+            log(f"request {name}, run {run}: {sum(n_tok)} tokens ({min(n_tok)}-{max(n_tok)} a row) in {steps} "
                 f"decode steps, {audio_s:.2f} s audio; LLM {stage['llm']:.3f} s "
-                f"({stage['llm'] / steps[0] * 1e3:.2f} ms/step, {sum(n_tok) / stage['llm']:.1f} tok/s), "
+                f"({stage['llm'] / steps.value * 1e3:.2f} ms/step, {sum(n_tok) / stage['llm']:.1f} tok/s), "
                 f"flow {stage['flow']:.3f} s, vocoder {stage['vocoder']:.3f} s, wall {wall:.3f} s, "
                 f"batch RTF {wall / audio_s:.5f}; launches {counts} (derived {want}) [{card}] "
                 f"{'OK' if ok else 'FAIL'}")
             results.setdefault("batch_requests", []).append(dict(
-                name=name, run=run, tokens=sum(n_tok), steps=steps[0], audio_s=audio_s, llm_s=stage["llm"],
+                name=name, run=run, tokens=sum(n_tok), steps=steps.value, audio_s=audio_s, llm_s=stage["llm"],
                 flow_s=stage["flow"], vocoder_s=stage["vocoder"], wall_s=wall, rtf=wall / audio_s, launches=counts))
             if not ok:
                 raise AssertionError(f"request {name} failed its checks")
         out[key] = (tts, req)
     return out
+
+
+def graph_inputs(cfg, b: int, lens: tuple, seed: int) -> dict:
+    """B rows of text lengths spread over `lens`, GRAPH_RATIO speech tokens a
+    text token (min = max), in batch_synthesize's buckets (infer/tts.batch_buckets)."""
+    import torch
+
+    from fangyan_tts_torch.data.lm_plan import pad_plans_left
+    from fangyan_tts_torch.infer.tts import batch_buckets
+
+    rng = np.random.default_rng(seed)
+    texts = [rng.integers(0, 5000, size=int(n), dtype=np.int32) for n in np.linspace(*lens, b).round()]
+    none = np.zeros(0, np.int32)
+    plans, tp, max_new, cache_len = batch_buckets(cfg.llm, texts, none, none, GRAPH_RATIO)
+    batch = pad_plans_left(plans, length=tp)
+    lengths = torch.tensor([int(len(t) * GRAPH_RATIO) for t in texts], dtype=torch.int32)
+    dev = torch.device("cuda")
+    args = (*(torch.from_numpy(batch[k]).to(dev) for k in ("src", "ids", "lengths")), lengths, lengths)
+    return dict(args=args, b=b, max_new=max_new, cache_len=cache_len, steps=int(lengths.max()))
+
+
+def graph_check(results: dict, card: str, model) -> None:
+    """The batched decode's CUDA graphs (models/decode_graphs) held to the
+    same loop run eagerly: llm._generate with the bucket that
+    generate_speech_tokens takes, and without one (the same step body,
+    issued step by step), under inference mode as batch_synthesize runs it.
+    (a) B = 16 greedy in three buckets, each decoded from its graph twice
+    (the first call captures, the second replays every step), once more
+    under the benchmark's device trace (benchmark/harness.Trace), and once
+    eagerly: tokens, counts and the last logits bit-equal; (b) B = 4 at
+    top_k 25 from one seeded generator, on a sampler whose picks follow its
+    draws (sampled_draws): tokens bit-equal, the generator left in one
+    state, and another seed gives other tokens; (c) a parameter updated in
+    place, as GRPO's optimizer step does: the next call captures anew,
+    equal to the eager loop on the updated model; (d) a new bucket captured
+    under the device trace and then replayed there. In each run the
+    wrapper's launch count is layers x steps, in a traced run so is the
+    trace's count of decode-attention kernels (replayed launches are the
+    tally of the graph's capture: this checks it once a bucket), and the
+    graphs' captures and replays (decode_graphs, and the tracer's
+    llm.graph_captures / llm.graph_steps) are what the steps imply."""
+    import torch
+    from dataclasses import replace
+
+    from benchmark.harness import Trace
+    from fangyan_tts_torch.models import decode_graphs, llm
+    from fangyan_tts_torch.ops import decode_attention as da
+    from fangyan_tts_torch.utils import profiling
+
+    cfg = full_config()
+    nl = cfg.llm.qwen.num_hidden_layers
+    dev = torch.device("cuda")
+    base = model.cfg
+
+    def run(inp: dict, graphed: bool, seed: int | None = None, traced: bool = False) -> dict:
+        gen = None if seed is None else torch.Generator(device=dev).manual_seed(seed)
+        before = (da.launches, decode_graphs.captures, decode_graphs.replays)
+        profiling.reset()
+        tr = Trace() if traced else None
+        if traced:
+            tr.start()
+        t = time.perf_counter()
+        with profiling.recording(), torch.inference_mode():
+            held = llm._bucket(model, inp["b"], inp["max_new"], inp["cache_len"], dev) if graphed \
+                else contextlib.nullcontext()
+            with held as bucket:
+                if graphed and bucket is None:
+                    raise AssertionError("graph_check: the decode took no bucket on the card")
+                res, logits = llm._generate(model, *inp["args"], gen, inp["max_new"], inp["cache_len"], bucket)
+            out = dict(tokens=res.tokens.cpu(), counts=res.num_tokens.cpu(), logits=logits.cpu(),
+                       generator=gen.get_state() if gen is not None else None)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t
+        if traced:
+            tr.stop()
+        tc = profiling.counters()
+        profiling.reset()
+        out.update(s=s, launches=da.launches - before[0], kernels=len(tr.kernel_times_s("decode_attention_kernel"))
+                   if traced else None, captures=decode_graphs.captures - before[1],
+                   replays=decode_graphs.replays - before[2],
+                   traced=(tc.get("llm.graph_captures"), tc.get("llm.graph_steps"), tc.get("llm.decode_steps")))
+        return out
+
+    def held(label: str, inp: dict, runs: dict, captures: dict, logits: bool = True) -> bool:
+        """runs[name] against runs["eager"]; captures[name]: the graphs it should capture."""
+        steps, eager = inp["steps"], runs["eager"]
+        ok = True
+        for name, r in runs.items():
+            cap = captures.get(name, 0)
+            rep = steps - cap if name != "eager" else 0
+            same = all(torch.equal(r[k], eager[k]) for k in (("tokens", "counts", "logits") if logits else
+                                                            ("tokens", "counts")))
+            good = (same and r["launches"] == nl * steps and r["kernels"] in (None, nl * steps)
+                    and (r["captures"], r["replays"]) == (cap, rep) and r["traced"] == (cap, rep, steps))
+            kernels = "" if r["kernels"] is None else f", {r['kernels']} decode-attention kernels traced"
+            log(f"graph check {label}, {name}: {steps} steps in {r['s']:.3f} s ({r['s'] / steps * 1e3:.2f} ms a "
+                f"step), {r['captures']} captures, {r['replays']} replays (tracer {r['traced']}), launches "
+                f"{r['launches']}{kernels} (derived {nl * steps}); "
+                f"{'bit-equal to the eager loop' if same else 'DIFFERS'} [{card}] {'OK' if good else 'FAIL'}")
+            ok &= good
+        return ok
+
+    ok = True
+    try:
+        model.cfg = replace(base, top_k=1)  # greedy: the nucleus is the argmax
+        for k, lens in enumerate(GRAPH_GREEDY_LENS):
+            inp = graph_inputs(cfg, 16, lens, seed=k)
+            runs = {"graph, first call": run(inp, True), "graph, bucket reused": run(inp, True),
+                    "graph under the profiler, bucket reused": run(inp, True, traced=True), "eager": run(inp, False)}
+            ok &= held(f"(a) B 16 greedy, max_new {inp['max_new']}, cache {inp['cache_len']}", inp, runs,
+                       {"graph, first call": 1})
+        with sampled_draws():
+            model.cfg = replace(base, top_k=25)
+            inp = graph_inputs(cfg, 4, GRAPH_SAMPLED_LENS, seed=7)
+            runs = {"graph, first call": run(inp, True, 1234), "graph, bucket reused": run(inp, True, 1234),
+                    "graph under the profiler, bucket reused": run(inp, True, 1234, traced=True),
+                    "eager": run(inp, False, 1234)}
+            ok &= held(f"(b) B 4 top_k 25, max_new {inp['max_new']}", inp, runs, {"graph, first call": 1},
+                       logits=False)
+            same = len({tuple(r["generator"].tolist()) for r in runs.values()}) == 1
+            other = run(inp, True, 4321)["tokens"]
+            moved = not torch.equal(other, runs["eager"]["tokens"])
+            log(f"graph check (b): the generator's state after each run equal (the same draws taken): {same}; "
+                f"another seed gives other tokens ({int((other != runs['eager']['tokens']).sum())} of "
+                f"{other.numel()} differ): {moved} [{card}] {'OK' if same and moved else 'FAIL'}")
+            ok &= same and moved
+            with torch.no_grad():
+                model.llm.norm.weight.mul_(1.01)  # an optimizer step's in-place update
+            runs = {"graph after the update": run(inp, True, 1234), "eager": run(inp, False, 1234)}
+            ok &= held("(c) after a parameter update", inp, runs, {"graph after the update": 1}, logits=False)
+        model.cfg = replace(base, top_k=1)
+        inp = graph_inputs(cfg, 16, GRAPH_TRACED_LENS, seed=9)
+        runs = {"graph under the profiler, first call": run(inp, True, traced=True),
+                "graph under the profiler, bucket reused": run(inp, True, traced=True), "eager": run(inp, False)}
+        ok &= held(f"(d) B 16 greedy under the profiler, max_new {inp['max_new']}", inp, runs,
+                   {"graph under the profiler, first call": 1})
+    finally:
+        model.cfg = base
+        decode_graphs._stores.pop(model, None)  # no graph of sampled_draws' sampler outlives the check
+    log(f"graph check: decode_graphs captures {decode_graphs.captures}, replays {decode_graphs.replays} in this "
+        f"process so far [{card}] {'OK' if ok else 'FAIL'}")
+    results["graph_check"] = dict(ok=bool(ok), captures=decode_graphs.captures, replays=decode_graphs.replays)
+    if not ok:
+        raise AssertionError("graph_check failed")
+
+
+@contextlib.contextmanager
+def sampled_draws():
+    """ops/sampling._categorical with Gumbel noise -log(-log(u)), so that a
+    sampled pick depends on its uniforms. The package's own noise is NaN
+    (the minus binds after the clamp: log(-1e-20)), which makes every pick
+    the first candidate whatever the draws; graph_check's sampled case would
+    then hold even if a replay read stale uniforms."""
+    import torch
+
+    from fangyan_tts_torch.ops import sampling
+
+    inner = sampling._categorical
+
+    def categorical(logits, generator, u=None):
+        if u is None:
+            u = sampling._uniform(logits.shape, generator, logits.device)
+        gumbel = -torch.log((-torch.log(u.clamp_min(1e-20))).clamp_min(1e-20))
+        return torch.argmax(logits.float() + gumbel, dim=-1)
+
+    sampling._categorical = categorical
+    try:
+        yield
+    finally:
+        sampling._categorical = inner
 
 
 def _profile(stages: dict, card: str, label: str) -> dict:
@@ -1793,7 +2015,9 @@ def streaming_phase(results: dict, card: str, tts, api_model, prompt_wav: str, a
         setattr(Token2WavSession, name, spec_counted(name))
 
     def counted(label: str, model, run, n_prompt: int, decode_calls, keep: bool = False):
-        steps[0] = api_steps[0] = one_token[0] = 0
+        steps.reset()
+        api_steps.reset()
+        one_token[0] = 0
         da.launches = fa.launches = 0
         spec.update(speculate_first=0, commit_first=0)
         with kernel_shapes(results, label):
@@ -1823,7 +2047,7 @@ def streaming_phase(results: dict, card: str, tts, api_model, prompt_wav: str, a
 
     run = lambda req: (lambda: tts.tts(stream=True, **req))
     # S1: bench.py's first chunk: a warm-up, then one timed stream (to leave phases 9-12 their time)
-    firsts = [counted(f"S1 first chunk, run {i + 1}", tts, run(reqs["S1"]), 0, lambda: steps[0]) for i in range(2)]
+    firsts = [counted(f"S1 first chunk, run {i + 1}", tts, run(reqs["S1"]), 0, lambda: steps.value) for i in range(2)]
     ms = [r["first_ms"] for r in firsts[1:]]
     out["S1"] = dict(first_ms_min=min(ms), first_ms_median=float(np.median(ms)), first_ms=ms,
                      warmup_first_ms=[r["first_ms"] for r in firsts[:1]], tokens=firsts[-1]["tokens"],
@@ -1834,7 +2058,7 @@ def streaming_phase(results: dict, card: str, tts, api_model, prompt_wav: str, a
 
     # S2 and S3: one run each, after warmup_streaming and S1 (to leave phases 9-12 their time)
     for name, n_prompt in (("S2", 0), ("S3", 60)):
-        r = out[name] = counted(f"{name} run", tts, run(reqs[name]), n_prompt, lambda: steps[0])
+        r = out[name] = counted(f"{name} run", tts, run(reqs[name]), n_prompt, lambda: steps.value)
         log(f"{name} stream ({r['tokens']} tokens, prompt {n_prompt}): wall {r['wall_s']:.3f} s for "
             f"{r['audio_s']:.2f} s audio, RTF {r['rtf']:.4f}, first chunk {r['first_ms']:.1f} ms, "
             f"{r['decode_calls']} decode steps, {r['pushes']} token chunks pushed, {r['hops']} hops and a finalize "
@@ -1845,7 +2069,7 @@ def streaming_phase(results: dict, card: str, tts, api_model, prompt_wav: str, a
     # decode decides the length
     r = out["S4"] = counted("S4 API stream", api_model.model,
                             lambda: api_model.inference_zero_shot(API_TEXT, API_PROMPT_TEXT, prompt_wav, stream=True),
-                            api["prompt_tokens"], lambda: api_steps[0])
+                            api["prompt_tokens"], lambda: api_steps.value)
     log(f"S4 API stream: {r['tokens']} tokens, {r['chunks']} chunks, first chunk {r['first_ms']:.1f} ms, wall "
         f"{r['wall_s']:.3f} s, RTF {r['rtf']:.4f} (first-use costs included); budget {_budget(r['budget'])}; "
         f"launches {r['launches']} [{card}]")
@@ -1869,7 +2093,7 @@ def streaming_phase(results: dict, card: str, tts, api_model, prompt_wav: str, a
             tts.stream_no_speculation = tts.stream_no_prefetch = off
             tts.generator.manual_seed(1)
             runs[off] = counted(f"{name}, speculation and prefetch {'off' if off else 'on'}", tts, run(reqs[name]),
-                                n_prompt, lambda: steps[0], keep=True)
+                                n_prompt, lambda: steps.value, keep=True)
         tts.stream_no_speculation = tts.stream_no_prefetch = False
         got, want = runs[False]["wav"], runs[True]["wav"]
         lens_ok = [len(c) for c in got] == [len(c) for c in want]
@@ -2569,13 +2793,13 @@ def v2_offline(results: dict, card: str, tts) -> dict:
         _count(results, counts)
         audio_s = len(wav) / 24000
         ok = (np.isfinite(wav).all() and np.abs(wav).max() <= 0.99 and len(wav) == mel_frames[-1] * 480
-              and n_tokens[-1] == int(V2_TEXT_TOKENS * V2_RATIO) and steps[0] > 0
-              and counts == {"decode_attention": FULL_LLM_LAYERS * steps[0], "chunk_flash_attention": 0,
+              and n_tokens[-1] == int(V2_TEXT_TOKENS * V2_RATIO) and steps.value > 0
+              and counts == {"decode_attention": FULL_LLM_LAYERS * steps.value, "chunk_flash_attention": 0,
                               "int4_matmul": 0})
-        out = dict(tokens=n_tokens[-1], steps=steps[0], mel_frames=mel_frames[-1], audio_s=audio_s,
-                   llm_s=stage["llm"], ms_per_step=stage["llm"] / steps[0] * 1e3, flow_s=stage["flow"],
+        out = dict(tokens=n_tokens[-1], steps=steps.value, mel_frames=mel_frames[-1], audio_s=audio_s,
+                   llm_s=stage["llm"], ms_per_step=stage["llm"] / steps.value * 1e3, flow_s=stage["flow"],
                    vocoder_s=stage["vocoder"], wall_s=wall, rtf=wall / audio_s, launches=counts)
-        log(f"v2 offline ({run}): {n_tokens[-1]} tokens in {steps[0]} decode steps, {mel_frames[-1]} mel frames, "
+        log(f"v2 offline ({run}): {n_tokens[-1]} tokens in {steps} decode steps, {mel_frames[-1]} mel frames, "
             f"{audio_s:.2f} s audio; decode {stage['llm']:.3f} s ({out['ms_per_step']:.2f} ms/step), flow "
             f"{stage['flow']:.3f} s, vocoder {stage['vocoder']:.3f} s, wall {wall:.3f} s, RTF {wall / audio_s:.4f}; "
             f"launches {counts} [{card}] {'OK' if ok else 'FAIL'}")
@@ -2629,17 +2853,17 @@ def v2_stream(results: dict, card: str, tts) -> dict:
         counts = _launches()
         _count(results, counts)
         audio_s = n / 24000
-        ok = (finite and chunks == want_chunks and n == n_tok * 2 * 480 and steps[0] > 0
-              and counts == {"decode_attention": FULL_LLM_LAYERS * steps[0], "chunk_flash_attention": 0,
+        ok = (finite and chunks == want_chunks and n == n_tok * 2 * 480 and steps.value > 0
+              and counts == {"decode_attention": FULL_LLM_LAYERS * steps.value, "chunk_flash_attention": 0,
                               "int4_matmul": 0})
         rest = wall - stage["flow"] - stage["vocoder"]
-        out = dict(tokens=n_tok, chunks=chunks, steps=steps[0], first_ms=first * 1e3, wall_s=wall,
+        out = dict(tokens=n_tok, chunks=chunks, steps=steps.value, first_ms=first * 1e3, wall_s=wall,
                    audio_s=audio_s, rtf=wall / audio_s, flow_s=stage["flow"], vocoder_s=stage["vocoder"],
                    llm_s=rest, launches=counts)
         log(f"v2 stream ({run}): {n_tok} tokens, {chunks} chunks (derived {want_chunks}), first chunk "
             f"{first * 1e3:.1f} ms, {audio_s:.2f} s audio in {wall:.3f} s, RTF {wall / audio_s:.4f}; flow "
             f"{stage['flow']:.3f} s over {chunks} calls (the whole prefix each hop), vocoder "
-            f"{stage['vocoder']:.3f} s, the rest (decode) {rest:.3f} s for {steps[0]} decode steps; launches "
+            f"{stage['vocoder']:.3f} s, the rest (decode) {rest:.3f} s for {steps} decode steps; launches "
             f"{counts} [{card}] {'OK' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"v2 stream ({run}) failed its checks")
@@ -2671,17 +2895,17 @@ def v2_api_request(results: dict, card: str, d, api: dict) -> dict:
     wav = outs[0]["tts_speech"]
     audio_s = len(wav) / 24000
     ok = (isinstance(model, CosyVoice2) and model.model.dtype == torch.bfloat16 and len(outs) == 1
-          and np.isfinite(wav).all() and np.abs(wav).max() <= 0.99 and len(wav) % 960 == 0 and steps[0] > 0
-          and counts == {"decode_attention": FULL_LLM_LAYERS * steps[0], "chunk_flash_attention": 0,
+          and np.isfinite(wav).all() and np.abs(wav).max() <= 0.99 and len(wav) % 960 == 0 and steps.value > 0
+          and counts == {"decode_attention": FULL_LLM_LAYERS * steps.value, "chunk_flash_attention": 0,
                           "int4_matmul": 0})
     log(f"v2 API request: AutoModel load {load_s:.2f} s ({type(model).__name__}, {model.model.dtype}); "
-        f"inference_zero_shot: {steps[0]} decode steps, {audio_s:.2f} s audio, wall {wall:.3f} s, "
+        f"inference_zero_shot: {steps} decode steps, {audio_s:.2f} s audio, wall {wall:.3f} s, "
         f"RTF {wall / audio_s:.4f}; launches {counts} [{card}] {'OK' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("the v2 API request failed its checks")
     del model
     torch.cuda.empty_cache()
-    return dict(load_s=load_s, steps=steps[0], audio_s=audio_s, wall_s=wall, rtf=wall / audio_s, launches=counts)
+    return dict(load_s=load_s, steps=steps.value, audio_s=audio_s, wall_s=wall, rtf=wall / audio_s, launches=counts)
 
 
 def v1_runs(results: dict, card: str) -> dict:
@@ -3744,6 +3968,7 @@ def grpo_cli(results: dict, card: str, model_dir, spec: dict) -> dict:
 
     from fangyan_tts_torch.cli import grpo_train
     from fangyan_tts_torch.infer.tts import CosyVoice3TTS
+    from fangyan_tts_torch.models import decode_graphs
     from fangyan_tts_torch.models.from_jax import llm_from_jax
     from fangyan_tts_torch.models.llm import CosyVoice3LM
     from fangyan_tts_torch.train import grpo
@@ -3770,13 +3995,18 @@ def grpo_cli(results: dict, card: str, model_dir, spec: dict) -> dict:
 
     def rollouts(model, plans, group_size, *a, **k):
         bk = grpo.rollout_buckets(plans, group_size)
-        iters.append({"steps": 0, "token2mel_calls": 0, "max_lens": bk["max_lens"].tolist(),
+        iters.append({"steps": StepCount(), "token2mel_calls": 0, "max_lens": bk["max_lens"].tolist(),
                       "max_new": bk["max_new"]})
-        return timed("rollouts", orig["rollouts"], lambda it, res: it.update(lens=res[1].tolist()))(
+        graphs = (decode_graphs.captures, decode_graphs.replays)
+        res = timed("rollouts", orig["rollouts"], lambda it, res: it.update(lens=res[1].tolist()))(
             model, plans, group_size, *a, **k)
+        it = iters[-1]
+        it.update(steps=it["steps"].value, captures=decode_graphs.captures - graphs[0],
+                  replays=decode_graphs.replays - graphs[1])
+        return res
 
     def decode_step(self, *a, **k):
-        iters[-1]["steps"] += 1
+        iters[-1]["steps"].bump()
         return orig["decode"](self, *a, **k)
 
     def count_call(it, _):
@@ -3830,7 +4060,8 @@ def grpo_cli(results: dict, card: str, model_dir, spec: dict) -> dict:
     for i, (it, r) in enumerate(zip(iters, records)):
         log(f"cli.grpo_train iteration {i}: {b} rollouts ({GRPO_PROMPTS} prompts x {GRPO_GROUP}), lengths "
             f"{min(it['lens'])}-{max(it['lens'])} (mean {np.mean(it['lens']):.1f}), {it['steps']} decode steps "
-            f"(derived {derived[i]}); rollouts {it['rollouts']:.3f} s, token2wav {it['token2wav']:.3f} s over "
+            f"(derived {derived[i]}; {it['replays']} replayed, {it['captures']} graph captures); rollouts "
+            f"{it['rollouts']:.3f} s, token2wav {it['token2wav']:.3f} s over "
             f"{it['token2mel_calls']} token2mel + vocode calls, update {it['update']:.3f} s (old_logps and the step, "
             f"{it['update_launches']} kernel launches); wall_s {r['wall_s']}; loss {r['loss']:.6f}, kl {r['kl']:.3e}, "
             f"reward_mean {r['reward_mean']}")
@@ -4208,15 +4439,15 @@ def float32_kv_cache():
 
 @contextlib.contextmanager
 def counted_lm_steps():
-    """Count CosyVoice3LM.decode_step calls of every model made inside the
-    block (a CLI builds its own): a one-element list."""
+    """Count the decode steps of every model made inside the block (a CLI
+    builds its own): a StepCount."""
     from fangyan_tts_torch.models.llm import CosyVoice3LM
 
-    steps = [0]
+    steps = StepCount()
     inner = CosyVoice3LM.decode_step
 
     def step(self, *a, **k):
-        steps[0] += 1
+        steps.bump()
         return inner(self, *a, **k)
 
     CosyVoice3LM.decode_step = step
@@ -4334,16 +4565,16 @@ def float32_api_request(results: dict, card: str, model_dir, api: dict) -> None:
         metrics = json.loads((root / "out" / "metrics.json").read_text())
         wav, sr = read_wav(root / "out" / "f32.wav")
     cfg = config_from_dict(json.loads((model_dir / "config.json").read_text()))  # the directory's model
-    want = {"decode_attention": cfg.llm.qwen.num_hidden_layers * steps[0], "chunk_flash_attention": 0,
+    want = {"decode_attention": cfg.llm.qwen.num_hidden_layers * steps.value, "chunk_flash_attention": 0,
             "int4_matmul": 0, "decode_attention_f32": 0,
             "chunk_flash_attention_f32": cfg.flow.dit.depth * cfg.flow.n_timesteps, "int4_matmul_f32": 0}
     agg = metrics["aggregate"]
-    ok = (counts == want and steps[0] > 0 and sr == 24000 and len(wav) > 0 and len(wav) % 480 == 0
+    ok = (counts == want and steps.value > 0 and sr == 24000 and len(wav) > 0 and len(wav) % 480 == 0
           and np.isfinite(wav).all() and agg["n_utts"] == 1)
-    log(f"float32 request (offline_inference --no-fp16, int8 LLM): {steps[0]} decode steps, {len(wav) / sr:.2f} s "
+    log(f"float32 request (offline_inference --no-fp16, int8 LLM): {steps} decode steps, {len(wav) / sr:.2f} s "
         f"audio, request RTF {agg['rtf']:.4f} (its own clock), CLI wall {wall:.2f} s with the float32 load; launches "
         f"{counts} (derived {want}) [{card}] {'OK' if ok else 'FAIL'}")
-    results["f32_request"] = dict(steps=steps[0], audio_s=len(wav) / sr, rtf=agg["rtf"], cli_wall_s=wall,
+    results["f32_request"] = dict(steps=steps.value, audio_s=len(wav) / sr, rtf=agg["rtf"], cli_wall_s=wall,
                                   launches=counts)
     if not ok:
         raise AssertionError("the float32 request failed its checks")
@@ -4384,15 +4615,15 @@ def float32_batch(results: dict, card: str) -> None:
     n_tok = [len(suppress_silent_runs(toks[i, : n[i]])) for i in range(len(n))]
     nl = cfg.llm.qwen.num_hidden_layers
     want = {"decode_attention": 0, "chunk_flash_attention": 0, "int4_matmul": 0,
-            "decode_attention_f32": nl * steps[0], "chunk_flash_attention_f32": cfg.flow.dit.depth * cfg.flow.n_timesteps,
-            "int4_matmul_f32": 2 * nl * (1 + steps[0])}
+            "decode_attention_f32": nl * steps.value, "chunk_flash_attention_f32": cfg.flow.dit.depth * cfg.flow.n_timesteps,
+            "int4_matmul_f32": 2 * nl * (1 + steps.value)}
     audio_s = sum(len(w) for w in wavs) / cfg.sample_rate
-    ok = (counts == want and steps[0] > 0 and len(wavs) == F32_B
+    ok = (counts == want and steps.value > 0 and len(wavs) == F32_B
           and all(np.isfinite(w).all() and len(w) == k * 2 * 480 for w, k in zip(wavs, n_tok)))
-    log(f"float32 batch at full width (int8 LLM + int4 MLP, float32 KV cache): {sum(n_tok)} tokens in {steps[0]} "
+    log(f"float32 batch at full width (int8 LLM + int4 MLP, float32 KV cache): {sum(n_tok)} tokens in {steps} "
         f"decode steps, {audio_s:.2f} s audio, wall {wall:.3f} s, batch RTF {wall / audio_s:.4f} (random_init "
         f"and quantization {load_s:.2f} s); launches {counts} (derived {want}) [{card}] {'OK' if ok else 'FAIL'}")
-    results["f32_batch"] = dict(steps=steps[0], tokens=sum(n_tok), audio_s=audio_s, wall_s=wall, rtf=wall / audio_s,
+    results["f32_batch"] = dict(steps=steps.value, tokens=sum(n_tok), audio_s=audio_s, wall_s=wall, rtf=wall / audio_s,
                                 launches=counts)
     if not ok:
         raise AssertionError("the float32 batch failed its checks")
@@ -4540,7 +4771,7 @@ def datagen_phase(results: dict, card: str, model_dir, dg: dict) -> None:
             wall = time.perf_counter() - t
         counts = _launches()
         _count(results, counts)
-        want = {"decode_attention": nl * steps[0], "chunk_flash_attention": per_flow * stats["batches"],
+        want = {"decode_attention": nl * steps.value, "chunk_flash_attention": per_flow * stats["batches"],
                 "int4_matmul": 0}
         d = ds / "hunan"
         read = lambda name: [line.split(maxsplit=1) for line in (d / name).read_text(encoding="utf-8").splitlines()]
@@ -4560,12 +4791,12 @@ def datagen_phase(results: dict, card: str, model_dir, dg: dict) -> None:
         ok = (counts == want and stats["utts"] == n_utt and stats["batches"] == 2 and index_ok and wav_ok)
         out["cli"] = dict(wall_s=wall, load_s=stats["load_s"], synth_s=synth, utts=stats["utts"],
                           audio_s=stats["audio_s"], utt_per_s=stats["utts"] / synth, batch_rtf=synth / stats["audio_s"],
-                          steps=steps[0], launches=counts)
+                          steps=steps.value, launches=counts)
         log(f"phase 14 (a) generate_dialect_dataset --backend cuda --mode hunan: {stats['utts']} utterances in "
             f"{stats['batches']} batches of 16, {stats['audio_s']:.2f} s audio ({min(lengths) / 24000:.2f}-"
             f"{max(lengths) / 24000:.2f} s each); CLI wall {wall:.2f} s, load {stats['load_s']:.2f} s "
             f"({stats['load_s'] / wall:.3f} of the wall), synthesis {synth:.2f} s: {stats['utts'] / synth:.3f} utt/s, "
-            f"batch RTF {synth / stats['audio_s']:.5f}; {steps[0]} decode steps; index read back (wav.scp, text, "
+            f"batch RTF {synth / stats['audio_s']:.5f}; {steps} decode steps; index read back (wav.scp, text, "
             f"utt2spk, spk2utt against dataset_cache.json)={index_ok}, every wav 24 kHz, finite, a whole number of "
             f"hops={wav_ok}; launches {counts} (derived {want}) [{card}] {'OK' if ok else 'FAIL'}")
         if not ok:
@@ -4608,15 +4839,15 @@ def datagen_phase(results: dict, card: str, model_dir, dg: dict) -> None:
             wall = time.perf_counter() - t
         counts = _launches()
         _count(results, counts)
-        want = {"decode_attention": nl * steps[0], "chunk_flash_attention": per_flow * len(pairs), "int4_matmul": 0}
+        want = {"decode_attention": nl * steps.value, "chunk_flash_attention": per_flow * len(pairs), "int4_matmul": 0}
         w16, _ = load_audio(root / "eval" / "e0.wav", target_sr=16000)
         self_ss = evaluate.speaker_similarity(model.frontend, w16, w16)
         ok = (counts == want and ev["n"] == len(pairs) and all(r["cer"] == 0.0 for r in ev["per_utt"])
               and all(-1.0 <= r["ss"] <= 1.0 for r in ev["per_utt"]) and abs(self_ss - 1.0) <= 1e-5)
         out["eval"] = dict(wall_s=wall, n=ev["n"], cer=ev["cer"], ss=[r["ss"] for r in ev["per_utt"]],
-                           self_ss=self_ss, steps=steps[0], launches=counts)
+                           self_ss=self_ss, steps=steps.value, launches=counts)
         log(f"phase 14 (c) run_eval: {ev['n']} pairs in {wall:.2f} s, CER {[r['cer'] for r in ev['per_utt']]}, SS "
-            f"{[round(r['ss'], 4) for r in ev['per_utt']]}, a wav against itself {self_ss:.7f}; {steps[0]} decode "
+            f"{[round(r['ss'], 4) for r in ev['per_utt']]}, a wav against itself {self_ss:.7f}; {steps.value} decode "
             f"steps; launches {counts} (derived {want}) [{card}] {'OK' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("phase 14 (c): run_eval failed its checks")
@@ -4677,15 +4908,15 @@ def datagen_phase(results: dict, card: str, model_dir, dg: dict) -> None:
             wall = time.perf_counter() - t
         counts = _launches()
         _count(results, counts)
-        want = {"decode_attention": nl * steps[0], "chunk_flash_attention": per_flow * 2 * DG_COMPARE_TEXTS,
+        want = {"decode_attention": nl * steps.value, "chunk_flash_attention": per_flow * 2 * DG_COMPARE_TEXTS,
                 "int4_matmul": 0}
         pairs_equal = [(root / "cmp" / f"hunan_{i}_original.wav").read_bytes()
                        == (root / "cmp" / f"hunan_{i}_finetuned.wav").read_bytes()
                        for i in range(1, DG_COMPARE_TEXTS + 1)]
         ok = counts == want and all(pairs_equal)
-        out["compare"] = dict(wall_s=wall, steps=steps[0], launches=counts, bit_equal=pairs_equal)
+        out["compare"] = dict(wall_s=wall, steps=steps.value, launches=counts, bit_equal=pairs_equal)
         log(f"phase 14 (b) compare_inference --dialects hunan --num_texts {DG_COMPARE_TEXTS} (the directory's own LLM as the "
-            f"fine-tuned one): {wall:.2f} s with two model loads, {steps[0]} decode steps; fine-tuned wavs bit-equal "
+            f"fine-tuned one): {wall:.2f} s with two model loads, {steps} decode steps; fine-tuned wavs bit-equal "
             f"to the originals {pairs_equal}; launches {counts} (derived {want}) [{card}] {'OK' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("phase 14 (b): compare_inference failed its checks")
@@ -4982,15 +5213,15 @@ def recipe_run(results: dict, card: str, states: tuple[dict, dict], ex: dict, bu
             cmp_wall = time.perf_counter() - t
         counts = _launches()
         _count(results, counts)
-        want = {"decode_attention": nl * steps[0], "chunk_flash_attention": 2 * per_flow, "int4_matmul": 0}
+        want = {"decode_attention": nl * steps.value, "chunk_flash_attention": 2 * per_flow, "int4_matmul": 0}
         wavs = [root / "cmp" / f"hunan_1_{k}.wav" for k in ("original", "finetuned")]
-        ok = counts == want and steps[0] > 0 and all(w.exists() and w.stat().st_size > 44 for w in wavs)
+        ok = counts == want and steps.value > 0 and all(w.exists() and w.stat().st_size > 44 for w in wavs)
         log(f"phase 15 (b) compare_inference on the recipe's fine-tuned LLM: {cmp_wall:.2f} s with two loads, "
-            f"{steps[0]} decode steps; launches {counts} (derived {want}) [{card}] {'OK' if ok else 'FAIL'}")
+            f"{steps} decode steps; launches {counts} (derived {want}) [{card}] {'OK' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("phase 15 (b): compare_inference on the recipe's outputs failed its checks")
     return dict(wall_s=wall, stages={rec["module"]: rec["wall_s"] for rec in recs}, artifacts=art,
-                export_launches=export_launches, compare=dict(wall_s=cmp_wall, steps=steps[0], launches=counts))
+                export_launches=export_launches, compare=dict(wall_s=cmp_wall, steps=steps.value, launches=counts))
 
 
 def export_phase(results: dict, card: str, model_dir, states: tuple[dict, dict], ex: dict) -> None:
@@ -5148,8 +5379,12 @@ def _mp_decode(tts, text: np.ndarray, force: np.ndarray | None = None) -> dict:
     """Greedy generate_tokens of the 150-token request, with every logits
     row the model gave (the prefill's, then each decode step's). `force`:
     teacher forcing, the sampler's pick at row i made force[i] (the row is
-    recorded as the model gave it)."""
+    recorded as the model gave it). Every step runs eagerly, as the TP
+    decode's do: a step replayed from a CUDA graph runs no Python, so this
+    hook would see none of its rows."""
     import torch
+
+    from fangyan_tts_torch.models import decode_graphs
 
     rows = []
     inner = tts.llm.decode_logits
@@ -5163,10 +5398,13 @@ def _mp_decode(tts, text: np.ndarray, force: np.ndarray | None = None) -> dict:
         return out
 
     tts.llm.decode_logits = logits
+    eligible = decode_graphs.eligible
+    decode_graphs.eligible = lambda model, device: False
     try:
         tokens = tts.generate_tokens(text, min_token_text_ratio=MP_RATIO, max_token_text_ratio=MP_RATIO)
     finally:
         del tts.llm.decode_logits
+        decode_graphs.eligible = eligible
     torch.cuda.synchronize()
     return {"tokens": tokens, "logits": torch.cat(rows).cpu().numpy()}
 
@@ -5235,7 +5473,7 @@ def mp_rank(rank: int, world: int) -> dict:
     def decode(label: str, tts, force=None) -> dict:
         steps = counted_steps(tts)
         res = sharded(label, lambda: _mp_decode(tts, text, force))
-        out["steps"][label] = steps[0]
+        out["steps"][label] = steps.value
         return res
 
     # (a) TP=2 decode, float32 weights: free, then teacher-forced
@@ -5444,6 +5682,7 @@ def main() -> int:
         if 4 in phases:
             api_request(results, card, model_dir, api)
             batched = batched_requests(results, card)
+            graph_check(results, card, batched["a_bf16"][0].llm)
             t = time.perf_counter()
             float32_api_request(results, card, model_dir, api)
             float32_batch(results, card)

@@ -14,6 +14,11 @@ one `lax.while_loop`; here the loop is a Python loop whose early exit reads
 Sampling draws from an explicit `torch.Generator`. The decode functions run
 under torch.no_grad(); `CosyVoice3LM.forward` is the cache-free training
 pass on right-padded plans.
+
+generate_speech_tokens keeps its step count on the device and updates its
+state in place (`BatchDecode`, `_batch_step`), so that on the card one
+captured CUDA graph serves every step of a bucket (models/decode_graphs);
+elsewhere the same step body runs eagerly.
 """
 
 from __future__ import annotations
@@ -24,11 +29,13 @@ import torch
 import torch.nn as nn
 
 from ..config import LLMConfig
-from ..ops.sampling import ras_sample
+from ..ops.sampling import ras_sample, ras_uniforms
 from ..utils.profiling import count, span
+from . import decode_graphs
 from . import qwen2 as q
 
 IGNORE_ID = -1
+CACHE_DTYPE = torch.bfloat16  # the decode's KV cache, whatever the model's dtype (as in the JAX package)
 
 
 class CosyVoice3LM(nn.Module):
@@ -127,7 +134,7 @@ def bistream_append(model: CosyVoice3LM, cache: dict | None, seq_pos: int, src: 
     dev = ids.device
     n = ids.shape[1]
     if cache is None:
-        cache = q.init_cache(model.cfg.qwen, 1, cache_len, dtype=torch.bfloat16, device=dev)
+        cache = q.init_cache(model.cfg.qwen, 1, cache_len, dtype=CACHE_DTYPE, device=dev)
     x = model.embed_plan(src, ids)
     positions = seq_pos + torch.arange(n, dtype=torch.int32, device=dev)[None, :]
     # causal over the contiguous cache: query j attends the slots up to index + j
@@ -169,6 +176,54 @@ class DecodeResult(NamedTuple):
     num_tokens: torch.Tensor  # (B,) int32
 
 
+class BatchDecode:
+    """The state of one generate_speech_tokens decode, which each step
+    reads and updates in place: the KV cache, the next token's logits
+    (float32), the RAS window, done, counts, the output, the step count `i`
+    (a (1,) int32 tensor on the device), the rows' inputs and the step's
+    uniforms (ops/sampling.ras_uniforms)."""
+
+    def __init__(self, c: LLMConfig, b: int, max_new_tokens: int, cache_len: int, device):
+        i32 = dict(dtype=torch.int32, device=device)
+        self.cache = q.init_cache(c.qwen, b, cache_len, dtype=CACHE_DTYPE, device=device)
+        self.logits = torch.zeros((b, c.head_size), dtype=torch.float32, device=device)
+        self.recent = torch.full((b, c.win_size), -1, **i32)
+        self.done = torch.zeros((b,), dtype=torch.bool, device=device)
+        self.counts = torch.zeros((b,), **i32)
+        self.out = torch.zeros((b, max_new_tokens), **i32)
+        self.i = torch.zeros((1,), **i32)
+        self.prompt_lens, self.start_slots, self.min_lens, self.max_lens = (torch.zeros((b,), **i32) for _ in range(4))
+        self.uniforms = (torch.empty((b, min(c.top_k, c.head_size)), dtype=torch.float32, device=device),
+                         torch.empty((b, c.head_size), dtype=torch.float32, device=device))
+
+    def start(self, prompt_lens, min_lens, max_lens, tp: int) -> None:
+        """A new decode: the rows' inputs copied in, the rest (the cache
+        included) as before a prefill."""
+        for t in (self.cache["k"], self.cache["v"], self.cache["index"], self.done, self.counts, self.out, self.i):
+            t.zero_()
+        self.recent.fill_(-1)
+        self.prompt_lens.copy_(prompt_lens)
+        self.start_slots.copy_(tp - self.prompt_lens)
+        self.min_lens.copy_(min_lens)
+        self.max_lens.copy_(max_lens)
+
+
+def _batch_step(model: CosyVoice3LM, s: BatchDecode) -> None:
+    """One step of generate_speech_tokens on s, in place: RAS sampling from
+    s.uniforms, stop ids suppressed while i < min_len, stop on a stop id or
+    at max_len, the token written to out[:, i] (0 where none was emitted)
+    and fed back. Row r attends over [start_slot, tp + i + 1)."""
+    tok, _, recent, done, counts = _sample_step(model.cfg, s, s.logits, s.recent, s.done, s.counts, s.i, None,
+                                                s.uniforms)
+    s.recent.copy_(recent)
+    s.done.copy_(done)
+    s.counts.copy_(counts)
+    s.out.index_copy_(1, s.i.long(), tok[:, None])
+    positions = s.prompt_lens + s.i
+    s.logits.copy_(model.decode_step(tok, positions[:, None], s.start_slots, s.start_slots + positions + 1, s.cache))
+    s.i += 1
+
+
 @torch.no_grad()
 def generate_speech_tokens(
     model: CosyVoice3LM,
@@ -183,50 +238,61 @@ def generate_speech_tokens(
 ) -> DecodeResult:
     """Whole-batch AR decode: RAS sampling, stop ids (>= speech_token_size)
     suppressed while i < min_len, stop on any stop id or at max_len. The
-    loop ends once every row is done (the JAX package's early exit)."""
-    c = model.cfg
+    loop ends once every row is done (the JAX package's early exit). On the
+    card the steps replay the bucket's CUDA graph (models/decode_graphs)."""
+    with _bucket(model, ids.shape[0], max_new_tokens, cache_len, ids.device) as bucket:
+        return _generate(model, src, ids, prompt_lens, min_lens, max_lens, generator, max_new_tokens, cache_len,
+                         bucket)[0]
+
+
+def _bucket(model: CosyVoice3LM, b: int, max_new_tokens: int, cache_len: int, device):
+    """The decode's bucket of graphs (models/decode_graphs.bucket, a
+    context manager), whose state is a BatchDecode, keyed on the dtype of
+    the cache that init_cache makes it."""
+    make = lambda: BatchDecode(model.cfg, b, max_new_tokens, cache_len, device)
+    cache_dtype = q.init_cache(model.cfg.qwen, 1, 1, dtype=CACHE_DTYPE, device="meta")["k"].dtype
+    return decode_graphs.bucket(model, (b, max_new_tokens, cache_len, cache_dtype), device, make)
+
+
+@torch.no_grad()
+def _generate(model, src, ids, prompt_lens, min_lens, max_lens, generator, max_new_tokens: int, cache_len: int,
+              bucket: decode_graphs.Bucket | None) -> tuple[DecodeResult, torch.Tensor]:
+    """generate_speech_tokens on a bucket's state and graph, or eagerly on a
+    state of its own where `bucket` is None. Returns the result and the
+    logits after the last step."""
     dev = ids.device
     b, tp = ids.shape
-    prompt_lens = prompt_lens.to(dev, torch.int32)
-    min_lens = min_lens.to(dev, torch.int32)
-    max_lens = max_lens.to(dev, torch.int32)
-
+    s = bucket.state if bucket is not None else BatchDecode(model.cfg, b, max_new_tokens, cache_len, dev)
     with span("llm.prefill"):
-        cache = q.init_cache(c.qwen, b, cache_len, dtype=torch.bfloat16, device=dev)
-        logits = model.decode_logits(model.prefill_leftpad(src, ids, prompt_lens, cache))
+        s.start(prompt_lens.to(dev, torch.int32), min_lens.to(dev, torch.int32), max_lens.to(dev, torch.int32), tp)
+        s.logits.copy_(model.decode_logits(model.prefill_leftpad(src, ids, s.prompt_lens, s.cache)))
 
-        stop_start = c.speech_token_size
-        non_stop = torch.arange(c.head_size, device=dev)[None, :] < stop_start
-        start_slots = (tp - prompt_lens).to(torch.int32)
-        recent = torch.full((b, c.win_size), -1, dtype=torch.int32, device=dev)
-        done = torch.zeros((b,), dtype=torch.bool, device=dev)
-        counts = torch.zeros((b,), dtype=torch.int32, device=dev)
-        out = torch.zeros((b, max_new_tokens), dtype=torch.int32, device=dev)
-
-    steps = 0
-    for i in range(max_new_tokens):
+    step = lambda: _batch_step(model, s)
+    steps = captured = replayed = 0
+    for _ in range(max_new_tokens):
         with span("llm.stop_check"):  # the one device-to-host read of a step
-            finished = bool(done.all())
+            finished = bool(s.done.all())
         if finished:
             break
         with span("llm.step"):
-            logp = torch.log_softmax(logits.float(), dim=-1)
-            allowed = non_stop | ~(i < min_lens)[:, None]
-            tok = ras_sample(logp, recent, recent >= 0, allowed, generator,
-                             top_p=c.top_p, top_k=c.top_k, win_size=c.win_size, tau_r=c.tau_r)
-            is_stop = tok >= stop_start
-            emit = ~done & ~is_stop & (i < max_lens)
-            tok_clean = torch.where(emit, tok, torch.zeros_like(tok))
-            counts += emit.to(torch.int32)
-            recent = torch.where(emit[:, None], torch.cat([recent[:, 1:], tok_clean[:, None]], dim=1), recent)
-            done = done | is_stop | (i + 1 >= max_lens)
-            out[:, i] = tok_clean
-            positions = (prompt_lens + i)[:, None]
-            logits = model.decode_step(tok_clean, positions, start_slots, tp + i + 1, cache)
+            ras_uniforms(s.uniforms, generator)
+            if bucket is None:
+                step()
+            elif bucket.graph is None:
+                bucket.capture(step)
+                captured += 1
+            else:
+                bucket.replay()
+                replayed += 1
         steps += 1
     count("llm.decode_steps", steps)
     count("llm.row_steps", b * steps)
-    return DecodeResult(tokens=out, num_tokens=counts)
+    count("llm.graph_steps", replayed)
+    count("llm.graph_captures", captured)
+    if bucket is None:
+        return DecodeResult(tokens=s.out, num_tokens=s.counts), s.logits
+    # the bucket's state serves its next call
+    return DecodeResult(tokens=s.out.clone(), num_tokens=s.counts.clone()), s.logits.clone()
 
 
 class DecodeState(NamedTuple):
@@ -252,7 +318,7 @@ def decode_prefill(model: CosyVoice3LM, src, ids, prompt_lens, min_lens, max_len
     dev = ids.device
     b, tp = ids.shape
     prompt_lens = prompt_lens.to(dev, torch.int32)
-    cache = q.init_cache(c.qwen, b, cache_len, dtype=torch.bfloat16, device=dev)
+    cache = q.init_cache(c.qwen, b, cache_len, dtype=CACHE_DTYPE, device=dev)
     logits = model.decode_logits(model.prefill_leftpad(src, ids, prompt_lens, cache))
     return DecodeState(
         cache=cache, logits=logits, recent=torch.full((b, c.win_size), -1, dtype=torch.int32, device=dev),
@@ -282,17 +348,18 @@ def decode_chunk(model: CosyVoice3LM, state: DecodeState, n_steps: int, prompt_p
     return state._replace(logits=logits, recent=recent, done=done, counts=counts, i=i), out
 
 
-def _sample_step(c: LLMConfig, state, logits, recent, done, counts, i, generator):
-    """One sampling step of the streaming decodes (decode_chunk with a host
-    step count i, decode_chunk_cont with a (B,) one): RAS sampling, stop ids
-    suppressed while i < min_len, stop on a stop id or at max_len. Returns
-    (the token fed back, 0 where none was emitted; the chunk's entry, -1
-    there; recent; done; counts)."""
+def _sample_step(c: LLMConfig, state, logits, recent, done, counts, i, generator, uniforms=None):
+    """One sampling step of every decode (decode_chunk with a host step
+    count i, decode_chunk_cont with a (B,) one, generate_speech_tokens with
+    a (1,) one on the device and its draws made ahead in `uniforms`): RAS
+    sampling, stop ids suppressed while i < min_len, stop on a stop id or at
+    max_len. Returns (the token fed back, 0 where none was emitted; the
+    chunk's entry, -1 there; recent; done; counts)."""
     non_stop = torch.arange(c.head_size, device=logits.device)[None, :] < c.speech_token_size
     logp = torch.log_softmax(logits.float(), dim=-1)
     allowed = non_stop | ~(i < state.min_lens)[:, None]
     tok = ras_sample(logp, recent, recent >= 0, allowed, generator,
-                     top_p=c.top_p, top_k=c.top_k, win_size=c.win_size, tau_r=c.tau_r)
+                     top_p=c.top_p, top_k=c.top_k, win_size=c.win_size, tau_r=c.tau_r, uniforms=uniforms)
     emit = ~done & ~(tok >= c.speech_token_size) & (i < state.max_lens)
     tok_clean = torch.where(emit, tok, torch.zeros_like(tok))
     counts = counts + emit.to(torch.int32)

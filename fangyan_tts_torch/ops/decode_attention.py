@@ -45,9 +45,9 @@ import math
 import torch
 
 from . import _build
-from .device import refuse_grad
+from .device import counting, refuse_grad
 
-launches = 0  # bf16-route kernel launches since the last reset (CPU calls do not count)
+launches = 0  # bf16-route kernel launches since the last reset (CPU calls and graph captures do not count)
 launches_f32 = 0  # float32-route kernel launches since the last reset
 ROUTES = {torch.bfloat16: "decode_attention", torch.float32: "decode_attention_f32"}  # dtype -> C entry
 MAX_CLUSTER = 8  # the largest portable thread-block cluster
@@ -212,7 +212,7 @@ def decode_attention(q, k_new, v_new, cache_k, cache_v, idx, bias, layer: int) -
     _build.check(entry, _build.load(entry)(*args, stream))
     global launches, launches_f32
     if q.dtype == torch.float32:
-        launches_f32 += 1
+        launches_f32 += counting(__name__, "launches_f32")
     else:
-        launches += 1
+        launches += counting(__name__, "launches")
     return out

@@ -2,6 +2,10 @@
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import threading
+
 import torch
 
 
@@ -25,6 +29,34 @@ def refuse_grad(kernel: str, route: str, *tensors: torch.Tensor) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(f"{kernel}: the CUDA kernel has no backward and an input requires grad; "
                            f"run it under torch.no_grad(), or take {route}")
+
+
+_capture = threading.local()  # .tally: the launches this thread's captures record (captured_launches)
+
+
+def counting(module: str, counter: str) -> int:
+    """What a kernel launch on the current CUDA stream adds to its
+    wrapper's counter (`module`.`counter`): 1, or 0 while that stream
+    captures a CUDA graph, which records the launch without running it.
+    A recorded launch is tallied for the graph instead (captured_launches),
+    and each replay of the graph adds it (models/decode_graphs)."""
+    if not torch.cuda.is_current_stream_capturing():
+        return 1
+    tally = getattr(_capture, "tally", None)
+    if tally is not None:
+        tally[module, counter] += 1
+    return 0
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """A Counter of (module, counter) -> the wrappers' launches that the
+    graphs this thread captures inside the block record."""
+    _capture.tally = tally = collections.Counter()
+    try:
+        yield tally
+    finally:
+        _capture.tally = None
 
 
 def exact_fp32() -> None:

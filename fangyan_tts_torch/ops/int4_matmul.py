@@ -40,10 +40,10 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .device import refuse_grad
+from .device import counting, refuse_grad
 from .quant import int4_dot
 
-launches = 0  # bf16-route kernel launches since the last reset (CPU calls do not count)
+launches = 0  # bf16-route kernel launches since the last reset (CPU calls and graph captures do not count)
 launches_f32 = 0  # float32-route kernel launches since the last reset
 ROUTES = {torch.bfloat16: "int4_matmul", torch.float32: "int4_matmul_f32"}  # x's dtype -> C entry
 BLOCK_N = 128  # N must be a multiple of this: the output channels of a prefill block
@@ -169,8 +169,8 @@ def int4_matmul(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor) ->
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     if x.dtype == torch.float32:
         _build.check(entry, _build.load(entry)(*args, *plan_f32(m, k, n, sms), stream))
-        launches_f32 += 1
+        launches_f32 += counting(__name__, "launches_f32")
     else:
         _build.check(entry, _build.load(entry)(*args, *plan(m, k, n, sms), stream))
-        launches += 1
+        launches += counting(__name__, "launches")
     return out

@@ -31,9 +31,20 @@ def _uniform(shape, generator: torch.Generator | list[torch.Generator] | None, d
     return torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
 
 
-def _categorical(logits: torch.Tensor, generator: torch.Generator | list[torch.Generator] | None) -> torch.Tensor:
-    """One draw per row from softmax(logits) (rows on the last axis)."""
-    u = _uniform(logits.shape, generator, logits.device)
+def ras_uniforms(out: tuple[torch.Tensor, torch.Tensor], generator: torch.Generator | None) -> None:
+    """Fill `out`, the (B, min(top_k, V)) nucleus and (B, V) fallback
+    buffers, with the uniforms that one ras_sample step draws from
+    `generator`, in its order (torch.rand is empty().uniform_(0, 1))."""
+    for u in out:
+        u.uniform_(0.0, 1.0, generator=generator)
+
+
+def _categorical(logits: torch.Tensor, generator: torch.Generator | list[torch.Generator] | None,
+                 u: torch.Tensor | None = None) -> torch.Tensor:
+    """One draw per row from softmax(logits) (rows on the last axis), from
+    the uniforms `u` where given."""
+    if u is None:
+        u = _uniform(logits.shape, generator, logits.device)
     gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)).clamp_min(1e-20))
     return torch.argmax(logits.float() + gumbel, dim=-1)
 
@@ -43,13 +54,15 @@ def nucleus_pick(
     generator: torch.Generator | list[torch.Generator] | None,
     top_p: float = 0.8,
     top_k: int = 25,
+    u: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """probs (B, V) -> (B,) ids drawn from the top-p ∧ top-k nucleus."""
+    """probs (B, V) -> (B,) ids drawn from the top-p ∧ top-k nucleus (from
+    the uniforms `u` where given)."""
     vals, idx = torch.topk(probs, min(top_k, probs.shape[-1]), dim=-1)
     # keep element i while the cumulative prob of the elements before it < top_p
     cum_excl = torch.cumsum(vals, dim=-1) - vals
     masked = torch.where(cum_excl < top_p, vals, torch.zeros_like(vals))
-    choice = _categorical(torch.log(masked.clamp_min(1e-30)), generator)
+    choice = _categorical(torch.log(masked.clamp_min(1e-30)), generator, u)
     return torch.gather(idx, -1, choice[:, None])[:, 0]
 
 
@@ -63,18 +76,21 @@ def ras_sample(
     top_k: int = 25,
     win_size: int = 10,
     tau_r: float = 0.1,
+    uniforms: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """One RAS step for every row.
 
     logp: (B, V) log-probabilities; recent_tokens / recent_valid: (B, win)
     window of the last emitted ids; allowed_mask: (B, V) bool, False ids get
-    probability zero. Returns (B,) int32 ids.
+    probability zero; uniforms: the step's draws made by ras_uniforms, in
+    place of draws from `generator`. Returns (B,) int32 ids.
     """
+    u_top, u_all = uniforms if uniforms is not None else (None, None)
     probs = torch.softmax(logp, dim=-1)
     probs = torch.where(allowed_mask, probs, torch.zeros_like(probs))
     probs = probs / probs.sum(dim=-1, keepdim=True).clamp_min(1e-30)
 
-    cand = nucleus_pick(probs, generator, top_p=top_p, top_k=top_k)
+    cand = nucleus_pick(probs, generator, top_p=top_p, top_k=top_k, u=u_top)
     rep_num = ((recent_tokens == cand[:, None]) & recent_valid).sum(dim=-1)
-    fallback = _categorical(torch.log(probs.clamp_min(1e-30)), generator)
+    fallback = _categorical(torch.log(probs.clamp_min(1e-30)), generator, u_all)
     return torch.where(rep_num >= win_size * tau_r, fallback, cand).to(torch.int32)

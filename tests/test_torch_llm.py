@@ -150,3 +150,244 @@ def test_quantized_greedy_generate_bit_equal(int4_mlp, seed):
     np.testing.assert_array_equal(got.num_tokens.numpy(), np.asarray(res.num_tokens))
     np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(res.tokens))
     assert len(set(got.num_tokens.tolist())) > 1  # the rows stop at different steps
+
+
+def test_greedy_generate_bit_equal_ragged_lengths():
+    """Three rows whose min and max lengths all differ, so that the device
+    step count's comparisons (i < min_len, i + 1 >= max_len) and the
+    indexed write of out[:, i] act on each row at its own step."""
+    jm, jp, tm = _models(3)
+    batch = _batch(((9, 4), (5, 2), (7, 0)))
+    min_lens, max_lens = np.asarray([0, 6, 2], np.int32), np.asarray([7, 30, 19], np.int32)
+    res = generate_speech_tokens(jm, jp, *(jnp.asarray(batch[k]) for k in ("src", "ids", "lengths")),
+                                 jnp.asarray(min_lens), jnp.asarray(max_lens), jax.random.PRNGKey(0),
+                                 max_new_tokens=32, cache_len=CACHE)
+    got = tllm.generate_speech_tokens(tm, *(torch.from_numpy(batch[k]) for k in ("src", "ids", "lengths")),
+                                      torch.from_numpy(min_lens), torch.from_numpy(max_lens),
+                                      torch.Generator().manual_seed(0), max_new_tokens=32, cache_len=CACHE)
+    np.testing.assert_array_equal(got.num_tokens.numpy(), np.asarray(res.num_tokens))
+    np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(res.tokens))
+    assert len(set(got.num_tokens.tolist())) > 1
+
+
+def test_ras_uniforms_are_the_samplers_own_draws():
+    """Draws made ahead into buffers (what a replayed step samples from)
+    are the numbers ras_sample draws itself, in its order: the same tokens,
+    and the generator left where its own draws leave it, at top_k 25."""
+    from fangyan_tts_torch.ops.sampling import _uniform, ras_sample, ras_uniforms
+
+    b, v = 5, 58
+    rng = torch.Generator().manual_seed(11)
+    logp = torch.log_softmax(torch.randn((b, v), generator=rng) * 3, dim=-1)
+    recent = torch.randint(-1, v, (b, 10), generator=rng, dtype=torch.int32)
+    allowed = torch.arange(v)[None, :].expand(b, v) < 50
+    g_own, g_ahead, g_ref = (torch.Generator().manual_seed(5) for _ in range(3))
+    for _ in range(4):
+        own = ras_sample(logp, recent, recent >= 0, allowed, g_own, top_k=25)
+        u = (torch.empty((b, 25)), torch.empty((b, v)))
+        ras_uniforms(u, g_ahead)
+        assert torch.equal(u[0], _uniform((b, 25), g_ref, "cpu")) and torch.equal(u[1], _uniform((b, v), g_ref, "cpu"))
+        ahead = ras_sample(logp, recent, recent >= 0, allowed, None, top_k=25, uniforms=u)
+        assert torch.equal(own, ahead)
+    assert torch.equal(g_own.get_state(), g_ahead.get_state())
+
+
+def _decode_steps(num_tokens, max_lens, max_new: int) -> int:
+    """The loop count generate_speech_tokens implies: row r is done after
+    step n_r (its stop id) or, at its max length, after step n_r - 1."""
+    done = [n - 1 if n >= m else n for n, m in zip(num_tokens, max_lens)]
+    return min(max(done) + 1, max_new)
+
+
+def test_graph_counters_on_the_cpu():
+    """On the CPU every step runs eagerly: llm.graph_steps and
+    llm.graph_captures are 0 and llm.decode_steps is the loop count."""
+    from fangyan_tts_torch.models import decode_graphs
+    from fangyan_tts_torch.utils import profiling
+
+    _, _, tm = _models()
+    batch = _batch(((9, 4), (5, 2), (7, 0)))
+    min_lens, max_lens = np.asarray([3, 5, 2], np.int32), np.asarray([24, 12, 18], np.int32)
+    before = (decode_graphs.captures, decode_graphs.replays)
+    profiling.reset()
+    try:
+        with profiling.recording():
+            got = tllm.generate_speech_tokens(tm, *(torch.from_numpy(batch[k]) for k in ("src", "ids", "lengths")),
+                                              torch.from_numpy(min_lens), torch.from_numpy(max_lens),
+                                              torch.Generator().manual_seed(0), max_new_tokens=32, cache_len=CACHE)
+        counters = profiling.counters()
+    finally:
+        profiling.reset()
+    steps = _decode_steps(got.num_tokens.tolist(), max_lens.tolist(), 32)
+    assert counters == {"llm.decode_steps": steps, "llm.row_steps": 3 * steps, "llm.graph_steps": 0,
+                        "llm.graph_captures": 0}
+    assert (decode_graphs.captures, decode_graphs.replays) == before
+
+
+CUDA = torch.device("cuda")  # the store's rules read only the device's type: nothing here reaches a card
+
+
+def _shape(max_new=32, cache=CACHE):
+    return (2, max_new, cache, tllm.CACHE_DTYPE)
+
+
+def test_graph_store_decides_eager():
+    """Off the card, and for a model with a tensor-parallel layer, the
+    decode runs eagerly: no bucket."""
+    from fangyan_tts_torch.models import decode_graphs
+    from fangyan_tts_torch.parallel.sharding import TPLinear
+
+    _, _, tm = _models()
+    made = []
+    make = lambda: made.append(object()) or made[-1]
+    assert decode_graphs.eligible(tm, CUDA) and not decode_graphs.eligible(tm, torch.device("cpu"))
+    with decode_graphs.bucket(tm, _shape(), torch.device("cpu"), make) as got:
+        assert got is None
+    tm.llm.layers[1].self_attn.o_proj.__class__ = TPLinear
+    assert not decode_graphs.eligible(tm, CUDA)
+    with decode_graphs.bucket(tm, _shape(), CUDA, make) as got:
+        assert got is None
+    assert made == []
+
+
+def test_graph_store_keys_and_versions():
+    """A bucket is reused under its key; another shape, inference mode or
+    config is another bucket; a bucket in use is not shared (the second
+    decode runs eagerly); a parameter's version bumped, or a module
+    swapped, drops the graph and keeps the state for a new capture."""
+    from dataclasses import replace as dc_replace
+
+    from fangyan_tts_torch.models import decode_graphs
+
+    _, _, tm = _models()
+    make = lambda: object()
+    with decode_graphs.bucket(tm, _shape(), CUDA, make) as first:
+        first.graph = "captured"
+        with decode_graphs.bucket(tm, _shape(), CUDA, make) as busy:
+            assert busy is None
+    with decode_graphs.bucket(tm, _shape(), CUDA, make) as again:
+        assert again is first and again.graph == "captured"
+    for other in (_shape(max_new=64, cache=80), _shape(cache=64)):
+        with decode_graphs.bucket(tm, other, CUDA, make) as got:
+            assert got is not first
+    with torch.inference_mode(), decode_graphs.bucket(tm, _shape(), CUDA, make) as got:
+        assert got is not first
+    tm.cfg = dc_replace(tm.cfg, top_k=25)
+    with decode_graphs.bucket(tm, _shape(), CUDA, make) as got:
+        assert got is not first
+    tm.cfg = dc_replace(tm.cfg, top_k=1)
+    state = first.state
+    with torch.no_grad():
+        tm.llm.norm.weight.mul_(1.0)  # same values, a new version
+    with decode_graphs.bucket(tm, _shape(), CUDA, make) as got:
+        assert got is first and got.graph is None and got.state is state
+    got.graph = "captured"
+    tm.llm_decoder = torch.nn.Linear(*tm.llm_decoder.weight.shape[::-1], bias=False)  # a swapped module
+    with decode_graphs.bucket(tm, _shape(), CUDA, make) as got:
+        assert got is first and got.graph is None
+
+
+def test_graph_store_lru_frees_buckets():
+    """At most MAX_BUCKETS buckets a model: the least recently used goes,
+    with its state; the store lets go of a model that is gone."""
+    import gc
+    import weakref
+
+    from fangyan_tts_torch.models import decode_graphs
+
+    class State:
+        pass
+
+    _, _, tm = _models()
+    states = []
+    make = lambda: states.append(State()) or states[-1]
+    n = decode_graphs.MAX_BUCKETS + 2
+    for k in range(n):
+        with decode_graphs.bucket(tm, _shape(max_new=32 * (k + 1), cache=64 * (k + 1)), CUDA, make):
+            pass
+    with decode_graphs.bucket(tm, _shape(max_new=32 * 3, cache=64 * 3), CUDA, make) as got:
+        assert got.state is states[2]  # the third stays, and is now the most recently used
+    refs = [weakref.ref(s) for s in states]
+    del states[:]
+    gc.collect()
+    assert [r() is None for r in refs] == [True, True] + [False] * (n - 2)
+    model = weakref.ref(tm)
+    del tm, got
+    gc.collect()
+    assert model() is None and all(r() is None for r in refs)
+
+
+def test_graph_captures_take_turns_on_a_device(monkeypatch):
+    """Two threads capturing buckets of one device at once take turns (they
+    share its capture stream): the recording, stubbed here, never runs in
+    both at the same time; each bucket gets its graph and its tally."""
+    import threading
+    import time
+    from types import SimpleNamespace
+
+    from fangyan_tts_torch.models import decode_graphs
+
+    active, most, lock = [0], [0], threading.Lock()
+
+    def record(step, dev):
+        with lock:
+            active[0] += 1
+            most[0] = max(most[0], active[0])
+        time.sleep(0.05)
+        step()
+        with lock:
+            active[0] -= 1
+        return f"graph of {dev}", {("ops", "launches"): 24}
+
+    monkeypatch.setattr(decode_graphs, "_record", record)
+    buckets = [decode_graphs.Bucket(SimpleNamespace(out=torch.zeros(1)), ()) for _ in range(2)]
+    ran, start = [], threading.Barrier(2)
+
+    def capture(b):
+        start.wait()
+        b.capture(lambda: ran.append(b))
+
+    before = decode_graphs.captures
+    threads = [threading.Thread(target=capture, args=(b,)) for b in buckets]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert most[0] == 1 and sorted(map(id, ran)) == sorted(map(id, buckets))
+    assert all(b.graph == "graph of cpu" and b.launches == {("ops", "launches"): 24} for b in buckets)
+    assert decode_graphs.captures == before + 2
+
+
+def test_graph_bucket_keyed_on_the_cache_it_holds(monkeypatch):
+    """The bucket's key carries the dtype of the cache init_cache makes for
+    its state, so a bucket made while caches are float32 is not reused for
+    a bf16 one."""
+    from fangyan_tts_torch.models import decode_graphs, qwen2
+
+    _, _, tm = _models()
+    keys = []
+    monkeypatch.setattr(decode_graphs, "eligible", lambda model, device: True)
+    monkeypatch.setattr(decode_graphs, "bucket", lambda model, shape, device, make: keys.append(shape))
+    tllm._bucket(tm, 2, 32, CACHE, CUDA)
+    inner = qwen2.init_cache
+    monkeypatch.setattr(qwen2, "init_cache", lambda cfg, b, n, dtype=None, device=None:
+                        inner(cfg, b, n, torch.float32, device))
+    tllm._bucket(tm, 2, 32, CACHE, CUDA)
+    assert keys == [(2, 32, CACHE, torch.bfloat16), (2, 32, CACHE, torch.float32)]
+
+
+def test_captured_launches_are_tallied_for_the_graph(monkeypatch):
+    """A wrapper's launch adds 1 to its counter, or, while its stream
+    captures, 0 there and 1 to the tally of the graph being captured."""
+    from fangyan_tts_torch.ops import device
+
+    capturing = [False]  # the stream's state, as the card would report it
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing[0])
+    assert device.counting("ops.x", "launches") == 1
+    capturing[0] = True
+    assert device.counting("ops.x", "launches") == 0  # no capture of this thread's to tally for
+    with device.captured_launches() as tally:
+        got = [device.counting("ops.x", "launches"), device.counting("ops.x", "launches"),
+               device.counting("ops.y", "launches_f32")]
+    assert got == [0, 0, 0] and tally == {("ops.x", "launches"): 2, ("ops.y", "launches_f32"): 1}
+    assert device.counting("ops.x", "launches") == 0 and tally[("ops.x", "launches")] == 2

@@ -171,4 +171,4 @@ def test_batch_synthesize_spans_and_counters():
         covered = sum(got[i]["t1_ns"] - got[i]["t0_ns"] for i in children[stage])
         assert total - covered <= 0.05 * total, got[stage]["name"]
     assert profiling.counters() == {"llm.decode_steps": steps, "llm.row_steps": 3 * steps,
-                                    "llm.tokens": sum(max_lens)}
+                                    "llm.tokens": sum(max_lens), "llm.graph_steps": 0, "llm.graph_captures": 0}

@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases 1,2,3,14  # dataset generation, evaluation and the token2wav server alone
     python3 chip_smoke.py --phases 1,2,3,15  # export, the dialect recipe and the subsampling layers alone
     python3 chip_smoke.py --phases 1,2,3,16  # two processes on the card: TP decode, TP token2wav, dp training
+    python3 chip_smoke.py --phases 17        # the MLA-MoE speech LM at full width alone (Triton kernels, no build)
 
 Phases:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -231,9 +232,30 @@ Phases:
      kernel shapes to phase 3's checks (phase 3 checks and times every new
      shape, from mp_spec); the times printed (two processes on one card,
      gloo through the host: no multi-GPU speed)
+  17. the MLA-MoE speech LM (Moonlight-16B-A3B's decoder in CosyVoice3,
+     models/mla_moe.py) at full width, within DG_PHASE_LIMIT_S: (a) the two
+     Triton kernels against their plain versions at the datagen cell's
+     shapes: the expert kernel at a decode call (16 rows, 6 experts each,
+     routed by a real layer's router) and at a 1.5 k-row prefill, the MLA
+     decode kernel at B = 16 over caches of 128, 256 and 512 slots with
+     ragged windows (the row write checked bit-equal), each timed from a
+     CUDA graph of MOON_REPS calls beside its bound and its plain version
+     (the experts' by the host's clock: its host reads keep it out of a
+     graph); (b) one 16-row
+     batch_synthesize (the first call captures its bucket, the second
+     replays every step), its launches held to what its steps imply and,
+     under the device trace, the traced kernels equal to the wrappers'
+     counts, graph steps at least 97 % of its steps; one request through
+     tts(stream=False), its audio 960 samples a kept token, its decode
+     replayed from a graph; (c) the same decode
+     run eagerly: tokens and logits bit-equal to the graphs'; (d) prefill
+     and every graph-replayed decode step's logits of MOON_CHECK_ROWS rows
+     held to the float32 reference's full forward
+     (benchmark/reference/moonlight_lm.py) by the datagen cell's greedy-gap
+     limits, the logits' relative error printed
   6. one JSON line of per-kernel results, the float32 routes included
-     (printed after phases 7 to 16)
-Phases 8 to 16 run after phase 4's requests and before the profiler passes
+     (printed after phases 7 to 17)
+Phases 8 to 17 run after phase 4's requests and before the profiler passes
 of phases 5 and 7 (phase 8 runs S1 twice and S2, S3 and S4 once each,
 phase 9's async and HTTP rounds have no warm-up round, phase 10 runs its v2
 offline request and stream once each, phase 5 profiles the batched
@@ -412,6 +434,17 @@ DG_PHASE_LIMIT_S = 150
 # 59.8 s of a 114.4 s phase 14 on an H100 80GB HBM3 at 700 W (host-bound decode steps); one keeps the phase inside
 # its limit on a host whose launches cost 1.4 x that one's
 DG_COMPARE_TEXTS = 1
+# Phase 17 (the MLA-MoE LM at full width): kernel times from a CUDA graph of MOON_REPS calls; the kernels held to
+# their plain versions within MOON_KERNEL_TOL (relative error: bf16 rounding of the intermediate and of the
+# probabilities, summed in another order); a 16-row batch of texts of MOON_TEXT_TOKENS at 6 speech tokens each;
+# MOON_CHECK_ROWS of its rows' logits held to the float32 reference by the datagen cell's own limits (greedy gap and
+# its mean, benchmark/workloads/cv3moon.datagen_b16.json): bf16 hidden states flip near-tied experts, so the logits'
+# relative error (printed) is no tight measure at this depth
+MOON_REPS = 20
+MOON_KERNEL_TOL = 2e-2
+MOON_TEXT_TOKENS = (6, 9, 12, 16, 20, 24, 30, 40)
+MOON_CHECK_ROWS = 2
+MOON_CELL = Path(__file__).resolve().parent / "benchmark" / "workloads" / "cv3moon.datagen_b16.json"
 
 # Export, the recipe, the subsampling layers (phase 15): cli.export's --n_tokens (flow_solve at 2 x 256 = 512 frames);
 # the recipe's corpus and epochs (stage 6 averages 5 checkpoints); the subsampling layers float32 card against CPU
@@ -5613,9 +5646,275 @@ def mp_phase(results: dict, card: str, mp: dict) -> None:
         raise AssertionError(f"phase 16 took {took:.1f} s, over its limit of {MP_PHASE_LIMIT_S} s")
 
 
+def moon_config(seed: int = 0):
+    """CosyVoice3 with the MLA-MoE speech LM at Moonlight-16B-A3B's sizes
+    (MLAMoEConfig's defaults), greedy, and full_config's flow and vocoder."""
+    from dataclasses import replace
+
+    from fangyan_tts_torch.config import MLAMoEConfig
+
+    cfg = full_config()
+    llm = replace(cfg.llm, llm_input_size=2048, llm_output_size=2048, top_k=1, tau_r=1.1, qwen=MLAMoEConfig())
+    return replace(cfg, llm=llm)
+
+
+def graph_ms(fn, reps: int = MOON_REPS) -> float:
+    """Device ms of one call of fn, from a CUDA graph of `reps` calls
+    (captured after one eager call on the capture stream)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=side):
+            for _ in range(reps):
+                fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g.replay()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    g.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def moon_kernels(results: dict, model) -> None:
+    """Phase 17 (a): the expert and MLA decode kernels at the datagen cell's shapes."""
+    import torch
+
+    from fangyan_tts_torch.ops import mla_decode as mla
+    from fangyan_tts_torch.ops import moe
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(17)
+    layer = model.llm.layers[1].mlp
+    out = []
+    for n in (16, 1536):  # a decode call, a 1.5 k-row prefill
+        x = (torch.randn(n, 2048, device=dev, generator=g) * 0.5).bfloat16()
+        with torch.inference_mode():
+            chosen, w = layer.route(x)
+            got = moe.moe_experts(x, chosen, w, layer.experts.gate_up, layer.experts.down)
+            want = moe.moe_experts_plain(x, chosen, w, layer.experts.gate_up, layer.experts.down)
+            err = float((got.float() - want.float()).norm() / want.float().norm())
+            ms = graph_ms(lambda: moe.moe_experts(x, chosen, w, layer.experts.gate_up, layer.experts.down))
+            plain_ms = eager_ms(lambda: moe.moe_experts_plain(x, chosen, w, layer.experts.gate_up, layer.experts.down),
+                                iters=3)
+        active = int((torch.bincount(chosen.flatten(), minlength=64) > 0).sum())
+        nbytes = active * 3 * 2048 * 1408 * 2 + n * 6 * 2048 * 4
+        bound = max(nbytes / HBM_BYTES_PER_S, n * 6 * 2 * 3 * 2048 * 1408 / BF16_FLOP_PER_S) * 1e3
+        out.append(dict(kernel="moe_experts", rows=n, active=active, rel_err=err, ms=ms, bound_ms=bound,
+                        roofline_pct=100 * bound / ms, plain_ms=plain_ms))
+        if err > MOON_KERNEL_TOL:
+            raise AssertionError(f"moe_experts at {n} rows: rel err {err:.3g} over {MOON_KERNEL_TOL}")
+    scale = 192 ** -0.5
+    for s in (128, 256, 512):
+        b = 16
+        cache = (torch.randn(27, b, s, 576, device=dev, generator=g)).bfloat16()
+        q = torch.randn(b, 16, 576, device=dev, generator=g).bfloat16()
+        new = torch.randn(b, 576, device=dev, generator=g).bfloat16()
+        end = torch.randint(s // 2, s, (b,), device=dev, generator=g)
+        start = torch.randint(0, s // 4, (b,), device=dev, generator=g)
+        slot = torch.arange(s, device=dev)
+        bias = torch.where((slot[None] >= start[:, None]) & (slot[None] <= end[:, None]), 0.0, -1e10).float()
+        idx = end.to(torch.int32)
+        ref_cache = cache.clone()
+        got = mla.mla_decode(q, new, cache, idx, bias, 7, scale, 512)
+        want = mla.mla_decode_plain(q, new, ref_cache, idx, bias, 7, scale, 512)
+        err = float((got.float() - want.float()).norm() / want.float().norm())
+        if err > MOON_KERNEL_TOL or not torch.equal(cache, ref_cache):
+            raise AssertionError(f"mla_decode at S = {s}: rel err {err:.3g}, cache equal {torch.equal(cache, ref_cache)}")
+        ms = graph_ms(lambda: mla.mla_decode(q, new, cache, idx, bias, 7, scale, 512))
+        plain_ms = graph_ms(lambda: mla.mla_decode_plain(q, new, ref_cache, idx, bias, 7, scale, 512))
+        open_slots = int((bias > -1).sum())
+        nbytes = open_slots * 1152 + b * 16 * (576 + 512) * 2 + b * s * 4
+        bound = max(nbytes / HBM_BYTES_PER_S, 2 * 16 * 1088 * open_slots / BF16_FLOP_PER_S) * 1e3
+        out.append(dict(kernel="mla_decode", b=b, s=s, plan=list(mla.plan(b, s)), rel_err=err, ms=ms,
+                        bound_ms=bound, roofline_pct=100 * bound / ms, plain_ms=plain_ms))
+    for r in out:
+        log("phase 17 kernel: " + json.dumps(r))
+    results["moon_kernels"] = out
+
+
+def moon_decode(model, texts, dev, graphed: bool, keep_logits: bool = False) -> dict:
+    """The batch's greedy decode through llm._generate (as batch_synthesize
+    buckets it), from its bucket's graph or eagerly; with keep_logits the
+    loop is run here step by step to keep each step's logits."""
+    import torch
+
+    from fangyan_tts_torch.data.lm_plan import pad_plans_left
+    from fangyan_tts_torch.infer.tts import batch_buckets
+    from fangyan_tts_torch.models import llm
+    from fangyan_tts_torch.ops.sampling import ras_uniforms
+
+    c = model.cfg
+    plans, tp, max_new, cache_len = batch_buckets(c, texts, np.zeros(0, np.int32), np.zeros(0, np.int32), 6.0)
+    batch = pad_plans_left(plans, length=tp)
+    lens = np.asarray([6 * len(t) for t in texts], np.int32)
+    args = (torch.from_numpy(batch["src"]).to(dev), torch.from_numpy(batch["ids"]).to(dev),
+            torch.from_numpy(batch["lengths"]).to(dev), torch.from_numpy(lens), torch.from_numpy(lens))
+    with torch.inference_mode():
+        held = llm._bucket(model, len(texts), max_new, cache_len, dev) if graphed else contextlib.nullcontext()
+        with held as bucket:
+            if graphed and bucket is None:
+                raise AssertionError("phase 17: the decode took no bucket on the card")
+            if not keep_logits:
+                res, logits = llm._generate(model, *args, None, max_new, cache_len, bucket)
+                return dict(tokens=res.tokens.cpu(), counts=res.num_tokens.cpu(), logits=logits.float().cpu(),
+                            plans=plans)
+            s = bucket.state
+            s.start(args[2].to(torch.int32), args[3].to(dev), args[4].to(dev), tp)
+            s.logits.copy_(model.decode_logits(model.prefill_leftpad(args[0], args[1], s.prompt_lens, s.cache)))
+            steps = [s.logits.float().clone()]
+            for _ in range(max_new):
+                if bool(s.done.all()):
+                    break
+                ras_uniforms(s.uniforms, None)
+                if bucket.graph is None:
+                    bucket.capture(lambda: llm._batch_step(model, s))
+                else:
+                    bucket.replay()
+                steps.append(s.logits.float().clone())
+            return dict(tokens=s.out.clone().cpu(), counts=s.counts.clone().cpu(), steps=steps, plans=plans)
+
+
+def moon_phase(results: dict, card: str) -> None:
+    """Phase 17: the MLA-MoE speech LM at full width (see the module's
+    docstring); within DG_PHASE_LIMIT_S."""
+    import torch
+
+    from benchmark.harness import Trace
+    from benchmark.reference import moonlight_lm
+    from fangyan_tts_torch.infer.tts import CosyVoice3TTS
+    from fangyan_tts_torch.models import decode_graphs
+    from fangyan_tts_torch.ops import mla_decode as mla
+    from fangyan_tts_torch.ops import moe
+    from fangyan_tts_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = moon_config()
+    tts = CosyVoice3TTS.random_init(cfg, dtype=torch.bfloat16, seed=17)
+    gen = torch.Generator(device=dev).manual_seed(1717)
+    with torch.no_grad():
+        for name, p in tts.llm.named_parameters():
+            if name.endswith("e_score_correction_bias"):
+                p.normal_(0.0, 0.05, generator=gen)
+    torch.cuda.synchronize()
+    log(f"phase 17: the MLA-MoE model built in {time.perf_counter() - t0:.1f} s, "
+        f"{sum(p.numel() for p in tts.llm.parameters()) / 1e9:.3f} B LM parameters, "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
+    moon_kernels(results, tts.llm)
+    rng = np.random.default_rng(17)
+    texts = [rng.integers(0, 163840, n).astype(np.int32) for n in MOON_TEXT_TOKENS for _ in range(2)]
+    prompt = dict(flow_embedding=rng.standard_normal(192).astype(np.float32),
+                  flow_prompt_speech_token=rng.integers(0, 6561, 125).astype(np.int32),
+                  prompt_speech_feat=rng.standard_normal((250, 80)).astype(np.float32),
+                  min_token_text_ratio=6, max_token_text_ratio=6)
+    runs = []
+    for traced in (False, True):  # the first call captures its bucket, the second replays every step
+        before = (moe.launches, mla.launches, decode_graphs.captures, decode_graphs.replays)
+        profiling.reset()
+        tr = Trace() if traced else None
+        if traced:
+            tr.start()
+        t = time.perf_counter()
+        with profiling.recording():
+            wavs = tts.batch_synthesize(texts, **prompt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        if traced:
+            tr.stop()
+        tc = profiling.counters()
+        profiling.reset()
+        steps = tc["llm.decode_steps"]
+        run = dict(traced=traced, s=wall, steps=steps, graph_steps=tc["llm.graph_steps"],
+                   moe_launches=moe.launches - before[0], mla_launches=mla.launches - before[1],
+                   captures=decode_graphs.captures - before[2], replays=decode_graphs.replays - before[3],
+                   counters={k: v for k, v in tc.items() if k.startswith("moe.")},
+                   audio_s=sum(len(w) for w in wavs) / 24000)
+        moe_layers = cfg.llm.qwen.num_hidden_layers - cfg.llm.qwen.first_k_dense_replace
+        want = dict(moe_launches=2 * moe_layers * (steps + 1), mla_launches=2 * cfg.llm.qwen.num_hidden_layers * steps)
+        if traced:
+            run.update(traced_moe=len(tr.kernel_times_s("fangyan_moe_")),
+                       traced_mla=len(tr.kernel_times_s("fangyan_mla_decode")),
+                       moe_ms=1e3 * sum(tr.kernel_times_s("fangyan_moe_")),
+                       mla_ms=1e3 * sum(tr.kernel_times_s("fangyan_mla_decode")), busy_s=tr.busy_s(),
+                       window_s=tr.window_s)
+            want.update(traced_moe=want["moe_launches"], traced_mla=want["mla_launches"])
+        log("phase 17 batch: " + json.dumps(run))
+        bad = {k: (run[k], v) for k, v in want.items() if run[k] != v}
+        if bad or run["counters"].get("moe.calls.decode") != moe_layers * steps:
+            raise AssertionError(f"phase 17: launches (got, want) {bad}, counters {run['counters']}")
+        if traced and run["graph_steps"] < 0.97 * steps:
+            raise AssertionError(f"phase 17: {run['graph_steps']} of {steps} steps replayed")
+        runs.append(run)
+    # one offline request through tts(stream=False): generate_tokens' B = 1 decode from its own bucket's graph
+    before = decode_graphs.replays
+    profiling.reset()
+    with profiling.recording():
+        wav = next(tts.tts(text=texts[4], flow_embedding=prompt["flow_embedding"],
+                           flow_prompt_speech_token=prompt["flow_prompt_speech_token"],
+                           prompt_speech_feat=prompt["prompt_speech_feat"], min_token_text_ratio=6,
+                           max_token_text_ratio=6))["tts_speech"]
+    tc = profiling.counters()
+    profiling.reset()
+    offline = dict(samples=len(wav), want=6 * len(texts[4]) * 2 * 480, steps=tc.get("llm.decode_steps"),
+                   graph_steps=tc.get("llm.graph_steps"), replays=decode_graphs.replays - before,
+                   finite=bool(np.isfinite(wav).all()))
+    log("phase 17 tts(stream=False): " + json.dumps(offline))
+    # its tokens' audio, 960 samples a token (silent runs past 5 tokens are dropped before the flow)
+    if not 0 < offline["samples"] <= offline["want"] or offline["samples"] % 960 or not offline["finite"] \
+            or not offline["graph_steps"]:
+        raise AssertionError(f"phase 17: the offline request {offline}")
+    graphed = moon_decode(tts.llm, texts, dev, graphed=True)
+    eager = moon_decode(tts.llm, texts, dev, graphed=False)
+    equal = all(torch.equal(graphed[k], eager[k]) for k in ("tokens", "counts", "logits"))
+    log(f"phase 17: graph against eager bit-equal: {equal}")
+    if not equal:
+        raise AssertionError("phase 17: the graphed decode differs from the eager one")
+    kept = moon_decode(tts.llm, texts, dev, graphed=True, keep_logits=True)
+    from benchmark.reference import exact_float32
+
+    exact_float32()
+    ref_cfg = dict(vars(cfg.llm.qwen), **{k: getattr(cfg.llm, k) for k in (
+        "llm_input_size", "llm_output_size", "speech_token_size", "extra_tokens")})
+    with torch.device("meta"):  # the program's bf16 weights, shared: the reference upcasts them as it uses them
+        ref = moonlight_lm.SpeechLM(ref_cfg)
+    ref.load_state_dict(tts.llm.state_dict(), strict=True, assign=True)
+    ref.eval()
+    checks = []
+    n_speech = cfg.llm.speech_token_size
+    limits = json.loads(MOON_CELL.read_text())["limits"]
+    for r in (len(texts) - 1, 0)[:MOON_CHECK_ROWS]:
+        n = int(kept["counts"][r])
+        served = kept["tokens"][r, :n].numpy()
+        want = ref.served_logits(texts[r], np.zeros(0, np.int64), served).float()
+        got = torch.stack([kept["steps"][i][r] for i in range(n)]).to(want.device)
+        rel = ((got - want).norm(dim=1) / want.norm(dim=1)).cpu()
+        gaps = (want[:, :n_speech].max(1).values - want[:, :n_speech].gather(
+            1, torch.as_tensor(served, device=want.device).long()[:, None])[:, 0]).cpu()
+        checks.append(dict(row=r, tokens=n, prefill_rel=float(rel[0]), rel_median=float(rel.median()),
+                           rel_max=float(rel.max()), gap=float(gaps.max()), gap_mean=float(gaps.mean()),
+                           argmax_share=float((gaps == 0).float().mean())))
+        log("phase 17 reference: " + json.dumps(checks[-1]) + f" (limits {limits['lm_gap']}, {limits['lm_gap_mean']})")
+        if checks[-1]["gap"] > limits["lm_gap"] or checks[-1]["gap_mean"] > limits["lm_gap_mean"]:
+            raise AssertionError(f"phase 17: row {r} off the reference: {checks[-1]}")
+    phase_s = time.perf_counter() - t0
+    results["moon"] = dict(runs=runs, checks=checks, phase_s=phase_s)
+    log(f"phase 17 took {phase_s:.1f} s (limit {DG_PHASE_LIMIT_S} s) [{card}]")
+    del tts, ref
+    torch.cuda.empty_cache()
+    if phase_s > DG_PHASE_LIMIT_S:
+        raise AssertionError(f"phase 17 took {phase_s:.1f} s, over its limit of {DG_PHASE_LIMIT_S} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17",
                     help="comma-separated phases to run (see above)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -5740,6 +6039,9 @@ def main() -> int:
                 _build.build_all()  # built once here: two processes must not build at once
             mp_phase(results, card, mp)
             launch_probe(results, "after phase 16")
+        if 17 in phases:  # after phase 16, before the profiler passes of phases 5 and 7
+            moon_phase(results, card)
+            launch_probe(results, "after phase 17")
         if 4 in phases and 5 in phases:
             profile_stages(tts, req, results, card)
             (tts_a, req_a), (tts_b, req_b) = batched["a"], batched["b"]

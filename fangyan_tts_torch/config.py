@@ -52,6 +52,51 @@ class QwenConfig:
 
 
 @dataclass(frozen=True)
+class MLAMoEConfig:
+    """A DeepSeek-V3-style decoder backbone (models/mla_moe.py): latent
+    attention (MLA) without q-LoRA, a leading dense SiLU MLP, then MoE
+    layers of sigmoid-routed experts with a selection-only correction bias
+    (`noaux_tc`, one group) and shared experts. Field names are the HF
+    config's.
+
+    Defaults are Moonlight-16B-A3B
+    (huggingface.co/moonshotai/Moonlight-16B-A3B config.json): hidden 2048,
+    27 layers (layer 0 dense, width 11264), 64 routed experts of width 1408
+    with 6 a token and 2 shared, 16 heads of 128 + 64 rope dims over a
+    512-wide latent, v heads of 128.
+    """
+
+    hidden_size: int = 2048
+    intermediate_size: int = 11264
+    moe_intermediate_size: int = 1408
+    num_hidden_layers: int = 27
+    first_k_dense_replace: int = 1
+    num_attention_heads: int = 16
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    n_routed_experts: int = 64
+    num_experts_per_tok: int = 6
+    n_shared_experts: int = 2
+    routed_scaling_factor: float = 2.446
+    norm_topk_prob: bool = True
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 50000.0
+    vocab_size: int = 163840
+    max_position_embeddings: int = 8192
+
+    @property
+    def q_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def latent_dim(self) -> int:
+        """Values a cache slot holds a layer: the latent and the shared rope key."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+
+@dataclass(frozen=True)
 class LLMConfig:
     """CosyVoice3 AR speech-token LM (reference: cosyvoice/llm/llm.py:628-748).
 
@@ -68,7 +113,9 @@ class LLMConfig:
     mix_ratio: tuple[int, int] = (5, 15)
     lsm_weight: float = 0.0
     length_normalized_loss: bool = True
-    qwen: QwenConfig = field(default_factory=QwenConfig)
+    # the decoder backbone: a QwenConfig (Qwen2, the default) or an
+    # MLAMoEConfig (models/mla_moe.py); the field keeps the JAX package's name
+    qwen: QwenConfig | MLAMoEConfig = field(default_factory=QwenConfig)
 
     # sampling defaults (conf/cosyvoice3.yaml:32-36)
     top_p: float = 0.8
@@ -95,6 +142,11 @@ class LLMConfig:
     @property
     def head_size(self) -> int:
         return self.speech_token_size + self.extra_tokens
+
+    @property
+    def backbone(self) -> str:
+        """"qwen2" or "mla_moe", by the type of the backbone's config."""
+        return "mla_moe" if isinstance(self.qwen, MLAMoEConfig) else "qwen2"
 
 
 @dataclass(frozen=True)
@@ -289,7 +341,9 @@ def config_from_dict(d: dict[str, Any], cls: type = CosyVoiceConfig) -> Any:
         if f.name not in d:
             continue
         v = d[f.name]
-        if f.name in _NESTED and isinstance(v, dict):
+        if f.name == "qwen" and isinstance(v, dict) and "kv_lora_rank" in v:
+            v = config_from_dict(v, MLAMoEConfig)
+        elif f.name in _NESTED and isinstance(v, dict):
             v = config_from_dict(v, _NESTED[f.name])
         elif isinstance(v, list):
             v = tuple(tuple(x) if isinstance(x, list) else x for x in v)

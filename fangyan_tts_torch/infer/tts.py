@@ -257,7 +257,11 @@ class CosyVoice3TTS:
         """Switch the LLM to weight-only int8 (the MLP kernels to nibble-packed
         int4 with `int4_mlp`), quantized from the weights as the model holds
         them. Returns at once when the LLM is already int8, so int4_mlp=True
-        after a plain quantize_llm() changes nothing (as in the JAX package)."""
+        after a plain quantize_llm() changes nothing (as in the JAX package).
+        The MLA-MoE backbone has no quantized layers: it raises."""
+        if self.cfg.llm.backbone != "qwen2":
+            raise NotImplementedError("quantize_llm: weight-only int8 covers the Qwen2 backbone only, not "
+                                      f"{self.cfg.llm.backbone}")
         if self.cfg.llm.qwen.quant_int8:
             return
         sd = quantize_qwen_state(self.llm.state_dict(), int4_mlp=int4_mlp)
@@ -302,18 +306,26 @@ class CosyVoice3TTS:
         """Continuous batching of the streaming LLM decodes: concurrent
         requests' decode chunks run as one width-N batch with each row's own
         depth, generator and cache slots (infer/llm_batch.LLMScheduler).
-        With enable_batched_streaming both serving stages batch."""
+        With enable_batched_streaming both serving stages batch. The
+        continuous batch keeps Qwen2's cache: another backbone raises."""
         from .llm_batch import LLMScheduler
 
+        if self.cfg.llm.backbone != "qwen2":
+            raise NotImplementedError("enable_batched_llm: the continuous batch runs the Qwen2 backbone only, not "
+                                      f"{self.cfg.llm.backbone}")
         self.llm_scheduler = LLMScheduler(self, width=width)
 
     def enable_batched_streaming(self, width: int = 4) -> None:
         """Concurrent streaming requests' flow and vocoder hops run as
         batched calls (infer/batch_stream.StreamScheduler): sessions are
         grouped by prompt length, slots recycle. Thread-safe, for the
-        serving runtimes."""
+        serving runtimes. It serves streams, whose decode runs the Qwen2
+        backbone only: another backbone raises."""
         from .batch_stream import StreamScheduler
 
+        if self.cfg.llm.backbone != "qwen2":
+            raise NotImplementedError("enable_batched_streaming: streams decode with the Qwen2 backbone only, not "
+                                      f"{self.cfg.llm.backbone}")
         self.stream_scheduler = StreamScheduler(self, width=width)
 
     def warmup_streaming(self, prompt_token_len: int = 0, n_tokens: int | None = None) -> None:

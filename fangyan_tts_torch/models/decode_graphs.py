@@ -7,9 +7,10 @@ the device takes to run them. A CUDA graph holds one whole step, the
 sampling and `decode_step`, and a replay issues it in one launch.
 
 A graph reads and writes fixed addresses, so each bucket keeps its own
-state (`Bucket.state`, an llm.BatchDecode): the KV cache of exactly
-cache_len slots (the decode-attention wrapper encodes its TMA maps from the
-cache's address, and a captured launch keeps the maps of its capture), the
+state (`Bucket.state`, an llm.BatchDecode): the backbone's cache of exactly
+cache_len slots (Qwen2's K/V, whose decode-attention wrapper encodes its TMA
+maps from the cache's address, so a captured launch keeps the maps of its
+capture; or the MLA-MoE backbone's latent cache), the
 logits, the RAS window, done, counts, the output, the device step count,
 the per-row inputs and the step's uniforms. A call copies its inputs in and
 prefills eagerly into the zeroed cache. Where the bucket has no graph yet,
@@ -23,7 +24,8 @@ The rules, from what the code can observe:
   layer (qwen2.TPDense: its collectives cannot be captured).
 - A bucket is keyed on what its captured shapes and constants depend on:
   B, max_new_tokens, cache_len, the model's LLMConfig (the sampling
-  constants are part of the graph), the cache and compute dtypes, the
+  constants and the backbone are part of the graph), the cache and compute
+  dtypes, the
   device and whether inference mode is on (a tensor made in it cannot be
   written in place outside it). The prompt length enters only through the
   state.
@@ -44,7 +46,8 @@ The rules, from what the code can observe:
   `captures` and `replays` count the captures and the replayed steps since
   the last reset, as the wrappers' `launches` do; the tracer's
   `llm.graph_captures` and `llm.graph_steps` count the same while it
-  records.
+  records. The MLA-MoE backbone's MoE counters live on the model, not in
+  the state: a replay adds to the same device tensor an eager step does.
 """
 
 from __future__ import annotations

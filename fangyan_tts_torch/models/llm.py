@@ -19,6 +19,14 @@ generate_speech_tokens keeps its step count on the device and updates its
 state in place (`BatchDecode`, `_batch_step`), so that on the card one
 captured CUDA graph serves every step of a bucket (models/decode_graphs);
 elsewhere the same step body runs eagerly.
+
+The decoder backbone is Qwen2 (models/qwen2.py) or, where `LLMConfig.qwen`
+is an MLAMoEConfig, the latent-attention MoE decoder (models/mla_moe.py).
+Both make and describe their own cache (`init_cache`, `cache_slots`,
+`cache_dtype`); the prefill, the batched decode and its graphs ask the
+backbone and read no cache entry by name. The streaming decode, the
+bistream extension and the continuous batch keep Qwen2's k/v cache and
+refuse the MLA-MoE backbone (`qwen2_only`).
 """
 
 from __future__ import annotations
@@ -30,9 +38,10 @@ import torch.nn as nn
 
 from ..config import LLMConfig
 from ..ops.sampling import ras_sample, ras_uniforms
-from ..utils.profiling import count, span
+from ..utils.profiling import active, count, span
 from . import decode_graphs
 from . import qwen2 as q
+from .mla_moe import MLAMoEModel
 
 IGNORE_ID = -1
 CACHE_DTYPE = torch.bfloat16  # the decode's KV cache, whatever the model's dtype (as in the JAX package)
@@ -45,7 +54,7 @@ class CosyVoice3LM(nn.Module):
         self.dtype = dtype  # compute dtype of the training forward and the prompt prefill
         self.embed_tokens = nn.Embedding(cfg.qwen.vocab_size, cfg.qwen.hidden_size)
         self.speech_embedding = nn.Embedding(cfg.head_size, cfg.llm_input_size)
-        self.llm = q.Qwen2Model(cfg.qwen)
+        self.llm = MLAMoEModel(cfg.qwen) if cfg.backbone == "mla_moe" else q.Qwen2Model(cfg.qwen)
         self.llm_decoder = nn.Linear(cfg.llm_output_size, cfg.head_size, bias=False)
 
     def embed_plan(self, src: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -84,7 +93,7 @@ class CosyVoice3LM(nn.Module):
         causal = slot[0][None, :] <= slot[0][:, None]  # (Tp, Tp): key <= query
         key_valid = slot >= start[:, None]
         allowed = causal[None] & key_valid[:, None, :]
-        max_len = cache["k"].shape[2]
+        max_len = self.llm.cache_slots(cache)
         bias = torch.full((b, tp, max_len), -1e10, dtype=torch.float32, device=dev)
         bias[:, :, :tp] = torch.where(allowed, 0.0, -1e10)
         h = self.llm(x, positions, bias, cache)
@@ -95,13 +104,21 @@ class CosyVoice3LM(nn.Module):
         first valid slot; end: exclusive slot bound, an int or (B,) per row.
         Runs in the cache's dtype. Returns logits (B, V)."""
         emb = self.speech_embedding(token)[:, None, :]
-        max_len = cache["k"].shape[2]
+        max_len = self.llm.cache_slots(cache)
         slot = torch.arange(max_len, dtype=torch.int32, device=token.device)[None, None, :]
         if isinstance(end, torch.Tensor):
             end = end[:, None, None]
         bias = torch.where((slot >= start[:, None, None]) & (slot < end), 0.0, -1e10).to(torch.float32)
-        h = self.llm(emb.to(cache["k"].dtype), positions, bias, cache)
+        h = self.llm(emb.to(self.llm.cache_dtype(cache)), positions, bias, cache)
         return self.decode_logits(h[:, 0])
+
+
+def qwen2_only(model: CosyVoice3LM, what: str) -> None:
+    """Raise NotImplementedError for a path that keeps Qwen2's k/v cache
+    when the model's backbone is another."""
+    if model.cfg.backbone != "qwen2":
+        raise NotImplementedError(f"fangyan_tts_torch: {what} runs the Qwen2 backbone only, not "
+                                  f"{model.cfg.backbone}; batch_synthesize and tts(stream=False) run it")
 
 
 class Qwen2LMV2(CosyVoice3LM):
@@ -131,6 +148,7 @@ def bistream_append(model: CosyVoice3LM, cache: dict | None, seq_pos: int, src: 
     segment src / ids (1, n). Returns (cache, last logits (1, V), seq_pos +
     n). cache None starts a fresh stream in a bf16 cache of cache_len
     slots. A one-token segment is a decode step (ops/decode_attention)."""
+    qwen2_only(model, "the bistream decode")
     dev = ids.device
     n = ids.shape[1]
     if cache is None:
@@ -183,9 +201,10 @@ class BatchDecode:
     (a (1,) int32 tensor on the device), the rows' inputs and the step's
     uniforms (ops/sampling.ras_uniforms)."""
 
-    def __init__(self, c: LLMConfig, b: int, max_new_tokens: int, cache_len: int, device):
+    def __init__(self, model: CosyVoice3LM, b: int, max_new_tokens: int, cache_len: int, device):
+        c = model.cfg
         i32 = dict(dtype=torch.int32, device=device)
-        self.cache = q.init_cache(c.qwen, b, cache_len, dtype=CACHE_DTYPE, device=device)
+        self.cache = model.llm.init_cache(b, cache_len, CACHE_DTYPE, device)
         self.logits = torch.zeros((b, c.head_size), dtype=torch.float32, device=device)
         self.recent = torch.full((b, c.win_size), -1, **i32)
         self.done = torch.zeros((b,), dtype=torch.bool, device=device)
@@ -199,7 +218,7 @@ class BatchDecode:
     def start(self, prompt_lens, min_lens, max_lens, tp: int) -> None:
         """A new decode: the rows' inputs copied in, the rest (the cache
         included) as before a prefill."""
-        for t in (self.cache["k"], self.cache["v"], self.cache["index"], self.done, self.counts, self.out, self.i):
+        for t in (*self.cache.values(), self.done, self.counts, self.out, self.i):
             t.zero_()
         self.recent.fill_(-1)
         self.prompt_lens.copy_(prompt_lens)
@@ -249,8 +268,8 @@ def _bucket(model: CosyVoice3LM, b: int, max_new_tokens: int, cache_len: int, de
     """The decode's bucket of graphs (models/decode_graphs.bucket, a
     context manager), whose state is a BatchDecode, keyed on the dtype of
     the cache that init_cache makes it."""
-    make = lambda: BatchDecode(model.cfg, b, max_new_tokens, cache_len, device)
-    cache_dtype = q.init_cache(model.cfg.qwen, 1, 1, dtype=CACHE_DTYPE, device="meta")["k"].dtype
+    make = lambda: BatchDecode(model, b, max_new_tokens, cache_len, device)
+    cache_dtype = model.llm.cache_dtype(model.llm.init_cache(1, 1, CACHE_DTYPE, "meta"))
     return decode_graphs.bucket(model, (b, max_new_tokens, cache_len, cache_dtype), device, make)
 
 
@@ -262,7 +281,10 @@ def _generate(model, src, ids, prompt_lens, min_lens, max_lens, generator, max_n
     logits after the last step."""
     dev = ids.device
     b, tp = ids.shape
-    s = bucket.state if bucket is not None else BatchDecode(model.cfg, b, max_new_tokens, cache_len, dev)
+    s = bucket.state if bucket is not None else BatchDecode(model, b, max_new_tokens, cache_len, dev)
+    moe = getattr(model.llm, "counters", None)  # the MoE layers' counts on the device, read once after the loop
+    if moe is not None:
+        moe(dev).zero_()
     with span("llm.prefill"):
         s.start(prompt_lens.to(dev, torch.int32), min_lens.to(dev, torch.int32), max_lens.to(dev, torch.int32), tp)
         s.logits.copy_(model.decode_logits(model.prefill_leftpad(src, ids, s.prompt_lens, s.cache)))
@@ -289,6 +311,9 @@ def _generate(model, src, ids, prompt_lens, min_lens, max_lens, generator, max_n
     count("llm.row_steps", b * steps)
     count("llm.graph_steps", replayed)
     count("llm.graph_captures", captured)
+    if moe is not None and active():
+        for name, n in model.llm.read_counters(dev).items():
+            count(name, n)
     if bucket is None:
         return DecodeResult(tokens=s.out, num_tokens=s.counts), s.logits
     # the bucket's state serves its next call
@@ -314,6 +339,7 @@ class DecodeState(NamedTuple):
 @torch.no_grad()
 def decode_prefill(model: CosyVoice3LM, src, ids, prompt_lens, min_lens, max_lens, cache_len: int) -> DecodeState:
     """The prompt prefill of a streaming decode; returns its DecodeState."""
+    qwen2_only(model, "the streaming decode")
     c = model.cfg
     dev = ids.device
     b, tp = ids.shape

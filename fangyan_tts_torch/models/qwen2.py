@@ -257,6 +257,18 @@ class Qwen2Model(nn.Module):
             cache["index"] += inputs_embeds.shape[1]
         return self.norm(x)
 
+    # the cache, as models/llm.py asks a backbone for it
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> dict:
+        return init_cache(self.cfg, batch, max_len, dtype, device)
+
+    @staticmethod
+    def cache_slots(cache: dict) -> int:
+        return cache["k"].shape[2]
+
+    @staticmethod
+    def cache_dtype(cache: dict) -> torch.dtype:
+        return cache["k"].dtype
+
 
 def init_cache(cfg: QwenConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> dict:
     """Zeroed stacked KV cache; every row's next write slot is 0."""

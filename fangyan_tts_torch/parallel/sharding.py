@@ -36,6 +36,9 @@ matmul and the port must not:
 - the DiT rotates only head 0's channels (a quirk kept from the reference),
   so only the rank that holds head 0 rotates.
 
+A module holding the MLA-MoE backbone (models/mla_moe.py) has no rules
+here: `shard_module` raises NotImplementedError for it.
+
 `shard_module` slices a module's tensors in place and swaps each
 tensor-parallel layer's class to one that takes its collectives around
 its part (`TPLinear`, `TPQLinear`: models/qwen2.qdense and flax_dense hand
@@ -356,6 +359,11 @@ def shard_module(module: nn.Module, mesh: Mesh) -> nn.Module:
     Returns the module. A mesh of one process leaves it as it is."""
     if mesh.size == 1:
         return module
+    from ..models.mla_moe import MLAMoEModel
+
+    if any(isinstance(m, MLAMoEModel) for m in module.modules()):
+        raise NotImplementedError("shard_module: the MLA-MoE backbone has no sharding rules (its experts and "
+                                  "latent attention run on one device)")
     if getattr(module, "_sharded", None) is not None:
         raise ValueError("module is sharded already")
     tp = mesh.tp

@@ -11,6 +11,8 @@ a Chrome trace for Perfetto.
   recording, it returns one shared no-op object: it records, allocates and
   synchronizes nothing.
 - `count(name, n=1)`: adds `n` to a counter while recording.
+- `active()`: whether the tracer records now (for a caller that would
+  read the device only to count).
 - `spans()`, `counters()`, `dropped()`, `reset()`: the records (a span's
   `parent` indexes this list), the counters, the spans left out past the
   cap, and a fresh start. Records are kept in memory, at most `CAP` of
@@ -125,6 +127,9 @@ class Tracer:
             return NO_SPAN
         return _Span(self, name, attrs)
 
+    def active(self) -> bool:
+        return bool(self._forced or _profiler_on())
+
     def count(self, name: str, n: int = 1) -> None:
         if not (self._forced or _profiler_on()):
             return
@@ -161,6 +166,7 @@ class Tracer:
 TRACER = Tracer()
 span = TRACER.span
 count = TRACER.count
+active = TRACER.active
 spans = TRACER.spans
 counters = TRACER.counters
 dropped = TRACER.dropped

@@ -54,7 +54,11 @@ Phases:
      the exported flow_solve's (2 x 16 heads, L = 512, timed) and the
      recipe model's (its 2 heads, its decode's 2 layers, 2 query heads and
      1 KV head); phase 16's (mp_spec: each rank's half of the heads, decode
-     attention at 1 KV head and 7 query heads, flash at 8 heads, timed)
+     attention at 1 KV head and 7 query heads, flash at 8 heads, timed);
+     and the DiT's AdaLN kernel (ops/adaln) at the datagen cell's flow
+     buckets, with and without the gated residual, and one float32 shape,
+     timed by graph replay against its bytes bound and the plain chain
+     (check_adaln)
   4. a small model on the card against the same weights on the CPU
      (plain versions), bf16 and then int8 LLM + int4 MLP + int8 DiT; then
      at CosyVoice3-0.5B's full width (full_config's depth) with random
@@ -302,6 +306,16 @@ DECODE_ATOL = 1e-2  # the kernel rounds only its output to bf16
 FLASH_ATOL = 1.5e-2  # the kernel also rounds P to bf16 before P.V
 INT4_ATOL = 3e-2  # the kernel rounds only its output to bf16: half an ulp of outputs up to about 5
 MAX_LIMIT_SHARE = 0.15  # each limit must stay under this share of the mean |output| it is held to
+# the AdaLN kernel rounds x' once (half an ulp, 1/64 at |x'| < 8, which the norm carries times rstd (1 + scale),
+# up to about 3 here) and the norm once (another 1/64)
+ADALN_ATOL = 1e-1
+# The AdaLN checks (phase 3): the datagen cell's flow buckets (frames of its 2B = 32-row DiT calls), one float32
+# shape (2B, L), the modulation's spread, and the least share of its bytes bound the kernel must reach with the
+# residual at ADALN_GATE_FRAMES
+ADALN_FRAMES = (384, 512, 640, 768, 896, 1024)
+ADALN_F32_SHAPE = (2, 1344)
+ADALN_MOD_STD = 0.5
+ADALN_GATE_FRAMES, ADALN_MIN_BOUND_SHARE = 640, 0.6
 # and it must be at least as close to that as the plain version run in bf16
 # (the precision the JAX package's path runs at), whose scores and
 # probabilities are rounded to bf16.
@@ -413,6 +427,7 @@ GRPO_PROMPTS, GRPO_GROUP, GRPO_ITERS = 4, 8, 1  # one iteration: phase 14 needs 
 DECODE_F32_ATOL = 2e-5
 FLASH_F32_ATOL = 2e-5
 INT4_F32_ATOL = 1e-4  # sums of up to 4,864 products of order one
+ADALN_F32_ATOL = 1e-5  # float32 statistics over 1,024 elements, outputs up to about 8
 F32_LIMIT_SHARE = 1e-3
 FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (the float32 routes' bound)
 # A float32 model on the card against the CPU (phases 4 and 10): mel, wav and, on a float32 KV cache, the logits
@@ -477,7 +492,8 @@ MP_LOGIT_TOL = MP_MEL_TOL = 5e-2
 MP_PHASE_LIMIT_S = 90
 
 CARDS_USED = 1  # every phase runs on card 0
-PORT_KERNELS = ("decode_attention", "flash_attention", "int4_matmul")  # kernel names the profile reports
+# kernel names the profile reports
+PORT_KERNELS = ("decode_attention", "flash_attention", "int4_matmul", "fangyan_adaln")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOP_PER_S = 989e12
 
@@ -1118,6 +1134,69 @@ def check_int4(results: dict, batch_b: dict, mp: dict | None = None) -> None:
     results["int4_err"] = max(errs)
 
 
+def check_adaln(results: dict) -> None:
+    """The DiT's AdaLN kernel (ops/adaln) at the datagen cell's flow calls,
+    2B = 32 rows of each bucket's frames (ADALN_FRAMES), D = 1,024, bf16,
+    with the gated residual and without (the two calls of a block); and one
+    float32 shape (ADALN_F32_SHAPE). x and y N(0, 1); scale, shift and gate
+    N(0, ADALN_MOD_STD^2), taken as row views of one (B, 6D) modulation as
+    the DiT takes them. bf16: x' and the norm held to the plain version in
+    float32 on the same inputs, and no farther from it than the plain
+    version in bf16 (held); float32: to the plain version in float64
+    (held_f32). Each bf16 shape timed by graph replay against its bytes
+    (8 bytes an element with the residual, 4 without) and the plain chain."""
+    import torch
+
+    from fangyan_tts_torch.ops import adaln as an
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(23)
+    d = 1024
+    cases = [(32, l, torch.bfloat16) for l in ADALN_FRAMES] + [(*ADALN_F32_SHAPE, torch.float32)]
+    errs = []
+    for b, l, dt in cases:
+        mod = (torch.randn((b, 6 * d), generator=gen, device=dev) * ADALN_MOD_STD).to(dt)
+        shift, scale, gate = mod.chunk(6, dim=-1)[:3]
+        x = torch.randn((b, l, d), generator=gen, device=dev).to(dt)
+        y = torch.randn((b, l, d), generator=gen, device=dev).to(dt)
+        wide = torch.float64 if dt == torch.float32 else torch.float32
+        for res in ((), (y, gate)):
+            got = an.adaln(x, scale, shift, *res)
+            ref = an.adaln_plain(*(t.to(wide) for t in (x, scale, shift, *res)))
+            low = an.adaln_plain(x, scale, shift, *res)
+            torch.cuda.synchronize()
+            err = max((g.to(wide) - r).abs().max().item() for g, r in zip(got, ref))
+            err_low = max((g.to(wide) - r).abs().max().item() for g, r in zip(low, ref))
+            scale_out = ref[1].abs().mean().item()
+            if dt == torch.float32:
+                msg = held_f32("adaln_f32", err, err_low, ADALN_F32_ATOL, scale_out)
+            else:
+                msg = held("adaln", err, err_low, ADALN_ATOL, scale_out)
+            finite = all(bool(torch.isfinite(g).all()) for g in got)
+            errs.append(err)
+            kind = "residual" if res else "no residual"
+            log(f"adaln {dt} 2B={b} L={l} D={d} {kind}: {msg} finite={finite}")
+            if not finite:
+                raise AssertionError("adaln kernel gave a value that is not finite")
+            if dt != torch.bfloat16:
+                continue
+            ms_k = time_ms(lambda: an.adaln_fused(x, scale, shift, *res), iters=10, reps=3)
+            ms_e = eager_ms(lambda: an.adaln_fused(x, scale, shift, *res), iters=20)
+            ms_p = time_ms(lambda: an.adaln_plain(x, scale, shift, *res), iters=10, reps=3)
+            bms, by = bound((8 if res else 4) * b * l * d, 0)
+            results.setdefault("adaln_timing", []).append(dict(
+                rows=b * l, l=l, d=d, residual=bool(res), ms=ms_k, eager_ms=ms_e, plain_ms=ms_p, bound_ms=bms,
+                bound_by=by, bound_share=bms / ms_k))
+            log(f"adaln 2B={b} L={l} {kind}: kernel {ms_k * 1e3:.2f} us ({100 * bms / ms_k:.1f}% of its bound, "
+                f"eager call {ms_e * 1e3:.1f} us), plain {ms_p * 1e3:.1f} us, bound {bms * 1e3:.2f} us ({by})")
+    results["adaln_err"] = max(errs)
+    mid = next(r for r in results["adaln_timing"] if r["l"] == ADALN_GATE_FRAMES and r["residual"])
+    if mid["bound_share"] < ADALN_MIN_BOUND_SHARE:
+        raise AssertionError(f"adaln at 2B=32 L={ADALN_GATE_FRAMES} with the residual reaches "
+                             f"{100 * mid['bound_share']:.1f}% of its bytes bound, under "
+                             f"{100 * ADALN_MIN_BOUND_SHARE:.0f}%")
+
+
 # ---------------------------------------------------------------- phase 4
 
 
@@ -1333,6 +1412,7 @@ def full_path(results: dict, card: str):
     import torch
 
     from fangyan_tts_torch.infer.tts import CosyVoice3TTS
+    from fangyan_tts_torch.ops import adaln as an
     from fangyan_tts_torch.ops import decode_attention as da
     from fangyan_tts_torch.ops import flash_attention as fa
 
@@ -1365,28 +1445,29 @@ def full_path(results: dict, card: str):
     for name, req in requests:
         stage.clear()
         steps.reset()
-        da.launches = fa.launches = 0
+        da.launches = fa.launches = an.launches = 0
         with kernel_shapes(results, f"request '{name}'"):
             t = time.perf_counter()
             wav = next(tts.tts(**req))["tts_speech"]
             wall = time.perf_counter() - t
-        n_dec, n_flash = da.launches, fa.launches
-        _count(results, {"decode_attention": n_dec, "chunk_flash_attention": n_flash})
+        n_dec, n_flash, n_adaln = da.launches, fa.launches, an.launches
+        _count(results, {"decode_attention": n_dec, "chunk_flash_attention": n_flash, "adaln": n_adaln})
         frames = mel_frames[-1]
         audio_s = len(wav) / cfg.sample_rate
         ok = (np.isfinite(wav).all() and np.abs(wav).max() <= 0.99 and len(wav) == frames * 480
               and n_dec == cfg.llm.qwen.num_hidden_layers * steps.value and steps.value > 0
-              and n_flash == cfg.flow.dit.depth * cfg.flow.n_timesteps)
+              and n_flash == cfg.flow.dit.depth * cfg.flow.n_timesteps
+              and n_adaln == (2 * cfg.flow.dit.depth + 1) * cfg.flow.n_timesteps)
         tok_s = n_tokens[-1] / stage["llm"]
         log(f"request '{name}': {n_tokens[-1]} tokens in {steps} decode steps, {frames} mel frames, "
             f"{audio_s:.2f} s audio; decode {stage['llm']:.3f} s ({tok_s:.1f} tok/s, "
             f"{stage['llm'] / steps.value * 1e3:.2f} ms/step), flow {stage['flow']:.3f} s, "
             f"vocoder {stage['vocoder']:.3f} s, wall {wall:.3f} s, RTF {wall / audio_s:.4f}; "
-            f"launches decode {n_dec} flash {n_flash} [{card}] {'OK' if ok else 'FAIL'}")
+            f"launches decode {n_dec} flash {n_flash} adaln {n_adaln} [{card}] {'OK' if ok else 'FAIL'}")
         results.setdefault("requests", []).append(dict(
             name=name, tokens=n_tokens[-1], steps=steps.value, mel_frames=frames, tok_s=tok_s, audio_s=audio_s, llm_s=stage["llm"],
             flow_s=stage["flow"], vocoder_s=stage["vocoder"], wall_s=wall, rtf=wall / audio_s,
-            decode_launches=n_dec, flash_launches=n_flash))
+            decode_launches=n_dec, flash_launches=n_flash, adaln_launches=n_adaln))
         if not ok:
             raise AssertionError(f"request '{name}' failed its checks")
     return tts, fixed
@@ -1645,6 +1726,7 @@ def batched_requests(results: dict, card: str) -> dict:
     import torch
 
     from fangyan_tts_torch.infer.tts import CosyVoice3TTS, suppress_silent_runs
+    from fangyan_tts_torch.ops import adaln as an
     from fangyan_tts_torch.ops import decode_attention as da
     from fangyan_tts_torch.ops import flash_attention as fa
     from fangyan_tts_torch.ops import int4_matmul as i4
@@ -1674,18 +1756,19 @@ def batched_requests(results: dict, card: str) -> dict:
         for run in (1, 2):
             stage.clear()
             steps.reset()
-            da.launches = fa.launches = i4.launches = 0
+            da.launches = fa.launches = i4.launches = an.launches = 0
             with kernel_shapes(results, f"request {name}, run {run}"):
                 t = time.perf_counter()
                 wavs = tts.batch_synthesize(**req)
                 wall = time.perf_counter() - t
             counts = {"decode_attention": da.launches, "chunk_flash_attention": fa.launches,
-                      "int4_matmul": i4.launches}
+                      "int4_matmul": i4.launches, "adaln": an.launches}
             _count(results, counts)
             toks, n = made[-1]
             n_tok = [len(suppress_silent_runs(toks[i, : n[i]])) for i in range(len(n))]
+            # adaln: two norms a DiT block and the final one, every DiT call
             want = {"decode_attention": nl * steps.value, "chunk_flash_attention": depth * nt,
-                    "int4_matmul": 2 * nl * (1 + steps.value) if int4 else 0}
+                    "int4_matmul": 2 * nl * (1 + steps.value) if int4 else 0, "adaln": (2 * depth + 1) * nt}
             audio_s = sum(len(w) for w in wavs) / cfg.sample_rate
             ok = (len(wavs) == 16 and steps.value > 0 and counts == want
                   and all(np.isfinite(w).all() and np.abs(w).max() <= 0.99 and len(w) == k * 2 * 480
@@ -5965,6 +6048,7 @@ def main() -> int:
         check_decode_rows(results, serving)
         check_flash(results, batches, api, stream, serving, grpo, dg, ex, mp)
         check_int4(results, batches[1], mp)
+        check_adaln(results)
         t = time.perf_counter()
         check_f32_routes(results, api)
         log(f"the float32 routes' checks took {time.perf_counter() - t:.1f} s")
@@ -6082,6 +6166,11 @@ def main() -> int:
                  ms=it["ms"], plain_ms=it["plain_ms"], bound_ms=it["bound_ms"], bound_by=it["bound_by"],
                  library_ms=it["library_ms"]),
         ]
+        at = next(r for r in results["adaln_timing"] if r["l"] == ADALN_GATE_FRAMES and r["residual"])
+        kernels.append(dict(name="adaln", route="triton", source="fangyan_tts_torch/csrc/adaln_triton.py",
+                            replaces=None, launches=results["launches"].get("adaln", 0),
+                            max_abs_err=results["adaln_err"], ms=at["ms"], plain_ms=at["plain_ms"],
+                            bound_ms=at["bound_ms"], bound_by=at["bound_by"], library_ms=None))
         for name, key, src, line, timing in (
                 ("decode_attention_f32", "decode_f32_err", "decode_attention.cu", "decode_attention.py:124", dt32),
                 ("chunk_flash_attention_f32", "flash_f32_err", "flash_attention.cu", "flash_attention.py:78", ft32),
@@ -6098,6 +6187,7 @@ def main() -> int:
                                                              "train_api_request", "decode_rows_bit_equal",
                                                              "launch_probe_us", "decode_f32_timing",
                                                              "flash_f32_timing", "int4_f32_timing", "small_float32",
+                                                             "adaln_timing",
                                                              "f32_request", "f32_batch", "datagen", "mp")
                                      if k in results}))
         log(json.dumps({"kernels": kernels}), stamp=False)

@@ -34,6 +34,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..config import DiTConfig
+from ..ops.adaln import adaln
 from ..ops.convs import conv1d
 from ..ops.flash_attention import chunk_flash_attention, chunk_flash_attention_plain
 from .qwen2 import QLinear, dense, flax_dense, qdense
@@ -63,15 +64,6 @@ def tconv_params(cin: int, cout: int, k: int) -> nn.Module:
     m.weight = nn.Parameter(torch.empty(cin, cout, k))
     m.bias = nn.Parameter(torch.zeros(cout))
     return m
-
-
-def layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """flax LayerNorm without scale or bias: float32 statistics
-    (E[x^2] - E[x]^2, clamped at 0), result in x's dtype."""
-    x32 = x.float()
-    mu = x32.mean(dim=-1, keepdim=True)
-    var = torch.clamp((x32 * x32).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
-    return ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
 def sinus_position_embedding(t: torch.Tensor, dim: int, scale: float = 1000.0) -> torch.Tensor:
@@ -180,15 +172,20 @@ class DiTBlock(nn.Module):
         self.ff_0 = _block_dense(cfg, cfg.dim, cfg.dim * cfg.ff_mult)
         self.ff_2 = _block_dense(cfg, cfg.dim * cfg.ff_mult, cfg.dim)
 
-    def forward(self, x, mod, mel_len, chunk: int, cos, sin, dense: bool = False):
+    def forward(self, x, mod, mel_len, chunk: int, cos, sin, dense: bool = False, res=None):
         """mod: this block's AdaLN-Zero modulation (B, 6*dim), from
-        precompute_mods; dense: see DiTAttention."""
+        precompute_mods; dense: see DiTAttention; res: the previous block's
+        closing residual (h, gate) not yet added to x, which this block's
+        first norm adds (ops/adaln). Returns (x, (h, gate_mlp)): this
+        block's own closing residual x + gate_mlp * h is left to the next
+        norm in the same way."""
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.chunk(6, dim=-1)
-        norm = layer_norm(x) * (1 + scale_msa[:, None]) + shift_msa[:, None]
-        x = x + gate_msa[:, None] * self.attn(norm, mel_len, chunk, cos, sin, dense)
-        ff_norm = layer_norm(x) * (1 + scale_mlp[:, None]) + shift_mlp[:, None]
-        h = qdense(F.gelu(qdense(ff_norm, self.ff_0), approximate="tanh"), self.ff_2)
-        return x + gate_mlp[:, None] * h
+        x, norm = adaln(x, scale_msa, shift_msa, *(res or ()))
+        x, ff_norm = adaln(x, scale_mlp, shift_mlp, self.attn(norm, mel_len, chunk, cos, sin, dense), gate_msa)
+        return x, (self.mlp(ff_norm), gate_mlp)
+
+    def mlp(self, ff_norm):
+        return qdense(F.gelu(qdense(ff_norm, self.ff_0), approximate="tanh"), self.ff_2)
 
 
 def precompute_mods(dit: "DiT", t_all: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -216,10 +213,11 @@ def _embed(dit: "DiT", x, mu, t, spks, cond):
     return t_emb, flax_dense(torch.cat([x, cond, mu, spks_b], dim=-1), dit.input_proj, x.dtype)
 
 
-def _final(dit: "DiT", h, t_emb, dtype):
-    """AdaLayerNormZero_Final and the output projection."""
+def _final(dit: "DiT", h, t_emb, dtype, res):
+    """AdaLayerNormZero_Final (adding the last block's closing residual
+    `res`) and the output projection."""
     scale, shift = flax_dense(F.silu(t_emb), dit.norm_out_linear, dtype).chunk(2, dim=-1)
-    h = layer_norm(h) * (1 + scale)[:, None] + shift[:, None]
+    _, h = adaln(h, scale, shift, *res)
     return flax_dense(h, dit.proj_out, dtype)
 
 
@@ -250,9 +248,10 @@ class DiT(nn.Module):
 
         freqs = torch.from_numpy(_rotary_freqs(x.shape[1], self.cfg.dim_head)).to(x.device)
         cos, sin = torch.cos(freqs).to(x.dtype), torch.sin(freqs).to(x.dtype)
+        res = None
         for i, blk in enumerate(self.blocks):
-            h = blk(h, mods[i], mel_len, chunk, cos, sin, dense)
-        return _final(self, h, t_emb, x.dtype)
+            h, res = blk(h, mods[i], mel_len, chunk, cos, sin, dense, res)
+        return _final(self, h, t_emb, x.dtype, res)
 
 
 class DiTAttentionChunk(DiTAttention):
@@ -290,14 +289,14 @@ class DiTBlockChunk(DiTBlock):
         super().__init__(cfg)
         self.attn = DiTAttentionChunk(cfg)
 
-    def forward(self, x, mod, k_cache, v_cache, cos, sin, bias_cache, bias_new):
+    def forward(self, x, mod, k_cache, v_cache, cos, sin, bias_cache, bias_new, res=None):
+        """res and the returned (x, (h, gate_mlp)) as DiTBlock's; then the
+        hop's k_new, v_new."""
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.chunk(6, dim=-1)
-        norm = layer_norm(x) * (1 + scale_msa[:, None]) + shift_msa[:, None]
+        x, norm = adaln(x, scale_msa, shift_msa, *(res or ()))
         out, k_new, v_new = self.attn(norm, k_cache, v_cache, cos, sin, bias_cache, bias_new)
-        x = x + gate_msa[:, None] * out
-        ff_norm = layer_norm(x) * (1 + scale_mlp[:, None]) + shift_mlp[:, None]
-        h = qdense(F.gelu(qdense(ff_norm, self.ff_0), approximate="tanh"), self.ff_2)
-        return x + gate_mlp[:, None] * h, k_new, v_new
+        x, ff_norm = adaln(x, scale_mlp, shift_mlp, out, gate_msa)
+        return x, (self.mlp(ff_norm), gate_mlp), k_new, v_new
 
 
 class DiTChunk(DiT):
@@ -343,10 +342,10 @@ class DiTChunk(DiT):
         pos = lens[:, None].float() + torch.arange(lq, dtype=torch.float32, device=x.device)[None, :]
         f = torch.repeat_interleave(pos[:, :, None] * inv[None, None, :], 2, dim=-1)
         cos, sin = torch.cos(f).to(x.dtype), torch.sin(f).to(x.dtype)
-        ks, vs = [], []
+        ks, vs, res = [], [], None
         for i, blk in enumerate(self.blocks):
-            h, k_new, v_new = blk(h, mods[i], cache["k"][i], cache["v"][i], cos, sin, bias_cache, bias_new)
+            h, res, k_new, v_new = blk(h, mods[i], cache["k"][i], cache["v"][i], cos, sin, bias_cache, bias_new, res)
             ks.append(k_new)
             vs.append(v_new)
-        out = _final(self, h, t_emb, x.dtype)
+        out = _final(self, h, t_emb, x.dtype, res)
         return out, {"k": torch.stack(ks), "v": torch.stack(vs), "tail1": tail1, "tail2": tail2}

@@ -170,5 +170,7 @@ def test_batch_synthesize_spans_and_counters():
         total = got[stage]["t1_ns"] - got[stage]["t0_ns"]
         covered = sum(got[i]["t1_ns"] - got[i]["t0_ns"] for i in children[stage])
         assert total - covered <= 0.05 * total, got[stage]["name"]
+    # the DiT's AdaLN norms (ops/adaln): two a block and the final one, each Euler step; none fused on the CPU
     assert profiling.counters() == {"llm.decode_steps": steps, "llm.row_steps": 3 * steps,
-                                    "llm.tokens": sum(max_lens), "llm.graph_steps": 0, "llm.graph_captures": 0}
+                                    "llm.tokens": sum(max_lens), "llm.graph_steps": 0, "llm.graph_captures": 0,
+                                    "dit.norms": (2 * TC.flow.dit.depth + 1) * TC.flow.n_timesteps}

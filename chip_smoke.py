@@ -1291,14 +1291,41 @@ def clocked(stage: dict, name: str, fn, note=None):
     return inner
 
 
+GRAPHS = {"captures": 0, "replays": 0}  # decode-graph captures and replayed steps in this process
+
+
+def count_graphs() -> dict:
+    """From now on count every decode graph's capture and replay (one
+    replay a decode step) in GRAPHS, by wrapping models/decode_graphs'
+    Bucket once a process. The counts only grow: take differences."""
+    from fangyan_tts_torch.models import decode_graphs
+
+    bucket = decode_graphs.Bucket
+    if getattr(bucket.replay, "counted", False):
+        return GRAPHS
+    capture, replay = bucket.capture, bucket.replay
+
+    def counted_capture(self, step):
+        capture(self, step)
+        GRAPHS["captures"] += 1
+
+    def counted_replay(self):
+        replay(self)
+        GRAPHS["replays"] += 1
+
+    counted_replay.counted = True
+    bucket.capture, bucket.replay = counted_capture, counted_replay
+    return GRAPHS
+
+
 class StepCount:
     """Decode steps run since the last reset(), as `value`: the eager
     decode_step calls `bump` counts (a CUDA graph's capture calls
     decode_step and runs nothing: not counted), and the steps the batched
-    decode replayed from its graphs (models/decode_graphs.replays; a run's
-    replays are all its own, as the runs here do not overlap). Printed, it
-    says how many steps were replayed: their kernel launches are the tallies
-    the graphs' captures recorded (ops/device.captured_launches), checked
+    decode replayed from its graphs (GRAPHS["replays"]; a run's replays are
+    all its own, as the runs here do not overlap). Printed, it says how
+    many steps were replayed: their kernel launches are the tallies the
+    graphs' captures recorded (ops/device.captured_launches), checked
     against the device trace once a bucket in graph_check."""
 
     def __init__(self):
@@ -1307,9 +1334,7 @@ class StepCount:
 
     @staticmethod
     def _replays() -> int:
-        from fangyan_tts_torch.models import decode_graphs
-
-        return decode_graphs.replays
+        return count_graphs()["replays"]
 
     def bump(self) -> None:
         import torch
@@ -1412,9 +1437,6 @@ def full_path(results: dict, card: str):
     import torch
 
     from fangyan_tts_torch.infer.tts import CosyVoice3TTS
-    from fangyan_tts_torch.ops import adaln as an
-    from fangyan_tts_torch.ops import decode_attention as da
-    from fangyan_tts_torch.ops import flash_attention as fa
 
     cfg = full_config()
     t0 = time.perf_counter()
@@ -1445,12 +1467,12 @@ def full_path(results: dict, card: str):
     for name, req in requests:
         stage.clear()
         steps.reset()
-        da.launches = fa.launches = an.launches = 0
+        _zero_launches()
         with kernel_shapes(results, f"request '{name}'"):
             t = time.perf_counter()
             wav = next(tts.tts(**req))["tts_speech"]
             wall = time.perf_counter() - t
-        n_dec, n_flash, n_adaln = da.launches, fa.launches, an.launches
+        n_dec, n_flash, n_adaln = _launches(ATTENTION_ROUTES + ("adaln",)).values()
         _count(results, {"decode_attention": n_dec, "chunk_flash_attention": n_flash, "adaln": n_adaln})
         frames = mel_frames[-1]
         audio_s = len(wav) / cfg.sample_rate
@@ -1571,8 +1593,6 @@ def api_request(results: dict, card: str, d, api: dict, key: str = "api_request"
     import torch
 
     from fangyan_tts_torch.api import AutoModel
-    from fangyan_tts_torch.ops import decode_attention as da
-    from fangyan_tts_torch.ops import flash_attention as fa
 
     cfg = full_config()
     t0 = time.perf_counter()
@@ -1589,14 +1609,14 @@ def api_request(results: dict, card: str, d, api: dict, key: str = "api_request"
                                  lambda a, k, out: mel_frames.append(a[0].shape[0]))
     model.frontend.frontend_zero_shot = clocked(stage, "frontend", model.frontend.frontend_zero_shot,
                                                 lambda a, k, out: prompts.append(out))
-    da.launches = fa.launches = 0
+    _zero_launches()
     with kernel_shapes(results, "API request"):
         t = time.perf_counter()
         outs = list(model.inference_zero_shot(API_TEXT, API_PROMPT_TEXT, str(d / "prompt.wav")))
         wall = time.perf_counter() - t
     # the request paid the frontend's first-use costs; the same prompt again, warm
     warm_ms = eager_ms(lambda: prompt_inputs(API_TEXT, API_PROMPT_TEXT, str(d / "prompt.wav")), iters=3)
-    n_dec, n_flash = da.launches, fa.launches
+    n_dec, n_flash = _launches(ATTENTION_ROUTES).values()
     if count:
         _count(results, {"decode_attention": n_dec, "chunk_flash_attention": n_flash})
     wav = outs[0]["tts_speech"]
@@ -1726,10 +1746,6 @@ def batched_requests(results: dict, card: str) -> dict:
     import torch
 
     from fangyan_tts_torch.infer.tts import CosyVoice3TTS, suppress_silent_runs
-    from fangyan_tts_torch.ops import adaln as an
-    from fangyan_tts_torch.ops import decode_attention as da
-    from fangyan_tts_torch.ops import flash_attention as fa
-    from fangyan_tts_torch.ops import int4_matmul as i4
 
     cfg = full_config()
     nl, depth, nt = cfg.llm.qwen.num_hidden_layers, cfg.flow.dit.depth, cfg.flow.n_timesteps
@@ -1756,13 +1772,12 @@ def batched_requests(results: dict, card: str) -> dict:
         for run in (1, 2):
             stage.clear()
             steps.reset()
-            da.launches = fa.launches = i4.launches = an.launches = 0
+            _zero_launches()
             with kernel_shapes(results, f"request {name}, run {run}"):
                 t = time.perf_counter()
                 wavs = tts.batch_synthesize(**req)
                 wall = time.perf_counter() - t
-            counts = {"decode_attention": da.launches, "chunk_flash_attention": fa.launches,
-                      "int4_matmul": i4.launches, "adaln": an.launches}
+            counts = _launches(BF16_ROUTES + ("adaln",))
             _count(results, counts)
             toks, n = made[-1]
             n_tok = [len(suppress_silent_runs(toks[i, : n[i]])) for i in range(len(n))]
@@ -1825,24 +1840,25 @@ def graph_check(results: dict, card: str, model) -> None:
     wrapper's launch count is layers x steps, in a traced run so is the
     trace's count of decode-attention kernels (replayed launches are the
     tally of the graph's capture: this checks it once a bucket), and the
-    graphs' captures and replays (decode_graphs, and the tracer's
-    llm.graph_captures / llm.graph_steps) are what the steps imply."""
+    graphs' captures and replays (the tracer's llm.graph_captures /
+    llm.graph_steps) are what the steps imply."""
     import torch
     from dataclasses import replace
 
     from benchmark.harness import Trace
     from fangyan_tts_torch.models import decode_graphs, llm
-    from fangyan_tts_torch.ops import decode_attention as da
+    from fangyan_tts_torch.ops import device
     from fangyan_tts_torch.utils import profiling
 
     cfg = full_config()
     nl = cfg.llm.qwen.num_hidden_layers
     dev = torch.device("cuda")
     base = model.cfg
+    total = {"captures": 0, "replays": 0}  # over the check's runs
 
     def run(inp: dict, graphed: bool, seed: int | None = None, traced: bool = False) -> dict:
         gen = None if seed is None else torch.Generator(device=dev).manual_seed(seed)
-        before = (da.launches, decode_graphs.captures, decode_graphs.replays)
+        before = device.launches["decode_attention"]
         profiling.reset()
         tr = Trace() if traced else None
         if traced:
@@ -1863,10 +1879,11 @@ def graph_check(results: dict, card: str, model) -> None:
             tr.stop()
         tc = profiling.counters()
         profiling.reset()
-        out.update(s=s, launches=da.launches - before[0], kernels=len(tr.kernel_times_s("decode_attention_kernel"))
-                   if traced else None, captures=decode_graphs.captures - before[1],
-                   replays=decode_graphs.replays - before[2],
+        out.update(s=s, launches=device.launches["decode_attention"] - before,
+                   kernels=len(tr.kernel_times_s("decode_attention_kernel")) if traced else None,
                    traced=(tc.get("llm.graph_captures"), tc.get("llm.graph_steps"), tc.get("llm.decode_steps")))
+        total["captures"] += out["traced"][0]
+        total["replays"] += out["traced"][1]
         return out
 
     def held(label: str, inp: dict, runs: dict, captures: dict, logits: bool = True) -> bool:
@@ -1879,10 +1896,10 @@ def graph_check(results: dict, card: str, model) -> None:
             same = all(torch.equal(r[k], eager[k]) for k in (("tokens", "counts", "logits") if logits else
                                                             ("tokens", "counts")))
             good = (same and r["launches"] == nl * steps and r["kernels"] in (None, nl * steps)
-                    and (r["captures"], r["replays"]) == (cap, rep) and r["traced"] == (cap, rep, steps))
+                    and r["traced"] == (cap, rep, steps))
             kernels = "" if r["kernels"] is None else f", {r['kernels']} decode-attention kernels traced"
             log(f"graph check {label}, {name}: {steps} steps in {r['s']:.3f} s ({r['s'] / steps * 1e3:.2f} ms a "
-                f"step), {r['captures']} captures, {r['replays']} replays (tracer {r['traced']}), launches "
+                f"step), tracer (captures, replays, steps) {r['traced']}, launches "
                 f"{r['launches']}{kernels} (derived {nl * steps}); "
                 f"{'bit-equal to the eager loop' if same else 'DIFFERS'} [{card}] {'OK' if good else 'FAIL'}")
             ok &= good
@@ -1925,9 +1942,9 @@ def graph_check(results: dict, card: str, model) -> None:
     finally:
         model.cfg = base
         decode_graphs._stores.pop(model, None)  # no graph of sampled_draws' sampler outlives the check
-    log(f"graph check: decode_graphs captures {decode_graphs.captures}, replays {decode_graphs.replays} in this "
-        f"process so far [{card}] {'OK' if ok else 'FAIL'}")
-    results["graph_check"] = dict(ok=bool(ok), captures=decode_graphs.captures, replays=decode_graphs.replays)
+    log(f"graph check: {total['captures']} captures, {total['replays']} replays in its runs [{card}] "
+        f"{'OK' if ok else 'FAIL'}")
+    results["graph_check"] = dict(ok=bool(ok), **total)
     if not ok:
         raise AssertionError("graph_check failed")
 
@@ -2096,8 +2113,6 @@ def streaming_phase(results: dict, card: str, tts, api_model, prompt_wav: str, a
 
     from fangyan_tts_torch.infer import bistream
     from fangyan_tts_torch.infer.stream import Token2WavSession
-    from fangyan_tts_torch.ops import decode_attention as da
-    from fangyan_tts_torch.ops import flash_attention as fa
 
     cfg = tts.cfg
     nl, per_window = cfg.llm.qwen.num_hidden_layers, cfg.flow.dit.depth * cfg.flow.n_timesteps
@@ -2134,11 +2149,11 @@ def streaming_phase(results: dict, card: str, tts, api_model, prompt_wav: str, a
         steps.reset()
         api_steps.reset()
         one_token[0] = 0
-        da.launches = fa.launches = 0
+        _zero_launches()
         spec.update(speculate_first=0, commit_first=0)
         with kernel_shapes(results, label):
             r = stream_run(model, run, keep)
-        counts = {"decode_attention": da.launches, "chunk_flash_attention": fa.launches}
+        counts = _launches(ATTENTION_ROUTES)
         _count(results, counts)
         n_tok, rem = divmod(r["samples"], cfg.token_mel_ratio * 480)
         hops, windows = stream_plan(n_tok, n_prompt, cfg)
@@ -2151,12 +2166,12 @@ def streaming_phase(results: dict, card: str, tts, api_model, prompt_wav: str, a
         return r
 
     t0 = time.perf_counter()
-    da.launches = fa.launches = 0
+    _zero_launches()
     with kernel_shapes(results, "warmup_streaming"):
         tts.warmup_streaming()
     torch.cuda.synchronize()
-    warm = dict(s=time.perf_counter() - t0, flash=fa.launches)
-    _count(results, {"chunk_flash_attention": fa.launches})
+    warm = dict(s=time.perf_counter() - t0, flash=_launches()["chunk_flash_attention"])
+    _count(results, {"chunk_flash_attention": warm["flash"]})
     log(f"warmup_streaming(): {warm['s']:.3f} s ({STREAM_WINDOW + 3 * cfg.chunk_size} silent tokens, vc route; "
         f"flash launches {warm['flash']}) [{card}]")
     out["warmup_s"] = warm["s"]
@@ -2304,17 +2319,14 @@ def serving_counted(results: dict, label: str, cfg, lsched, sched, run):
     the flash launches depth x n_timesteps a flow call of the
     StreamScheduler's groups. Returns
     (run's result, the run's counts)."""
-    from fangyan_tts_torch.ops import decode_attention as da
-    from fangyan_tts_torch.ops import flash_attention as fa
-
     zero = {"steps": 0, "rows": 0}
     l0 = dict(lsched.stats) if lsched is not None else zero
     s0 = dict(sched.stats) if sched is not None else zero
     f0, h0 = _group_counts(sched) if sched is not None else (0, 0)
-    da.launches = fa.launches = 0
+    _zero_launches()
     with kernel_shapes(results, label):
         out = run()
-    counts = {"decode_attention": da.launches, "chunk_flash_attention": fa.launches}
+    counts = _launches(ATTENTION_ROUTES)
     _count(results, counts)
     llm = {k: (lsched.stats[k] if lsched is not None else 0) - l0[k] for k in zero}
     t2w = {k: (sched.stats[k] if sched is not None else 0) - s0[k] for k in zero}
@@ -2481,10 +2493,8 @@ def serving_stream_vs_solo(results: dict, card: str, tts) -> dict:
     rng = np.random.default_rng(30)
     sessions = [(rng.integers(0, 6561, BATCH_TOKENS).astype(np.int32), rng.standard_normal(192).astype(np.float32))
                 for _ in range(4)]
-    from fangyan_tts_torch.ops import flash_attention as fa
-
     tts.flow_kv_stream = False
-    fa.launches = 0
+    _zero_launches()
     try:
         with kernel_shapes(results, "(c) solo streams"):
             solo = [[c["tts_speech"] for c in tts.tts(source_speech_token=t, flow_embedding=e, stream=True)]
@@ -2494,9 +2504,10 @@ def serving_stream_vs_solo(results: dict, card: str, tts) -> dict:
     # every hop of a solo stream without the KV cache is a flow call, and so is a finalize with frames left
     hops = stream_plan(BATCH_TOKENS, 0, cfg)[0]
     solo_calls = len(sessions) * (hops + (BATCH_TOKENS > hops * cfg.chunk_size))
-    _count(results, {"chunk_flash_attention": fa.launches})
-    if fa.launches != cfg.flow.dit.depth * cfg.flow.n_timesteps * solo_calls:
-        raise AssertionError(f"(c) solo streams: {fa.launches} flash launches for {solo_calls} flow calls")
+    flash = _launches()["chunk_flash_attention"]
+    _count(results, {"chunk_flash_attention": flash})
+    if flash != cfg.flow.dit.depth * cfg.flow.n_timesteps * solo_calls:
+        raise AssertionError(f"(c) solo streams: {flash} flash launches for {solo_calls} flow calls")
     sched = StreamScheduler(tts, width=4)
     chunks, tails = [[] for _ in sessions], [None] * 4
     barrier = threading.Barrier(4)
@@ -2577,9 +2588,7 @@ def serving_llm_vs_solo(results: dict, card: str, tts, cfg=None, label: str = "(
         zeros = np.zeros(0, np.int32)
         rows, solo_steps = [], 0
         with kernel_shapes(results, f"{label} solo greedy decodes"), torch.inference_mode():
-            from fangyan_tts_torch.ops import decode_attention as da
-
-            da.launches = 0
+            _zero_launches()
             for i, text in enumerate(texts):
                 plan, tp, cache_len, lo, hi = stream_buckets(cfg.llm, text, zeros, zeros, GREEDY_RATIO, GREEDY_RATIO)
                 if hasattr(tts, "_plan"):
@@ -2600,7 +2609,7 @@ def serving_llm_vs_solo(results: dict, card: str, tts, cfg=None, label: str = "(
                 ok = (agree == len(g) == len(toks)) or (agree < len(toks) and ties[agree] <= GREEDY_TIE)
                 rows.append(dict(tokens=len(toks), batched_tokens=len(g), agree=agree,
                                  gap_at_split=ties[agree] if agree < len(toks) else None, ok=ok))
-            solo_launches = da.launches
+            solo_launches = _launches()["decode_attention"]
         _count(results, {"decode_attention": solo_launches})
     finally:
         tts.llm.cfg = inner
@@ -2754,22 +2763,24 @@ def v2_stream_chunks(n_tokens: int, n_prompt: int, hop: int = 25, la: int = 3) -
     return chunks + 1
 
 
-def _launches() -> dict:
-    from fangyan_tts_torch.ops import decode_attention as da
-    from fangyan_tts_torch.ops import flash_attention as fa
-    from fangyan_tts_torch.ops import int4_matmul as i4
+BF16_ROUTES = ("decode_attention", "chunk_flash_attention", "int4_matmul")  # the CUDA kernels' bf16 routes
+F32_ROUTES = tuple(f"{r}_f32" for r in BF16_ROUTES)
+ATTENTION_ROUTES = BF16_ROUTES[:2]
 
-    return {"decode_attention": da.launches, "chunk_flash_attention": fa.launches, "int4_matmul": i4.launches}
+
+def _launches(routes: tuple = BF16_ROUTES) -> dict:
+    """The launches of `routes` since the last _zero_launches(), zeros
+    included (ops/device.launches)."""
+    from fangyan_tts_torch.ops import device
+
+    return {r: device.launches[r] for r in routes}
 
 
 def _zero_launches() -> None:
-    """Every wrapper's counts to 0, both routes."""
-    from fangyan_tts_torch.ops import decode_attention as da
-    from fangyan_tts_torch.ops import flash_attention as fa
-    from fangyan_tts_torch.ops import int4_matmul as i4
+    """Every route's count to 0."""
+    from fangyan_tts_torch.ops import device
 
-    da.launches = fa.launches = i4.launches = 0
-    da.launches_f32 = fa.launches_f32 = i4.launches_f32 = 0
+    device.launches.clear()
 
 
 def _rel(a, b) -> float:
@@ -2831,14 +2842,14 @@ def v12_small_check() -> None:
     if not ok:
         raise AssertionError("the v2 port on the card disagrees with its CPU path on a small model")
     # v2 in float32: the logits on a float32 KV cache (decode attention's float32 route), the mel and the wav
-    from fangyan_tts_torch.ops import decode_attention as da
+    from fangyan_tts_torch.ops import device
 
     ref = CosyVoice2TTS.random_init(llm, flow_kw, hift, dtype=torch.float32, device="cpu", seed=3)
     gpu = CosyVoice2TTS(llm, sd(ref.llm), flow_kw, sd(ref.flow), hift, sd(ref.hift), dtype=torch.float32,
                         device="cuda")
-    f0 = da.launches_f32
+    f0 = device.launches["decode_attention_f32"]
     lg_g, lg_c = logits(gpu, torch.float32), logits(ref, torch.float32)
-    launched = da.launches_f32 - f0
+    launched = device.launches["decode_attention_f32"] - f0
     mel_g, mel_c = (t.token2mel(req["source_speech_token"], req["flow_prompt_speech_token"], req["prompt_speech_feat"],
                                 req["flow_embedding"], 0, False, True) for t in (gpu, ref))
     wav_g, wav_c = (next(t.tts(**req))["tts_speech"] for t in (gpu, ref))
@@ -4084,7 +4095,6 @@ def grpo_cli(results: dict, card: str, model_dir, spec: dict) -> dict:
 
     from fangyan_tts_torch.cli import grpo_train
     from fangyan_tts_torch.infer.tts import CosyVoice3TTS
-    from fangyan_tts_torch.models import decode_graphs
     from fangyan_tts_torch.models.from_jax import llm_from_jax
     from fangyan_tts_torch.models.llm import CosyVoice3LM
     from fangyan_tts_torch.train import grpo
@@ -4113,12 +4123,11 @@ def grpo_cli(results: dict, card: str, model_dir, spec: dict) -> dict:
         bk = grpo.rollout_buckets(plans, group_size)
         iters.append({"steps": StepCount(), "token2mel_calls": 0, "max_lens": bk["max_lens"].tolist(),
                       "max_new": bk["max_new"]})
-        graphs = (decode_graphs.captures, decode_graphs.replays)
+        graphs = dict(count_graphs())
         res = timed("rollouts", orig["rollouts"], lambda it, res: it.update(lens=res[1].tolist()))(
             model, plans, group_size, *a, **k)
         it = iters[-1]
-        it.update(steps=it["steps"].value, captures=decode_graphs.captures - graphs[0],
-                  replays=decode_graphs.replays - graphs[1])
+        it.update(steps=it["steps"].value, **{k: GRAPHS[k] - graphs[k] for k in graphs})
         return res
 
     def decode_step(self, *a, **k):
@@ -4279,15 +4288,6 @@ def rest_phase(results: dict, card: str, states: tuple[dict, dict], model_dir, g
 
 
 # ---------------------------------------------------------------- float32 routes (phases 3, 4 and 10)
-
-
-def _launches_f32() -> dict:
-    from fangyan_tts_torch.ops import decode_attention as da
-    from fangyan_tts_torch.ops import flash_attention as fa
-    from fangyan_tts_torch.ops import int4_matmul as i4
-
-    return {"decode_attention_f32": da.launches_f32, "chunk_flash_attention_f32": fa.launches_f32,
-            "int4_matmul_f32": i4.launches_f32}
 
 
 def bound_f32(nbytes: float, flops: float) -> tuple[float, str]:
@@ -4618,11 +4618,11 @@ def small_float32_check(results: dict) -> None:
         if "int4" in mode:
             for t in (gpu, ref):
                 t.quantize_llm(int4_mlp=True)
-        f0 = _launches_f32()
+        f0 = _launches(F32_ROUTES)
         with float32_kv_cache():
             lg_g, lg_c = _small_logits(gpu, torch.float32), _small_logits(ref, torch.float32)
             (tok_g, wav_g), (tok_c, wav_c) = tokens_and_wav(gpu), tokens_and_wav(ref)
-        f1 = _launches_f32()
+        f1 = _launches(F32_ROUTES)
         launched = {k: f1[k] - f0[k] for k in f1}
         mel_g, mel_c = (t.token2mel(tok_c, np.zeros(0, np.int32), np.zeros((0, 80), np.float32),
                                     llm_req["flow_embedding"]) for t in (gpu, ref))
@@ -4676,7 +4676,7 @@ def float32_api_request(results: dict, card: str, model_dir, api: dict) -> None:
                                     "--output-dir", str(root / "out"), "--no-fp16"])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
-        counts = {**_launches(), **_launches_f32()}
+        counts = _launches(BF16_ROUTES + F32_ROUTES)
         _count(results, counts)
         metrics = json.loads((root / "out" / "metrics.json").read_text())
         wav, sr = read_wav(root / "out" / "f32.wav")
@@ -4725,7 +4725,7 @@ def float32_batch(results: dict, card: str) -> None:
         wavs = tts.batch_synthesize(**req)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    counts = {**_launches(), **_launches_f32()}
+    counts = _launches(BF16_ROUTES + F32_ROUTES)
     _count(results, counts)
     toks, n = made[-1]
     n_tok = [len(suppress_silent_runs(toks[i, : n[i]])) for i in range(len(n))]
@@ -5110,7 +5110,7 @@ runpy.run_module(module, run_name="__main__", alter_sys=True)
 def append_record(path: str, module: str, seen: dict, t0: float) -> None:
     """RECORDER's exit hook: one JSON line for one process."""
     rec = dict(module=module, wall_s=time.perf_counter() - t0, shapes={k: sorted(v) for k, v in seen.items()},
-               launches={**_launches(), **_launches_f32()})
+               launches=_launches(BF16_ROUTES + F32_ROUTES))
     with open(path, "a", encoding="utf-8") as f:
         f.write(json.dumps(rec) + "\n")
 
@@ -5132,7 +5132,7 @@ import numpy as np
 import torch
 from fangyan_tts_torch.api import CosyVoice3
 from fangyan_tts_torch.cli.export import max_diff, programs
-from fangyan_tts_torch.ops import flash_attention as fa
+from fangyan_tts_torch.ops import device
 
 export_dir, model_dir, nt = sys.argv[1], sys.argv[2], int(sys.argv[3])
 torch.cuda.reset_peak_memory_stats()
@@ -5153,10 +5153,10 @@ with torch.no_grad():
     out["flow_prepare"] = loaded["flow_prepare"](*args["flow_prepare"])
     mu, spks, conds, mel_len = out["flow_prepare"]  # flow_solve takes mu, spks and conds in the model dtype
     args["flow_solve"] = (rnd(1, 2 * nt, 80), mu.to(dt), spks.to(dt), conds.to(dt), mel_len)
-    fa.launches = fa.launches_f32 = 0
+    device.launches.clear()
     out["flow_solve"] = loaded["flow_solve"](*args["flow_solve"])
     torch.cuda.synchronize()
-    launches = dict(bf16=fa.launches, f32=fa.launches_f32)
+    launches = dict(bf16=device.launches["chunk_flash_attention"], f32=device.launches["chunk_flash_attention_f32"])
     args["vocoder"] = (out["flow_solve"],)
     out["vocoder"] = loaded["vocoder"](*args["vocoder"])
     for n in loaded:
@@ -5570,7 +5570,7 @@ def mp_rank(rank: int, world: int) -> dict:
         finally:
             restore()
         out["times"][label] = time.perf_counter() - t
-        out["launches"][label] = {**_launches(), **_launches_f32()}
+        out["launches"][label] = _launches(BF16_ROUTES + F32_ROUTES)
         out["seen"][label] = {k: sorted(v) for k, v in seen.items()}
         return res
 
@@ -5872,9 +5872,7 @@ def moon_phase(results: dict, card: str) -> None:
     from benchmark.harness import Trace
     from benchmark.reference import moonlight_lm
     from fangyan_tts_torch.infer.tts import CosyVoice3TTS
-    from fangyan_tts_torch.models import decode_graphs
-    from fangyan_tts_torch.ops import mla_decode as mla
-    from fangyan_tts_torch.ops import moe
+    from fangyan_tts_torch.ops import device
     from fangyan_tts_torch.utils import profiling
 
     t0 = time.perf_counter()
@@ -5899,7 +5897,7 @@ def moon_phase(results: dict, card: str) -> None:
                   min_token_text_ratio=6, max_token_text_ratio=6)
     runs = []
     for traced in (False, True):  # the first call captures its bucket, the second replays every step
-        before = (moe.launches, mla.launches, decode_graphs.captures, decode_graphs.replays)
+        before = device.launches.copy()
         profiling.reset()
         tr = Trace() if traced else None
         if traced:
@@ -5915,8 +5913,9 @@ def moon_phase(results: dict, card: str) -> None:
         profiling.reset()
         steps = tc["llm.decode_steps"]
         run = dict(traced=traced, s=wall, steps=steps, graph_steps=tc["llm.graph_steps"],
-                   moe_launches=moe.launches - before[0], mla_launches=mla.launches - before[1],
-                   captures=decode_graphs.captures - before[2], replays=decode_graphs.replays - before[3],
+                   moe_launches=device.launches["moe_experts"] - before["moe_experts"],
+                   mla_launches=device.launches["mla_decode"] - before["mla_decode"],
+                   captures=tc["llm.graph_captures"],
                    counters={k: v for k, v in tc.items() if k.startswith("moe.")},
                    audio_s=sum(len(w) for w in wavs) / 24000)
         moe_layers = cfg.llm.qwen.num_hidden_layers - cfg.llm.qwen.first_k_dense_replace
@@ -5936,7 +5935,6 @@ def moon_phase(results: dict, card: str) -> None:
             raise AssertionError(f"phase 17: {run['graph_steps']} of {steps} steps replayed")
         runs.append(run)
     # one offline request through tts(stream=False): generate_tokens' B = 1 decode from its own bucket's graph
-    before = decode_graphs.replays
     profiling.reset()
     with profiling.recording():
         wav = next(tts.tts(text=texts[4], flow_embedding=prompt["flow_embedding"],
@@ -5946,8 +5944,7 @@ def moon_phase(results: dict, card: str) -> None:
     tc = profiling.counters()
     profiling.reset()
     offline = dict(samples=len(wav), want=6 * len(texts[4]) * 2 * 480, steps=tc.get("llm.decode_steps"),
-                   graph_steps=tc.get("llm.graph_steps"), replays=decode_graphs.replays - before,
-                   finite=bool(np.isfinite(wav).all()))
+                   graph_steps=tc.get("llm.graph_steps"), finite=bool(np.isfinite(wav).all()))
     log("phase 17 tts(stream=False): " + json.dumps(offline))
     # its tokens' audio, 960 samples a token (silent runs past 5 tokens are dropped before the flow)
     if not 0 < offline["samples"] <= offline["want"] or offline["samples"] % 960 or not offline["finite"] \

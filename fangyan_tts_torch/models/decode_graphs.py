@@ -41,33 +41,30 @@ The rules, from what the code can observe:
   the device's capture stream: a launch another thread made on it while
   it captures would land in the graph.
 - The kernel wrappers count no launch while their stream captures; the
-  graph keeps the tally of the launches its capture recorded
-  (ops/device.counting, captured_launches), and each replay adds it.
-  `captures` and `replays` count the captures and the replayed steps since
-  the last reset, as the wrappers' `launches` do; the tracer's
-  `llm.graph_captures` and `llm.graph_steps` count the same while it
-  records. The MLA-MoE backbone's MoE counters live on the model, not in
-  the state: a replay adds to the same device tensor an eager step does.
+  bucket keeps the tally of the launches its capture recorded, by route
+  name (ops/device.launched, captured_launches), and each replay adds it
+  to ops/device.launches. Captures and replayed steps are counted by the
+  tracer alone (models/llm: `llm.graph_captures`, `llm.graph_steps`, under
+  utils/profiling.recording() or a profiler). The MLA-MoE backbone's MoE
+  counters live on the model, not in the state: a replay adds to the same
+  device tensor an eager step does.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import itertools
-import sys
 import threading
 import weakref
 from collections import OrderedDict
 
 import torch
 
-from ..ops.device import captured_launches
+from ..ops import device as kernel_device
 from .qwen2 import TPDense
 
 MAX_BUCKETS = 8  # a model's buckets kept at once (the datagen cell uses 6)
-
-captures = 0  # graphs captured since the last reset
-replays = 0  # decode steps run by a replay since the last reset
 
 _lock = threading.Lock()
 _stores: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()  # model -> OrderedDict(key -> Bucket)
@@ -104,14 +101,14 @@ def _record(step, dev: torch.device) -> tuple:
     with torch.cuda.stream(side):
         step()
         graph = torch.cuda.CUDAGraph()
-        with captured_launches() as tally:
+        with kernel_device.captured_launches() as tally:
             graph.capture_begin(capture_error_mode="thread_local")
             try:
                 step()
             finally:
                 graph.capture_end()
     main.wait_stream(side)
-    return graph, dict(tally)
+    return graph, tally
 
 
 class Bucket:
@@ -122,27 +119,21 @@ class Bucket:
         self.state = state
         self.prints = prints
         self.graph: torch.cuda.CUDAGraph | None = None
-        self.launches: dict = {}  # (module, counter) -> launches a replay adds
+        self.launches: collections.Counter = collections.Counter()  # route name -> launches a replay adds
         self.busy = threading.Lock()
 
     def capture(self, step) -> None:
         """Run `step` once eagerly, then capture it as the bucket's graph
         (_record), while no other capture runs on the device."""
-        global captures
         dev = self.state.out.device
         with _lock:
             turn = _capturing.setdefault(dev, threading.Lock())
         with turn:
             self.graph, self.launches = _record(step, dev)
-            captures += 1
 
     def replay(self) -> None:
-        global replays
         self.graph.replay()
-        for (module, counter), n in self.launches.items():
-            m = sys.modules[module]
-            setattr(m, counter, getattr(m, counter) + n)
-        replays += 1
+        kernel_device.launches.update(self.launches)
 
 
 @contextlib.contextmanager

@@ -1,17 +1,22 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's hand-written kernels.
 
 Each `csrc/<name>.cu` has a plain C interface. It is compiled at first use
 by `nvcc` for sm_90a into its own shared library under `build/kernels/`
 (beside the package, listed in .gitignore), named by a hash of the source,
 every shared header `csrc/*.cuh` and the flags, and loaded with ctypes.
 Only the sources in the checkout are used. `build_all` starts one nvcc per
-source at once. Nothing here runs when a module is imported.
+source at once. Each `csrc/<name>_triton.py` holds Triton kernels, which
+`triton(name)` imports once (Triton compiles a kernel at its first launch).
+Nothing here runs when a module is imported: the CPU has no Triton and no
+nvcc.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
+import importlib.util
 import os
 import shutil
 import subprocess
@@ -112,3 +117,13 @@ def check(entry: str, code: int) -> None:
     if code != 0:
         source, fname = _SIGNATURES[entry][:2]
         raise RuntimeError(f"csrc/{source}.cu {fname} failed with cudaError_t {code}")
+
+
+@functools.lru_cache(maxsize=None)
+def triton(name: str):
+    """The module of csrc/<name>_triton.py, imported as fangyan_<name>_triton
+    at the first call. Call it where a kernel launches, never at import."""
+    spec = importlib.util.spec_from_file_location(f"fangyan_{name}_triton", CSRC / f"{name}_triton.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod

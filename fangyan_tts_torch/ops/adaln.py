@@ -37,27 +37,23 @@ ops/flash_attention notes), and every other tensor takes `adaln_plain`.
 So the CPU path runs the plain chain bit for bit as before, and float32
 (`fp16=False`) takes the kernel as bf16 does. Every call counts
 `dit.norms` in the tracer (utils/profiling.count), and each eager one the
-kernel ran `dit.fused_norms` as well. Each launch adds 1 to `launches`
-(ops/device.counting).
+kernel ran `dit.fused_norms` as well. Each launch counts as `adaln` in
+ops/device.launches.
 """
 
 from __future__ import annotations
 
-import functools
-import importlib.util
-from pathlib import Path
 from typing import Optional
 
 import torch
 
 from ..utils.profiling import count
-from .device import counting, refuse_grad
+from . import _build
+from .device import launched, refuse_grad
 
-launches = 0  # kernel launches since the last reset (CPU calls and graph captures do not count)
 ROWS, NUM_WARPS = 2, 4  # rows a program, and its warps: 16 elements a thread at D = 1,024
 DTYPES = (torch.bfloat16, torch.float32)
 KERNEL_DEVICES = ("cuda",)  # the device types whose tensors take the kernel
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "adaln_triton.py"
 
 
 def layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -77,15 +73,6 @@ def adaln_plain(x, scale, shift, y=None, gate=None, eps: float = 1e-6):
     if y is not None:
         x = x + gate[:, None] * y
     return x, layer_norm(x, eps) * (1 + scale[:, None]) + shift[:, None]
-
-
-@functools.lru_cache(maxsize=1)
-def _kernels():
-    """The Triton kernel, imported (and so built) at the first launch."""
-    spec = importlib.util.spec_from_file_location("fangyan_adaln_triton", SOURCE)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def _check(x, scale, shift, y, gate):
@@ -119,12 +106,11 @@ def adaln_fused(x, scale, shift, y=None, gate=None, eps: float = 1e-6):
     rows = b * l
     if rows == 0:
         return x_out, norm
-    global launches
-    _kernels().fangyan_adaln[(-(-rows // ROWS),)](
+    _build.triton("adaln").fangyan_adaln[(-(-rows // ROWS),)](
         x, x if y is None else y, scale if gate is None else gate, scale, shift, x_out, norm, rows, l,
         0 if gate is None else gate.stride(0), scale.stride(0), shift.stride(0), eps, D=d,
         BLOCK_D=1 << (d - 1).bit_length(), ROWS=ROWS, RESIDUAL=y is not None, num_warps=NUM_WARPS)
-    launches += counting(__name__, "launches")
+    launched("adaln")
     return x_out, norm
 
 

@@ -25,8 +25,8 @@ the bound is latency, which the runs of 32 slots spread over 32 blocks; at
 B = 32, S = 384 it is the bytes and each SM's issue rate, which one block
 an SM with every byte asked for at entry answers. The Pallas kernel is
 dtype-generic in the same way. The wrapper picks the route by the inputs'
-dtype and counts its launches in `launches_f32`, apart from the bf16
-route's `launches`.
+dtype and counts a launch in ops/device.launches under the route's name,
+`decode_attention` or `decode_attention_f32`.
 
 `decode_attention` launches the kernel for CUDA tensors and runs
 `decode_attention_plain` for CPU tensors; there is no fallback from one to
@@ -45,11 +45,10 @@ import math
 import torch
 
 from . import _build
-from .device import counting, refuse_grad
+from .device import launched, refuse_grad
 
-launches = 0  # bf16-route kernel launches since the last reset (CPU calls and graph captures do not count)
-launches_f32 = 0  # float32-route kernel launches since the last reset
-ROUTES = {torch.bfloat16: "decode_attention", torch.float32: "decode_attention_f32"}  # dtype -> C entry
+# dtype -> C entry, also the route's name in ops/device.launches
+ROUTES = {torch.bfloat16: "decode_attention", torch.float32: "decode_attention_f32"}
 MAX_CLUSTER = 8  # the largest portable thread-block cluster
 GROUP = 16  # slots of one mma step: a block's slots are a multiple of this
 MIN_RUN = 64  # slots a block takes at least, where S allows (tools/decode_attention_sweep.py)
@@ -205,14 +204,16 @@ def decode_attention(q, k_new, v_new, cache_k, cache_v, idx, bias, layer: int) -
     refuse_grad("decode_attention", "the cache-free forward (Qwen2Model with cache=None)", q, k_new, v_new)
     layer = int(layer)
     _check(q, k_new, v_new, cache_k, cache_v, idx, bias, layer)
+    return _launch(q, k_new, v_new, cache_k, cache_v, idx, bias, layer)
+
+
+def _launch(q, k_new, v_new, cache_k, cache_v, idx, bias, layer: int) -> torch.Tensor:
+    """One launch of the C entry for q's dtype (ROUTES) on checked inputs,
+    counted as that route."""
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     entry = ROUTES[q.dtype]
     args = launch_args(q, k_new, v_new, cache_k, cache_v, idx, bias, out, layer)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _build.check(entry, _build.load(entry)(*args, stream))
-    global launches, launches_f32
-    if q.dtype == torch.float32:
-        launches_f32 += counting(__name__, "launches_f32")
-    else:
-        launches += counting(__name__, "launches")
+    launched(entry)
     return out

@@ -1,4 +1,5 @@
-"""Device resolution shared by the port's entry points."""
+"""Device resolution shared by the port's entry points, and the one count of
+the hand-written kernels' launches (`launches`, `launched`)."""
 
 from __future__ import annotations
 
@@ -31,27 +32,32 @@ def refuse_grad(kernel: str, route: str, *tensors: torch.Tensor) -> None:
                            f"run it under torch.no_grad(), or take {route}")
 
 
+# kernel launches run since the last clear(), by route name: decode_attention,
+# decode_attention_f32, chunk_flash_attention, chunk_flash_attention_f32,
+# int4_matmul, int4_matmul_f32, adaln, moe_experts, mla_decode (CPU calls and
+# graph captures do not count; a graph's replays do)
+launches: collections.Counter = collections.Counter()
 _capture = threading.local()  # .tally: the launches this thread's captures record (captured_launches)
 
 
-def counting(module: str, counter: str) -> int:
-    """What a kernel launch on the current CUDA stream adds to its
-    wrapper's counter (`module`.`counter`): 1, or 0 while that stream
-    captures a CUDA graph, which records the launch without running it.
-    A recorded launch is tallied for the graph instead (captured_launches),
-    and each replay of the graph adds it (models/decode_graphs)."""
+def launched(name: str, n: int = 1) -> None:
+    """Count `n` launches of the route `name` on the current CUDA stream in
+    `launches`; while that stream captures a CUDA graph, which records the
+    launch without running it, in the capturing thread's tally instead
+    (captured_launches), or nowhere where that thread keeps none. Each
+    replay of the graph adds its tally to `launches` (models/decode_graphs)."""
     if not torch.cuda.is_current_stream_capturing():
-        return 1
+        launches[name] += n
+        return
     tally = getattr(_capture, "tally", None)
     if tally is not None:
-        tally[module, counter] += 1
-    return 0
+        tally[name] += n
 
 
 @contextlib.contextmanager
 def captured_launches():
-    """A Counter of (module, counter) -> the wrappers' launches that the
-    graphs this thread captures inside the block record."""
+    """A Counter of route name -> the launches that the graphs this thread
+    captures inside the block record."""
     _capture.tally = tally = collections.Counter()
     try:
         yield tally

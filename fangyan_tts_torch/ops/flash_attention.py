@@ -19,15 +19,16 @@ masks, strided views and output layout. A block of 128 query rows runs two
 groups of threads over alternate key tiles (8 x 8 register tiles, float4
 operands from shared memory, a cp.async ring) and merges them at the end.
 The Pallas kernel computes in float32 and writes q's dtype. The wrapper
-picks the route by the inputs' dtype and counts its launches in
-`launches_f32`, apart from the bf16 route's `launches`.
+picks the route by the inputs' dtype and counts a launch in
+ops/device.launches under the route's name, `chunk_flash_attention` or
+`chunk_flash_attention_f32` (ROUTES).
 
 The kernel is the custom op `fangyan::chunk_flash_attention`
 (torch.library, registered in Python on the ctypes binding), so that
 torch.export traces it as one node and a loaded program launches it: its
 CPU kernel is `chunk_flash_attention_plain` (in the CUDA kernel's output
 layout), its CUDA kernel the launch (with the checks that read pointers
-and the current device, and the launch counters), and its fake gives the
+and the current device, and the launch count), and its fake gives the
 CUDA kernel's output layout. There is no fallback from one device to the
 other. The op registers no autograd: the
 kernel has no backward. On a CUDA input that requires grad (with grad
@@ -43,12 +44,12 @@ import math
 import torch
 
 from . import _build
-from .device import refuse_grad
+from .device import launched, refuse_grad
 from .masks import chunk_attn_mask, mask_to_bias
 
-launches = 0  # bf16-route kernel launches since the last reset (CPU calls do not count)
-launches_f32 = 0  # float32-route kernel launches since the last reset
-ROUTES = {torch.bfloat16: "flash_attention", torch.float32: "flash_attention_f32"}  # dtype -> C entry
+# dtype -> (C entry, the route's name in ops/device.launches)
+ROUTES = {torch.bfloat16: ("flash_attention", "chunk_flash_attention"),
+          torch.float32: ("flash_attention_f32", "chunk_flash_attention_f32")}
 
 
 def chunk_flash_attention_plain(q, k, v, mel_len, chunk: int = 0) -> torch.Tensor:
@@ -106,16 +107,12 @@ def _cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mel_len: torch.Tens
     _check(q, k, v, mel_len, chunk)
     b, h, l, d = q.shape
     out = _bl_view(b, h, l, d, q)
-    entry = ROUTES[q.dtype]
+    entry, route = ROUTES[q.dtype]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = _build.load(entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(), mel_len.data_ptr(), out.data_ptr(), b, h, l,
                               d, int(chunk), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], stream)
     _build.check(entry, code)
-    global launches, launches_f32
-    if q.dtype == torch.float32:
-        launches_f32 += 1
-    else:
-        launches += 1
+    launched(route)
     return out
 
 

@@ -27,8 +27,8 @@ register-blocked GEMM tile (8 x 8 or 8 x 16 outputs a thread) on a
 cp.async ring. Both split K over a thread-block cluster where the output
 tiles leave SMs idle and sum the partials in rank order through
 distributed shared memory, in the same launch. The wrapper picks the
-route by x's dtype and counts its launches in `launches_f32`, apart from
-the bf16 route's `launches`.
+route by x's dtype and counts a launch in ops/device.launches under the
+route's name, `int4_matmul` or `int4_matmul_f32`.
 
 `int4_matmul` launches the kernel for CUDA tensors and runs
 `int4_matmul_plain` (ops/quant.int4_dot) for CPU tensors; there is no
@@ -40,12 +40,11 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .device import counting, refuse_grad
+from .device import launched, refuse_grad
 from .quant import int4_dot
 
-launches = 0  # bf16-route kernel launches since the last reset (CPU calls and graph captures do not count)
-launches_f32 = 0  # float32-route kernel launches since the last reset
-ROUTES = {torch.bfloat16: "int4_matmul", torch.float32: "int4_matmul_f32"}  # x's dtype -> C entry
+# x's dtype -> C entry, also the route's name in ops/device.launches
+ROUTES = {torch.bfloat16: "int4_matmul", torch.float32: "int4_matmul_f32"}
 BLOCK_N = 128  # N must be a multiple of this: the output channels of a prefill block
 BLOCK_K = 64  # K must be a multiple of this (kBk in the source)
 DECODE_TILE_M = 16  # tokens per block up to this M (decode)
@@ -165,12 +164,8 @@ def int4_matmul(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor) ->
     entry = ROUTES[x.dtype]
     args = (x.data_ptr(), w_packed.data_ptr(), scale.data_ptr(), out.data_ptr(), m, k, n)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    global launches, launches_f32
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    if x.dtype == torch.float32:
-        _build.check(entry, _build.load(entry)(*args, *plan_f32(m, k, n, sms), stream))
-        launches_f32 += counting(__name__, "launches_f32")
-    else:
-        _build.check(entry, _build.load(entry)(*args, *plan(m, k, n, sms), stream))
-        launches += counting(__name__, "launches")
+    plan_of = plan_f32 if x.dtype == torch.float32 else plan
+    _build.check(entry, _build.load(entry)(*args, *plan_of(m, k, n, sms), stream))
+    launched(entry)
     return out

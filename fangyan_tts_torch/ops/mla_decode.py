@@ -25,24 +25,21 @@ enough programs to keep the card's memory busy:
 decode_attention does), then launches both kernels for CUDA tensors
 (bfloat16 only; it raises on anything else) or runs `mla_decode_plain`
 for CPU tensors; there is no fallback from one to the other. Each launch
-adds 1 to `launches` (ops/device.counting).
+counts as `mla_decode` in ops/device.launches.
 """
 
 from __future__ import annotations
 
 import functools
-import importlib.util
-from pathlib import Path
 
 import torch
 
-from .device import counting, refuse_grad
+from . import _build
+from .device import launched, refuse_grad
 
-launches = 0  # kernel launches since the last reset, two a call (CPU calls and graph captures do not count)
 BS = 32  # slots of one tile
 MIN_RUN = 64  # slots a split takes at least, where S allows
 MAX_SPLITS = 16
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "mla_decode_triton.py"
 
 
 def write_row(kv_new, cache, idx, layer: int) -> None:
@@ -74,14 +71,6 @@ def plan(b: int, s: int) -> tuple[int, int]:
         n *= 2
     per = -(-(-(-s // n)) // BS) * BS
     return n, per
-
-
-@functools.lru_cache(maxsize=1)
-def _kernels():
-    spec = importlib.util.spec_from_file_location("fangyan_mla_decode_triton", SOURCE)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def _check(q, kv_new, cache, idx, bias, layer, latent):
@@ -124,12 +113,11 @@ def mla_decode(q, kv_new, cache, idx, bias, layer: int, scale: float, latent: in
     part = torch.empty((b, n, h, latent), dtype=torch.float32, device=q.device)
     stats = torch.empty((b, n, 2, h), dtype=torch.float32, device=q.device)
     out = torch.empty((b, h, latent), dtype=q.dtype, device=q.device)
-    ker = _kernels()
-    global launches
+    ker = _build.triton("mla_decode")
     # the layer's (B, S, D) view: its offset is no argument, so no layer compiles a kernel of its own
     ker.fangyan_mla_decode_split[(b, n)](q, cache[layer], bias, part, stats, s, per, float(scale),
                                          H=h, DC=latent, DR=d - latent, BS=BS, num_warps=4, num_stages=2)
-    launches += counting(__name__, "launches")
+    launched("mla_decode")
     ker.fangyan_mla_decode_merge[(b,)](part, stats, out, H=h, DC=latent, NSPLIT=n, num_warps=4)
-    launches += counting(__name__, "launches")
+    launched("mla_decode")
     return out

@@ -37,27 +37,22 @@ once:
 weights only; it raises on anything else) and runs `moe_experts_plain`
 for CPU tensors; there is no fallback from one to the other. Both add
 [1, experts with at least one row, routed rows] to an optional (3,) int64
-`stats` tensor on the device. Each launch adds 1 to `launches`
-(ops/device.counting: a captured launch is tallied for its graph instead).
+`stats` tensor on the device. Each launch counts as `moe_experts` in
+ops/device.launches (a captured launch is tallied for its graph instead).
 """
 
 from __future__ import annotations
 
-import functools
-import importlib.util
-from pathlib import Path
-
 import torch
 import torch.nn.functional as F
 
-from .device import counting, refuse_grad
+from . import _build
+from .device import launched, refuse_grad
 
-launches = 0  # kernel launches since the last reset, two a call (CPU calls and graph captures do not count)
 BM = 16  # rows of a tile (tl.dot's least M); an expert's rows run in tiles of BM
 BM_WIDE, WIDE_ROWS = 64, 32  # the tile where the call gives an expert WIDE_ROWS rows or more on average (a prefill)
 BN_GATE_UP, BK_GATE_UP = 64, 128
 BN_DOWN, BK_DOWN = 64, 64
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "moe_experts_triton.py"
 
 
 def route_order(experts: torch.Tensor, n_experts: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -106,15 +101,6 @@ def moe_experts_plain(x, experts, weights, w_gate_up, w_down, stats=None) -> tor
     return out.to(x.dtype)
 
 
-@functools.lru_cache(maxsize=1)
-def _kernels():
-    """The Triton kernels, imported (and so built) at the first launch."""
-    spec = importlib.util.spec_from_file_location("fangyan_moe_experts_triton", SOURCE)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def _check(x, experts, weights, w_gate_up, w_down):
     dev = x.device
     if any(t.device != dev for t in (experts, weights, w_gate_up, w_down)):
@@ -153,13 +139,12 @@ def moe_experts(x, experts, weights, w_gate_up, w_down, stats=None) -> torch.Ten
     out = torch.empty((n * k, d), dtype=torch.float32, device=x.device)
     flat_w = weights.reshape(-1).float().contiguous()
     bm = BM_WIDE if n * k >= WIDE_ROWS * e_count else BM  # from the shapes alone: the same at every routing
-    ker = _kernels()
-    global launches
+    ker = _build.triton("moe_experts")
     ker.fangyan_moe_gate_up[(e_count, width // BN_GATE_UP)](
         x, w_gate_up, order, offsets, h, d, width, k, BM=bm, BN=BN_GATE_UP, BK=BK_GATE_UP, num_warps=4, num_stages=4)
-    launches += counting(__name__, "launches")
+    launched("moe_experts")
     ker.fangyan_moe_down[(e_count, d // BN_DOWN)](
         h, w_down, order, offsets, flat_w, out, d, width, BM=bm, BN=BN_DOWN, BK=BK_DOWN, num_warps=4, num_stages=4)
-    launches += counting(__name__, "launches")
+    launched("moe_experts")
     _add_stats(stats, counts, n * k)
     return out.view(n, k, d).sum(dim=1).to(x.dtype)

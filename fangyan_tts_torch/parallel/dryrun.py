@@ -155,8 +155,7 @@ def _rank(rank: int, world: int, spec: dict, device: str = "cuda") -> dict:
     out["flow_loss"] = _steps(flow, ftx, mesh, trainer.make_flow_train_step, fbatch, gen())
 
     from ..infer.tts import CosyVoice3TTS
-    from ..ops import decode_attention as da
-    from ..ops import flash_attention as fa
+    from ..ops import device as kernel_device
     from .sharding import shard_module
 
     dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
@@ -166,12 +165,13 @@ def _rank(rank: int, world: int, spec: dict, device: str = "cuda") -> dict:
     serve_mesh = make_mesh(dp=world // spec["tp"], tp=spec["tp"], device=device)  # no fsdp: inference
     shard_module(tts.llm, serve_mesh)
     tts.shard_token2wav(serve_mesh)
-    da.launches = fa.launches = 0
+    kernel_device.launches.clear()
     got = _serve(tts)
     rel = lambda a, b: float(np.abs(a - b).max() / np.abs(b).max())
     out.update(logits_rel=rel(got["logits"], one["logits"]), mel_rel=rel(got["mel"], one["mel"]),
                mel_tol=LLM_REL_TOL if dtype == torch.bfloat16 else FLOW_REL_TOL,
-               decode_launches=da.launches, flash_launches=fa.launches)
+               decode_launches=kernel_device.launches["decode_attention"],
+               flash_launches=kernel_device.launches["chunk_flash_attention"])
     return out
 
 

@@ -25,6 +25,7 @@ from fangyan_tts_torch.config import DiTConfig
 from fangyan_tts_torch.models import dit as tdit
 from fangyan_tts_torch.models.qwen2 import qdense
 from fangyan_tts_torch.ops import adaln as an
+from fangyan_tts_torch.ops import device
 from fangyan_tts_torch.utils import profiling
 
 OP = torch.ops.fangyan.adaln.default
@@ -151,14 +152,14 @@ def test_dit_forward_is_the_old_chain(dtype):
 def test_cpu_counts_norms_and_launches_nothing():
     dit = _dit(torch.float32)
     inp = _inputs(torch.float32)
-    before = an.launches
+    before = device.launches.copy()
     profiling.reset()
     with profiling.recording(), torch.no_grad():
         dit(**inp, chunk=0)
     counters = profiling.counters()
     profiling.reset()
     assert counters.get("dit.norms") == 2 * CFG.depth + 1 and "dit.fused_norms" not in counters
-    assert an.launches == before
+    assert device.launches == before
 
 
 @pytest.fixture
@@ -251,10 +252,10 @@ def test_op_cpu_kernel_and_fake(dtype, residual):
     res = (ops["y"], ops["gate"]) if residual else (None, None)
     args = (x, ops["scale"], ops["shift"], *res, 1e-6)
     torch.library.opcheck(OP, args)
-    before = an.launches
+    before = device.launches.copy()
     got = OP(*args)
     want = an.adaln_plain(*args[:5])
-    assert an.launches == before and len(got) == 1 + residual
+    assert device.launches == before and len(got) == 1 + residual
     assert all(g.stride() == x.stride() and torch.equal(g, w) for g, w in zip(got, want[2 - len(got):]))
 
 

@@ -20,6 +20,7 @@ import torch
 import torch_port_util  # noqa: F401  (one torch CPU thread per worker)
 from fangyan_tts_torch.ops import _build
 from fangyan_tts_torch.ops import decode_attention as tda
+from fangyan_tts_torch.ops import device as tdevice
 from fangyan_tts_tpu.ops.decode_attention import carry_decode_attention, fused_decode_attention
 
 L, S, KV, HD, QH = 3, 64, 2, 64, 14
@@ -175,9 +176,9 @@ def test_plan_covers_every_slot_once(b, s):
 
 def test_cpu_calls_do_not_count_as_launches():
     q, kn, vn, ck, cv = _inputs(4, 1)
-    before = tda.launches
+    before = tdevice.launches.copy()
     _run_port(q, kn, vn, ck, cv, np.asarray([3], np.int32), np.zeros((1, S), np.float32), 0)
-    assert tda.launches == before
+    assert tdevice.launches == before
 
 
 # float32 cases: (rows, write slots, first open slots, layer); a write past S

@@ -32,6 +32,7 @@ from jax import export as jexport
 import fangyan_tts_torch.api as tapi
 import fangyan_tts_tpu.api as japi
 from fangyan_tts_torch.cli import export as tex
+from fangyan_tts_torch.ops import device as tdevice
 from fangyan_tts_torch.ops import flash_attention as tfa
 from fangyan_tts_torch.train.checkpoint import load_params as torch_load_params
 from fangyan_tts_tpu.cli import export as jex
@@ -52,10 +53,10 @@ def test_op_cpu_kernel(dtype, l, chunk):
     q, k, v = (torch.randn((2, 2, l, 64), generator=g).to(dtype) for _ in range(3))
     mel_len = torch.tensor([l, l - 13], dtype=torch.int32)
     torch.library.opcheck(OP, (q, k, v, mel_len, chunk))
-    before = (tfa.launches, tfa.launches_f32)
+    before = tdevice.launches.copy()
     got = OP(q, k, v, mel_len, chunk)
     eager = tfa.chunk_flash_attention(q, k, v, mel_len, chunk)
-    assert (tfa.launches, tfa.launches_f32) == before
+    assert tdevice.launches == before
     assert got.dtype == dtype and got.shape == (2, 2, l, 64)
     assert got.transpose(1, 2).is_contiguous()  # a (B, H, L, D) view of (B, L, H, D) memory, as on the card
     want = tfa.chunk_flash_attention_plain(q, k, v, mel_len, chunk)

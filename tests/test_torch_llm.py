@@ -202,13 +202,11 @@ def _decode_steps(num_tokens, max_lens, max_new: int) -> int:
 def test_graph_counters_on_the_cpu():
     """On the CPU every step runs eagerly: llm.graph_steps and
     llm.graph_captures are 0 and llm.decode_steps is the loop count."""
-    from fangyan_tts_torch.models import decode_graphs
     from fangyan_tts_torch.utils import profiling
 
     _, _, tm = _models()
     batch = _batch(((9, 4), (5, 2), (7, 0)))
     min_lens, max_lens = np.asarray([3, 5, 2], np.int32), np.asarray([24, 12, 18], np.int32)
-    before = (decode_graphs.captures, decode_graphs.replays)
     profiling.reset()
     try:
         with profiling.recording():
@@ -221,7 +219,6 @@ def test_graph_counters_on_the_cpu():
     steps = _decode_steps(got.num_tokens.tolist(), max_lens.tolist(), 32)
     assert counters == {"llm.decode_steps": steps, "llm.row_steps": 3 * steps, "llm.graph_steps": 0,
                         "llm.graph_captures": 0}
-    assert (decode_graphs.captures, decode_graphs.replays) == before
 
 
 CUDA = torch.device("cuda")  # the store's rules read only the device's type: nothing here reaches a card
@@ -321,6 +318,7 @@ def test_graph_captures_take_turns_on_a_device(monkeypatch):
     """Two threads capturing buckets of one device at once take turns (they
     share its capture stream): the recording, stubbed here, never runs in
     both at the same time; each bucket gets its graph and its tally."""
+    import collections
     import threading
     import time
     from types import SimpleNamespace
@@ -337,7 +335,7 @@ def test_graph_captures_take_turns_on_a_device(monkeypatch):
         step()
         with lock:
             active[0] -= 1
-        return f"graph of {dev}", {("ops", "launches"): 24}
+        return f"graph of {dev}", collections.Counter(decode_attention=24)
 
     monkeypatch.setattr(decode_graphs, "_record", record)
     buckets = [decode_graphs.Bucket(SimpleNamespace(out=torch.zeros(1)), ()) for _ in range(2)]
@@ -347,15 +345,13 @@ def test_graph_captures_take_turns_on_a_device(monkeypatch):
         start.wait()
         b.capture(lambda: ran.append(b))
 
-    before = decode_graphs.captures
     threads = [threading.Thread(target=capture, args=(b,)) for b in buckets]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
-    assert most[0] == 1 and sorted(map(id, ran)) == sorted(map(id, buckets))
-    assert all(b.graph == "graph of cpu" and b.launches == {("ops", "launches"): 24} for b in buckets)
-    assert decode_graphs.captures == before + 2
+    assert most[0] == 1 and sorted(map(id, ran)) == sorted(map(id, buckets))  # one recording a bucket
+    assert all(b.graph == "graph of cpu" and b.launches == {"decode_attention": 24} for b in buckets)
 
 
 def test_graph_bucket_keyed_on_the_cache_it_holds(monkeypatch):
@@ -376,18 +372,56 @@ def test_graph_bucket_keyed_on_the_cache_it_holds(monkeypatch):
     assert keys == [(2, 32, CACHE, torch.bfloat16), (2, 32, CACHE, torch.float32)]
 
 
-def test_captured_launches_are_tallied_for_the_graph(monkeypatch):
-    """A wrapper's launch adds 1 to its counter, or, while its stream
-    captures, 0 there and 1 to the tally of the graph being captured."""
-    from fangyan_tts_torch.ops import device
+def _launch_decode_attention():
+    """One bf16 launch through decode_attention's launching code on CPU
+    tensors, the C entry stubbed."""
+    from fangyan_tts_torch.ops import decode_attention as da
+
+    q, kv = torch.zeros((1, 2, 64), dtype=torch.bfloat16), torch.zeros((1, 1, 64), dtype=torch.bfloat16)
+    cache = torch.zeros((1, 1, 16, 1, 64), dtype=torch.bfloat16)
+    da._launch(q, kv, kv, cache, cache, torch.zeros(1, dtype=torch.int32), torch.zeros((1, 16)), 0)
+
+
+def _launch_flash_attention():
+    """One bf16 launch through the CUDA kernel of fangyan::chunk_flash_attention
+    on CPU tensors, the C entry stubbed."""
+    from fangyan_tts_torch.ops import flash_attention as fa
+
+    x = torch.zeros((1, 1, 8, 64), dtype=torch.bfloat16)
+    fa._cuda(x, x, x, torch.tensor([8], dtype=torch.int32), 0)
+
+
+@pytest.mark.parametrize("route, launch", [
+    ("decode_attention", None), ("decode_attention", _launch_decode_attention),
+    ("chunk_flash_attention", _launch_flash_attention),
+], ids=["launched", "decode_attention", "chunk_flash_attention"])
+def test_captured_launches_are_tallied_for_the_graph(monkeypatch, route, launch):
+    """A launch adds 1 to its route in ops/device.launches, or, while its
+    stream captures, nothing there and 1 to the tally of the graph being
+    captured: by device.launched itself, and by the launching code of the
+    decode-attention and flash-attention wrappers."""
+    import collections
+    from types import SimpleNamespace
+
+    from fangyan_tts_torch.ops import _build, device
+    from fangyan_tts_torch.ops import flash_attention as fa
 
     capturing = [False]  # the stream's state, as the card would report it
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing[0])
-    assert device.counting("ops.x", "launches") == 1
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(_build, "load", lambda entry: lambda *args: 0)  # the C entry: launches nothing, succeeds
+    monkeypatch.setattr(fa, "_check", lambda *args: None)  # its checks read the current CUDA device
+    monkeypatch.setattr(device, "launches", collections.Counter())
+    launch = launch or (lambda: device.launched(route))
+    launch()
+    assert device.launches == {route: 1}
     capturing[0] = True
-    assert device.counting("ops.x", "launches") == 0  # no capture of this thread's to tally for
+    launch()  # no capture of this thread's to tally for
+    assert device.launches == {route: 1}
     with device.captured_launches() as tally:
-        got = [device.counting("ops.x", "launches"), device.counting("ops.x", "launches"),
-               device.counting("ops.y", "launches_f32")]
-    assert got == [0, 0, 0] and tally == {("ops.x", "launches"): 2, ("ops.y", "launches_f32"): 1}
-    assert device.counting("ops.x", "launches") == 0 and tally[("ops.x", "launches")] == 2
+        launch()
+        launch()
+        device.launched("int4_matmul_f32")
+    assert tally == {route: 2, "int4_matmul_f32": 1} and device.launches == {route: 1}
+    launch()
+    assert tally[route] == 2 and device.launches == {route: 1}

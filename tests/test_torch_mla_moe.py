@@ -1,6 +1,6 @@
 """fangyan_tts_torch's MLA-MoE speech LM (models/mla_moe.py, ops/moe.py,
-ops/mla_decode.py) against the plain float32 reference in
-tests/moonlight_lm_reference.py, at a small size on the CPU: hidden 64, 4
+ops/mla_decode.py) against the benchmark's plain float32 reference,
+benchmark/reference/moonlight_lm.py, at a small size on the CPU: hidden 64, 4
 layers (1 dense + 3 MoE), 8 experts, 2 a token, one shared expert, a
 nonzero correction bias. Float32 throughout: logits rel <= 2e-4 with equal
 argmax (the PARITY thresholds). Also the refusals of the paths that keep
@@ -13,12 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from benchmark.reference.moonlight_lm import SpeechLM
 from fangyan_tts_torch.config import CosyVoiceConfig, DiTConfig, FlowConfig, HiFTConfig, LLMConfig, MLAMoEConfig
 from fangyan_tts_torch.models import llm as tllm
 from fangyan_tts_torch.models import mla_moe
 from fangyan_tts_torch.ops import mla_decode as mla_ops
 from fangyan_tts_torch.ops import moe as moe_ops
-from moonlight_lm_reference import SpeechLM
 
 torch.set_num_threads(1)
 

@@ -21,6 +21,7 @@ import torch
 from fangyan_tts_torch.infer.tts import CosyVoice3TTS as TorchTTS
 from fangyan_tts_torch.models.from_jax import flow_from_jax, hift_from_jax, llm_from_jax
 from fangyan_tts_torch.ops import decode_attention as tda
+from fangyan_tts_torch.ops import device as tdevice
 from fangyan_tts_torch.ops import flash_attention as tfa
 from fangyan_tts_torch.ops import int4_matmul as ti4
 from fangyan_tts_tpu.infer.tts import CosyVoice3TTS as JaxTTS
@@ -317,14 +318,14 @@ def test_unported_options_raise(sub, field, value):
 
 
 def test_wrappers_count_no_cpu_launches():
-    tda.launches, tfa.launches, ti4.launches = 0, 0, 0
+    tdevice.launches.clear()
     x = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16)
     tfa.chunk_flash_attention(x, x, x, torch.tensor([5], dtype=torch.int32), 4)
     ck = torch.zeros((2, 1, 16, 2, 64), dtype=torch.bfloat16)
     q, kv = torch.zeros((1, 14, 64), dtype=torch.bfloat16), torch.zeros((1, 2, 64), dtype=torch.bfloat16)
     tda.decode_attention(q, kv, kv, ck, ck.clone(), torch.tensor([3], dtype=torch.int32), torch.zeros((1, 16)), 1)
     ti4.int4_matmul(torch.zeros((3, 64), dtype=torch.bfloat16), torch.zeros((32, 128), dtype=torch.int8), torch.ones(128))
-    assert tda.launches == 0 and tfa.launches == 0 and ti4.launches == 0
+    assert tdevice.launches == {}
 
 
 def test_from_jax_rejects_mismatched_trees():

@@ -58,7 +58,10 @@ Phases:
      and the DiT's AdaLN kernel (ops/adaln) at the datagen cell's flow
      buckets, with and without the gated residual, and one float32 shape,
      timed by graph replay against its bytes bound and the plain chain
-     (check_adaln)
+     (check_adaln); the LM backbones' residual + RMSNorm and Qwen2 qkv
+     epilogue kernels (ops/rms_norm, ops/qkv_rope) at the datagen cells'
+     decode and prefill rows, timed against their plain chains
+     (check_rms_norm_qkv_rope)
   4. a small model on the card against the same weights on the CPU
      (plain versions), bf16 and then int8 LLM + int4 MLP + int8 DiT; then
      at CosyVoice3-0.5B's full width (full_config's depth) with random
@@ -316,6 +319,14 @@ ADALN_FRAMES = (384, 512, 640, 768, 896, 1024)
 ADALN_F32_SHAPE = (2, 1344)
 ADALN_MOD_STD = 0.5
 ADALN_GATE_FRAMES, ADALN_MIN_BOUND_SHARE = 640, 0.6
+# The LM kernels (phase 3): each rounds its outputs once. The norm's plain route also rounds once, after float32
+# statistics summed in another order, so its error is held to the plain route's times LLM_NORM_SLACK (both carry
+# the rounding of x + y, half an ulp of values up to about 8, times rstd * w); the qkv epilogue's plain route rounds
+# four times. At a decode shape each kernel must take under LLM_FUSED_MAX_SHARE of its plain chain's device time.
+LLM_NORM_ATOL, LLM_QKV_ATOL = 6e-2, 3e-2
+LLM_F32_ATOL = 1e-5
+LLM_NORM_SLACK = 1.05
+LLM_FUSED_MAX_SHARE = 0.25
 # and it must be at least as close to that as the plain version run in bf16
 # (the precision the JAX package's path runs at), whose scores and
 # probabilities are rounded to bf16.
@@ -493,7 +504,8 @@ MP_PHASE_LIMIT_S = 90
 
 CARDS_USED = 1  # every phase runs on card 0
 # kernel names the profile reports
-PORT_KERNELS = ("decode_attention", "flash_attention", "int4_matmul", "fangyan_adaln")
+PORT_KERNELS = ("decode_attention", "flash_attention", "int4_matmul", "fangyan_adaln", "fangyan_rms_norm",
+                "fangyan_qkv_rope")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOP_PER_S = 989e12
 
@@ -1197,6 +1209,104 @@ def check_adaln(results: dict) -> None:
                              f"{100 * ADALN_MIN_BOUND_SHARE:.0f}%")
 
 
+def llm_prefill_rows() -> list[int]:
+    """The datagen cells' prefill lengths: batch_synthesize's left-padded tp
+    (infer/tts.batch_buckets) of each batch of 16 of the traffic's text
+    lengths, behind its instruct prompt."""
+    from benchmark.harness import Cell
+    from benchmark.traffic.batch_offline import text_lengths
+    from fangyan_tts_torch.infer.tts import batch_buckets
+
+    p = Cell("cv3.datagen_b16").spec["params"]
+    lens = sorted(int(n) for n in text_lengths(p))
+    none, instruct = np.zeros(0, np.int32), np.zeros(p["instruct_tokens"], np.int32)
+    return sorted({batch_buckets(full_config().llm, [np.zeros(n, np.int32) for n in lens[i: i + p["batch"]]],
+                                 instruct, none, p["tokens_per_text_token"])[1]
+                   for i in range(0, len(lens), p["batch"])})
+
+
+def check_rms_norm_qkv_rope(results: dict) -> None:
+    """The LM backbones' kernels at the datagen cells' 16 rows: residual +
+    RMSNorm (ops/rms_norm) at D = 896 (Qwen2) and 2,048 (MLA-MoE), with
+    and without the residual, and at the MLA's strided (16, 512) split of a
+    576-wide row; the Qwen2 qkv epilogue (ops/qkv_rope, 14 + 2 + 2 heads of
+    64) with the bias and without it; each at a decode step's one row and
+    at the prefill's tp rows (llm_prefill_rows), bf16, and one float32
+    prefill each; and the epilogue of one shard of a TP = 2 layer (7 + 1 +
+    1 heads, no bias: tp_dense adds it) at one row and the longest
+    prefill. Held to the plain route on the same inputs in float32 (float64
+    for float32 inputs); timed by graph replay at the decode shapes and the
+    longest prefill against the plain chain (not the TP shard's)."""
+    import torch
+
+    from fangyan_tts_torch.models.qwen2 import rope_cos_sin
+    from fangyan_tts_torch.ops import qkv_rope as qr
+    from fangyan_tts_torch.ops import rms_norm as rn
+
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    tps = llm_prefill_rows()
+    cases = [("rms_norm", d, t, torch.bfloat16, None) for d in (896, 2048, 512) for t in (1, *tps)]
+    cases += [("qkv_rope", 1152, t, torch.bfloat16, (14, 2)) for t in (1, *tps)]
+    cases += [("rms_norm", 896, tps[-1], torch.float32, None), ("qkv_rope", 1152, tps[-1], torch.float32, (14, 2))]
+    cases += [("qkv_rope", 576, t, torch.bfloat16, (7, 1)) for t in (1, tps[-1])]
+    errs, timing = {"rms_norm": [], "qkv_rope": []}, results.setdefault("llm_fused_timing", [])
+    for kernel, d, t, dt, heads in cases:
+        wide = torch.float64 if dt == torch.float32 else torch.float32
+        if kernel == "rms_norm":
+            w = 1 + 0.1 * rnd(d)
+            x = (rnd(16, t, 576)[..., :512] if d == 512 else rnd(16, t, d)).to(dt)  # the MLA's kv_a split
+            variants = [((None,), "no residual")] if d == 512 else \
+                [((None,), "no residual"), ((rnd(16, t, d).to(dt),), "residual")]
+            fused = lambda y: rn.rms_norm_fused(x, w, 1e-6, y)
+            plain = lambda y, cast=None: rn.rms_norm_plain(*((x, w, 1e-6, y) if cast is None else
+                                                            (x.to(cast), w, 1e-6, None if y is None else y.to(cast))))
+        else:
+            qkv = rnd(16, t, d).to(dt)
+            cos, sin = rope_cos_sin(torch.randint(0, 400, (16, t), generator=gen, device="cuda"), 64, 1e6, dtype=dt)
+            variants = [((None,), "no bias")] + ([] if heads == (7, 1) else [((0.5 * rnd(d),), "bias")])
+            fused = lambda b: qr.qkv_rope_fused(qkv, b, cos, sin, *heads)
+            plain = lambda b, cast=None: qr.qkv_rope_plain(*((qkv, b, cos, sin) if cast is None else
+                                                            (qkv.to(cast), b, cos.to(cast), sin.to(cast))), *heads)
+        for (arg,), kind in variants:
+            got, ref, low = fused(arg), plain(arg, wide), plain(arg)
+            torch.cuda.synchronize()
+            err = max((g.to(wide) - r).abs().max().item() for g, r in zip(got, ref))
+            err_low = max((g.to(wide) - r).abs().max().item() for g, r in zip(low, ref))
+            scale_out = ref[-1].abs().mean().item()
+            name = f"{kernel} {dt} (16, {t}, {d}) {kind}" + (f", {heads[0]} + {heads[1]} heads" if heads else "")
+            if dt == torch.float32:
+                msg = held_f32(name, err, err_low, LLM_F32_ATOL, scale_out)
+            elif kernel == "rms_norm":
+                if not torch.equal(got[0], low[0]):
+                    raise AssertionError(f"{name}: x + y differs from the plain route's")
+                msg = held(name, err, LLM_NORM_SLACK * err_low, LLM_NORM_ATOL, scale_out)
+            else:
+                msg = held(name, err, err_low, LLM_QKV_ATOL, scale_out)
+            if not all(bool(torch.isfinite(g).all()) for g in got):
+                raise AssertionError(f"{name}: a value that is not finite")
+            errs[kernel].append(err)
+            log(f"{name}: {msg}")
+            if dt != torch.bfloat16 or t not in (1, tps[-1]) or heads == (7, 1):
+                continue
+            ms_k = time_ms(lambda: fused(arg))
+            ms_p = time_ms(lambda: plain(arg))
+            n = 16 * t * d * 2  # bytes of one bf16 operand
+            if kernel == "rms_norm":  # x in, the norm out (and y in, x' out), the float32 weight
+                nbytes = n * (2 if arg is None else 4) + 4 * d
+            else:  # qkv in, q, k and v out (and the float32 bias)
+                nbytes = 2 * n + (0 if arg is None else 4 * d)
+            bms, by = bound(nbytes, 0)
+            timing.append(dict(kernel=kernel, rows=16 * t, t=t, d=d, kind=kind, ms=ms_k, plain_ms=ms_p, bound_ms=bms,
+                               bound_by=by))
+            log(f"{name}: kernel {ms_k * 1e3:.2f} us, plain {ms_p * 1e3:.2f} us ({100 * ms_k / ms_p:.1f}%), bound "
+                f"{bms * 1e3:.3f} us ({by})")
+            if t == 1 and ms_k > LLM_FUSED_MAX_SHARE * ms_p:
+                raise AssertionError(f"{name}: the kernel takes {100 * ms_k / ms_p:.1f}% of its plain chain's "
+                                     f"device time, over {100 * LLM_FUSED_MAX_SHARE:.0f}%")
+    results.update({f"{k}_err": max(v) for k, v in errs.items()})
+
+
 # ---------------------------------------------------------------- phase 4
 
 
@@ -1472,24 +1582,28 @@ def full_path(results: dict, card: str):
             t = time.perf_counter()
             wav = next(tts.tts(**req))["tts_speech"]
             wall = time.perf_counter() - t
-        n_dec, n_flash, n_adaln = _launches(ATTENTION_ROUTES + ("adaln",)).values()
-        _count(results, {"decode_attention": n_dec, "chunk_flash_attention": n_flash, "adaln": n_adaln})
+        counts = _launches(ATTENTION_ROUTES + ("adaln",) + LLM_ROUTES)
+        _count(results, counts)
+        n_dec, n_flash, n_adaln = (counts[k] for k in ATTENTION_ROUTES + ("adaln",))
+        llm = {k: counts[k] for k in LLM_ROUTES}
+        want_llm = llm_want(cfg.llm.qwen.num_hidden_layers, 1 + steps.value)
         frames = mel_frames[-1]
         audio_s = len(wav) / cfg.sample_rate
         ok = (np.isfinite(wav).all() and np.abs(wav).max() <= 0.99 and len(wav) == frames * 480
               and n_dec == cfg.llm.qwen.num_hidden_layers * steps.value and steps.value > 0
               and n_flash == cfg.flow.dit.depth * cfg.flow.n_timesteps
-              and n_adaln == (2 * cfg.flow.dit.depth + 1) * cfg.flow.n_timesteps)
+              and n_adaln == (2 * cfg.flow.dit.depth + 1) * cfg.flow.n_timesteps and llm == want_llm)
         tok_s = n_tokens[-1] / stage["llm"]
         log(f"request '{name}': {n_tokens[-1]} tokens in {steps} decode steps, {frames} mel frames, "
             f"{audio_s:.2f} s audio; decode {stage['llm']:.3f} s ({tok_s:.1f} tok/s, "
             f"{stage['llm'] / steps.value * 1e3:.2f} ms/step), flow {stage['flow']:.3f} s, "
             f"vocoder {stage['vocoder']:.3f} s, wall {wall:.3f} s, RTF {wall / audio_s:.4f}; "
-            f"launches decode {n_dec} flash {n_flash} adaln {n_adaln} [{card}] {'OK' if ok else 'FAIL'}")
+            f"launches decode {n_dec} flash {n_flash} adaln {n_adaln} {llm} (derived {want_llm}) "
+            f"[{card}] {'OK' if ok else 'FAIL'}")
         results.setdefault("requests", []).append(dict(
             name=name, tokens=n_tokens[-1], steps=steps.value, mel_frames=frames, tok_s=tok_s, audio_s=audio_s, llm_s=stage["llm"],
             flow_s=stage["flow"], vocoder_s=stage["vocoder"], wall_s=wall, rtf=wall / audio_s,
-            decode_launches=n_dec, flash_launches=n_flash, adaln_launches=n_adaln))
+            decode_launches=n_dec, flash_launches=n_flash, adaln_launches=n_adaln, llm_launches=llm))
         if not ok:
             raise AssertionError(f"request '{name}' failed its checks")
     return tts, fixed
@@ -1777,13 +1891,14 @@ def batched_requests(results: dict, card: str) -> dict:
                 t = time.perf_counter()
                 wavs = tts.batch_synthesize(**req)
                 wall = time.perf_counter() - t
-            counts = _launches(BF16_ROUTES + ("adaln",))
+            counts = _launches(BF16_ROUTES + ("adaln",) + LLM_ROUTES)
             _count(results, counts)
             toks, n = made[-1]
             n_tok = [len(suppress_silent_runs(toks[i, : n[i]])) for i in range(len(n))]
             # adaln: two norms a DiT block and the final one, every DiT call
             want = {"decode_attention": nl * steps.value, "chunk_flash_attention": depth * nt,
-                    "int4_matmul": 2 * nl * (1 + steps.value) if int4 else 0, "adaln": (2 * depth + 1) * nt}
+                    "int4_matmul": 2 * nl * (1 + steps.value) if int4 else 0, "adaln": (2 * depth + 1) * nt,
+                    **llm_want(nl, 1 + steps.value)}
             audio_s = sum(len(w) for w in wavs) / cfg.sample_rate
             ok = (len(wavs) == 16 and steps.value > 0 and counts == want
                   and all(np.isfinite(w).all() and np.abs(w).max() <= 0.99 and len(w) == k * 2 * 480
@@ -2766,6 +2881,14 @@ def v2_stream_chunks(n_tokens: int, n_prompt: int, hop: int = 25, la: int = 3) -
 BF16_ROUTES = ("decode_attention", "chunk_flash_attention", "int4_matmul")  # the CUDA kernels' bf16 routes
 F32_ROUTES = tuple(f"{r}_f32" for r in BF16_ROUTES)
 ATTENTION_ROUTES = BF16_ROUTES[:2]
+LLM_ROUTES = ("rms_norm", "qkv_rope")  # the LM backbone's Triton kernels, one route for both dtypes
+
+
+def llm_want(nl: int, forwards: int) -> dict:
+    """The LM kernels' launches over `forwards` forwards of an nl-layer Qwen2
+    backbone (a prefill and each decode step): two norms a layer and the
+    final one, one qkv epilogue a layer."""
+    return {"rms_norm": (2 * nl + 1) * forwards, "qkv_rope": nl * forwards}
 
 
 def _launches(routes: tuple = BF16_ROUTES) -> dict:
@@ -4654,8 +4777,8 @@ def float32_api_request(results: dict, card: str, model_dir, api: dict) -> None:
     directory (its int8 LLM default), one row (the API request's sentence
     and 5 s prompt) through inference_zero_shot. Launches: the flow's flash
     attention on its float32 route, n_timesteps x depth a flow call;
-    decode attention one a layer and decode step on the bf16 route (both packages' KV cache is bf16); no
-    other. Every shape held to phase 3's checks."""
+    decode attention one a layer and decode step on the bf16 route (both packages' KV cache is bf16); the
+    LM's norms and qkv epilogues (llm_want) each forward; no other. Every shape held to phase 3's checks."""
     import tempfile
 
     import torch
@@ -4676,14 +4799,15 @@ def float32_api_request(results: dict, card: str, model_dir, api: dict) -> None:
                                     "--output-dir", str(root / "out"), "--no-fp16"])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
-        counts = _launches(BF16_ROUTES + F32_ROUTES)
+        counts = _launches(BF16_ROUTES + F32_ROUTES + LLM_ROUTES)
         _count(results, counts)
         metrics = json.loads((root / "out" / "metrics.json").read_text())
         wav, sr = read_wav(root / "out" / "f32.wav")
     cfg = config_from_dict(json.loads((model_dir / "config.json").read_text()))  # the directory's model
     want = {"decode_attention": cfg.llm.qwen.num_hidden_layers * steps.value, "chunk_flash_attention": 0,
             "int4_matmul": 0, "decode_attention_f32": 0,
-            "chunk_flash_attention_f32": cfg.flow.dit.depth * cfg.flow.n_timesteps, "int4_matmul_f32": 0}
+            "chunk_flash_attention_f32": cfg.flow.dit.depth * cfg.flow.n_timesteps, "int4_matmul_f32": 0,
+            **llm_want(cfg.llm.qwen.num_hidden_layers, 1 + steps.value)}
     agg = metrics["aggregate"]
     ok = (counts == want and steps.value > 0 and sr == 24000 and len(wav) > 0 and len(wav) % 480 == 0
           and np.isfinite(wav).all() and agg["n_utts"] == 1)
@@ -4702,8 +4826,8 @@ def float32_batch(results: dict, card: str) -> None:
     f32_batch_request, the three kernels on their float32 routes. Launches:
     decode one a layer and decode step, int4 2 a layer and forward (the
     prefill and each step; one kernel launch a call on every path), flash
-    n_timesteps x depth; none on a
-    bf16 route. Every shape held to phase 3's checks."""
+    n_timesteps x depth; the LM's norms and qkv epilogues (llm_want) each
+    forward; none on a bf16 route. Every shape held to phase 3's checks."""
     import torch
 
     from fangyan_tts_torch.infer.tts import CosyVoice3TTS, suppress_silent_runs
@@ -4725,14 +4849,14 @@ def float32_batch(results: dict, card: str) -> None:
         wavs = tts.batch_synthesize(**req)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    counts = _launches(BF16_ROUTES + F32_ROUTES)
+    counts = _launches(BF16_ROUTES + F32_ROUTES + LLM_ROUTES)
     _count(results, counts)
     toks, n = made[-1]
     n_tok = [len(suppress_silent_runs(toks[i, : n[i]])) for i in range(len(n))]
     nl = cfg.llm.qwen.num_hidden_layers
     want = {"decode_attention": 0, "chunk_flash_attention": 0, "int4_matmul": 0,
             "decode_attention_f32": nl * steps.value, "chunk_flash_attention_f32": cfg.flow.dit.depth * cfg.flow.n_timesteps,
-            "int4_matmul_f32": 2 * nl * (1 + steps.value)}
+            "int4_matmul_f32": 2 * nl * (1 + steps.value), **llm_want(nl, 1 + steps.value)}
     audio_s = sum(len(w) for w in wavs) / cfg.sample_rate
     ok = (counts == want and steps.value > 0 and len(wavs) == F32_B
           and all(np.isfinite(w).all() and len(w) == k * 2 * 480 for w, k in zip(wavs, n_tok)))
@@ -6046,6 +6170,7 @@ def main() -> int:
         check_flash(results, batches, api, stream, serving, grpo, dg, ex, mp)
         check_int4(results, batches[1], mp)
         check_adaln(results)
+        check_rms_norm_qkv_rope(results)
         t = time.perf_counter()
         check_f32_routes(results, api)
         log(f"the float32 routes' checks took {time.perf_counter() - t:.1f} s")
@@ -6168,6 +6293,13 @@ def main() -> int:
                             replaces=None, launches=results["launches"].get("adaln", 0),
                             max_abs_err=results["adaln_err"], ms=at["ms"], plain_ms=at["plain_ms"],
                             bound_ms=at["bound_ms"], bound_by=at["bound_by"], library_ms=None))
+        for name, kind in (("rms_norm", "residual"), ("qkv_rope", "bias")):  # a Qwen2 decode step's rows
+            lt = next(r for r in results["llm_fused_timing"] if r["kernel"] == name and r["t"] == 1
+                      and r["d"] in (896, 1152) and r["kind"] == kind)
+            kernels.append(dict(name=name, route="triton", source=f"fangyan_tts_torch/csrc/{name}_triton.py",
+                                replaces=None, launches=results["launches"].get(name, 0),
+                                max_abs_err=results[f"{name}_err"], ms=lt["ms"], plain_ms=lt["plain_ms"],
+                                bound_ms=lt["bound_ms"], bound_by=lt["bound_by"], library_ms=None))
         for name, key, src, line, timing in (
                 ("decode_attention_f32", "decode_f32_err", "decode_attention.cu", "decode_attention.py:124", dt32),
                 ("chunk_flash_attention_f32", "flash_f32_err", "flash_attention.cu", "flash_attention.py:78", ft32),
@@ -6184,7 +6316,7 @@ def main() -> int:
                                                              "train_api_request", "decode_rows_bit_equal",
                                                              "launch_probe_us", "decode_f32_timing",
                                                              "flash_f32_timing", "int4_f32_timing", "small_float32",
-                                                             "adaln_timing",
+                                                             "adaln_timing", "llm_fused_timing",
                                                              "f32_request", "f32_batch", "datagen", "mp")
                                      if k in results}))
         log(json.dumps({"kernels": kernels}), stamp=False)

@@ -26,6 +26,9 @@ The block, for layer l and input x (hidden D = 2048; 16 heads):
            E_e a SiLU-gated MLP of width 1,408; S the 2 shared experts as one
            SiLU-gated MLP of width 2,816
     after the last layer: the final RMSNorm (the speech head is the LM's).
+Each residual add is taken by the norm that follows it, as in
+models/qwen2.py (ops/rms_norm: one launch on the card; kv_a_layernorm
+reads its strided split of kv_a_proj's output as it is).
 
 Two departures from the published forward, both exact in real arithmetic:
 - Absorbed decode. A one-token decode step runs attention over the latent
@@ -72,8 +75,9 @@ import torch.nn.functional as F
 from ..config import MLAMoEConfig
 from ..ops.mla_decode import mla_decode
 from ..ops.moe import moe_experts
+from ..ops.qkv_rope import apply_rope
 from ..utils.profiling import span
-from .qwen2 import RMSNorm, apply_rope, qdense, rope_cos_sin
+from .qwen2 import RMSNorm, qdense, rope_cos_sin
 
 DECODE, PREFILL = 0, 1  # rows of the device counters
 COUNTERS = ("calls", "active_experts", "routed_rows")
@@ -201,14 +205,18 @@ class MLAMoEBlock(nn.Module):
         self.is_moe = layer >= cfg.first_k_dense_replace
         self.mlp = MoE(cfg) if self.is_moe else DenseMLP(cfg.hidden_size, cfg.intermediate_size)
 
-    def forward(self, x, cos, sin, attn_bias, layer: int, cache: dict | None = None, stats=None):
+    def forward(self, x, y, cos, sin, attn_bias, layer: int, cache: dict | None = None, stats=None):
+        """x the residual stream and y the previous block's MLP output, not
+        yet added (None before the first block). Returns (x, this block's MLP
+        output): each residual add is taken by the norm that follows it."""
         with span("mla"):
-            x = x + self.self_attn(self.input_layernorm(x), cos, sin, attn_bias, layer, cache)
-        h = self.post_attention_layernorm(x)
+            x, h = self.input_layernorm.residual(x, y)
+            a = self.self_attn(h, cos, sin, attn_bias, layer, cache)
+        x, h = self.post_attention_layernorm.residual(x, a)
         if not self.is_moe:
-            return x + self.mlp(h)
+            return x, self.mlp(h)
         with span("moe"):
-            return x + self.mlp(h, stats)
+            return x, self.mlp(h, stats)
 
 
 class MLAMoEModel(nn.Module):
@@ -231,12 +239,12 @@ class MLAMoEModel(nn.Module):
         cos, sin = rope_cos_sin(positions, c.qk_rope_head_dim, c.rope_theta, dtype=inputs_embeds.dtype)
         stats = self.counters(inputs_embeds.device)[DECODE if cache is not None and inputs_embeds.shape[1] == 1
                                                     else PREFILL]
-        x = inputs_embeds
+        x, y = inputs_embeds, None
         for i, layer in enumerate(self.layers):
-            x = layer(x, cos, sin, attn_bias, i, cache, stats)
+            x, y = layer(x, y, cos, sin, attn_bias, i, cache, stats)
         if cache is not None:
             cache["index"] += inputs_embeds.shape[1]
-        return self.norm(x)
+        return self.norm.residual(x, y)[1]
 
     # ---- the cache and the counters, as models/llm.py asks for them -------------
 

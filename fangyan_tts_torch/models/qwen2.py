@@ -19,6 +19,12 @@ outputs and recomputes the rest ("dots"), as the JAX package's nn.remat
 does. Decode and prefill ignore remat.
 Every matmul casts its weight to the activation dtype, as the JAX QDense
 does, so a float32 model decodes in the cache's bfloat16.
+On the card the element-wise chains between the matmuls are two kernels:
+each residual add is taken by the norm that follows it (ops/rms_norm, so
+a block returns its MLP output unadded and the next block's input norm,
+or the final norm, adds it), and the qkv projection's bias and the rotary
+embedding are one epilogue (ops/qkv_rope). On the CPU, and wherever
+autograd records, both run the plain expressions.
 """
 
 from __future__ import annotations
@@ -34,7 +40,9 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 from ..config import QwenConfig, reject_unported
 from ..ops.decode_attention import decode_attention
 from ..ops.int4_matmul import int4_matmul
+from ..ops.qkv_rope import qkv_rope
 from ..ops.quant import int8_dot
+from ..ops.rms_norm import rms_norm
 
 
 class QLinear(nn.Module):
@@ -78,15 +86,20 @@ class TPDense:
         raise NotImplementedError
 
 
+def product(x: torch.Tensor, lin: nn.Module) -> torch.Tensor:
+    """x @ W in x's dtype, without the bias (int8: ops/quant.int8_dot;
+    int4: the ops/int4_matmul kernel)."""
+    if isinstance(lin, QLinear):
+        return int4_matmul(x, lin.kernel_q4, lin.scale) if lin.bits == 4 else int8_dot(x, lin.kernel_q, lin.scale)
+    return F.linear(x, lin.weight.to(x.dtype))
+
+
 def qdense(x: torch.Tensor, lin: nn.Module) -> torch.Tensor:
-    """The JAX QDense: x @ W in x's dtype (int8: ops/quant.int8_dot; int4:
-    the ops/int4_matmul kernel), then the bias in the result's."""
+    """The JAX QDense: x @ W in x's dtype (`product`), then the bias in the
+    result's."""
     if isinstance(lin, TPDense):
         return lin.tp_dense(x)
-    if isinstance(lin, QLinear):
-        y = int4_matmul(x, lin.kernel_q4, lin.scale) if lin.bits == 4 else int8_dot(x, lin.kernel_q, lin.scale)
-    else:
-        y = F.linear(x, lin.weight.to(x.dtype))
+    y = product(x, lin)
     if lin.bias is not None:
         y = y + lin.bias.to(y.dtype)
     return y
@@ -108,17 +121,21 @@ def flax_dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype | None = None
 
 
 class RMSNorm(nn.Module):
+    """RMSNorm in float32, cast back to the input's dtype (ops/rms_norm:
+    one kernel launch on the card)."""
+
     def __init__(self, dim: int, eps: float = 1e-6):
         super().__init__()
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(dim, dtype=torch.float32))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dtype = x.dtype
-        x = x.float()
-        var = (x * x).mean(dim=-1, keepdim=True)
-        x = x * torch.rsqrt(var + self.eps)
-        return (x * self.weight).to(dtype)
+        return rms_norm(x, self.weight, self.eps)[1]
+
+    def residual(self, x: torch.Tensor, y: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
+        """(x + y, its norm): a block's residual add taken with the norm that
+        follows it (x and its norm without y)."""
+        return rms_norm(x, self.weight, self.eps, y)
 
 
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float, dtype=torch.float32):
@@ -127,13 +144,6 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float, dtype=tor
     ang = positions.float()[..., None] * inv_freq[None, None, :]
     ang = torch.cat([ang, ang], dim=-1)
     return torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
-
-
-def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """x (B, T, H, hd); cos/sin (B, T, hd)."""
-    half = x.shape[-1] // 2
-    rotated = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
-    return x * cos[:, :, None, :] + rotated * sin[:, :, None, :]
 
 
 def dense_attention(q, k, v, attn_bias, dtype: torch.dtype) -> torch.Tensor:
@@ -163,17 +173,15 @@ class Qwen2Attention(nn.Module):
     def forward(self, x, cos, sin, attn_bias, layer: int, cache: dict | None = None):
         c = self.cfg
         b, t, _ = x.shape
-        hd, qh, kvh = c.head_dim, c.num_attention_heads, c.num_key_value_heads
-        qkv = qdense(x, self.qkv_proj)
-        q, k, v = torch.split(qkv, [self.nq, self.nkv, self.nkv], dim=-1)
-        q = apply_rope(q.reshape(b, t, qh, hd), cos, sin)
-        k = apply_rope(k.reshape(b, t, kvh, hd), cos, sin)
-        v = v.reshape(b, t, kvh, hd)
+        qh, kvh = c.num_attention_heads, c.num_key_value_heads
+        lin = self.qkv_proj  # its bias goes into qkv_rope, unless a tensor-parallel layer adds it itself
+        qkv, bias = (lin.tp_dense(x), None) if isinstance(lin, TPDense) else (product(x, lin), lin.bias)
+        q, k, v = qkv_rope(qkv, bias, cos, sin, qh, kvh)
 
         if cache is None:  # the training forward: the call's own keys, no cache write
             return qdense(dense_attention(q, k, v, attn_bias, x.dtype), self.o_proj)
         if t == 1:
-            # v[:, 0] stays a view of the qkv buffer (a batch stride): the kernel reads it as it is
+            # q, k and v[:, 0] may be views of one (B, 1, W) buffer (a batch stride): the kernel reads them as they are
             ck = cache["k"]
             out = decode_attention(
                 q[:, 0].to(ck.dtype), k[:, 0].to(ck.dtype), v[:, 0].to(ck.dtype), ck, cache["v"], cache["index"],
@@ -209,9 +217,13 @@ class Qwen2Block(nn.Module):
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
         self.mlp = Qwen2MLP(cfg)
 
-    def forward(self, x, cos, sin, attn_bias, layer: int, cache: dict | None = None):
-        x = x + self.self_attn(self.input_layernorm(x), cos, sin, attn_bias, layer, cache)
-        return x + self.mlp(self.post_attention_layernorm(x))
+    def forward(self, x, y, cos, sin, attn_bias, layer: int, cache: dict | None = None):
+        """x the residual stream and y the previous block's MLP output, not
+        yet added (None before the first block). Returns (x, this block's MLP
+        output): each residual add is taken by the norm that follows it."""
+        x, h = self.input_layernorm.residual(x, y)
+        x, h = self.post_attention_layernorm.residual(x, self.self_attn(h, cos, sin, attn_bias, layer, cache))
+        return x, self.mlp(h)
 
 
 # remat "dots" keeps what jax.checkpoint_policies.dots_saveable keeps: the
@@ -244,18 +256,18 @@ class Qwen2Model(nn.Module):
         records."""
         c = self.cfg
         cos, sin = rope_cos_sin(positions, c.head_dim, c.rope_theta, dtype=inputs_embeds.dtype)
-        x = inputs_embeds
+        x, y = inputs_embeds, None
         remat = cache is None and c.remat and torch.is_grad_enabled()
         policy = {"context_fn": functools.partial(create_selective_checkpoint_contexts, _dots_saveable)} \
             if c.remat == "dots" else {}
         for i, layer in enumerate(self.layers):
             if remat:
-                x = checkpoint(layer, x, cos, sin, attn_bias, i, None, use_reentrant=False, **policy)
+                x, y = checkpoint(layer, x, y, cos, sin, attn_bias, i, None, use_reentrant=False, **policy)
             else:
-                x = layer(x, cos, sin, attn_bias, i, cache)
+                x, y = layer(x, y, cos, sin, attn_bias, i, cache)
         if cache is not None:
             cache["index"] += inputs_embeds.shape[1]
-        return self.norm(x)
+        return self.norm.residual(x, y)[1]
 
     # the cache, as models/llm.py asks a backbone for it
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> dict:

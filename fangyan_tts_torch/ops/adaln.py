@@ -49,11 +49,10 @@ import torch
 
 from ..utils.profiling import count
 from . import _build
-from .device import launched, refuse_grad
+from .device import KERNEL_DEVICES, launched, refuse_grad
+from .device import KERNEL_DTYPES as DTYPES
 
 ROWS, NUM_WARPS = 2, 4  # rows a program, and its warps: 16 elements a thread at D = 1,024
-DTYPES = (torch.bfloat16, torch.float32)
-KERNEL_DEVICES = ("cuda",)  # the device types whose tensors take the kernel
 
 
 def layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -32,10 +32,27 @@ def refuse_grad(kernel: str, route: str, *tensors: torch.Tensor) -> None:
                            f"run it under torch.no_grad(), or take {route}")
 
 
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)  # the dtypes the Triton kernels are built for
+KERNEL_DEVICES = ("cuda",)  # the device types whose tensors take a hand-written kernel
+
+
+def kernel_route(*tensors) -> bool:
+    """Whether a call on `tensors` (None entries skipped; the first one's
+    device decides) takes its hand-written kernel rather than its plain
+    PyTorch route: not where autograd records the call (the kernels have
+    no backward), not under torch.compile / torch.export
+    (torch.compiler.is_compiling), and only for tensors of a device type
+    in KERNEL_DEVICES."""
+    tensors = [t for t in tensors if t is not None]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return False
+    return not torch.compiler.is_compiling() and tensors[0].device.type in KERNEL_DEVICES
+
+
 # kernel launches run since the last clear(), by route name: decode_attention,
 # decode_attention_f32, chunk_flash_attention, chunk_flash_attention_f32,
-# int4_matmul, int4_matmul_f32, adaln, moe_experts, mla_decode (CPU calls and
-# graph captures do not count; a graph's replays do)
+# int4_matmul, int4_matmul_f32, adaln, moe_experts, mla_decode, rms_norm,
+# qkv_rope (CPU calls and graph captures do not count; a graph's replays do)
 launches: collections.Counter = collections.Counter()
 _capture = threading.local()  # .tally: the launches this thread's captures record (captured_launches)
 

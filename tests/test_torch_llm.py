@@ -217,8 +217,11 @@ def test_graph_counters_on_the_cpu():
     finally:
         profiling.reset()
     steps = _decode_steps(got.num_tokens.tolist(), max_lens.tolist(), 32)
+    # the backbone's norms and qkv epilogues, on the plain route on the CPU: the prefill and every step's forward
+    layers, forwards = tm.cfg.qwen.num_hidden_layers, 1 + steps
     assert counters == {"llm.decode_steps": steps, "llm.row_steps": 3 * steps, "llm.graph_steps": 0,
-                        "llm.graph_captures": 0}
+                        "llm.graph_captures": 0, "llm.norms": (2 * layers + 1) * forwards,
+                        "llm.qkv": layers * forwards}
 
 
 CUDA = torch.device("cuda")  # the store's rules read only the device's type: nothing here reaches a card

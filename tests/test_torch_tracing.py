@@ -170,7 +170,11 @@ def test_batch_synthesize_spans_and_counters():
         total = got[stage]["t1_ns"] - got[stage]["t0_ns"]
         covered = sum(got[i]["t1_ns"] - got[i]["t0_ns"] for i in children[stage])
         assert total - covered <= 0.05 * total, got[stage]["name"]
-    # the DiT's AdaLN norms (ops/adaln): two a block and the final one, each Euler step; none fused on the CPU
+    # the DiT's AdaLN norms (ops/adaln): two a block and the final one, each Euler step; the LM's RMSNorms
+    # (ops/rms_norm: two a layer and the final one) and qkv epilogues (ops/qkv_rope), each forward (the prefill and
+    # every step); none fused on the CPU
+    layers, forwards = TC.llm.qwen.num_hidden_layers, 1 + steps
     assert profiling.counters() == {"llm.decode_steps": steps, "llm.row_steps": 3 * steps,
                                     "llm.tokens": sum(max_lens), "llm.graph_steps": 0, "llm.graph_captures": 0,
-                                    "dit.norms": (2 * TC.flow.dit.depth + 1) * TC.flow.n_timesteps}
+                                    "dit.norms": (2 * TC.flow.dit.depth + 1) * TC.flow.n_timesteps,
+                                    "llm.norms": (2 * layers + 1) * forwards, "llm.qkv": layers * forwards}
